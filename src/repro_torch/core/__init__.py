@@ -1,0 +1,37 @@
+"""The TD-Orch core on PyTorch: task-data orchestration (Fig. 1) and the
+TD-Orch engine (§3) — communication forest + meta-task sets + distributed
+push-pull + merge-able write-backs — with reusable Orchestrator sessions,
+and hot-chunk replication. Numerics run on the CUDA card through
+`TorchBackend` (the default backend) or on the host through the float64
+numpy oracle; the cost model is host-side numpy and bit-identical across
+backends."""
+from .backend import NumpyBackend, TorchBackend, make_backend
+from .comm_forest import CommForest, theory_fanout
+from .config import KWARG_ALIASES, SessionConfig, resolve_session_config
+from .cost import (ELASTIC_PHASES, CostAccumulator, PhaseCost, SessionReport,
+                   StageReport, assert_cost_parity, assert_session_parity)
+from .datastore import DataStore, ShardLayout, TaskBatch
+from .engine import OrchestrationResult, TDOrchEngine
+from .execution import gather_values
+from .fusedlam import FUSED_READ_OPS, FusedStageLambda, fused_read
+from .interface import ENGINES, make_engine, orchestration, register_engine
+from .mergeops import MERGE_OPS, MergeOp, get_merge_op
+from .replication import (HotChunkReplicator, ReplicaSet, ReplicationConfig,
+                          make_replicator)
+from .session import Orchestrator
+
+__all__ = [
+    "NumpyBackend", "TorchBackend", "make_backend",
+    "CommForest", "theory_fanout",
+    "KWARG_ALIASES", "SessionConfig", "resolve_session_config",
+    "CostAccumulator", "PhaseCost", "SessionReport", "StageReport",
+    "assert_cost_parity", "assert_session_parity", "ELASTIC_PHASES",
+    "DataStore", "ShardLayout", "TaskBatch",
+    "OrchestrationResult", "TDOrchEngine",
+    "gather_values",
+    "FUSED_READ_OPS", "FusedStageLambda", "fused_read",
+    "ENGINES", "make_engine", "orchestration", "register_engine",
+    "MERGE_OPS", "MergeOp", "get_merge_op",
+    "HotChunkReplicator", "ReplicaSet", "ReplicationConfig", "make_replicator",
+    "Orchestrator",
+]

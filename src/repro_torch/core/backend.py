@@ -1,0 +1,426 @@
+"""Pluggable numeric execution backends: the numpy oracle, and the PyTorch
+pipeline on the CUDA card.
+
+The simulation-fidelity contract (`core/engine.py`) splits every stage into
+*numerics* (one vectorized gather → lambda → ⊗-combine → ⊙-apply pass
+shared by all engines) and *cost* (the forest walk that charges
+words/rounds). This module makes the numeric half pluggable:
+
+* `NumpyBackend` — the reference oracle. Exactly the pure-numpy pass in
+  `core/execution.py` / `core/mergeops.py`, in float64. Every numeric claim
+  in the test suite is anchored to it.
+* `TorchBackend` — the per-stage pass on torch tensors (`core/torchexec.py`)
+  on one device, the CUDA card unless the caller asks for the CPU. Phase-1
+  contention histograms run the histogram kernel, the Phase-3 gather +
+  lambda runs as torch ops, the Phase-4 ⊗-combine runs the segment-combine
+  kernel, ragged stages with a fused-able lambda run the stage_fused
+  kernel, and the store's values stay device-resident between stages (a
+  cache keyed on `DataStore.version`). Values are computed in float32 by
+  default and match the oracle within float tolerance; ``dtype="float64"``
+  matches it to round-off.
+
+The backend-parity contract: per-phase **words and rounds are bit-identical**
+across backends, because every quantity the cost model consumes (execution
+sites, written-key sets, message widths) is computed on the host by the same
+code regardless of backend — only the floating-point *values* differ, within
+tolerance.
+
+A stage lambda that torch cannot run (numpy calls on its inputs, say) is
+detected on first use and permanently routed to the numpy path for that
+function object — correctness never depends on it. That fallback covers
+only the call of user code: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import execution
+from .mergeops import MergeOp
+from .registry import get_backend_cls, register_backend
+
+# merges the device combine implements; anything else falls back to the
+# oracle apply (still correct, just not fused)
+_DEVICE_MERGES = ("add", "min", "max", "or", "write")
+_I32 = np.iinfo(np.int32)
+
+
+def _combine_eligibility(tasks, merge: Optional[MergeOp]):
+    """(writer rows, fuse the ⊗-combine on device?, hand real update rows
+    back for the oracle apply?). Fusing needs a supported merge and
+    int32-safe priorities (the device combine carries them as int32 order
+    keys)."""
+    w_rows = np.flatnonzero(tasks.write_keys >= 0)
+    pr = tasks.priority
+    combine = bool(
+        w_rows.size and merge is not None and merge.name in _DEVICE_MERGES
+        and int(pr.min(initial=0)) > -(2**31)
+        and int(pr.max(initial=0)) < 2**31 - 1)
+    return w_rows, combine, bool(w_rows.size) and not combine
+
+
+@register_backend("numpy")
+class NumpyBackend:
+    """The reference oracle: the float64 pure-numpy pass, unchanged."""
+
+    name = "numpy"
+    # device→host state-array transfers (results / update rows / combined
+    # write-backs). Always 0 here — the oracle IS host-resident.
+    host_syncs = 0
+
+    # -- StagePlan device-residency hooks (no-ops for the host oracle) ------
+    def begin_plan(self, store) -> None:
+        """Enter a plan scope over `store` (see `core/plan.py`)."""
+
+    def end_plan(self) -> None:
+        """Leave the plan scope, flushing any deferred state."""
+
+    def plan_flush(self) -> None:
+        """Make the host store copy current (no-op when nothing deferred)."""
+
+    # -- non-blocking dispatch hooks (serve.Frontend double-buffering) -----
+    def prefetch(self, tasks, store) -> None:
+        """Stage the batch's device operands ahead of `execute()` without
+        blocking: a serving frontend calls this from its admission thread
+        for batch k+1 while batch k is still computing, so the upload rides
+        the async dispatch stream instead of the executor's critical path.
+        Callers must not mutate `tasks.contexts` between prefetch and
+        execute. No-op for the host-resident oracle."""
+
+    def sync(self, store=None) -> None:
+        """Block until pending device work (for `store`'s cached values, if
+        given) has completed — a fair timing boundary for serving/benchmark
+        layers. No-op for the host-resident oracle."""
+
+    # -- phase 3 -----------------------------------------------------------
+    def execute(self, tasks, store, f: Callable, merge: Optional[MergeOp] = None,
+                want_result: bool = True, exec_site=None,
+                replicas=None) -> Dict[str, Optional[np.ndarray]]:
+        """Run the stage numerics. `exec_site`/`replicas` describe where the
+        cost model placed each task and which chunks the session has
+        replicated — advisory for single-device backends (the oracle and the
+        torch pipeline compute the same values regardless)."""
+        return execution.execute(tasks, store, f)
+
+    # -- phase 4 -----------------------------------------------------------
+    def apply_writes(self, tasks, store, updates, merge: MergeOp, cost) -> None:
+        execution.apply_writes(tasks, store, updates, merge, cost)
+
+    # -- phase 1 -----------------------------------------------------------
+    def key_counts(self, keys: np.ndarray, num_keys: int, weights=None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """(unique keys, int64 counts) — the observed per-chunk demand."""
+        uk, inv = np.unique(np.asarray(keys, dtype=np.int64),
+                            return_inverse=True)
+        if weights is None:
+            rc = np.bincount(inv, minlength=uk.size).astype(np.int64)
+        else:
+            rc = np.bincount(inv, weights=np.asarray(weights, dtype=np.float64),
+                             minlength=uk.size).astype(np.int64)
+        return uk, rc
+
+    # -- phase 2 -----------------------------------------------------------
+    def argsort_stable(self, keys: np.ndarray) -> np.ndarray:
+        """The routing permutation (stable, so backends agree exactly)."""
+        return np.argsort(keys, kind="stable")
+
+    # -- DistEdgeMap local combine ----------------------------------------
+    def combine_by_key(self, values: np.ndarray, keys: np.ndarray,
+                       num_keys: int, merge: MergeOp, order: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """⊗-combine update rows per destination key; returns
+        (sorted unique keys, combined rows aligned with them)."""
+        uniq, seg = np.unique(keys, return_inverse=True)
+        combined = merge.combine_segments(values, seg, uniq.size, order)
+        return uniq, combined
+
+
+@register_backend("torch")
+class TorchBackend(NumpyBackend):
+    """The PyTorch execution path (`core/torchexec.py` + `kernels/`).
+
+    `device` defaults to ``"cuda"``: without a CUDA device the constructor
+    raises — pass ``device="cpu"`` explicitly for the plain PyTorch
+    versions of the kernels (what the CPU tests do). Numerics only: every
+    cost-model input is still produced by the host code paths, so reports
+    are bit-identical to the numpy backend's.
+
+    The plan scope, `prefetch`/`sync` and `combine_by_key` are the
+    inherited oracle behaviour until `core/plan.py`, `serve/` and `graph/`
+    are ported: without a plan scope every write-back goes through to the
+    host copy at once, so nothing is deferred.
+    """
+
+    name = "torch"
+
+    def __init__(self, device=None, dtype: str = "float32",
+                 kernel_backend: str = "auto"):
+        from . import torchexec
+
+        self._tx = torchexec
+        if dtype not in ("float32", "float64"):
+            raise ValueError(f"unsupported torch backend dtype {dtype!r}")
+        # one route only: ragged stages with a fused-able lambda always run
+        # the stage_fused kernel (the JAX package's "padded"/"interpret"
+        # choices answered TPU memory gates and Pallas' CPU mode)
+        if kernel_backend == "interpret":
+            raise ValueError(
+                "kernel_backend='interpret' does not exist in the torch port: "
+                "a CUDA kernel has no interpret mode — use "
+                "TorchBackend(device='cpu') for the plain PyTorch versions")
+        if kernel_backend != "auto":
+            raise ValueError(
+                f"unsupported kernel_backend {kernel_backend!r}: the torch "
+                "port has the one route 'auto'")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "TorchBackend runs on a CUDA device and none is "
+                    "available; pass device='cpu' to run the plain PyTorch "
+                    "versions on the CPU")
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        elif self.device.type != "cpu":
+            raise ValueError(f"unsupported device {self.device}")
+        self.dtype = dtype
+        self._np_dtype = np.dtype(dtype)
+        self._torch_dtype = getattr(torch, dtype)
+        self._host_lambdas: set = set()  # ids of fns torch cannot run
+        self._stash = None  # one-slot (execute → apply_writes) carry
+        # device→host transfer counter (results / update rows / combined
+        # write-backs)
+        self.host_syncs = 0
+
+    # -- device-resident store values --------------------------------------
+    def _cache_key(self):
+        return (str(self.device), self.dtype)
+
+    def _device_values(self, store) -> torch.Tensor:
+        cache = store.__dict__.setdefault("_device_values", {})
+        ent = cache.get(self._cache_key())
+        if ent is not None and ent[0] == store.version:
+            return ent[1]
+        # always a copy: the ⊙-apply updates this tensor in place, and a
+        # CPU tensor made with from_numpy would alias the host store
+        dv = torch.tensor(store.values, dtype=self._torch_dtype,
+                          device=self.device)
+        cache[self._cache_key()] = (store.version, dv)
+        return dv
+
+    def _remember_values(self, store, dv) -> None:
+        store.__dict__.setdefault("_device_values", {})[self._cache_key()] = (
+            store.version, dv)
+
+    def _di(self, arr) -> torch.Tensor:
+        """A host integer array as an int32 tensor on the device; raises
+        instead of wrapping a value outside int32 (the kernels index
+        without bounds checks)."""
+        arr = np.asarray(arr)
+        if arr.size and (arr.min() < _I32.min or arr.max() > _I32.max):
+            raise OverflowError(
+                f"{self.name} backend: values in [{arr.min()}, {arr.max()}] "
+                "do not fit the kernels' int32 operands")
+        return torch.from_numpy(np.ascontiguousarray(
+            arr, dtype=np.int32)).to(self.device)
+
+    def _dl(self, arr) -> torch.Tensor:
+        """A host integer array as an int64 (indexing) tensor."""
+        return torch.from_numpy(np.ascontiguousarray(
+            arr, dtype=np.int64)).to(self.device)
+
+    def _dctx(self, tasks) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(
+            tasks.contexts, dtype=self._np_dtype)).to(self.device)
+
+    def _to_host(self, t) -> np.ndarray:
+        self.host_syncs += 1
+        return t.cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+
+    # -- phase 3 (+ fused phase-4 ⊗) ---------------------------------------
+    def execute(self, tasks, store, f: Callable, merge: Optional[MergeOp] = None,
+                want_result: bool = True, exec_site=None,
+                replicas=None) -> Dict[str, Optional[np.ndarray]]:
+        self._stash = None
+        # host route: empty batches, lambdas torch cannot run, and batches
+        # whose keys or CSR offsets (nnz) overflow the kernels' int32
+        if tasks.n == 0 or id(f) in self._host_lambdas \
+                or store.num_keys >= 2**30 or tasks.nnz > _I32.max:
+            return execution.execute(tasks, store, f)
+
+        n = tasks.n
+        # when there ARE writers but no fused combine, the engines need the
+        # real update rows for the oracle apply (want_update)
+        w_rows, combine, want_update = _combine_eligibility(tasks, merge)
+        uniq = None
+        if combine:
+            uniq, seg_w = np.unique(tasks.write_keys[w_rows],
+                                    return_inverse=True)
+        merge_name = merge.name if combine else "add"
+        dv = self._device_values(store)
+        ctx = self._dctx(tasks)
+        try:
+            # ragged batches with a fused-able lambda skip the padded gather:
+            # the stage_fused kernel walks the CSR pair list. Flat
+            # (arity ≤ 1) batches have no padding tax — they keep the flat
+            # path.
+            if (getattr(f, "fused_spec", None) is not None
+                    and tasks.max_arity > 1):
+                read_op, finish = f.fused_spec
+                S = uniq.size if combine else 0
+                seg_t = np.full(n, S, dtype=np.int32)  # S = writes nothing
+                if combine:
+                    seg_t[w_rows] = seg_w
+                out = self._tx.run_stage_fused(
+                    dv, self._di(tasks.read_indptr),
+                    self._di(tasks.read_indices), ctx, self._di(seg_t),
+                    self._di(tasks.priority) if combine else None,
+                    num_segments=S,
+                    read_op=read_op, finish=finish, merge_name=merge_name,
+                    combine=combine, want_update=want_update,
+                    want_result=want_result)
+            else:
+                if combine:
+                    w_idx, seg, order = (self._dl(w_rows), self._di(seg_w),
+                                         self._di(tasks.priority[w_rows]))
+                    S = uniq.size
+                else:
+                    w_idx = seg = order = None
+                    S = 0
+                kw = dict(f=f, fwd_mask=execution._accepts_mask(f),
+                          num_segments=S, merge_name=merge_name,
+                          combine=combine, want_update=want_update,
+                          want_result=want_result)
+                if tasks.max_arity <= 1:
+                    out = self._tx.run_stage_flat(
+                        dv, self._dl(tasks.read_keys), ctx, w_idx, seg,
+                        order, **kw)
+                else:
+                    row = tasks.pair_task
+                    col = np.arange(tasks.nnz, dtype=np.int64) \
+                        - tasks.read_indptr[:-1][row]
+                    mask = torch.zeros((n, tasks.max_arity), dtype=torch.bool,
+                                       device=self.device)
+                    row_t, col_t = self._dl(row), self._dl(col)
+                    mask[row_t, col_t] = True
+                    out = self._tx.run_stage_ragged(
+                        dv, self._dl(tasks.read_indices), row_t, col_t, mask,
+                        ctx, w_idx, seg, order, **kw)
+        except self._tx.LambdaFailed as exc:
+            # the user's lambda (or finish) cannot run on torch tensors:
+            # route this function object to the oracle path from now on —
+            # if it is genuinely broken it raises there. Only user code is
+            # inside torchexec's try; kernel and device failures propagate.
+            warnings.warn(f"{self.name} backend: {exc}; this lambda runs on "
+                          "the host numpy path from now on", RuntimeWarning,
+                          stacklevel=2)
+            self._host_lambdas.add(id(f))
+            return execution.execute(tasks, store, f)
+
+        host: Dict[str, Optional[np.ndarray]] = {"result": None,
+                                                 "update": None}
+        if out.get("result") is not None:
+            host["result"] = self._to_host(out["result"])
+        if out.get("update") is not None:
+            host["update"] = self._to_host(out["update"])
+        combined = out.get("combined")
+        if combine and combined is not None:
+            # the engines only ever hand `update` back to apply_writes, and
+            # the combine already happened on device — carry a zero-copy
+            # shape-only placeholder instead of transferring n·w floats
+            placeholder = np.broadcast_to(
+                np.zeros((), dtype=self._np_dtype), (n, combined.shape[1]))
+            host["update"] = placeholder
+            self._stash = (id(tasks), id(placeholder), placeholder, uniq,
+                           combined, merge.name, dv)
+        return host
+
+    def _take_stash(self, tasks, updates, merge: MergeOp):
+        """apply_writes preamble: coerce `updates` to (n, w) rows and match
+        them against the one-slot execute() carry. Returns (stash, updates)
+        — stash None means "no fused combine for this pair, run the oracle
+        apply". Guards the sentinel: if an engine transformed our
+        zero-strided placeholder (copy/slice breaks the id match), applying
+        it as real update rows would silently write zeros — refuse
+        instead."""
+        stash, self._stash = self._stash, None
+        updates = np.atleast_2d(np.asarray(updates))
+        if updates.shape[0] != tasks.n:
+            updates = updates.T
+        if (stash is None or stash[0] != id(tasks)
+                or stash[1] != id(updates) or stash[5] != merge.name):
+            if (stash is not None and updates.size
+                    and 0 in updates.strides and not updates.any()):
+                raise RuntimeError(
+                    f"{self.name} backend: the zero-copy update placeholder "
+                    "from execute() was transformed before apply_writes (id "
+                    "no longer matches the fused combine). Pass the update "
+                    "array through unchanged, or use backend='numpy' for "
+                    "this engine.")
+            return None, updates
+        return stash, updates
+
+    # -- phase 4 ⊙ ----------------------------------------------------------
+    def apply_writes(self, tasks, store, updates, merge: MergeOp, cost) -> None:
+        if updates is None:
+            return
+        stash, updates = self._take_stash(tasks, updates, merge)
+        if stash is None:
+            execution.apply_writes(tasks, store, updates, merge, cost)
+            return
+        _, _, _, uniq, combined_dev, _, dv = stash
+        if uniq.size == 0:
+            return
+        cost.work(store.home[uniq], 1.0)
+        # device-side ⊙-apply, so the next stage needs no full re-upload
+        new_dv = self._tx.apply_rows(dv, self._dl(uniq), combined_dev,
+                                     merge_name=merge.name)
+        # authoritative host apply (store dtype), exactly the oracle's ⊙
+        combined = self._to_host(combined_dev).astype(store.values.dtype,
+                                                      copy=False)
+        store.write_rows(uniq, merge.apply(store.values[uniq], combined))
+        self._remember_values(store, new_dv)
+
+    # -- phase 1 ------------------------------------------------------------
+    def key_counts(self, keys: np.ndarray, num_keys: int, weights=None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        keys = np.asarray(keys, dtype=np.int64)
+        # dense demand: the histogram kernel; sparse keys over a huge
+        # range: the host path (identical counts)
+        if keys.size == 0 or num_keys > max(1024, 8 * keys.size) \
+                or num_keys >= 2**31:
+            return super().key_counts(keys, num_keys, weights)
+        w = None if weights is None else self._di(weights)
+        counts = self._to_host(self._tx.contention_counts(
+            self._di(keys), int(num_keys), weights=w))
+        uk = np.flatnonzero(counts)
+        return uk.astype(np.int64), counts[uk].astype(np.int64)
+
+    # -- phase 2 ------------------------------------------------------------
+    def argsort_stable(self, keys: np.ndarray) -> np.ndarray:
+        return self._to_host(self._tx.stable_argsort(
+            self._dl(keys))).astype(np.int64)
+
+
+def make_backend(spec) -> NumpyBackend:
+    """Coerce a user-facing `backend=` spec into a backend instance.
+
+    None/"torch" → a `TorchBackend` on the CUDA card (float32; raises
+    without one); "numpy" → the shared float64 oracle; an existing backend
+    instance passes through (shared device caches across sessions, or a
+    ``TorchBackend(device="cpu")``).
+    """
+    if spec == "numpy":
+        return _NUMPY
+    if isinstance(spec, NumpyBackend):
+        return spec
+    if spec is None or isinstance(spec, str):
+        return get_backend_cls("torch" if spec is None else spec)()
+    raise TypeError(f"bad backend spec: {spec!r}")
+
+
+_NUMPY = NumpyBackend()

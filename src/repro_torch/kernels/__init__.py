@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the TD-Orch hot path, one family per
+directory, each with a plain PyTorch version beside it (`ref.py`):
+
+  histogram       — Phase-1 contention histogram (weighted or not)
+  segment_combine — Phase-4 merge-able ⊗-combine (add/min/max/or/write)
+  stage_fused     — Phases 3+4 for a fused-able lambda, off the CSR pairs
+
+A wrapper launches its kernel for a CUDA tensor and runs the plain version
+for a CPU tensor. `launches()` / `reset_launches()` read and clear the
+per-kernel launch counts.
+"""
+from ._lib import KERNELS, launches, reset_launches  # noqa: F401

@@ -1,0 +1,70 @@
+"""The ragged fused stage (TD-Orch Phases 3+4 for a fused-able lambda).
+
+`fused_reduce` is the kernel: it launches `csrc/stage_fused.cu` for a CUDA
+tensor (the plain version, `ref.py`, for a CPU tensor). `fused_stage` runs
+a whole stage off the CSR pair list: `fused_reduce`, then the `finish`
+epilogue as torch ops, then the writer ⊗-combine through the
+segment-combine kernel. There is no size gate: on the card the kernels
+always run.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import _lib
+from ..segment_combine.ops import combine as _combine
+from .ref import reduce_pairs_ref
+
+FUSED_READ_OPS = ("add", "min", "max", "first")
+FUSED_MERGES = ("add", "min", "max", "or", "write")
+_READ_CODE = {op: i for i, op in enumerate(FUSED_READ_OPS)}
+
+
+def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
+                 indices: torch.Tensor, *, read_op: str) -> torch.Tensor:
+    """(n, w) per-task `read_op` reduction of `values[indices]` over each
+    task's CSR slice ``indptr[t]:indptr[t+1]``; arity-0 tasks give 0. On
+    the card `values` must be contiguous float32/float64 and
+    `indptr`/`indices` contiguous int32."""
+    if read_op not in FUSED_READ_OPS:
+        raise KeyError(f"fused read op {read_op!r} not in {FUSED_READ_OPS}")
+    if not _lib.on_cuda(values):
+        return reduce_pairs_ref(values, indptr, indices, read_op=read_op)
+    dev = values.device
+    _lib.require(values, "values", (torch.float32, torch.float64), 2, dev)
+    _lib.require(indptr, "indptr", (torch.int32,), 1, dev)
+    _lib.require(indices, "indices", (torch.int32,), 1, dev)
+    if indptr.shape[0] < 1:
+        raise ValueError("indptr needs n + 1 >= 1 entries")
+    n, w = indptr.shape[0] - 1, values.shape[1]
+    out = torch.empty((n, w), dtype=values.dtype, device=dev)
+    if n == 0 or w == 0:
+        return out
+    rc = _lib.load().tdorch_fused_reduce(
+        dev.index or 0, values.data_ptr(), int(values.dtype == torch.float64),
+        w, indptr.data_ptr(), indices.data_ptr(), n, _READ_CODE[read_op],
+        out.data_ptr(), _lib.stream(values))
+    _lib.check(rc, "stage_fused")
+    _lib.count("stage_fused")
+    return out
+
+
+def fused_stage(values, indptr, indices, contexts, seg, order, *,
+                num_segments: int, read_op: str, finish=None,
+                merge_name: str = "add", combine: bool = True):
+    """Fused ragged stage: ``(updates (n, w_out), combined
+    (num_segments, w_out))`` (combined None when `combine` is False).
+    `seg` is per task, with ``seg == num_segments`` meaning "writes
+    nothing"; `order` breaks "write" races (lowest order, then lowest
+    row). Callers check indices against the value table: the kernel
+    gathers without bounds checks."""
+    if combine and merge_name not in FUSED_MERGES:
+        raise KeyError(f"merge op {merge_name!r} has no fused combine")
+    red = fused_reduce(values, indptr, indices, read_op=read_op)
+    upd = red if finish is None else torch.as_tensor(
+        finish(contexts, red), dtype=values.dtype, device=values.device)
+    if not combine:
+        return upd, None
+    upd = upd.reshape(upd.shape[0], -1).contiguous()
+    return upd, _combine(upd, seg, num_segments, op=merge_name,
+                         order=order if merge_name == "write" else None)
