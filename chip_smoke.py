@@ -12,8 +12,10 @@ Phases, each of which raises (non-zero exit) on any failed check:
    card — the histogram (weighted and not, bins below and above the
    shared-memory budget, out-of-range ids), the segment combine (every
    merge, float32 and float64, empty segments, negative and tied
-   priorities), and the fused stage (every read_op x merge, arity-0 rows, a
-   single-row batch).
+   priorities), the fused stage (every read_op x merge, arity-0 rows, a
+   single-row batch), and the grouped GEMM (the MOE geometries of
+   tests/test_kernels.py, empty groups, rows beyond the groups' sum, the
+   parameter-server path's two projections).
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -31,13 +33,31 @@ Phases, each of which raises (non-zero exit) on any failed check:
    `exec_site` exactly, and values within the tolerance stated at
    `_check_values`. Each stage must launch each kernel exactly as often as
    `EXPECTED_LAUNCHES` says, and send no lambda to the host path.
-4. Kernel times at the main path's shapes (CUDA events, median of several
+4. The parameter-server path at granite-moe-3b-a800m's full width: one MoE
+   layer (40 experts of 1536 x 1024 + 512 x 1536 words, top-8; 377 MB of
+   float32 on the card) and the 49,155 x 1536 embedding table, on P=8
+   machines with bench_paramserve's Zipf-1.2 traffic and replication.
+   Four decode steps of 128 tokens through `MoERouter.decode_step` on the
+   card, each also through `naive_dispatch(gemm="torch")` (the grouped GEMM
+   kernel), both against a float64 host reference made expert by expert;
+   embedding lookup, bag pooling (the fused stage kernel), a gradient push
+   (the segment-combine kernel), replicated lookups and
+   `embed_skew_aware` on the exported hot-row cache, against their numpy
+   oracles. Each stage must launch each kernel exactly as often as
+   `PS_EXPECTED` says, and no lambda may go to the host path. Then K1-K3
+   against their plain versions at this path's inputs, a TF32 control run
+   of one decode step (how far a lower precision lands from the
+   tolerance), and the costs: decode steps of 16 tokens and every embedding stage on the card
+   and on the numpy backend give the same `phase_signature()`, `refcount`,
+   `exec_site` and work ratios, and bench_paramserve's gate (orchestrated
+   work ratio <= 1.5, naive >= 2x) holds on its own MoE mix on both.
+5. Kernel times at the paths' shapes (CUDA events, median of several
    runs) beside the plain version, the one PyTorch call that computes the
-   same function (`torch.bincount`, `index_add_`, `embedding_bag`), and the
-   least time the card could take
-   (bytes over 3.35 TB/s, or operations over 67 TFLOP/s, whichever is
-   larger).
-5. Device busy share: stages (a)-(c) once more under torch.profiler, after a
+   same function (`torch.bincount`, `index_add_`, `embedding_bag`,
+   `torch._grouped_mm` where it takes float32), and the least time the card
+   could take (bytes over 3.35 TB/s, or operations over 67 TFLOP/s,
+   whichever is larger).
+6. Device busy share: stages (a)-(c) once more under torch.profiler, after a
    warm-up run; the device's busy time (kernels, copies, fills) against the
    stage's wall time.
 
@@ -111,14 +131,48 @@ def bound(bytes_moved: float, ops: float):
 # ---------------------------------------------------------------------------
 # phase 2: kernel parity on the card
 # ---------------------------------------------------------------------------
-def _sum_bound_ok(got, want, mags, rel=1e-6, abs_=1e-6) -> float:
-    """Atomic float sums add in a run-dependent order: hold them to
-    |Δ| <= rel * Σ|terms| + abs_ (Σ|terms| per output element, `mags`)."""
-    err = (got.double() - want.double()).abs()
-    if not bool((err <= rel * mags.double() + abs_).all()):
-        raise AssertionError(f"sum beyond tolerance: max |Δ| "
+def _sum_bound_ok(got, want, mags, rel=1e-6, abs_=1e-6, rel_want=0.0,
+                  name="sum") -> float:
+    """Float sums whose terms add in another order (atomics, another
+    blocking, float32 against a float64 reference): |Δ| <= rel_want*|want|
+    + rel*Σ|terms| + abs_ per element (Σ|terms| per element: `mags`).
+    Tensors or numpy arrays; `got` must be finite, of `want`'s shape."""
+    import torch
+
+    got, want, mags = (torch.as_tensor(a).double() for a in (got, want, mags))
+    if got.shape != want.shape or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: malformed output {tuple(got.shape)}")
+    err = (got - want).abs()
+    if not bool((err <= rel_want * want.abs() + rel * mags + abs_).all()):
+        raise AssertionError(f"{name}: beyond tolerance, max |Δ| "
                              f"{err.max().item()}")
     return float(err.max().item()) if err.numel() else 0.0
+
+
+def _gemm_case(geom, rng):
+    """Rows split into G groups at random cuts, as tests/test_kernels.py
+    makes its MOE cases."""
+    G, M, K, N = geom
+    cuts = np.sort(rng.integers(0, M + 1, size=G - 1))
+    sizes = np.diff(np.r_[0, cuts, M]).astype(np.int32)
+    return (rng.standard_normal((M, K)).astype(np.float32),
+            (rng.standard_normal((G, K, N)) * 0.1).astype(np.float32), sizes)
+
+
+def gemm_parity(dev, x, w, sizes, name: str) -> float:
+    """grouped_gemm on the card against its plain version: |Δ| <=
+    1e-5 * Σ_k |x_k w_k| + 1e-6 per element (float32 on both sides, sums
+    in another order)."""
+    import torch
+
+    from repro_torch.kernels.moe_gemm.ops import grouped_gemm
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+
+    x, w, sizes = (torch.as_tensor(a).to(dev) for a in (x, w, sizes))
+    got = grouped_gemm(x, w, sizes)
+    want = grouped_gemm_ref(x, w, sizes)
+    mags = grouped_gemm_ref(x.abs(), w.abs(), sizes)
+    return _sum_bound_ok(got, want, mags, rel=1e-5, name=f"moe_gemm {name}")
 
 
 def parity_phase(dev) -> dict:
@@ -221,17 +275,40 @@ def parity_phase(dev) -> dict:
     log("  stage_fused: 60 cases (every read_op x merge, arity-0 rows, a "
         "single-row batch); sums within 1e-6*sum|terms| + 1e-6, the rest "
         "exact")
+
+    # grouped GEMM: tests/test_kernels.py's MOE geometries, its empty-group
+    # case, rows beyond the groups' sum, and the path's two shapes
+    rng = np.random.default_rng(SEED)
+    E, d, f = GRANITE["E"], GRANITE["d"], GRANITE["f"]
+    cases = [(f"MOE {geom}", *_gemm_case(geom, rng)) for geom in (
+        (4, 96, 32, 64), (1, 1, 64, 128), (6, 150, 128, 256),
+        (3, 17, 32, 64), (E, 1024, d, 2 * f), (E, 1024, f, d))]
+    cases.append(("empty groups", np.ones((8, 32), np.float32),
+                  np.ones((4, 32, 16), np.float32),
+                  np.array([0, 8, 0, 0], np.int32)))
+    x, w, _ = _gemm_case((5, 57, 24, 40), rng)
+    cases.append(("rows beyond the sum", x, w,
+                  np.array([11, 0, 20, 9, 0], np.int32)))
+    worst["moe_gemm"] = max(gemm_parity(dev, *c[1:], name=c[0])
+                            for c in cases)
+    log(f"  moe_gemm: {len(cases)} cases (the MOE geometries, empty groups, "
+        "rows beyond the sum, the path's in- and out-projection); within "
+        "1e-5*sum|x w| + 1e-6")
     return worst
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
-def zipf_keys(n, num_keys, gamma, rng):
-    """n keys from Zipf(gamma) over num_keys ranks, identities permuted."""
+def zipf_keys(n, num_keys, gamma, rng, perm=None):
+    """n keys from Zipf(gamma) over num_keys ranks, identities permuted:
+    by a fresh permutation, or by `perm` to keep the hot keys of earlier
+    batches (a stationary stream)."""
     p = np.arange(1, num_keys + 1, dtype=np.float64) ** (-gamma)
     p /= p.sum()
-    return rng.permutation(num_keys)[rng.choice(num_keys, size=n, p=p)]
+    if perm is None:
+        perm = rng.permutation(num_keys)
+    return perm[rng.choice(num_keys, size=n, p=p)]
 
 
 def muladd(contexts, vals):
@@ -243,16 +320,22 @@ def scale_by_context(contexts, reduced):
     return reduced * contexts[:, 0:1]
 
 
+def _launch(**kw):
+    """A stage's launches per kernel: those named, 0 for the rest."""
+    return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
+            "moe_gemm": 0, **kw}
+
+
 # launches of each kernel in each stage of the main path: K1 where Phase 1
 # passes the host cutoff (stage b's weighted root call, the replica-local
 # pairs of stage d's second stage), K2 once for every stage's writer
 # combine, K3 in the ragged stage c
 EXPECTED_LAUNCHES = {
-    "a": {"histogram": 0, "segment_combine": 1, "stage_fused": 0},
-    "b": {"histogram": 1, "segment_combine": 1, "stage_fused": 0},
-    "c": {"histogram": 0, "segment_combine": 1, "stage_fused": 1},
-    "d0": {"histogram": 0, "segment_combine": 1, "stage_fused": 0},
-    "d1": {"histogram": 1, "segment_combine": 1, "stage_fused": 0},
+    "a": _launch(segment_combine=1),
+    "b": _launch(histogram=1, segment_combine=1),
+    "c": _launch(segment_combine=1, stage_fused=1),
+    "d0": _launch(segment_combine=1),
+    "d1": _launch(histogram=1, segment_combine=1),
 }
 
 
@@ -335,6 +418,46 @@ def _check_values(name, got, want, old, tasks, mags, merge):
     return float(err.max(initial=0.0)), float((err / allowed).max(initial=0))
 
 
+class _Stages:
+    """Runs the named stages of a path: the kernel launches of each are
+    checked against the expected table (on the card), its wall time kept."""
+
+    def __init__(self, device: str, expected: dict):
+        self.device, self.expected = device, expected
+        self.rows = []
+
+    def run(self, tag: str, fn, **info):
+        import torch
+
+        from repro_torch import kernels
+
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        before = kernels.launches()
+        t0 = time.perf_counter()
+        out = fn()
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ran = {k: v - before[k] for k, v in kernels.launches().items()}
+        if self.device == "cuda" and ran != self.expected[tag]:
+            raise AssertionError(f"stage {tag}: kernel launches {ran}, "
+                                 f"expected {self.expected[tag]}")
+        self.rows.append(dict(stage=tag, wall_s=wall, launches=ran, **info))
+        return out
+
+
+def _same_bill(name, a, b) -> None:
+    """Cost of the torch run `a` equal to the numpy run `b`'s."""
+    if a.report.phase_signature() != b.report.phase_signature():
+        raise AssertionError(f"{name}: phase_signature differs")
+    if a.refcount != b.refcount:
+        raise AssertionError(f"{name}: refcount differs")
+    if hasattr(a, "exec_site") and not np.array_equal(a.exec_site,
+                                                      b.exec_site):
+        raise AssertionError(f"{name}: exec_site differs")
+
+
 def _timed_backend(sess):
     """Wrap the session backend's device calls to split a stage's wall time
     into device numerics (these calls, synchronized) and the host cost
@@ -362,7 +485,6 @@ def main_path(device: str = "cuda", tpm: int = TASKS_PER_MACHINE):
     return (one summary dict per stage, K, stages, initial values). Raises
     on any mismatch. `device="cpu"` runs the plain versions (a rehearsal
     without a card)."""
-    from repro_torch import kernels
     from repro_torch.core import DataStore, Orchestrator, TorchBackend
 
     K, stages = make_stages(tpm)
@@ -371,7 +493,7 @@ def main_path(device: str = "cuda", tpm: int = TASKS_PER_MACHINE):
     st_dev = DataStore.create(K, P, value_width=VALUE_WIDTH)
     st_ora = DataStore.create(K, P, value_width=VALUE_WIDTH)
     st_dev.write_rows(np.arange(K), init)
-    out = []
+    st = _Stages(device, EXPECTED_LAUNCHES)
     for name, desc, tasks, f, merge, rep, n_stages in stages:
         if name == "d":  # (a) again, from the same starting values
             st_dev.write_rows(np.arange(K), init)
@@ -388,16 +510,12 @@ def main_path(device: str = "cuda", tpm: int = TASKS_PER_MACHINE):
             old = st_ora.values.copy()
             mags = term_magnitudes(tasks, old, kind)
             s_dev.backend.numerics_s = 0.0
-            before = kernels.launches()
-            t0 = time.perf_counter()
-            r_dev = s_dev.run_stage(tasks, f, write_back=merge,
-                                    return_results=True)
-            wall = time.perf_counter() - t0
             tag = f"{name}{k}" if n_stages > 1 else name
-            ran = {kn: v - before[kn] for kn, v in kernels.launches().items()}
-            if device == "cuda" and ran != EXPECTED_LAUNCHES[tag]:
-                raise AssertionError(f"stage {tag}: kernel launches {ran}, "
-                                     f"expected {EXPECTED_LAUNCHES[tag]}")
+            r_dev = st.run(tag, lambda: s_dev.run_stage(
+                tasks, f, write_back=merge, return_results=True),
+                desc=desc, tasks=tasks.n, pairs=tasks.nnz)
+            row = st.rows[-1]
+            wall = row["wall_s"]
             if s_dev.backend._host_lambdas:
                 raise AssertionError(f"stage {tag}: a lambda fell back to "
                                      "the host path")
@@ -405,32 +523,18 @@ def main_path(device: str = "cuda", tpm: int = TASKS_PER_MACHINE):
             r_ora = s_ora.run_stage(tasks, f, write_back=merge,
                                     return_results=True)
             wall_ora = time.perf_counter() - t0
-            if r_dev.report.phase_signature() != \
-                    r_ora.report.phase_signature():
-                raise AssertionError(f"stage {tag}: phase_signature differs")
-            if r_dev.refcount != r_ora.refcount:
-                raise AssertionError(f"stage {tag}: refcount differs")
-            if not np.array_equal(r_dev.exec_site, r_ora.exec_site):
-                raise AssertionError(f"stage {tag}: exec_site differs")
-            res_d = np.asarray(r_dev.results, dtype=np.float64)
-            res_o = np.asarray(r_ora.results, dtype=np.float64)
-            if res_d.shape != res_o.shape or not np.isfinite(res_d).all():
-                raise AssertionError(f"stage {tag}: results malformed")
-            res_err = np.abs(res_d - res_o)
-            if not (res_err <= 1e-5 * np.abs(res_o) + 1e-6 * mags
-                    + 1e-6).all():
-                raise AssertionError(f"stage {tag}: results beyond "
-                                     f"tolerance ({res_err.max()})")
+            _same_bill(f"stage {tag}", r_dev, r_ora)
+            res_err = _sum_bound_ok(
+                np.asarray(r_dev.results, dtype=np.float64),
+                np.asarray(r_ora.results, dtype=np.float64), mags,
+                rel_want=1e-5, name=f"stage {tag} results")
             val_err, val_share = _check_values(
                 tag, st_dev.values, st_ora.values, old, tasks, mags, merge)
             numerics = s_dev.backend.numerics_s
-            row = dict(stage=tag, desc=desc, tasks=tasks.n, pairs=tasks.nnz,
-                       launches=ran,
-                       wall_s=wall, numerics_s=numerics,
+            row.update(numerics_s=numerics,
                        host_cost_model_s=wall - numerics,
                        tasks_per_s=tasks.n / wall, oracle_wall_s=wall_ora,
-                       max_result_err=float(res_err.max()),
-                       max_value_err=val_err,
+                       max_result_err=res_err, max_value_err=val_err,
                        max_value_err_share_of_tolerance=val_share,
                        replicated_chunks=(s_dev.replicas.num_replicated
                                           if s_dev.replicas is not None
@@ -440,15 +544,472 @@ def main_path(device: str = "cuda", tpm: int = TASKS_PER_MACHINE):
                 f"{wall - numerics:.3f} s + backend calls (device numerics "
                 f"with their transfers) {numerics:.3f} s"
                 f", {tasks.n / wall:.0f} tasks/s (oracle {wall_ora:.3f} s); "
-                f"max |Δ| results {row['max_result_err']:.3g}, store "
+                f"max |Δ| results {res_err:.3g}, store "
                 f"{val_err:.3g} (at most {val_share:.3g} of its tolerance); "
-                f"signature/refcount/exec_site equal; launches {ran}")
-            out.append(row)
-    return out, K, stages, init
+                f"signature/refcount/exec_site equal; launches "
+                f"{row['launches']}")
+    return st.rows, K, stages, init
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernel times at the main path's shapes
+# phase 4: the parameter-server path
+# ---------------------------------------------------------------------------
+# granite-moe-3b-a800m (src/repro/configs/granite_moe_3b_a800m.py) at full
+# width: one of its 32 MoE layers (each layer has the same shapes and chunks
+# of its own, so a layer is the unit of depth) and its embedding table. The
+# cluster and traffic are benchmarks/bench_paramserve.py's.
+GRANITE = dict(E=40, d=1536, f=512, k=8, vocab=49_155)
+PS_P = 8
+PS_ALPHA = 1.2
+PS_SEED = 13
+PS_REPLICATE = {"num_hot": 4, "refresh": 1, "decay": 0.5, "min_count": 2.0}
+DECODE_T = 128  # tokens a decode step (k = 8 gives 1,024 assignments)
+DECODE_STEPS = 4  # the first one cold
+COST_T = 16  # decode steps held against the numpy backend (host float64)
+EMBED_N = 8192  # ids, bags and gradient rows a stage (bench_paramserve's T)
+EMBED_HOT = dict(PS_REPLICATE, num_hot=GRANITE["vocab"] // 64)
+# bench_paramserve's own MoE mix (its full setting), where its gate holds
+GATE_MIX = dict(E=16, d=32, f=64, k=2, T=512, stages=6)
+
+# launches of each kernel in each stage of the parameter-server path: K1
+# once for a decode step's Phase-1 root call and once more for the
+# replica-local pairs of a step after the first election; K4 twice per
+# naive dispatch (in- and out-projection); K1 once for each embedding
+# lookup, whose root call (or, once rows are replicated, whose
+# replica-local pairs) passes the backend's sparse-range cutoff, plus K3
+# for the bags, K2 for the gradient push, and K1 for embed_skew_aware
+PS_EXPECTED = {
+    "decode0": _launch(histogram=1), "naive0": _launch(moe_gemm=2),
+    "decode1": _launch(histogram=2), "naive1": _launch(moe_gemm=2),
+    "decode2": _launch(histogram=2), "naive2": _launch(moe_gemm=2),
+    "decode3": _launch(histogram=2), "naive3": _launch(moe_gemm=2),
+    "lookup": _launch(histogram=1),
+    "bags": _launch(histogram=1, stage_fused=1),
+    "update": _launch(segment_combine=1),
+    "hot0": _launch(histogram=1), "hot1": _launch(histogram=1),
+    "hot2": _launch(histogram=1), "hot3": _launch(histogram=1),
+    "skew_aware": _launch(histogram=1),
+}
+
+
+def expert_reference(x, top_i, gates, w_in, w_out) -> np.ndarray:
+    """The routed expert mixture in float64 on the host, expert by expert:
+    the rows of expert e as one product with w_in[e], silu(gate) * up, the
+    product with w_out[e], scaled by their gates and added to their tokens.
+    The arithmetic of `MoERouter.oracle` without its dense gather."""
+    f = w_out.shape[1]
+    y = np.zeros((x.shape[0], w_out.shape[2]))
+    for e in np.unique(top_i[top_i >= 0]):
+        tok, slot = np.nonzero(top_i == e)
+        h = x[tok] @ w_in[e]
+        g, up = h[:, :f], h[:, f:]
+        act = g * (1.0 / (1.0 + np.exp(-g))) * up
+        np.add.at(y, tok, (act @ w_out[e]) * gates[tok, slot][:, None])
+    return y
+
+
+# decode and naive outputs (float32 on the card) against the float64
+# reference: the sound runs' worst reading was 1.43e-06 on outputs of
+# 0.3-0.5; the naive arm with TF32 products misses it (the control in
+# `paramserve_kernel_parity`)
+DECODE_REL = 1e-5
+
+
+def _check_close(name, got, want, rel=DECODE_REL) -> float:
+    """|Δ| <= rel * (1 + |want|) per element (float32 against float64)."""
+    got = np.asarray(got, dtype=np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: malformed output {got.shape}")
+    err = np.abs(got - want)
+    if not (err <= rel * (1.0 + np.abs(want))).all():
+        raise AssertionError(f"{name}: max |Δ| {err.max()} beyond "
+                             f"{rel}*(1+|ref|)")
+    return float(err.max(initial=0.0))
+
+
+def _steady_ratio(router, warm, **sess) -> float:
+    """Orchestrated work_ratio (max/mean per-machine work) of the session's
+    stages after the first, whose per-machine work was `warm`."""
+    work = router.session(**sess).report.per_machine()["work"] - warm
+    return float(work.max() / work.mean())
+
+
+def paramserve_path(device: str = "cuda", f: int | None = None,
+                    embed_dim: int | None = None):
+    """The MoE decode and embedding stages through the torch backend on
+    `device`, checked against float64 references; returns (stage rows,
+    summary, tensors for the timing phase). Only this part of phase 4 runs
+    between the launch counts' reset and reading: the cost comparison with
+    the numpy backend and the gate mix come after, in `paramserve_costs`.
+    `f`/`embed_dim` cut the widths for a rehearsal on the CPU
+    (``device="cpu"``). The stores keep granite's chunk sizes then: the
+    cost model's merge threshold (C = ceil(B / sigma)) reads them, and with
+    it which Phase-1 calls pass the cutoff that launches K1."""
+    import torch
+
+    from repro_torch.core import TorchBackend
+    from repro_torch.core.embedding import embed_skew_aware
+    from repro_torch.paramserve import EmbeddingStore, MoERouter
+
+    E, d, k = GRANITE["E"], GRANITE["d"], GRANITE["k"]
+    f = GRANITE["f"] if f is None else f
+    backend = None if device == "cuda" else TorchBackend(device=device)
+    gemm_dev = None if device == "cuda" else device
+    st = _Stages(device, PS_EXPECTED)
+    summary = {}
+
+    t0 = time.perf_counter()
+    router = MoERouter(E, d, f, PS_P, num_layers=1, top_k=k, seed=0)
+    router.store.chunk_words = 3 * d * GRANITE["f"]
+    router.init_weights(1)
+    w_in, w_out = router.layer_weights(0)
+    perm = np.random.default_rng(PS_SEED).permutation(E)
+    summary["moe_setup_s"] = time.perf_counter() - t0
+    sess_kw = dict(backend=backend, replicate=PS_REPLICATE)
+    naive_ratio, warm, peak = 0.0, None, []
+    for s in range(DECODE_STEPS):
+        x, ti, g = router.zipf_routing(DECODE_T, alpha=PS_ALPHA,
+                                       seed=PS_SEED + s, rank_perm=perm)
+        want = expert_reference(x, ti, g, w_in, w_out)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res = st.run(f"decode{s}", lambda: router.decode_step(
+            x, ti, g, **sess_kw), pairs=int((ti >= 0).sum()))
+        if device == "cuda":
+            peak.append(torch.cuda.max_memory_allocated())
+        nd = st.run(f"naive{s}", lambda: router.naive_dispatch(
+            x, ti, g, gemm="torch", device=gemm_dev))
+        st.rows[-2]["max_abs_err"] = _check_close(f"decode{s}", res.y, want)
+        st.rows[-1]["max_abs_err"] = _check_close(f"naive{s}", nd.y, want)
+        naive_ratio = max(naive_ratio, nd.work_ratio)
+        if s == 0:
+            warm = router.session(**sess_kw).report.per_machine()[
+                "work"].copy()
+    sess = router.session(**sess_kw)
+    if sess.backend._host_lambdas:
+        raise AssertionError("decode: the MoE lambda fell back to the host")
+    summary.update(moe_orchestrated_work_ratio=_steady_ratio(
+        router, warm, **sess_kw), moe_naive_work_ratio=naive_ratio,
+        decode_peak_bytes=peak)
+    routing = (x, ti, g, want)
+    if summary["moe_orchestrated_work_ratio"] > 1.5:
+        raise AssertionError("orchestrated work_ratio "
+                             f"{summary['moe_orchestrated_work_ratio']} > 1.5")
+
+    # embedding: granite's table, lookups / bags / gradient push, then a
+    # replicating session and its exported hot-row cache
+    V, D = GRANITE["vocab"], d if embed_dim is None else embed_dim
+    t0 = time.perf_counter()
+    store = EmbeddingStore(V, D, PS_P, seed=0)
+    store.store.chunk_words = d
+    store.init_table(1)
+    summary["embed_setup_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(PS_SEED)
+    perm_v = rng.permutation(V)
+    n = EMBED_N
+    ids = zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+    table0 = store.table.copy()
+    res = st.run("lookup", lambda: store.lookup(ids, backend=backend))
+    st.rows[-1]["max_abs_err"] = _check_close(
+        "lookup", res.values, table0[ids], rel=1e-6)
+    arity = rng.integers(1, 9, n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(arity, out=indptr[1:])
+    bag_ids = zipf_keys(int(indptr[-1]), V, PS_ALPHA, rng, perm_v)
+    res = st.run("bags", lambda: store.lookup_bags((indptr, bag_ids),
+                                                   backend=backend),
+                 pairs=int(indptr[-1]))
+    sums = np.add.reduceat(table0[bag_ids], indptr[:-1], axis=0)
+    mags = np.add.reduceat(np.abs(table0[bag_ids]), indptr[:-1], axis=0)
+    st.rows[-1]["max_abs_err"] = _sum_bound_ok(res.values, sums, mags,
+                                               rel_want=1e-5, name="bags")
+    up_ids = zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+    grads = rng.standard_normal((n, D))
+    st.run("update", lambda: store.update(up_ids, grads, backend=backend))
+    want = EmbeddingStore.oracle_update(table0, up_ids, grads)
+    tmag = EmbeddingStore.oracle_update(np.abs(table0), up_ids,
+                                        np.abs(grads))
+    st.rows[-1]["max_abs_err"] = _sum_bound_ok(store.table, want, tmag,
+                                               rel_want=1e-5, name="update")
+    hot_kw = dict(backend=backend, replicate=EMBED_HOT)
+    table1 = store.table.copy()
+    hot_ids = [zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+               for _ in range(DECODE_STEPS)]
+    for s, h in enumerate(hot_ids):
+        res = st.run(f"hot{s}", lambda: store.lookup(h, **hot_kw))
+        st.rows[-1]["max_abs_err"] = _check_close(
+            f"hot{s}", res.values, table1[h], rel=1e-6)
+    cache = store.device_cache(**hot_kw, device=device)
+    dev = torch.device(device)
+    table_dev = torch.from_numpy(table1.astype(np.float32)).to(dev)
+    q = zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+    q_dev = torch.from_numpy(q.astype(np.int32)).to(dev)
+    out, cache2, hit = st.run("skew_aware", lambda: embed_skew_aware(
+        table_dev, q_dev, cache))
+    lookup = cache.lookup.cpu().numpy()
+    want_counts = cache.counts.cpu().numpy() + np.bincount(q, minlength=V)
+    if not (torch.equal(out.cpu(), torch.from_numpy(
+            table1[q].astype(np.float32)))
+            and np.array_equal(cache2.counts.cpu().numpy(), want_counts)
+            and float(hit) == float(np.mean(lookup[q] >= 0))):
+        raise AssertionError("embed_skew_aware differs from its reference")
+    summary.update(
+        embed_hot_rows=int(cache.hot_ids.numel()), embed_hit_rate=float(hit),
+        embed_replica_local_words=float(store.session(
+            **hot_kw).report.replica_local_words))
+    for sess in store._sessions.values():
+        if sess.backend._host_lambdas:
+            raise AssertionError("embedding: a lambda fell back to the host")
+    tensors = dict(router=router, perm=perm, routing=routing, store=store,
+                   ids=ids,
+                   bags=(indptr, bag_ids), grads=(up_ids, grads),
+                   hot_ids=hot_ids)
+    return st.rows, summary, tensors
+
+
+def paramserve_costs(device: str, t: dict) -> dict:
+    """Phase 4's cost half: the decode steps at T = COST_T and every
+    embedding stage again on the torch backend (fresh sessions) and on the
+    numpy backend — phase_signature, refcount, exec_site and both arms'
+    work ratios equal — then bench_paramserve's gate on its own MoE mix."""
+    from repro_torch.core import TorchBackend
+    from repro_torch.paramserve import EmbeddingStore, MoERouter
+
+    router = t["router"]
+    be = TorchBackend(device=None if device == "cuda" else device)
+    gemm_dev = None if device == "cuda" else device
+    arms = {"torch": dict(backend=be, replicate=PS_REPLICATE),
+            "numpy": dict(backend="numpy", replicate=PS_REPLICATE)}
+    warm = {}
+    for s in range(DECODE_STEPS):
+        x, ti, g = router.zipf_routing(COST_T, alpha=PS_ALPHA,
+                                       seed=PS_SEED + s, rank_perm=t["perm"])
+        a = router.decode_step(x, ti, g, **arms["torch"])
+        b = router.decode_step(x, ti, g, **arms["numpy"])
+        _same_bill(f"decode T={COST_T} step {s}", a, b)
+        _check_close(f"decode T={COST_T} step {s}", a.y, b.y)
+        na = router.naive_dispatch(x, ti, g, gemm="torch", device=gemm_dev)
+        nb = router.naive_dispatch(x, ti, g)
+        if na.work_ratio != nb.work_ratio:
+            raise AssertionError("naive work_ratio differs from numpy's")
+        _check_close(f"naive T={COST_T} step {s}", na.y, nb.y)
+        if s == 0:
+            warm = {arm: router.session(**kw).report.per_machine()[
+                "work"].copy() for arm, kw in arms.items()}
+    ratios = {arm: _steady_ratio(router, warm[arm], **kw)
+              for arm, kw in arms.items()}
+    if ratios["torch"] != ratios["numpy"]:
+        raise AssertionError(f"orchestrated work_ratio differs: {ratios}")
+
+    src = t["store"]
+    twins = {arm: EmbeddingStore.from_reference(src) for arm in arms}
+    ops = [("lookup", lambda es, kw: es.lookup(t["ids"], **kw), {}),
+           ("bags", lambda es, kw: es.lookup_bags(t["bags"], **kw), {}),
+           ("update", lambda es, kw: es.update(*t["grads"], **kw), {})]
+    ops += [(f"hot{s}", lambda es, kw, h=h: es.lookup(h, **kw),
+             {"replicate": EMBED_HOT}) for s, h in enumerate(t["hot_ids"])]
+    for name, op, extra in ops:
+        got = {arm: op(twins[arm], {"backend": arms[arm]["backend"],
+                                    **extra}) for arm in arms}
+        _same_bill(f"embedding {name}", got["torch"], got["numpy"])
+
+    c = GATE_MIX
+    gate = {}
+    for arm, backend in (("torch", be), ("numpy", "numpy")):
+        r = MoERouter(c["E"], c["d"], c["f"], PS_P, top_k=c["k"], seed=0)
+        r.init_weights(1)
+        perm = np.random.default_rng(PS_SEED).permutation(c["E"])
+        naive, w0 = 0.0, None
+        for s in range(c["stages"]):
+            x, ti, g = r.zipf_routing(c["T"], alpha=PS_ALPHA,
+                                      seed=PS_SEED + s, rank_perm=perm)
+            r.decode_step(x, ti, g, backend=backend, replicate=PS_REPLICATE)
+            naive = max(naive, r.naive_dispatch(
+                x, ti, g, gemm="torch", device=gemm_dev).work_ratio)
+            if s == 0:
+                w0 = r.session(backend=backend, replicate=PS_REPLICATE
+                               ).report.per_machine()["work"].copy()
+        gate[arm] = (_steady_ratio(r, w0, backend=backend,
+                                   replicate=PS_REPLICATE), naive)
+    if gate["torch"] != gate["numpy"]:
+        raise AssertionError(f"gate mix ratios differ: {gate}")
+    orch, naive = gate["torch"]
+    if not (orch <= 1.5 and naive >= 2.0 and naive >= 2.0 * orch):
+        raise AssertionError(f"bench_paramserve gate failed: orchestrated "
+                             f"{orch}, naive {naive}")
+    return dict(cost_decode_orchestrated_work_ratio=ratios["torch"],
+                gate_mix=c, gate_orchestrated=orch, gate_naive=naive)
+
+
+def paramserve_kernel_parity(dev, t: dict) -> dict:
+    """K1-K3 on the card at the parameter-server path's own inputs, each
+    against its plain version on the same tensors (after the path's launch
+    counts are read, so these launches do not count): K1 over a decode
+    step's expert ids (40 bins) and the lookup's ids (49,155 bins, beyond
+    the shared-memory budget), unweighted and weighted by multiplicity as
+    the Phase-1 root call passes them; K2 adding the update's 8,192
+    gradient rows of width 1536 into its segments; K3 pooling the 8,192
+    bags over the store's device table. Then a control for the decode
+    tolerance: both arms once more with TF32 allowed."""
+    import torch
+
+    from repro_torch.core import TorchBackend
+    from repro_torch.kernels.histogram.ops import count_ids
+    from repro_torch.kernels.histogram.ref import histogram_ref
+    from repro_torch.kernels.moe_gemm.ops import grouped_gemm
+    from repro_torch.kernels.segment_combine.ops import combine
+    from repro_torch.kernels.segment_combine.ref import combine_ref
+    from repro_torch.kernels.stage_fused.ops import fused_reduce
+    from repro_torch.kernels.stage_fused.ref import reduce_pairs_ref
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    router, store = t["router"], t["store"]
+    x, ti, g, want = t["routing"]
+    for ids, bins in ((ti[ti >= 0], router.E), (t["ids"], store.V)):
+        uniq, cnt = np.unique(ids, return_counts=True)
+        for k, w in ((i32(ids), None), (i32(uniq), i32(cnt))):
+            if not torch.equal(count_ids(k, bins, weights=w),
+                               histogram_ref(k, bins, w)):
+                raise AssertionError(f"histogram: {k.numel()} ids into "
+                                     f"{bins} bins differ")
+    worst = {"histogram": 0.0}
+
+    up_ids, grads = t["grads"]
+    uniq, inv = np.unique(up_ids, return_inverse=True)
+    upd = torch.from_numpy(grads.astype(np.float32)).to(dev)
+    seg = i32(inv)
+    worst["segment_combine"] = _sum_bound_ok(
+        combine(upd, seg, uniq.size, op="add"),
+        combine_ref(upd, seg, uniq.size, op="add"),
+        combine_ref(upd.abs(), seg, uniq.size, op="add"),
+        name="segment_combine at the update")
+
+    table = TorchBackend(device=dev).device_values(store.store)
+    indptr, bag_ids = (i32(a) for a in t["bags"])
+    worst["stage_fused"] = _sum_bound_ok(
+        fused_reduce(table, indptr, bag_ids, read_op="add"),
+        reduce_pairs_ref(table, indptr, bag_ids, read_op="add"),
+        reduce_pairs_ref(table.abs(), indptr, bag_ids, read_op="add"),
+        name="stage_fused at the bags")
+    log(f"  K1-K3 at the path's inputs against their plain versions: K1 "
+        f"exact (decode {router.E} bins, lookup {store.V} bins; weighted "
+        f"and not), K2 max |Δ| {worst['segment_combine']:.3g}, K3 "
+        f"{worst['stage_fused']:.3g} (within 1e-6*sum|terms| + 1e-6)")
+    if dev.type != "cuda":
+        return worst
+    # the control: TF32 allowed for float32 products, one decode step and
+    # one naive dispatch whose grouped GEMMs are the plain version (torch
+    # matmuls, which take TF32 then); each one's distance from the limit
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+    from repro_torch.paramserve import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    moe.grouped_gemm = grouped_gemm_ref
+    try:
+        runs = {"decode": router.decode_step(
+            x, ti, g, backend=TorchBackend(device=dev),
+            replicate=PS_REPLICATE).y,
+            "naive": router.naive_dispatch(x, ti, g, gemm="torch").y}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        moe.grouped_gemm = grouped_gemm
+    for arm, y in runs.items():
+        err = np.abs(y - want)
+        share = float((err / (DECODE_REL * (1.0 + np.abs(want)))).max())
+        worst[f"tf32_{arm}_max_abs_err"] = float(err.max())
+        worst[f"tf32_{arm}_share_of_limit"] = share
+        log(f"  control, TF32 allowed: {arm} off the float64 reference by "
+            f"{err.max():.3g}, {share:.3g}x the limit {DECODE_REL}*(1+|ref|)")
+    return worst
+
+
+def _grouped_rows(x, top_i, num_experts: int):
+    """The naive arm's layout: kept assignments sorted by expert (stable),
+    their activations as float32, and the per-expert row counts."""
+    keep = top_i >= 0
+    flat_e = top_i[keep]
+    order = np.argsort(flat_e, kind="stable")
+    xs = x[np.nonzero(keep)[0][order]].astype(np.float32)
+    return xs, np.bincount(flat_e, minlength=num_experts).astype(np.int32)
+
+
+def moe_gemm_timing(dev, t: dict, launches: int) -> dict:
+    """K4 at the path's in-projection (the naive arm of the last decode
+    step: M = 1,024, K = 1,536, N = 1,024, G = 40), its out-projection
+    (K = 512, N = 1,536), and a prefill-sized in-projection (4,096 tokens,
+    M = 32,768): each against its plain version, the one PyTorch call for
+    it where the installed torch has one, and its bound."""
+    import torch
+
+    from repro_torch.core import TorchBackend
+    from repro_torch.kernels.moe_gemm.ops import grouped_gemm
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+
+    router = t["router"]
+    E, d, f = router.E, router.d, router.f
+    # the naive arm's operands: views of the store's float32 device rows
+    rows = TorchBackend(device=dev).device_values(router.store)[:E]
+    w_in = rows[:, :2 * d * f].view(E, d, 2 * f)
+    w_out = rows[:, 2 * d * f:].view(E, f, d)
+    xs, sizes = _grouped_rows(t["routing"][0], t["routing"][1], E)
+    xs, sizes = torch.from_numpy(xs).to(dev), torch.from_numpy(sizes).to(dev)
+    h = grouped_gemm(xs, w_in, sizes)
+    act = (h[:, :f] * torch.sigmoid(h[:, :f]) * h[:, f:]).contiguous()
+    xp, tip, _ = router.zipf_routing(4096, alpha=PS_ALPHA,
+                                     seed=PS_SEED + DECODE_STEPS,
+                                     rank_perm=t["perm"])
+    xp, sizes_p = _grouped_rows(xp, tip, E)
+    xp, sizes_p = torch.from_numpy(xp).to(dev), \
+        torch.from_numpy(sizes_p).to(dev)
+    shapes = []
+    for label, x, w, sz in (("in-projection", xs, w_in, sizes),
+                            ("out-projection", act, w_out, sizes),
+                            ("prefill in-projection", xp, w_in, sizes_p)):
+        M, K = x.shape
+        N = w.shape[2]
+        err = gemm_parity(dev, x, w, sz, label)
+        bounds = sz.cpu().numpy()
+        used = int((bounds > 0).sum())
+        b_ms, b_by = bound(4 * (M * K + used * K * N + M * N + E),
+                           2 * M * K * N)
+        starts = np.r_[0, np.cumsum(bounds)]
+        offs = torch.from_numpy(np.cumsum(bounds).astype(np.int32)).to(dev)
+        wc = w.contiguous()  # the library call and the loop get stacks
+
+        def loop(x=x, w=wc, starts=starts):
+            return [x[starts[g]:starts[g + 1]] @ w[g] for g in range(E)
+                    if starts[g + 1] > starts[g]]
+
+        library_ms, note = None, ""
+        try:
+            lib = torch._grouped_mm(x, wc, offs=offs)
+            _sum_bound_ok(lib, grouped_gemm_ref(x, w, sz),
+                          grouped_gemm_ref(x.abs(), w.abs(), sz), rel=1e-5)
+            library_ms = time_ms(lambda: torch._grouped_mm(x, wc, offs=offs))
+        except (RuntimeError, TypeError, AttributeError, AssertionError) as exc:
+            note = (f"torch._grouped_mm refuses this call "
+                    f"({type(exc).__name__}: {str(exc).splitlines()[0]})")
+        shapes.append(dict(
+            shape=f"{label}: x ({M}, {K}) float32 over {used} of {E} "
+                  f"experts, w ({E}, {K}, {N}) a view of the store's rows",
+            max_abs_err=err,
+            ms=time_ms(lambda: grouped_gemm(x, w, sz)),
+            plain_ms=time_ms(lambda: grouped_gemm_ref(x, w, sz)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            library_note=note, matmul_loop_ms=time_ms(loop)))
+    row = dict(name="moe_gemm", route="cuda",
+               source="src/repro_torch/csrc/moe_gemm.cu",
+               replaces="src/repro/kernels/moe_gemm/kernel.py:40",
+               launches=launches, **shapes[0],
+               shapes=shapes)
+    row["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
 def timing_phase(dev, K, stages, init, launches) -> list:
     import torch
@@ -550,7 +1111,7 @@ def timing_phase(dev, K, stages, init, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: how busy the card is during a stage
+# phase 6: how busy the card is during a stage
 # ---------------------------------------------------------------------------
 _OWN_KERNELS = ("hist_", "seg_combine", "write_elect", "write_gather",
                 "fused_reduce")
@@ -611,6 +1172,34 @@ def busy_phase(K, stages, init) -> list:
     return rows
 
 
+def _check_path_launches(path: str, launches: dict, expected: dict) -> None:
+    """A path's launches must be its table's totals, and every kernel of
+    the path (any that its table expects) must have run."""
+    log(f"  kernel launches on the {path}: {launches}")
+    want = {k: sum(e.get(k, 0) for e in expected.values()) for k in launches}
+    missing = [k for k, v in want.items() if v > 0 and launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{path} never launched {missing}")
+    if launches != want:
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
+
+
+def _log_paramserve(rows, summary) -> None:
+    for r in rows:
+        err = r.get("max_abs_err")
+        log(f"  {r['stage']}: wall {r['wall_s']:.3f} s, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }"
+            + (f", max |Δ| {err:.3g}" if err is not None else ""))
+    peak = summary["decode_peak_bytes"]
+    log(f"  decode peak device memory (max_memory_allocated) per step: "
+        f"{[f'{b / 1e9:.3f} GB' for b in peak]}")
+    log(f"  work ratio at T={DECODE_T}: orchestrated "
+        f"{summary['moe_orchestrated_work_ratio']:.4f} (steps 1-"
+        f"{DECODE_STEPS - 1}), naive {summary['moe_naive_work_ratio']:.4f} "
+        f"(worst step); embedding cache: {summary['embed_hot_rows']} hot "
+        f"rows, hit rate {summary['embed_hit_rate']:.4f}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py runs from a checkout of the repo: "
@@ -627,7 +1216,7 @@ def main() -> int:
     from repro_torch.kernels import _lib
 
     card = gpu_name_and_power()
-    log(f"[1/5] environment: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/6] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -637,39 +1226,60 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/5] kernel parity against the plain PyTorch versions")
+    log("[2/6] kernel parity against the plain PyTorch versions")
     parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/5] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    log("[3/6] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
     torch.cuda.synchronize()
     launches = kernels.launches()
-    log(f"  kernel launches on the main path: {launches}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    want = {k: sum(e[k] for e in EXPECTED_LAUNCHES.values())
-            for k in launches}
-    if launches != want:
-        raise AssertionError(f"main path launches {launches}, expected "
-                             f"{want}")
+    _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/5] kernel times at the main path's shapes")
+    log("[4/6] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+        "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
+        "embedding table, P=8, backend='torch'")
+    kernels.reset_launches()
+    ps_rows, ps_summary, ps_data = paramserve_path("cuda")
+    torch.cuda.synchronize()
+    ps_launches = kernels.launches()
+    _check_path_launches("parameter-server path", ps_launches, PS_EXPECTED)
+    _log_paramserve(ps_rows, ps_summary)
+    ps_parity = paramserve_kernel_parity(dev, ps_data)
+    ps_summary["kernel_parity"] = ps_parity
+    ps_summary.update(paramserve_costs("cuda", ps_data))
+    log(f"  T={COST_T} decode steps and every embedding stage: "
+        "phase_signature/refcount/exec_site and work ratios equal to the "
+        "numpy backend's; bench_paramserve gate on its own mix "
+        f"{GATE_MIX}: orchestrated {ps_summary['gate_orchestrated']}, "
+        f"naive {ps_summary['gate_naive']}")
+
+    log("[5/6] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches)
+    rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
+    for r in rows:  # the worst error of either path's parity check
+        r["max_abs_err"] = max(r["max_abs_err"], ps_parity.get(r["name"], 0))
+    for s in rows[-1]["shapes"]:
+        lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
+               else f"null: {s['library_note']}")
+        log(f"  moe_gemm: {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
+            f"library {lib}, loop of matmuls {s['matmul_loop_ms']:.4f}, "
+            f"bound {s['bound_ms']:.4f} by {s['bound_by']}) at "
+            f"{s['shape']}")
     for r in rows:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[5/5] device busy share of a stage (torch.profiler)")
+    log("[6/6] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "stages": stages_out, "kernels": rows,
-         "device_busy": busy}, indent=1))
+         "device_busy": busy, "paramserve": {"stages": ps_rows,
+                                             **ps_summary}}, indent=1))
 
     log(gpu_name_and_power())
     log(json.dumps({"kernels": [{k: r[k] for k in (

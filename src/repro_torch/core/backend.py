@@ -199,7 +199,11 @@ class TorchBackend(NumpyBackend):
     def _cache_key(self):
         return (str(self.device), self.dtype)
 
-    def _device_values(self, store) -> torch.Tensor:
+    def device_values(self, store) -> torch.Tensor:
+        """The store's values on this backend's device, in its dtype: one
+        copy per (device, dtype) and store version, kept on the store and
+        shared by every TorchBackend that matches. The stages' ⊙-apply
+        updates it in place; callers outside the backend only read it."""
         cache = store.__dict__.setdefault("_device_values", {})
         ent = cache.get(self._cache_key())
         if ent is not None and ent[0] == store.version:
@@ -261,7 +265,7 @@ class TorchBackend(NumpyBackend):
             uniq, seg_w = np.unique(tasks.write_keys[w_rows],
                                     return_inverse=True)
         merge_name = merge.name if combine else "add"
-        dv = self._device_values(store)
+        dv = self.device_values(store)
         ctx = self._dctx(tasks)
         try:
             # ragged batches with a fused-able lambda skip the padded gather:

@@ -156,6 +156,20 @@ def run_stage_flat(values, keys, contexts, w_idx, seg, order, *, f,
                          want_result=want_result)
 
 
+def padded_gather(values, read_indices, row, col, mask):
+    """The padded `(n, A, w)` view of a ragged batch: slot (row[j], col[j])
+    holds `values[read_indices[j]]`, every other slot 0. Made in one
+    allocation — a row index per slot (pad slots point at row 0), one
+    `index_select`, then the pad slots zeroed in place — so no (nnz, w)
+    temporary exists beside it (at an MoE layer's width that temporary is
+    as large as the view)."""
+    n, A = mask.shape
+    src = torch.zeros(n * A, dtype=torch.int64, device=values.device)
+    src[row * A + col] = read_indices
+    gathered = values.index_select(0, src).view(n, A, values.shape[1])
+    return gathered.masked_fill_(~mask[..., None], 0)
+
+
 def run_stage_ragged(values, read_indices, row, col, mask, contexts, w_idx,
                      seg, order, *, f, fwd_mask: bool, num_segments: int,
                      merge_name: str, combine: bool, want_update: bool,
@@ -163,14 +177,10 @@ def run_stage_ragged(values, read_indices, row, col, mask, contexts, w_idx,
     """Ragged (multi-get) stage numerics for a generic lambda: the padded
     `(n, max_arity, w)` gather plus validity mask, then lambda + writer
     ⊗-combine as in `run_stage_flat`."""
-    n, A = mask.shape
-    w = values.shape[1]
-    gathered = torch.zeros((n, A, w), dtype=values.dtype,
-                           device=values.device)
-    gathered[row, col] = values[read_indices]
+    gathered = padded_gather(values, read_indices, row, col, mask)
     out = _call_user(f, values.device, contexts, gathered, mask) \
         if fwd_mask else _call_user(f, values.device, contexts, gathered)
-    return _finish_stage(out, n, values, w_idx, seg, order,
+    return _finish_stage(out, mask.shape[0], values, w_idx, seg, order,
                          num_segments=num_segments, merge_name=merge_name,
                          combine=combine, want_update=want_update,
                          want_result=want_result)

@@ -4,6 +4,7 @@ directory, each with a plain PyTorch version beside it (`ref.py`):
   histogram       — Phase-1 contention histogram (weighted or not)
   segment_combine — Phase-4 merge-able ⊗-combine (add/min/max/or/write)
   stage_fused     — Phases 3+4 for a fused-able lambda, off the CSR pairs
+  moe_gemm        — grouped (block-diagonal) GEMM over rows sorted by expert
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 for a CPU tensor. `launches()` / `reset_launches()` read and clear the

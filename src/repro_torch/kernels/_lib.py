@@ -29,12 +29,12 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
-           "stage_fused.cu")
+           "stage_fused.cu", "moe_gemm.cu")
 LIBRARY = "libtdorch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-KERNELS = ("histogram", "segment_combine", "stage_fused")
+KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -128,6 +128,9 @@ def load() -> ctypes.CDLL:
         "tdorch_fused_reduce": [i32, ptr, i32, i32, ptr, ptr, i64, i32, ptr,
                                 ptr],
         "tdorch_histogram_shared_bins": [],
+        "tdorch_grouped_gemm": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
+                                i32, i32, i32, ptr, ptr, ptr],
+        "tdorch_grouped_gemm_tile_rows": [],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)
@@ -156,8 +159,10 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def require(t: torch.Tensor, name: str, dtypes, ndim: int,
-            device: torch.device) -> None:
-    """The checks every wrapper makes before handing a pointer to CUDA."""
+            device: torch.device, *, dense_rows: bool = False) -> None:
+    """The checks every wrapper makes before handing a pointer to CUDA.
+    With `dense_rows` only the last dimension must be dense: the kernel
+    takes the other strides (a view into wider rows)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
     if t.device != device:
@@ -168,7 +173,10 @@ def require(t: torch.Tensor, name: str, dtypes, ndim: int,
     if t.ndim != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if dense_rows:
+        if (t.shape[-1] > 1 and t.stride(-1) != 1) or min(t.stride()) < 0:
+            raise ValueError(f"{name} must have dense rows (last stride 1)")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 

@@ -1,0 +1,81 @@
+"""Grouped GEMM for MoE experts: `grouped_gemm` launches the CUDA kernel
+(`csrc/moe_gemm.cu`) for a CUDA tensor and runs the plain version
+(`ref.py`) for a CPU tensor.
+
+Also home of `gathered_swiglu`, the gathered-weights form of the expert
+FFN that the parameter server's `MoERouter` stage lambda runs: each task
+carries its own gathered expert weight rows (the orchestrator's padded
+multi-get view) instead of indexing a dense (G, ., .) stack, so it is the
+per-task dual of `grouped_gemm`'s sorted-by-group layout.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _lib
+from .ref import grouped_gemm_ref
+
+_I32_MAX = 2**31 - 1
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                 group_sizes: torch.Tensor) -> torch.Tensor:
+    """x: (M, K) sorted by group; w: (G, K, N); group_sizes: (G,) -> (M, N).
+    Group g owns the next group_sizes[g] rows; rows at or beyond the
+    groups' sum give zeros, and empty groups are allowed. On the card x
+    must be contiguous float32, w float32 with dense rows (a strided view,
+    such as a slice of wider weight rows, is read in place) and group_sizes
+    contiguous int32, all on one device; the sizes stay there (no host
+    sync)."""
+    if not _lib.on_cuda(x):
+        return grouped_gemm_ref(x, w, group_sizes)
+    dev = x.device
+    _lib.require(x, "x", (torch.float32,), 2, dev)
+    _lib.require(w, "w", (torch.float32,), 3, dev, dense_rows=True)
+    _lib.require(group_sizes, "group_sizes", (torch.int32,), 1, dev)
+    M, K = x.shape
+    G, Kw, N = w.shape
+    if Kw != K:
+        raise ValueError(f"w has depth {Kw}, x has {K} columns")
+    if group_sizes.shape[0] != G:
+        raise ValueError(f"group_sizes has {group_sizes.shape[0]} entries "
+                         f"for {G} groups")
+    # the worst case: every nonempty group adds one partly filled tile
+    num_tiles = -(-M // int(_lib.load().tdorch_grouped_gemm_tile_rows())) + G
+    if max(M, K, N, num_tiles) > _I32_MAX:
+        raise ValueError(f"shape (M={M}, K={K}, N={N}, G={G}) is beyond the "
+                         "kernel's int32 operands")
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    if M == 0 or N == 0:
+        return out
+    plan = torch.empty((num_tiles, 4), dtype=torch.int32, device=dev)
+    rc = _lib.load().tdorch_grouped_gemm(
+        dev.index or 0, x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
+        group_sizes.data_ptr(), M, K, N, G, num_tiles, plan.data_ptr(),
+        out.data_ptr(), _lib.stream(x))
+    _lib.check(rc, "moe_gemm")
+    _lib.count("moe_gemm")
+    return out
+
+
+def gathered_swiglu(x, w_in, w_out, gate):
+    """Per-task gathered-expert SwiGLU combine.
+
+    x: (n, d) token activations; w_in: (n, A, d, 2f) and w_out: (n, A, f, d)
+    — each task's gathered expert weight rows (slot a = the task's a-th
+    routed expert, zero-filled past its arity); gate: (n, A) combine weights
+    (0 = inactive slot, so padding contributes nothing). Returns the gated
+    expert mixture (n, d).
+
+    Gate half first, as the JAX package's `core.spmd.grouped_swiglu`.
+    Written against the array subset numpy and torch share, so the numpy
+    oracle backend and the torch backend run the same expression.
+    """
+    xp = np if isinstance(x, np.ndarray) else torch
+    f = w_out.shape[2]
+    h = xp.einsum("nd,nadf->naf", x, w_in)  # (n, A, 2f)
+    g, up = h[..., :f], h[..., f:]
+    act = g * (1.0 / (1.0 + xp.exp(-g))) * up  # silu(gate) * up
+    y = xp.einsum("naf,nafd->nad", act, w_out)  # (n, A, d)
+    return (y * gate[..., None]).sum(axis=1)

@@ -337,3 +337,29 @@ def test_transformed_placeholder_is_refused():
     with pytest.raises(RuntimeError, match="placeholder"):
         be.apply_writes(tb, store, out["update"][:, :],
                         port.get_merge_op("add"), None)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_padded_gather_matches_scatter_form(seed):
+    """The one-allocation padded gather against the scatter of an (nnz, w)
+    temporary into zeros that it replaced: bit-identical, arity-0 rows
+    (all slots zero) included, and values holding inf and -0.0 too."""
+    rng = np.random.default_rng(seed)
+    values = torch.from_numpy(rng.standard_normal((30, 5)))
+    values[3, 1], values[7, 2] = float("inf"), -0.0
+    groups = [rng.integers(0, 30, rng.integers(0, 6)).tolist()
+              for _ in range(25)]
+    groups[0], groups[-1] = [], []
+    tb = port.TaskBatch.from_ragged(np.zeros((25, 1)), groups,
+                                    port.TaskBatch.even_origins(25, 4))
+    n, A = tb.n, tb.max_arity
+    row = torch.from_numpy(tb.pair_task)
+    col = torch.from_numpy(np.arange(tb.nnz) - tb.read_indptr[:-1][tb.pair_task])
+    idx = torch.from_numpy(tb.read_indices)
+    mask = torch.zeros((n, A), dtype=torch.bool)
+    mask[row, col] = True
+    want = torch.zeros((n, A, 5), dtype=values.dtype)
+    want[row, col] = values[idx]
+    got = torchexec.padded_gather(values, idx, row, col, mask)
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))

@@ -1,0 +1,180 @@
+"""The port's grouped GEMM (`kernels/moe_gemm`) held against the JAX
+package's, on the same seeded numpy inputs in one process.
+
+On the CPU `grouped_gemm` runs its plain PyTorch version (the CUDA kernel
+is held against that plain version on the card by `chip_smoke.py`). It is
+compared with the JAX `grouped_gemm` through `lax.ragged_dot`
+(``backend="ref"``) and through the Pallas kernel in interpret mode, on the
+`MOE` geometries of `tests/test_kernels.py`, the empty-group case, and rows
+beyond the groups' sum. Tolerance atol = rtol = 2e-4, as
+`tests/test_kernels.py` holds the JAX kernel: float32 sums in different
+orders (and the Pallas kernel's block-k partial sums).
+
+`gathered_swiglu` is plain array code: the port's numpy and torch float64
+forms and the JAX package's (fed numpy arrays) agree to 1e-12.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.moe_gemm.ops import gathered_swiglu as jax_swiglu
+from repro.kernels.moe_gemm.ops import grouped_gemm as jax_grouped_gemm
+from repro_torch import kernels
+from repro_torch.kernels.moe_gemm.ops import gathered_swiglu, grouped_gemm
+from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+
+# one intra-op thread per test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
+TOL = 2e-4
+# (G, M, K, N): the MOE family of tests/test_kernels.py
+MOE_GEOMS = ((4, 96, 32, 64), (1, 1, 64, 128), (6, 150, 128, 256),
+             (3, 17, 32, 64))
+
+
+@pytest.fixture(autouse=True)
+def no_kernel_launch():
+    """On the CPU the wrapper takes its plain version: nothing launches."""
+    kernels.reset_launches()
+    yield
+    assert kernels.launches() == {k: 0 for k in kernels.KERNELS}
+
+
+def _case(geom, seed=0):
+    """The inputs of `_moe_case` in tests/test_kernels.py, as numpy."""
+    G, M, K, N = geom
+    rng = np.random.default_rng(seed)
+    cuts = np.sort(rng.integers(0, M + 1, size=G - 1))
+    sizes = np.diff(np.r_[0, cuts, M]).astype(np.int32)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = (rng.normal(size=(G, K, N)) * 0.1).astype(np.float32)
+    return x, w, sizes
+
+
+def _jax(x, w, sizes, backend):
+    K, N = x.shape[1], w.shape[2]
+    return np.asarray(jax_grouped_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(sizes), block_m=16,
+        block_n=min(N, 128), block_k=min(K, 64), backend=backend))
+
+
+def _port(x, w, sizes):
+    return grouped_gemm(torch.from_numpy(x), torch.from_numpy(w),
+                        torch.from_numpy(sizes)).numpy()
+
+
+@pytest.mark.parametrize("backend", ["ref", "interpret"])
+@pytest.mark.parametrize("geom", MOE_GEOMS, ids=lambda g: "x".join(map(str, g)))
+def test_grouped_gemm_matches_jax(geom, backend):
+    x, w, sizes = _case(geom)
+    got = _port(x, w, sizes)
+    assert got.dtype == np.float32 and got.shape == (geom[1], geom[3])
+    np.testing.assert_allclose(got, _jax(x, w, sizes, backend), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("backend", ["ref", "interpret"])
+def test_grouped_gemm_empty_groups(backend):
+    """tests/test_kernels.py::test_moe_empty_groups: every row in group 1."""
+    x = np.ones((8, 32), np.float32)
+    w = np.ones((4, 32, 16), np.float32)
+    sizes = np.array([0, 8, 0, 0], np.int32)
+    got = _port(x, w, sizes)
+    np.testing.assert_allclose(got, 32.0 * np.ones((8, 16)))
+    np.testing.assert_allclose(got, _jax(x, w, sizes, backend), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("backend", ["ref", "interpret"])
+def test_grouped_gemm_rows_beyond_the_sum(backend):
+    """Groups covering 40 of 57 rows, with an empty group in the middle:
+    the last 17 rows are 0, as `lax.ragged_dot` gives them. The JAX
+    package's Pallas path does not zero them: its padding plan clamps a
+    tail row's group to the last one, so it multiplies them by the last
+    group's weights. Against it only the 40 grouped rows are compared."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(57, 24)).astype(np.float32)
+    w = rng.normal(size=(5, 24, 40)).astype(np.float32)
+    sizes = np.array([11, 0, 20, 9, 0], np.int32)
+    got = _port(x, w, sizes)
+    assert not got[40:].any()
+    rows = slice(None) if backend == "ref" else slice(0, 40)
+    np.testing.assert_allclose(got[rows], _jax(x, w, sizes, backend)[rows],
+                               atol=TOL, rtol=TOL)
+
+
+def test_grouped_gemm_plain_version_semantics():
+    """The plain version against a float64 row-by-row product: negative
+    sizes count as 0, rows past M are cut, and a float64 input comes back
+    float64 after float32 arithmetic."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(10, 6))
+    w = rng.normal(size=(3, 6, 5))
+    sizes = torch.tensor([4, -2, 9], dtype=torch.int32)
+    got = grouped_gemm_ref(torch.from_numpy(x), torch.from_numpy(w), sizes)
+    assert got.dtype == torch.float64
+    x32 = x.astype(np.float32).astype(np.float64)
+    w32 = w.astype(np.float32).astype(np.float64)
+    want = np.concatenate([x32[:4] @ w32[0], x32[4:] @ w32[2]])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_grouped_gemm_refuses_other_devices():
+    x = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel or plain path"):
+        grouped_gemm(x, torch.zeros((1, 3, 2)), torch.tensor([4]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gathered_swiglu_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    n, A, d, f = 7, 3, 5, 4
+    x = rng.normal(size=(n, d))
+    w_in = rng.normal(size=(n, A, d, 2 * f))
+    w_out = rng.normal(size=(n, A, f, d))
+    gate = rng.uniform(size=(n, A)) * (rng.uniform(size=(n, A)) > 0.3)
+    want = jax_swiglu(x, w_in, w_out, gate)
+    got_np = gathered_swiglu(x, w_in, w_out, gate)
+    got_t = gathered_swiglu(*(torch.from_numpy(a)
+                              for a in (x, w_in, w_out, gate)))
+    assert isinstance(got_np, np.ndarray) and got_t.dtype == torch.float64
+    np.testing.assert_allclose(got_np, want, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(got_t.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("backend", ["ref", "interpret"])
+def test_grouped_gemm_reads_strided_weight_views(backend):
+    """The naive arm passes w_in and w_out as views of one wider weight row
+    per expert (w_in ‖ w_out, as the store homes them): the views give the
+    results of the contiguous stacks."""
+    G, M, K, N, F = 3, 40, 24, 16, 8
+    x, w, sizes = _case((G, M, K, N), seed=5)
+    w_out = np.random.default_rng(6).normal(size=(G, N, F)).astype(np.float32)
+    rows = torch.from_numpy(np.concatenate(
+        [w.reshape(G, -1), w_out.reshape(G, -1)], axis=1))
+    w_view = rows[:, :K * N].view(G, K, N)
+    w_out_view = rows[:, K * N:].view(G, N, F)
+    assert not w_view.is_contiguous() and not w_out_view.is_contiguous()
+    xt, st = torch.from_numpy(x), torch.from_numpy(sizes)
+    h = grouped_gemm(xt, w_view, st)
+    np.testing.assert_array_equal(h.numpy(), _port(x, w, sizes))
+    np.testing.assert_allclose(h.numpy(), _jax(x, w, sizes, backend),
+                               atol=TOL, rtol=TOL)
+    y = grouped_gemm(h, w_out_view, st)
+    np.testing.assert_array_equal(y.numpy(), _port(h.numpy(), w_out, sizes))
+
+
+def test_require_dense_rows():
+    """The wrapper's check for w: any strides, but each row of N dense."""
+    from repro_torch.kernels import _lib
+
+    rows = torch.zeros((3, 50))
+    view = rows[:, 10:34].view(3, 4, 6)
+    _lib.require(view, "w", (torch.float32,), 3, view.device,
+                 dense_rows=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        _lib.require(view, "w", (torch.float32,), 3, view.device)
+    with pytest.raises(ValueError, match="dense rows"):
+        _lib.require(view.transpose(1, 2), "w", (torch.float32,), 3,
+                     view.device, dense_rows=True)
