@@ -6,16 +6,18 @@
 Phases, each of which raises (non-zero exit) on any failed check:
 
 1. Environment: the card's name and power limit, the torch and CUDA
-   versions, and the time to build the CUDA kernels from `src/repro_torch/
-   csrc/` with nvcc (sm_90a).
+   versions, the time to build the CUDA kernels from `src/repro_torch/
+   csrc/` with nvcc (sm_90a), and the registers and shared memory of the
+   attention and scan kernels.
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram (weighted and not, bins below and above the
    shared-memory budget, out-of-range ids), the segment combine (every
    merge, float32 and float64, empty segments, negative and tied
    priorities), the fused stage (every read_op x merge, arity-0 rows, a
-   single-row batch), and the grouped GEMM (the MOE geometries of
+   single-row batch), the grouped GEMM (the MOE geometries of
    tests/test_kernels.py, empty groups, rows beyond the groups' sum, the
-   parameter-server path's two projections).
+   parameter-server path's two projections), and attention, decode
+   attention and the SSD scan (see phase 5).
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -51,13 +53,35 @@ Phases, each of which raises (non-zero exit) on any failed check:
    and on the numpy backend give the same `phase_signature()`, `refcount`,
    `exec_site` and work ratios, and bench_paramserve's gate (orchestrated
    work ratio <= 1.5, naive >= 2x) holds on its own MoE mix on both.
-5. Kernel times at the paths' shapes (CUDA events, median of several
+5. The attention and SSM path: the three kernels no model of the JAX
+   package calls, through their own entry points (`repro_torch.kernels.
+   attention`, `decode_attention`, `mamba_ssd`), at the widths of the
+   configs that use them (read from `repro_torch.configs`), each stage in
+   float32 and in bf16:
+     ssd            zamba2-1.2b's Mamba2 scan, x (2, 32768, 64, 64), chunk
+                    128 (batch 32 cut to 2);
+     prefill_mha    zamba2-1.2b's shared attention, causal (1, 32768, 32,
+                    64) (batch 32 cut to 1);
+     prefill_gqa128 command-r-35b's attention, q (1, 8192, 64, 128), k/v 8
+                    heads (batch 32 cut to 1, seq 32768 to 8192);
+     decode_long    zamba2-1.2b's long_500k decode: caches (1, 524288, 32,
+                    64), length 500,000 as a device tensor;
+     decode_gqa     tinyllama-1.1b's decode_32k: q (128, 32, 64), caches
+                    (128, 32768, 4, 64), length 30,000.
+   Each output is held against the plain version (float64 for float32
+   runs, float32 on the same inputs for bf16) within the tolerances stated
+   at ATTN_REL and SSD_REL; each stage must launch its kernel once
+   (`ATTN_EXPECTED`). Phase 2 holds the three kernels against their plain
+   versions at the FLASH / DECODE / MAMBA geometries of
+   tests/test_kernels.py and at edge cases (`attention_ssm_parity`).
+6. Kernel times at the paths' shapes (CUDA events, median of several
    runs) beside the plain version, the one PyTorch call that computes the
    same function (`torch.bincount`, `index_add_`, `embedding_bag`,
-   `torch._grouped_mm` where it takes float32), and the least time the card
-   could take (bytes over 3.35 TB/s, or operations over 67 TFLOP/s,
-   whichever is larger).
-6. Device busy share: stages (a)-(c) once more under torch.profiler, after a
+   `torch._grouped_mm` where it takes float32,
+   `F.scaled_dot_product_attention`; none for the SSD scan), and the least
+   time the card could take (bytes over 3.35 TB/s, or operations over 67
+   TFLOP/s in float32 or 989 TFLOP/s in bf16, whichever is larger).
+7. Device busy share: stages (a)-(c) once more under torch.profiler, after a
    warm-up run; the device's busy time (kernels, copies, fills) against the
    stage's wall time.
 
@@ -81,6 +105,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet) used for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, tensor cores
 
 P = 16
 TASKS_PER_MACHINE = 50_000
@@ -98,6 +123,21 @@ def gpu_name_and_power() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_resources(nvcc_log: Path, names=("fa_forward", "fd_split",
+                                             "ssd_scan")) -> dict:
+    """Registers and shared memory per instantiation of the named kernels,
+    as `nvcc -Xptxas=-v` reported them in the build's log."""
+    out, entry = {}, None
+    for line in nvcc_log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            entry = entry if any(n in entry for n in names) else None
+        elif entry is not None and "Used" in line:
+            out[entry] = line.split(":", 1)[1].strip()
+            entry = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -122,15 +162,35 @@ def time_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernel parity on the card
 # ---------------------------------------------------------------------------
+def _within(got, want, allowed, name: str) -> tuple:
+    """(max |Δ|, max |Δ| / allowed) of `got` against `want`, elementwise
+    tolerance `allowed`; raises past the tolerance or on a malformed
+    output (another shape, or a value that is not finite)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: malformed output "
+                             f"{tuple(got.shape)}")
+    err = (got - want).abs()
+    if not err.numel():
+        return 0.0, 0.0
+    share = float((err / allowed.clamp(min=1e-300)).max().item())
+    if not bool((err <= allowed).all()):
+        raise AssertionError(f"{name}: beyond tolerance, max |Δ| "
+                             f"{err.max().item()} ({share:.3g} of it)")
+    return float(err.max().item()), share
+
+
 def _sum_bound_ok(got, want, mags, rel=1e-6, abs_=1e-6, rel_want=0.0,
                   name="sum") -> float:
     """Float sums whose terms add in another order (atomics, another
@@ -140,13 +200,8 @@ def _sum_bound_ok(got, want, mags, rel=1e-6, abs_=1e-6, rel_want=0.0,
     import torch
 
     got, want, mags = (torch.as_tensor(a).double() for a in (got, want, mags))
-    if got.shape != want.shape or not bool(got.isfinite().all()):
-        raise AssertionError(f"{name}: malformed output {tuple(got.shape)}")
-    err = (got - want).abs()
-    if not bool((err <= rel_want * want.abs() + rel * mags + abs_).all()):
-        raise AssertionError(f"{name}: beyond tolerance, max |Δ| "
-                             f"{err.max().item()}")
-    return float(err.max().item()) if err.numel() else 0.0
+    allowed = rel_want * want.abs() + rel * mags + abs_
+    return _within(got, want, allowed, name)[0]
 
 
 def _gemm_case(geom, rng):
@@ -294,6 +349,7 @@ def parity_phase(dev) -> dict:
     log(f"  moe_gemm: {len(cases)} cases (the MOE geometries, empty groups, "
         "rows beyond the sum, the path's in- and out-projection); within "
         "1e-5*sum|x w| + 1e-6")
+    worst.update(attention_ssm_parity(dev))
     return worst
 
 
@@ -323,7 +379,8 @@ def scale_by_context(contexts, reduced):
 def _launch(**kw):
     """A stage's launches per kernel: those named, 0 for the rest."""
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
-            "moe_gemm": 0, **kw}
+            "moe_gemm": 0, "flash_attention": 0, "flash_decode": 0,
+            "mamba_scan": 0, **kw}
 
 
 # launches of each kernel in each stage of the main path: K1 where Phase 1
@@ -1009,7 +1066,447 @@ def moe_gemm_timing(dev, t: dict, launches: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel times at the main path's shapes
+# phase 5: the attention and SSM path
+# ---------------------------------------------------------------------------
+# The three kernels no model of the JAX package calls (its models run their
+# own XLA attention and chunked SSD), driven through their own entry points
+# (`repro_torch.kernels.attention`, `decode_attention`, `mamba_ssd`) at the
+# widths of the configs that use them, read from `repro_torch.configs`. The
+# sequence lengths and batches are the JAX package's shape table
+# (src/repro/launch/specs.py:27-29).
+SPEC_SHAPES = {"prefill_32k": (32_768, 32), "decode_32k": (32_768, 128),
+               "long_500k": (524_288, 1)}
+ATTN_DTYPES = ("float32", "bfloat16")  # the configs' compute dtype: bf16
+U32 = 2.0 ** -24     # float32 unit roundoff
+BF16_ROUND = 2.0 ** -8  # relative rounding of a bf16 output (8-bit mantissa)
+# float32 kernel against the float64 plain version: |Δ| <= ATTN_REL·(1 +
+# |want|). The output is a convex combination of v rows; float32 scores,
+# exponentials and sums over up to ~1,000 rows a lane (decode) or 64-key
+# tiles (prefill) leave a relative error of a few 1e-7 (√n·u32), so the JAX
+# suite's 2e-5 has a margin of 10x and more.
+ATTN_REL = 2e-5
+# SSD float32 against float64: |Δ| <= (SSD_REL + 8·u32·max|l|)·Σ|terms| +
+# 1e-6, Σ|terms| being the plain version run on |x|, |B|, |C|. SSD_REL
+# covers float32 sums of up to 2·128 + 64 products a term; the max|l| part
+# covers the decay's exp(l_t − l_s), whose float32 l_t and l_s each carry
+# an absolute error of a few u32·|l| from the cumulative sum.
+SSD_REL = 1e-5
+MATH_SCORE_BYTES = 20e9  # the library's math backend only below this
+
+
+def attention_ssm_stages() -> list:
+    """The path's five stages, widths from the ported configs."""
+    from repro_torch.configs import get_config
+
+    z, t, c = (get_config(a) for a in ("zamba2-1.2b", "tinyllama-1.1b",
+                                       "command-r-35b"))
+    s = z.ssm
+    seq, _ = SPEC_SHAPES["prefill_32k"]
+    long_T, long_B = SPEC_SHAPES["long_500k"]
+    dec_T, dec_B = SPEC_SHAPES["decode_32k"]
+    return [
+        dict(tag="ssd", kernel="mamba_scan", B=2, S=seq,
+             nh=s.expand * z.d_model // s.head_dim, hd=s.head_dim,
+             ds=s.d_state, chunk=s.chunk,
+             source="zamba2-1.2b Mamba2 block, prefill_32k",
+             cut="batch 32 -> 2"),
+        dict(tag="prefill_mha", kernel="flash_attention", B=1, S=seq, T=seq,
+             H=z.n_heads, KV=z.n_kv_heads, hd=z.head_dim,
+             source="zamba2-1.2b shared attention, prefill_32k",
+             cut="batch 32 -> 1"),
+        dict(tag="prefill_gqa128", kernel="flash_attention", B=1, S=8192,
+             T=8192, H=c.n_heads, KV=c.n_kv_heads, hd=c.head_dim,
+             source="command-r-35b attention, prefill_32k",
+             cut="batch 32 -> 1, seq 32768 -> 8192"),
+        dict(tag="decode_long", kernel="flash_decode", B=long_B, T=long_T,
+             H=z.n_heads, KV=z.n_kv_heads, hd=z.head_dim, length=500_000,
+             source="zamba2-1.2b shared attention, long_500k", cut="none"),
+        dict(tag="decode_gqa", kernel="flash_decode", B=dec_B, T=dec_T,
+             H=t.n_heads, KV=t.n_kv_heads, hd=t.head_dim, length=30_000,
+             source="tinyllama-1.1b attention, decode_32k", cut="none"),
+    ]
+
+
+# each stage launches its kernel once, in each dtype
+ATTN_EXPECTED = {f"{tag}/{dt}": _launch(**{kernel: 1})
+                 for tag, kernel in (("ssd", "mamba_scan"),
+                                     ("prefill_mha", "flash_attention"),
+                                     ("prefill_gqa128", "flash_attention"),
+                                     ("decode_long", "flash_decode"),
+                                     ("decode_gqa", "flash_decode"))
+                 for dt in ATTN_DTYPES}
+
+
+def stage_inputs(st: dict, dtype: str, dev, seed: int) -> tuple:
+    """A stage's inputs, made on the device from the seed (the bf16 inputs
+    are the float32 ones rounded): (q, k, v) for attention, (q, k, v,
+    length as a 0-d device tensor) for decode, (x, dt, A, B, C) for the
+    scan with dt ~ U(0.01, 0.3) and A ~ −U(0.3, 2.0) in float32."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    if st["kernel"] == "mamba_scan":
+        B, S, nh, hd, ds = (st[k] for k in ("B", "S", "nh", "hd", "ds"))
+        return (normal(B, S, nh, hd), uniform(0.01, 0.3, B, S, nh),
+                -uniform(0.3, 2.0, nh), normal(B, S, ds), normal(B, S, ds))
+    B, T, H, KV, hd = (st[k] for k in ("B", "T", "H", "KV", "hd"))
+    if st["kernel"] == "flash_attention":
+        return (normal(B, st["S"], H, hd), normal(B, T, KV, hd),
+                normal(B, T, KV, hd))
+    return (normal(B, H, hd), normal(B, T, KV, hd), normal(B, T, KV, hd),
+            torch.tensor(st["length"], dtype=torch.int64, device=dev))
+
+
+def _kernel_call(st: dict, inputs: tuple):
+    from repro_torch.kernels import attention, decode_attention, mamba_ssd
+
+    if st["kernel"] == "mamba_scan":
+        return lambda: mamba_ssd(*inputs, chunk=st["chunk"])
+    if st["kernel"] == "flash_attention":
+        return lambda: attention(*inputs, causal=st.get("causal", True))
+    return lambda: decode_attention(*inputs)
+
+
+def _plain_call(st: dict, inputs: tuple, up=None):
+    """The plain version on `inputs` (each float tensor passed through
+    `up` first: .double() or .float()); decode runs in slices of 32 batch
+    rows, which it treats independently, to bound its float64 copies."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
+
+    def lift(t):
+        return up(t) if up is not None and t.is_floating_point() else t
+
+    if st["kernel"] == "mamba_scan":
+        return ssd_scan_ref(*map(lift, inputs), chunk=st["chunk"])
+    if st["kernel"] == "flash_attention":
+        return attention_ref(*map(lift, inputs),
+                             causal=st.get("causal", True))
+    q, k, v, length = inputs
+    return torch.cat([decode_attention_ref(lift(q[i:i + 32]),
+                                           lift(k[i:i + 32]),
+                                           lift(v[i:i + 32]), length)
+                      for i in range(0, q.shape[0], 32)])
+
+
+def check_against_plain(st: dict, inputs: tuple, got, dtype: str,
+                        name: str) -> tuple:
+    """The kernel's output against the plain version on the same inputs:
+    in float64 for a float32 run, in float32 for a bf16 run (plus the bf16
+    rounding of the kernel's output). Tolerances: ATTN_REL and SSD_REL
+    above."""
+    import torch
+
+    up = (lambda t: t.double()) if dtype == "float32" else \
+        (lambda t: t.float())
+    want = _plain_call(st, inputs, up)
+    if st["kernel"] == "mamba_scan":
+        x, dt, A, Bc, Cc = inputs
+        c = min(st["chunk"], x.shape[1])
+        max_l = float((dt.double() * A.double()).reshape(
+            x.shape[0], -1, c, x.shape[2]).cumsum(2).abs().max().item())
+        mags = _plain_call(st, (x.abs(), dt, A, Bc.abs(), Cc.abs()), up)
+        allowed = (SSD_REL + 8 * U32 * max_l) * mags.double() + 1e-6
+        del mags
+    else:
+        allowed = ATTN_REL * (1 + want.double().abs())
+    if dtype == "bfloat16":
+        allowed = allowed + BF16_ROUND * want.double().abs()
+    out = _within(got, want, allowed, name)
+    del want, allowed
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_ssm_parity(dev) -> dict:
+    """B5-B7 against their plain versions on the card (phase 2): the
+    FLASH, DECODE and MAMBA geometries of tests/test_kernels.py in float32
+    and bf16, ragged query tiles (S = 100), decode with G = 16 (two groups
+    of 8) and hd 128, valid prefixes of 0, 1, T and > T as an int and as a
+    device tensor, causal S != T refused, a scan whose unmasked decay would
+    overflow (finite), and a scan asked for chunk 256."""
+    import torch
+
+    from repro_torch.kernels import attention
+
+    worst = {"flash_attention": 0.0, "flash_decode": 0.0, "mamba_scan": 0.0}
+    n = {k: 0 for k in worst}
+    seed = SEED
+
+    def run(st, inputs, dtype, name):
+        got = _kernel_call(st, inputs)()
+        e, _ = check_against_plain(st, inputs, got, dtype, name)
+        worst[st["kernel"]] = max(worst[st["kernel"]], e)
+        n[st["kernel"]] += 1
+
+    for S, H, KV, hd, causal in [
+            (128, 4, 4, 64, True), (128, 4, 4, 64, False),
+            (256, 8, 2, 64, True), (256, 8, 2, 64, False),
+            (128, 4, 1, 128, True), (128, 4, 1, 128, False),
+            (64, 2, 2, 32, True), (64, 2, 2, 32, False),
+            (100, 4, 2, 64, True), (100, 4, 2, 64, False)]:
+        st = dict(kernel="flash_attention", B=2, S=S, T=S, H=H, KV=KV,
+                  hd=hd, causal=causal)
+        for dtype in ATTN_DTYPES:
+            seed += 1
+            run(st, stage_inputs(st, dtype, dev, seed), dtype,
+                f"attention {(S, H, KV, hd, causal)} {dtype}")
+    q = torch.zeros((1, 64, 2, 32), device=dev)
+    kv = torch.zeros((1, 128, 2, 32), device=dev)
+    try:
+        attention(q, kv, kv, causal=True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("attention took causal S != T")
+
+    for B, T, KV, G, hd, own in [(2, 128, 2, 4, 64, 100),
+                                 (1, 256, 1, 8, 64, 256),
+                                 (2, 64, 4, 1, 32, 1),
+                                 (2, 1000, 2, 16, 128, 700)]:
+        for length in sorted({0, 1, own, T, T + 5}):
+            for dtype in ATTN_DTYPES:
+                seed += 1
+                st = dict(kernel="flash_decode", B=B, T=T, H=KV * G, KV=KV,
+                          hd=hd, length=length)
+                q, k, v, dev_len = stage_inputs(st, dtype, dev, seed)
+                for ln in (length, dev_len):
+                    run(st, (q, k, v, ln), dtype,
+                        f"decode {(B, T, KV, G, hd)} length {length} "
+                        f"({type(ln).__name__}) {dtype}")
+
+    for S, nh, hd, ds, chunk in [(32, 2, 8, 8, 16), (64, 3, 16, 8, 16),
+                                 (128, 1, 32, 16, 32), (256, 2, 64, 64, 256)]:
+        st = dict(kernel="mamba_scan", B=2, S=S, nh=nh, hd=hd, ds=ds,
+                  chunk=chunk)
+        for dtype in ATTN_DTYPES:
+            seed += 1
+            inputs = stage_inputs(st, dtype, dev, seed)
+            run(st, inputs, dtype, f"ssd {(S, nh, hd, ds, chunk)} {dtype}")
+    # dt ~ U(1, 5), A ~ −U(5, 25): l falls by up to ~2,000 within a chunk
+    # of 16, so exp(l_t − l_s) for s > t would be inf in float32
+    st = dict(kernel="mamba_scan", B=2, S=64, nh=3, hd=16, ds=8, chunk=16)
+    x, _, _, Bc, Cc = stage_inputs(st, "float32", dev, seed + 1)
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    dt = 1 + 4 * torch.rand((2, 64, 3), generator=g, device=dev)
+    A = -(5 + 20 * torch.rand((3,), generator=g, device=dev))
+    run(st, (x, dt, A, Bc, Cc), "float32", "ssd with |dt·A| up to 125")
+    log(f"  flash_attention: {n['flash_attention']} cases (the FLASH "
+        "geometries and S = 100, float32 and bf16), causal S != T refused; "
+        "flash_decode: "
+        f"{n['flash_decode']} cases (the DECODE geometries and G = 16 at hd "
+        "128; lengths 0, 1, the geometry's, T, T + 5, as an int and a device "
+        f"tensor); mamba_scan: {n['mamba_scan']} cases (the MAMBA "
+        "geometries, chunk 256 on S = 256, |dt·A| up to 125); within "
+        f"{ATTN_REL}·(1+|ref|) (attention) and ({SSD_REL} + 8·u32·max|l|)·"
+        "Σ|terms| + 1e-6 (scan) against float64, plus 2^-8·|ref| for bf16")
+    return worst
+
+
+def attention_ssm_path(dev, stages=None) -> list:
+    """Drive the five stages (or `stages`, for a rehearsal at a small size
+    on the CPU) in float32 and bf16 through the entry points; on the card
+    each stage's launches are checked against ATTN_EXPECTED. Every output
+    is held against the plain version (`check_against_plain`). Returns one
+    row per stage and dtype."""
+    import torch
+
+    on_card = dev.type == "cuda"
+    st_runner = _Stages(dev.type, ATTN_EXPECTED)
+    for i, st in enumerate(stages or attention_ssm_stages()):
+        for dtype in ATTN_DTYPES:
+            tag = f"{st['tag']}/{dtype}"
+            inputs = stage_inputs(st, dtype, dev, SEED + 100 + i)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(dev)
+            got = st_runner.run(tag, _kernel_call(st, inputs),
+                                source=st["source"], cut=st["cut"])
+            row = st_runner.rows[-1]
+            err, share = check_against_plain(st, inputs, got, dtype, tag)
+            row.update(max_abs_err=err, share_of_tolerance=share,
+                       shape=_stage_shape(st, dtype),
+                       peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                                   if on_card else None))
+            log(f"  {tag} ({st['source']}; cut: {st['cut']}): "
+                f"{row['shape']}; wall {row['wall_s']:.4f} s, max |Δ| "
+                f"{err:.3g} ({share:.3g} of its tolerance)"
+                + (f", peak device memory {row['peak_bytes'] / 1e9:.2f} GB"
+                   if on_card else ""))
+            del inputs, got
+            torch.cuda.empty_cache()
+    return st_runner.rows
+
+
+def _stage_shape(st: dict, dtype: str) -> str:
+    if st["kernel"] == "mamba_scan":
+        return (f"x ({st['B']}, {st['S']}, {st['nh']}, {st['hd']}), B/C "
+                f"({st['B']}, {st['S']}, {st['ds']}) {dtype}, chunk "
+                f"{st['chunk']}")
+    if st["kernel"] == "flash_attention":
+        return (f"q ({st['B']}, {st['S']}, {st['H']}, {st['hd']}), k/v "
+                f"({st['B']}, {st['T']}, {st['KV']}, {st['hd']}) {dtype}, "
+                "causal")
+    return (f"q ({st['B']}, {st['H']}, {st['hd']}), caches ({st['B']}, "
+            f"{st['T']}, {st['KV']}, {st['hd']}) {dtype}, length "
+            f"{st['length']}")
+
+
+def _work(st: dict, dtype: str) -> tuple:
+    """(bytes, operations, peak operations/s) of a stage: each input read
+    once and the output written once; the operations its data needs (the
+    causal half of the scores and of the scan's c x c products, the valid
+    prefix of a cache)."""
+    e = 2 if dtype == "bfloat16" else 4
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    if st["kernel"] == "mamba_scan":
+        B, S, nh, hd, ds, c = (st[k] for k in ("B", "S", "nh", "hd", "ds",
+                                                "chunk"))
+        pairs = c * (c + 1) // 2
+        ops = B * nh * (S // c) * (2 * pairs * (ds + hd) + 4 * c * hd * ds)
+        return e * (2 * B * S * nh * hd + 2 * B * S * ds) \
+            + 4 * (B * S * nh + nh), ops, rate
+    B, T, H, KV, hd = (st[k] for k in ("B", "T", "H", "KV", "hd"))
+    if st["kernel"] == "flash_attention":
+        S = st["S"]
+        return e * (2 * B * S * H * hd + 2 * B * T * KV * hd), \
+            4 * hd * B * H * S * (S + 1) // 2, rate
+    n_valid = T if st["length"] <= 0 else min(st["length"], T)
+    return e * (2 * B * H * hd + 2 * B * n_valid * KV * hd) + 8, \
+        4 * B * H * n_valid * hd, rate
+
+
+def _library_call(st: dict, inputs: tuple):
+    """One PyTorch call computing the stage's function, on inputs laid out
+    as it takes them (made here, outside the timing), or (None, note). The
+    math backend only where its float32 score tensor stays under
+    MATH_SCORE_BYTES (it is what takes GQA in float32)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if st["kernel"] == "mamba_scan":
+        return None, ("no one PyTorch call computes the SSD scan (a "
+                      "chunked scan with a decaying state)")
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    if st["kernel"] == "flash_attention":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in inputs)
+        if 4 * q.shape[0] * q.shape[1] * q.shape[2] * k.shape[2] \
+                <= MATH_SCORE_BYTES:
+            backends.append(SDPBackend.MATH)
+
+        def call():
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True).transpose(1, 2)
+        return call, ("F.scaled_dot_product_attention(is_causal=True, "
+                      "enable_gqa=True), (B, H, S, hd) layout")
+    q, k, v, length = inputs
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    # the G query heads of a KV head as G query rows: no expanded cache
+    q4 = q.reshape(B, KV, H // KV, hd)
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(k.shape[1], device=q.device) < length)[None, None,
+                                                                None]
+
+    def call():
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(
+                q4, kt, vt, attn_mask=mask).reshape(B, H, hd)
+    return call, ("F.scaled_dot_product_attention with a boolean prefix "
+                  "mask, the G query heads of a KV head as G query rows")
+
+
+def time_auto(fn) -> float:
+    """time_ms with as many runs as fit in about a second (3 to 10)."""
+    import torch
+
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t
+    reps = int(max(3, min(10, 1.0 / max(once, 1e-6))))
+    return time_ms(fn, reps=reps, warmup=1)
+
+
+KERNEL_SOURCES = {
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:75"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode/kernel.py:60"),
+    "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan/kernel.py:58"),
+}
+
+
+def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
+    """B5-B7 at every stage of the path, in float32 and bf16: the kernel,
+    its plain version (on the same inputs, so computing in float32), the one
+    PyTorch call for it (checked against the plain version first), and the
+    bound (bytes over 3.35 TB/s, or operations over 67 TFLOP/s in float32
+    or 989 TFLOP/s in bf16). One row per kernel; its first shape is the
+    headline, the rest are under `shapes`."""
+    import torch
+
+    by_kernel = {k: [] for k in KERNEL_SOURCES}
+    for i, st in enumerate(attention_ssm_stages()):
+        for dtype in ATTN_DTYPES:
+            inputs = stage_inputs(st, dtype, dev, SEED + 100 + i)
+            run, plain = _kernel_call(st, inputs), \
+                (lambda st=st, inputs=inputs: _plain_call(st, inputs))
+            nbytes, ops, rate = _work(st, dtype)
+            b_ms, b_by = bound(nbytes, ops, rate)
+            lib, note = _library_call(st, inputs)
+            library_ms = None
+            if lib is not None:
+                try:
+                    want = plain()
+                    got = lib()
+                    _within(got, want, 3e-2 * (1 + want.double().abs()),
+                            f"library {st['tag']}")
+                    del want, got
+                    library_ms = time_auto(lib)
+                except (RuntimeError, AssertionError) as exc:
+                    note += (f"; refused or off: {type(exc).__name__}: "
+                             f"{str(exc).splitlines()[0][:160]}")
+            by_kernel[st["kernel"]].append(dict(
+                stage=st["tag"], dtype=dtype,
+                shape=f"{st['tag']}: {_stage_shape(st, dtype)}",
+                ms=time_auto(run), plain_ms=time_auto(plain),
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops,
+                library_ms=library_ms, library_note=note))
+            del inputs, run, plain, lib
+            torch.cuda.empty_cache()
+    rows = []
+    for name, shapes in by_kernel.items():
+        source, replaces = KERNEL_SOURCES[name]
+        rows.append(dict(name=name, route="cuda", source=source,
+                         replaces=replaces, launches=launches[name],
+                         **shapes[0], max_abs_err=errors[name],
+                         shapes=shapes))
+        for s in shapes:
+            lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
+                   else f"null ({s['library_note']})")
+            log(f"  {name}: {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
+                f"library {lib}, bound {s['bound_ms']:.4f} by "
+                f"{s['bound_by']}) at {s['shape']}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
 def timing_phase(dev, K, stages, init, launches) -> list:
     import torch
@@ -1111,7 +1608,7 @@ def timing_phase(dev, K, stages, init, launches) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: how busy the card is during a stage
+# phase 7: how busy the card is during a stage
 # ---------------------------------------------------------------------------
 _OWN_KERNELS = ("hist_", "seg_combine", "write_elect", "write_gather",
                 "fused_reduce")
@@ -1216,21 +1713,24 @@ def main() -> int:
     from repro_torch.kernels import _lib
 
     card = gpu_name_and_power()
-    log(f"[1/6] environment: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/7] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
     log(f"  kernels built from src/repro_torch/csrc in "
         f"{time.perf_counter() - t0:.2f} s (sm_90a)")
+    resources = kernel_resources(_lib.build_dir() / "nvcc.log")
+    for name, use in resources.items():
+        log(f"  {name}: {use}")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/6] kernel parity against the plain PyTorch versions")
-    parity_phase(dev)
+    log("[2/7] kernel parity against the plain PyTorch versions")
+    parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/6] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    log("[3/7] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -1238,7 +1738,7 @@ def main() -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/6] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    log("[4/7] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -1256,7 +1756,20 @@ def main() -> int:
         f"{GATE_MIX}: orchestrated {ps_summary['gate_orchestrated']}, "
         f"naive {ps_summary['gate_naive']}")
 
-    log("[5/6] kernel times at the paths' shapes")
+    log("[5/7] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+        "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
+        "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
+    kernels.reset_launches()
+    attn_rows = attention_ssm_path(dev)
+    torch.cuda.synchronize()
+    attn_launches = kernels.launches()
+    _check_path_launches("attention and SSM path", attn_launches,
+                         ATTN_EXPECTED)
+    errors = {k: max([parity_worst[k]] + [r["max_abs_err"] for r in attn_rows
+                                          if r["launches"][k]])
+              for k in KERNEL_SOURCES}
+
+    log("[6/7] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
     for r in rows:  # the worst error of either path's parity check
@@ -1268,18 +1781,21 @@ def main() -> int:
             f"library {lib}, loop of matmuls {s['matmul_loop_ms']:.4f}, "
             f"bound {s['bound_ms']:.4f} by {s['bound_by']}) at "
             f"{s['shape']}")
+    rows += attention_ssm_timing(dev, attn_launches, errors)
     for r in rows:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[6/6] device busy share of a stage (torch.profiler)")
+    log("[7/7] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "stages": stages_out, "kernels": rows,
          "device_busy": busy, "paramserve": {"stages": ps_rows,
-                                             **ps_summary}}, indent=1))
+                                             **ps_summary},
+         "attention_ssm": {"stages": attn_rows, "resources": resources}},
+        indent=1))
 
     log(gpu_name_and_power())
     log(json.dumps({"kernels": [{k: r[k] for k in (

@@ -29,12 +29,14 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
-           "stage_fused.cu", "moe_gemm.cu")
+           "stage_fused.cu", "moe_gemm.cu", "flash_attention.cu",
+           "flash_decode.cu", "mamba_scan.cu")
 LIBRARY = "libtdorch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm")
+KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
+           "flash_attention", "flash_decode", "mamba_scan")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -119,6 +121,7 @@ def load() -> ctypes.CDLL:
     argument and result types declared."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
     sig = {
         "tdorch_histogram": [i32, ptr, ptr, i64, i32, ptr, ptr],
         "tdorch_segment_combine": [i32, ptr, i32, ptr, i64, i32, i32, i32,
@@ -131,6 +134,13 @@ def load() -> ctypes.CDLL:
         "tdorch_grouped_gemm": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
                                 i32, i32, i32, ptr, ptr, ptr],
         "tdorch_grouped_gemm_tile_rows": [],
+        "tdorch_flash_attention": [i32, ptr, ptr, ptr, i32, i32, i32, i32,
+                                   i32, i32, f32, i32, i32, ptr, ptr],
+        "tdorch_flash_decode": [i32, ptr, ptr, ptr, ptr, i64, i32, i32, i32,
+                                i32, i32, i32, i32, f32, i32, ptr, ptr, ptr,
+                                ptr],
+        "tdorch_ssd_scan": [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                            i32, i32, i32, ptr, ptr],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

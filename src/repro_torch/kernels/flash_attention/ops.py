@@ -1,0 +1,43 @@
+"""GQA flash attention: `attention` launches the CUDA kernel
+(`csrc/flash_attention.cu`) for a CUDA tensor and runs the plain version
+(`ref.py`) for a CPU tensor."""
+from __future__ import annotations
+
+import torch
+
+from .. import _lib
+from .ref import attention_ref, attention_shapes
+
+HEAD_DIMS = (32, 64, 128)
+_MAX_GRID_YZ = 65535
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, T, KV, hd) with H % KV == 0 ->
+    (B, S, H, hd) in q's dtype. Scores scaled by hd**-0.5, softmax in
+    float32, query head h reads KV head h // (H // KV). Under `causal` key
+    c > query r scores -2.0e38, and S must equal T (`ValueError`
+    otherwise: the JAX package's kernel and oracle disagree there). On the
+    card q, k, v must be contiguous float32 or bfloat16 of one dtype, with
+    hd in {32, 64, 128}."""
+    B, S, H, hd, T, KV, G = attention_shapes(q, k, v, causal)
+    if not _lib.on_cuda(q):
+        return attention_ref(q, k, v, causal=causal)
+    dev = q.device
+    _lib.require(q, "q", (torch.float32, torch.bfloat16), 4, dev)
+    _lib.require(k, "k", (q.dtype,), 4, dev)
+    _lib.require(v, "v", (q.dtype,), 4, dev)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} is not one of {HEAD_DIMS}")
+    if max(B, H) > _MAX_GRID_YZ or max(B * S * H, B * T * KV) * hd >= 2**62:
+        raise ValueError(f"shape B={B}, S={S}, H={H}, T={T} is beyond the "
+                         "kernel's grid")
+    out = torch.empty_like(q)
+    rc = _lib.load().tdorch_flash_attention(
+        dev.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, T, H,
+        KV, hd, hd ** -0.5, int(bool(causal)),
+        int(q.dtype == torch.bfloat16), out.data_ptr(), _lib.stream(q))
+    _lib.check(rc, "flash_attention")
+    _lib.count("flash_attention")
+    return out

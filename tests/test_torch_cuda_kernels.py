@@ -1,0 +1,149 @@
+"""The port's attention, decode and scan kernels on the card, against their
+plain PyTorch versions on the same inputs. Every test here is marked
+`cuda` and skips without a CUDA device: a CUDA kernel has no CPU mode (the
+CPU tests hold the plain versions against the JAX package). This file
+imports no JAX, so it runs on a machine with the card alone:
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+
+Inputs are the seeded numpy cases of the FLASH / DECODE / MAMBA families
+of `tests/test_kernels.py`. Tolerances are the JAX suite's: atol = rtol =
+2e-5 for attention and decode in float32 (sums in other orders), 1e-3 for
+the scan, 3e-2 for bf16 (rounding of inputs and outputs).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import attention, decode_attention, mamba_ssd
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
+
+pytestmark = pytest.mark.cuda
+
+# (S, H, KV, hd) x causal: the FLASH family
+FLASH_GEOMS = [(S, H, KV, hd, causal)
+               for (S, H, KV, hd) in [(128, 4, 4, 64), (256, 8, 2, 64),
+                                      (128, 4, 1, 128), (64, 2, 2, 32)]
+               for causal in (True, False)]
+# (B, T, KV, G, hd): the DECODE family, and G = 16 at hd 128
+DECODE_GEOMS = [(2, 128, 2, 4, 64), (1, 256, 1, 8, 64), (2, 64, 4, 1, 32),
+                (2, 1000, 2, 16, 128)]
+# (S, nh, hd, ds, chunk): the MAMBA family, and chunk 256 (run as 128)
+MAMBA_GEOMS = [(32, 2, 8, 8, 16), (64, 3, 16, 8, 16), (128, 1, 32, 16, 32),
+               (256, 2, 64, 64, 256)]
+TOL = {"attention": 2e-5, "scan": 1e-3, "bf16": 3e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    kernels.reset_launches()
+    return torch.device("cuda")
+
+
+def _normal(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", FLASH_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_attention_kernel(dev, geom, dtype):
+    S, H, KV, hd, causal = geom
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(_normal(rng, 2, S, n, hd)).to(
+        dev, getattr(torch, dtype)) for n in (H, KV, KV))
+    got = attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    assert kernels.launches()["flash_attention"] == 1
+    tol = TOL["attention" if dtype == "float32" else "bf16"]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("length", [0, 1, 100, 128, 1005])
+@pytest.mark.parametrize("geom", DECODE_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_decode_kernel(dev, geom, length):
+    B, T, KV, G, hd = geom
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(_normal(rng, B, KV * G, hd)).to(dev)
+    k, v = (torch.from_numpy(_normal(rng, B, T, KV, hd)).to(dev)
+            for _ in range(2))
+    want = decode_attention_ref(q, k, v, length)
+    for n in (length, torch.tensor(length, device=dev)):
+        got = decode_attention(q, k, v, n)
+        torch.testing.assert_close(got, want, atol=TOL["attention"],
+                                   rtol=TOL["attention"])
+    assert kernels.launches()["flash_decode"] == 2
+
+
+def test_decode_kernel_bf16(dev):
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(_normal(rng, 2, 8, 64)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(_normal(rng, 2, 700, 2, 64)).to(
+        dev, torch.bfloat16) for _ in range(2))
+    got = decode_attention(q, k, v, 650)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(),
+                               decode_attention_ref(q, k, v, 650).float(),
+                               atol=TOL["bf16"], rtol=TOL["bf16"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", MAMBA_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_ssd_kernel(dev, geom, dtype):
+    S, nh, hd, ds, chunk = geom
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_normal(rng, 2, S, nh, hd)).to(dev)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.3, size=(2, S, nh)).astype(
+        np.float32)).to(dev)
+    A = torch.from_numpy(-rng.uniform(0.3, 2.0, size=(nh,)).astype(
+        np.float32)).to(dev)
+    Bc, Cc = (torch.from_numpy(_normal(rng, 2, S, ds)).to(dev)
+              for _ in range(2))
+    if dtype == "bfloat16":
+        x, Bc, Cc = (t.to(torch.bfloat16) for t in (x, Bc, Cc))
+    got = mamba_ssd(x, dt, A, Bc, Cc, chunk=chunk)
+    want = ssd_scan_ref(x, dt, A, Bc, Cc, chunk=chunk)
+    assert kernels.launches()["mamba_scan"] == 1
+    tol = TOL["scan" if dtype == "float32" else "bf16"]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_ssd_kernel_large_decay_is_finite(dev):
+    """|dt·A| up to 125: the unmasked decay would be inf within a chunk."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(_normal(rng, 2, 64, 3, 16)).to(dev)
+    dt = torch.from_numpy(rng.uniform(1, 5, size=(2, 64, 3)).astype(
+        np.float32)).to(dev)
+    A = torch.from_numpy(-rng.uniform(5, 25, size=(3,)).astype(
+        np.float32)).to(dev)
+    Bc, Cc = (torch.from_numpy(_normal(rng, 2, 64, 8)).to(dev)
+              for _ in range(2))
+    got = mamba_ssd(x, dt, A, Bc, Cc, chunk=16)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ssd_scan_ref(x, dt, A, Bc, Cc, chunk=16),
+                               atol=TOL["scan"], rtol=TOL["scan"])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    q = torch.zeros((1, 64, 2, 48), device=dev)  # head_dim 48
+    with pytest.raises(ValueError, match="head_dim"):
+        attention(q, q, q)
+    q = torch.zeros((1, 64, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        attention(q, q.double(), q)
+    with pytest.raises(ValueError, match="S == T"):
+        attention(q, torch.zeros((1, 128, 2, 32), device=dev),
+                  torch.zeros((1, 128, 2, 32), device=dev))
+    x = torch.zeros((1, 16, 1, 128), device=dev)  # head_dim 128 > 64
+    dt = torch.zeros((1, 16, 1), device=dev)
+    bc = torch.zeros((1, 16, 8), device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        mamba_ssd(x, dt, torch.zeros(1, device=dev), bc, bc)
+    assert kernels.launches() == {k: 0 for k in kernels.KERNELS}
