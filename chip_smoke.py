@@ -7,8 +7,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
 
 1. Environment: the card's name and power limit, the torch and CUDA
    versions, the time to build the CUDA kernels from `src/repro_torch/
-   csrc/` with nvcc (sm_90a), and the registers and shared memory of the
-   attention and scan kernels.
+   csrc/` with nvcc (sm_90a), and the registers, shared memory and spills
+   of the attention and scan kernels (the SIMT float32 ones and the bf16
+   tensor-core ones).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram (weighted and not, bins below and above the
    shared-memory budget, out-of-range ids), the segment combine (every
@@ -17,7 +18,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    single-row batch), the grouped GEMM (the MOE geometries of
    tests/test_kernels.py, empty groups, rows beyond the groups' sum, the
    parameter-server path's two projections), and attention, decode
-   attention and the SSD scan (see phase 5).
+   attention and the SSD scan (see phase 5; bf16 attention and decode take
+   the tensor-core kernels `flash_attention_sm90` and `flash_decode_sm90`,
+   float32 the SIMT ones).
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -71,9 +74,11 @@ Phases, each of which raises (non-zero exit) on any failed check:
    Each output is held against the plain version (float64 for float32
    runs, float32 on the same inputs for bf16) within the tolerances stated
    at ATTN_REL and SSD_REL; each stage must launch its kernel once
-   (`ATTN_EXPECTED`). Phase 2 holds the three kernels against their plain
-   versions at the FLASH / DECODE / MAMBA geometries of
-   tests/test_kernels.py and at edge cases (`attention_ssm_parity`).
+   (`ATTN_EXPECTED`: the bf16 attention and decode stages the `*_sm90`
+   kernels, the float32 ones the SIMT kernels). Phase 2 holds the five
+   kernels against their plain versions at the FLASH / DECODE / MAMBA
+   geometries of tests/test_kernels.py and at edge cases
+   (`attention_ssm_parity`).
 6. Kernel times at the paths' shapes (CUDA events, median of several
    runs) beside the plain version, the one PyTorch call that computes the
    same function (`torch.bincount`, `index_add_`, `embedding_bag`,
@@ -125,17 +130,22 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_resources(nvcc_log: Path, names=("fa_forward", "fd_split",
+def kernel_resources(nvcc_log: Path, names=("fa_forward", "fa_sm90",
+                                             "fd_split", "fd_sm90",
                                              "ssd_scan")) -> dict:
-    """Registers and shared memory per instantiation of the named kernels,
-    as `nvcc -Xptxas=-v` reported them in the build's log."""
-    out, entry = {}, None
+    """Registers, shared memory and spills per instantiation of the named
+    kernels, as `nvcc -Xptxas=-v` reported them in the build's log."""
+    out, entry, spills = {}, None, ""
     for line in nvcc_log.read_text().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
             entry = entry if any(n in entry for n in names) else None
+            spills = ""
+        elif entry is not None and "spill stores" in line:
+            spills = line.strip()
         elif entry is not None and "Used" in line:
-            out[entry] = line.split(":", 1)[1].strip()
+            out[entry] = line.split(":", 1)[1].strip() + (
+                f"; {spills}" if spills else "")
             entry = None
     return out
 
@@ -379,8 +389,9 @@ def scale_by_context(contexts, reduced):
 def _launch(**kw):
     """A stage's launches per kernel: those named, 0 for the rest."""
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
-            "moe_gemm": 0, "flash_attention": 0, "flash_decode": 0,
-            "mamba_scan": 0, **kw}
+            "moe_gemm": 0, "flash_attention": 0, "flash_attention_sm90": 0,
+            "flash_decode": 0, "flash_decode_sm90": 0, "mamba_scan": 0,
+            **kw}
 
 
 # launches of each kernel in each stage of the main path: K1 where Phase 1
@@ -1127,8 +1138,17 @@ def attention_ssm_stages() -> list:
     ]
 
 
+def launched_kernel(kernel: str, dtype: str) -> str:
+    """The counter a stage of family `kernel` launches in `dtype`: bf16
+    attention and decode take the tensor-core kernels (`*_sm90`), float32
+    the SIMT ones; the scan has one kernel for both."""
+    if kernel != "mamba_scan" and dtype == "bfloat16":
+        return f"{kernel}_sm90"
+    return kernel
+
+
 # each stage launches its kernel once, in each dtype
-ATTN_EXPECTED = {f"{tag}/{dt}": _launch(**{kernel: 1})
+ATTN_EXPECTED = {f"{tag}/{dt}": _launch(**{launched_kernel(kernel, dt): 1})
                  for tag, kernel in (("ssd", "mamba_scan"),
                                      ("prefill_mha", "flash_attention"),
                                      ("prefill_gqa128", "flash_attention"),
@@ -1230,38 +1250,45 @@ def check_against_plain(st: dict, inputs: tuple, got, dtype: str,
 
 
 def attention_ssm_parity(dev) -> dict:
-    """B5-B7 against their plain versions on the card (phase 2): the
-    FLASH, DECODE and MAMBA geometries of tests/test_kernels.py in float32
-    and bf16, ragged query tiles (S = 100), decode with G = 16 (two groups
-    of 8) and hd 128, valid prefixes of 0, 1, T and > T as an int and as a
-    device tensor, causal S != T refused, a scan whose unmasked decay would
-    overflow (finite), and a scan asked for chunk 256."""
+    """B5-B7 against their plain versions on the card (phase 2), each
+    case in float32 (the SIMT kernels) and bf16 (the tensor-core ones):
+    the FLASH, DECODE and MAMBA geometries of tests/test_kernels.py, hd 32,
+    64 and 128 causal and not, ragged query tiles (S = 100, 300), non-causal
+    S != T, decode with G = 1, 4, 8, 16 and 20 (two bf16 blocks a KV head),
+    valid prefixes of 0, 1, T and > T and ending on a cache tile (64, 128)
+    as an int and as a device tensor, causal S != T refused, a scan whose
+    unmasked decay would overflow (finite), and a scan asked for chunk 256.
+    Returns the worst max |Δ| per launched kernel."""
     import torch
 
     from repro_torch.kernels import attention
 
-    worst = {"flash_attention": 0.0, "flash_decode": 0.0, "mamba_scan": 0.0}
+    worst = {k: 0.0 for k in KERNEL_SOURCES}
     n = {k: 0 for k in worst}
     seed = SEED
 
     def run(st, inputs, dtype, name):
         got = _kernel_call(st, inputs)()
         e, _ = check_against_plain(st, inputs, got, dtype, name)
-        worst[st["kernel"]] = max(worst[st["kernel"]], e)
-        n[st["kernel"]] += 1
+        kernel = launched_kernel(st["kernel"], dtype)
+        worst[kernel] = max(worst[kernel], e)
+        n[kernel] += 1
 
-    for S, H, KV, hd, causal in [
-            (128, 4, 4, 64, True), (128, 4, 4, 64, False),
-            (256, 8, 2, 64, True), (256, 8, 2, 64, False),
-            (128, 4, 1, 128, True), (128, 4, 1, 128, False),
-            (64, 2, 2, 32, True), (64, 2, 2, 32, False),
-            (100, 4, 2, 64, True), (100, 4, 2, 64, False)]:
-        st = dict(kernel="flash_attention", B=2, S=S, T=S, H=H, KV=KV,
+    for S, T, H, KV, hd, causal in [
+            (128, 128, 4, 4, 64, True), (128, 128, 4, 4, 64, False),
+            (256, 256, 8, 2, 64, True), (256, 256, 8, 2, 64, False),
+            (128, 128, 4, 1, 128, True), (128, 128, 4, 1, 128, False),
+            (64, 64, 2, 2, 32, True), (64, 64, 2, 2, 32, False),
+            (100, 100, 4, 2, 64, True), (100, 100, 4, 2, 64, False),
+            (300, 300, 4, 2, 128, True), (300, 300, 4, 2, 128, False),
+            (48, 80, 4, 2, 32, False), (200, 129, 4, 1, 64, False),
+            (130, 384, 8, 2, 128, False)]:
+        st = dict(kernel="flash_attention", B=2, S=S, T=T, H=H, KV=KV,
                   hd=hd, causal=causal)
         for dtype in ATTN_DTYPES:
             seed += 1
             run(st, stage_inputs(st, dtype, dev, seed), dtype,
-                f"attention {(S, H, KV, hd, causal)} {dtype}")
+                f"attention {(S, T, H, KV, hd, causal)} {dtype}")
     q = torch.zeros((1, 64, 2, 32), device=dev)
     kv = torch.zeros((1, 128, 2, 32), device=dev)
     try:
@@ -1274,8 +1301,10 @@ def attention_ssm_parity(dev) -> dict:
     for B, T, KV, G, hd, own in [(2, 128, 2, 4, 64, 100),
                                  (1, 256, 1, 8, 64, 256),
                                  (2, 64, 4, 1, 32, 1),
-                                 (2, 1000, 2, 16, 128, 700)]:
-        for length in sorted({0, 1, own, T, T + 5}):
+                                 (2, 1000, 2, 16, 128, 700),
+                                 (3, 700, 2, 8, 64, 650),
+                                 (2, 333, 1, 20, 32, 200)]:
+        for length in sorted({0, 1, 64, 128, own, T, T + 5}):
             for dtype in ATTN_DTYPES:
                 seed += 1
                 st = dict(kernel="flash_decode", B=B, T=T, H=KV * G, KV=KV,
@@ -1302,15 +1331,18 @@ def attention_ssm_parity(dev) -> dict:
     dt = 1 + 4 * torch.rand((2, 64, 3), generator=g, device=dev)
     A = -(5 + 20 * torch.rand((3,), generator=g, device=dev))
     run(st, (x, dt, A, Bc, Cc), "float32", "ssd with |dt·A| up to 125")
-    log(f"  flash_attention: {n['flash_attention']} cases (the FLASH "
-        "geometries and S = 100, float32 and bf16), causal S != T refused; "
-        "flash_decode: "
-        f"{n['flash_decode']} cases (the DECODE geometries and G = 16 at hd "
-        "128; lengths 0, 1, the geometry's, T, T + 5, as an int and a device "
-        f"tensor); mamba_scan: {n['mamba_scan']} cases (the MAMBA "
-        "geometries, chunk 256 on S = 256, |dt·A| up to 125); within "
+    log(f"  attention: {n['flash_attention']} float32 (flash_attention) and "
+        f"{n['flash_attention_sm90']} bf16 (flash_attention_sm90) cases "
+        "(the FLASH geometries, S = 100 and 300, non-causal S != T), causal "
+        f"S != T refused; decode: {n['flash_decode']} float32 "
+        f"(flash_decode) and {n['flash_decode_sm90']} bf16 "
+        "(flash_decode_sm90) cases (the DECODE geometries, G = 16 at hd "
+        "128, G = 20; lengths 0, 1, 64, 128, the geometry's, T, T + 5, as an "
+        f"int and a device tensor); mamba_scan: {n['mamba_scan']} cases (the "
+        "MAMBA geometries, chunk 256 on S = 256, |dt·A| up to 125); within "
         f"{ATTN_REL}·(1+|ref|) (attention) and ({SSD_REL} + 8·u32·max|l|)·"
-        "Σ|terms| + 1e-6 (scan) against float64, plus 2^-8·|ref| for bf16")
+        "Σ|terms| + 1e-6 (scan) against float64, plus 2^-8·|ref| for bf16 "
+        "against float32 on the same inputs")
     return worst
 
 
@@ -1444,8 +1476,12 @@ def time_auto(fn) -> float:
 KERNEL_SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:75"),
+    "flash_attention_sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:75"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode/kernel.py:60"),
+    "flash_decode_sm90": ("src/repro_torch/csrc/flash_decode.cu",
+                          "src/repro/kernels/flash_decode/kernel.py:60"),
     "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan/kernel.py:58"),
 }
@@ -1481,7 +1517,7 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
                 except (RuntimeError, AssertionError) as exc:
                     note += (f"; refused or off: {type(exc).__name__}: "
                              f"{str(exc).splitlines()[0][:160]}")
-            by_kernel[st["kernel"]].append(dict(
+            by_kernel[launched_kernel(st["kernel"], dtype)].append(dict(
                 stage=st["tag"], dtype=dtype,
                 shape=f"{st['tag']}: {_stage_shape(st, dtype)}",
                 ms=time_auto(run), plain_ms=time_auto(plain),

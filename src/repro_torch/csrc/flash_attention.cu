@@ -1,4 +1,5 @@
-// GQA flash attention (forward), for Hopper (sm_90a): SIMT float32.
+// GQA flash attention (forward), for Hopper (sm_90a): SIMT float32, the
+// route for float32 inputs (bf16 inputs take flash_attention_sm90.cu).
 //
 // Replaces the TPU kernel `flash_attention` in
 // src/repro/kernels/flash_attention/kernel.py:75 (`_flash_kernel`), whose
@@ -10,8 +11,9 @@
 // with, under `causal`, the score of every key c > r set to -2.0e38 (the
 // TPU kernel's row >= col mask; the wrapper takes causal attention only
 // for S == T, where the JAX package's kernel and oracle agree). float32
-// or bfloat16 q, k, v; float32 scores, softmax and sums; the output in the
-// inputs' type. hd is 32, 64 or 128.
+// q, k, v, scores, softmax, sums and output. hd is 32, 64 or 128. (On
+// tensor cores float32 would run as TF32, whose 10-bit mantissa the
+// float32 gate of 2e-5 does not admit.)
 //
 // What bounds it on this card: operations. A query tile of 64 rows does
 // 2 · 64 · 64 · hd FLOPs per key tile for q·kᵀ and as many for p·v, and
@@ -37,12 +39,7 @@
 //   with most work (the last query tiles) are launched first.
 // - Shared memory (43 KB at hd 32, 68 KB at 64, 118 KB at 128) is
 //   dynamic, above the 48 KB default once hd > 32.
-//
-// Later work, not done here: bf16 tensor cores through wgmma with TMA
-// loads into a ring of stages (the 4.4 TFLOP of a zamba2 prefill would be
-// ~4.4 ms at the card's bf16 rate, against ~66 ms at float32 FMA's).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -55,15 +52,6 @@ constexpr int kQPad = kBQ + 4;       // transposed q / p rows (16 B aligned)
 
 static_assert(kBQ == 4 * 16 && kBK == 4 * 16, "4 x 4 blocks on 16 x 16");
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 template <int HD>
 constexpr int smem_floats() {
   return HD * kQPad            // q tile, transposed: [HD][kQPad]
@@ -72,10 +60,10 @@ constexpr int smem_floats() {
          + kBK * kQPad;        // p, transposed: [kBK][kQPad]
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-fa_forward(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o, int S, int Tn, int H,
+fa_forward(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o, int S, int Tn, int H,
            int KV, int G, float scale, int causal) {
   constexpr int TN = HD / 16;  // output columns a thread owns
   extern __shared__ __align__(16) float smem[];
@@ -88,11 +76,11 @@ fa_forward(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  const T* qb = q + (static_cast<long long>(b) * S * H + h) * HD;
+  const float* qb = q + (static_cast<long long>(b) * S * H + h) * HD;
   const long long q_row = static_cast<long long>(H) * HD;
   for (int i = threadIdx.x; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
-    qs[d * kQPad + r] = q0 + r < S ? to_float(qb[(q0 + r) * q_row + d]) : 0.f;
+    qs[d * kQPad + r] = q0 + r < S ? qb[(q0 + r) * q_row + d] : 0.f;
   }
 
   float acc[4][TN], m[4], l[4];
@@ -104,8 +92,8 @@ fa_forward(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   }
 
-  const T* kb = k + (static_cast<long long>(b) * Tn * KV + kvh) * HD;
-  const T* vb = v + (static_cast<long long>(b) * Tn * KV + kvh) * HD;
+  const float* kb = k + (static_cast<long long>(b) * Tn * KV + kvh) * HD;
+  const float* vb = v + (static_cast<long long>(b) * Tn * KV + kvh) * HD;
   const long long kv_row = static_cast<long long>(KV) * HD;
   const int k_end = causal ? min(Tn, q0 + kBQ) : Tn;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
@@ -113,8 +101,8 @@ fa_forward(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < kBK * HD; i += kThreads) {
       const int c = i / HD, d = i % HD;
       const bool in = k0 + c < Tn;
-      ks[c * (HD + 1) + d] = in ? to_float(kb[(k0 + c) * kv_row + d]) : 0.f;
-      vs[c * HD + d] = in ? to_float(vb[(k0 + c) * kv_row + d]) : 0.f;
+      ks[c * (HD + 1) + d] = in ? kb[(k0 + c) * kv_row + d] : 0.f;
+      vs[c * HD + d] = in ? vb[(k0 + c) * kv_row + d] : 0.f;
     }
     __syncthreads();
 
@@ -195,7 +183,7 @@ fa_forward(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + (static_cast<long long>(b) * S * H + h) * HD;
+  float* ob = o + (static_cast<long long>(b) * S * H + h) * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + 4 * ty + i;
@@ -203,63 +191,57 @@ fa_forward(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < TN; ++j)
-      store(ob + r * q_row + tx + 16 * j, acc[i][j] * inv);
+      ob[r * q_row + tx + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <int HD, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+template <int HD>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int S, int Tn, int H, int KV, int G, float scale,
                    int causal, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fa_forward<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      fa_forward<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  fa_forward<HD, T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tn, H, KV, G, scale,
-      causal);
+  fa_forward<HD><<<grid, kThreads, bytes, stream>>>(q, k, v, o, S, Tn, H, KV,
+                                                     G, scale, causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t by_head_dim(int HD, const void* q, const void* k, const void* v,
-                        void* o, int B, int S, int Tn, int H, int KV, int G,
-                        float scale, int causal, cudaStream_t stream) {
-  switch (HD) {
-    case 32:
-      return launch<32, T>(q, k, v, o, B, S, Tn, H, KV, G, scale, causal,
-                           stream);
-    case 64:
-      return launch<64, T>(q, k, v, o, B, S, Tn, H, KV, G, scale, causal,
-                           stream);
-    case 128:
-      return launch<128, T>(q, k, v, o, B, S, Tn, H, KV, G, scale, causal,
-                            stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q: (B, S, H, HD); k, v: (B, T, KV, HD) with H = KV * G; all float32
-// (bf16 = 0) or bfloat16 (bf16 = 1), contiguous; HD 32, 64 or 128. o:
-// (B, S, H, HD) in the inputs' type, fully written. causal needs S == T
-// (the wrapper checks).
+// q: (B, S, H, HD); k, v: (B, T, KV, HD) with H = KV * G; all float32,
+// contiguous; HD 32, 64 or 128. o: (B, S, H, HD) float32, fully written.
+// causal needs S == T (the wrapper checks).
 extern "C" int tdorch_flash_attention(int device, const void* q,
                                       const void* k, const void* v, int B,
                                       int S, int Tn, int H, int KV, int HD,
-                                      float scale, int causal, int bf16,
-                                      void* o, cudaStream_t stream) {
+                                      float scale, int causal, void* o,
+                                      cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0 || H == 0) return 0;
   const int G = H / KV;
-  err = bf16 ? by_head_dim<__nv_bfloat16>(HD, q, k, v, o, B, S, Tn, H, KV, G,
-                                          scale, causal, stream)
-             : by_head_dim<float>(HD, q, k, v, o, B, S, Tn, H, KV, G, scale,
-                                  causal, stream);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  switch (HD) {
+    case 32:
+      err = launch<32>(qf, kf, vf, of, B, S, Tn, H, KV, G, scale, causal,
+                       stream);
+      break;
+    case 64:
+      err = launch<64>(qf, kf, vf, of, B, S, Tn, H, KV, G, scale, causal,
+                       stream);
+      break;
+    case 128:
+      err = launch<128>(qf, kf, vf, of, B, S, Tn, H, KV, G, scale, causal,
+                        stream);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

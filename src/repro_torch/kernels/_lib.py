@@ -30,13 +30,15 @@ CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
            "stage_fused.cu", "moe_gemm.cu", "flash_attention.cu",
-           "flash_decode.cu", "mamba_scan.cu")
+           "flash_attention_sm90.cu", "flash_decode.cu", "mamba_scan.cu")
+HEADERS = ("sm90.cuh",)  # included by the sources; part of the build's key
 LIBRARY = "libtdorch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
-           "flash_attention", "flash_decode", "mamba_scan")
+           "flash_attention", "flash_attention_sm90", "flash_decode",
+           "flash_decode_sm90", "mamba_scan")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -56,7 +58,7 @@ def count(name: str) -> None:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -135,10 +137,14 @@ def load() -> ctypes.CDLL:
                                 i32, i32, i32, ptr, ptr, ptr],
         "tdorch_grouped_gemm_tile_rows": [],
         "tdorch_flash_attention": [i32, ptr, ptr, ptr, i32, i32, i32, i32,
-                                   i32, i32, f32, i32, i32, ptr, ptr],
+                                   i32, i32, f32, i32, ptr, ptr],
+        "tdorch_flash_attention_sm90": [i32, ptr, ptr, ptr, i32, i32, i32,
+                                        i32, i32, i32, f32, i32, ptr, ptr],
         "tdorch_flash_decode": [i32, ptr, ptr, ptr, ptr, i64, i32, i32, i32,
-                                i32, i32, i32, i32, f32, i32, ptr, ptr, ptr,
-                                ptr],
+                                i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr],
+        "tdorch_flash_decode_sm90": [i32, ptr, ptr, ptr, ptr, i64, i32, i32,
+                                     i32, i32, i32, i32, i32, i32, f32, ptr,
+                                     ptr, ptr, ptr],
         "tdorch_ssd_scan": [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                             i32, i32, i32, ptr, ptr],
     }

@@ -9,7 +9,11 @@ imports no JAX, so it runs on a machine with the card alone:
 Inputs are the seeded numpy cases of the FLASH / DECODE / MAMBA families
 of `tests/test_kernels.py`. Tolerances are the JAX suite's: atol = rtol =
 2e-5 for attention and decode in float32 (sums in other orders), 1e-3 for
-the scan, 3e-2 for bf16 (rounding of inputs and outputs).
+the scan, 3e-2 for bf16 (rounding of inputs and outputs). The bf16
+tensor-core kernels (`flash_attention_sm90`, `flash_decode_sm90`) are also
+held to `chip_smoke.py`'s gate: within ATTN_REL·(1+|ref|) + 2^-8·|ref| of
+the plain version run in float32 on the same bf16 inputs (the output's
+own rounding plus the float32 gate).
 """
 import numpy as np
 import pytest
@@ -35,6 +39,8 @@ DECODE_GEOMS = [(2, 128, 2, 4, 64), (1, 256, 1, 8, 64), (2, 64, 4, 1, 32),
 MAMBA_GEOMS = [(32, 2, 8, 8, 16), (64, 3, 16, 8, 16), (128, 1, 32, 16, 32),
                (256, 2, 64, 64, 256)]
 TOL = {"attention": 2e-5, "scan": 1e-3, "bf16": 3e-2}
+ATTN_REL = 2e-5
+BF16_ROUND = 2.0 ** -8
 
 
 @pytest.fixture
@@ -59,7 +65,9 @@ def test_attention_kernel(dev, geom, dtype):
         dev, getattr(torch, dtype)) for n in (H, KV, KV))
     got = attention(q, k, v, causal=causal)
     want = attention_ref(q, k, v, causal=causal)
-    assert kernels.launches()["flash_attention"] == 1
+    name = "flash_attention" if dtype == "float32" else \
+        "flash_attention_sm90"
+    assert kernels.launches()[name] == 1
     tol = TOL["attention" if dtype == "float32" else "bf16"]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
@@ -91,6 +99,61 @@ def test_decode_kernel_bf16(dev):
     torch.testing.assert_close(got.float(),
                                decode_attention_ref(q, k, v, 650).float(),
                                atol=TOL["bf16"], rtol=TOL["bf16"])
+    assert kernels.launches()["flash_decode_sm90"] == 1
+
+
+def _bf16_gate(got, q, k, v, ref, *args, **kw):
+    """got (bf16) within ATTN_REL·(1+|want|) + 2^-8·|want| of `ref` run
+    in float32 on the same bf16 inputs."""
+    assert got.dtype == torch.bfloat16
+    want = ref(q.float(), k.float(), v.float(), *args, **kw).double()
+    err = (got.double() - want).abs()
+    allowed = ATTN_REL * (1 + want.abs()) + BF16_ROUND * want.abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+
+
+@pytest.mark.parametrize("S,T,H,KV,hd,causal", [
+    (S, S, H, KV, hd, causal)
+    for (S, H, KV, hd) in [(128, 4, 4, 64), (256, 8, 2, 64),
+                           (128, 4, 1, 128), (64, 2, 2, 32),
+                           (100, 4, 2, 64), (300, 4, 2, 128),
+                           (100, 2, 1, 32)]
+    for causal in (True, False)] + [
+    (48, 80, 4, 2, 32, False), (200, 129, 4, 1, 64, False),
+    (130, 384, 8, 2, 128, False)])
+def test_attention_sm90_bf16_gate(dev, S, T, H, KV, hd, causal):
+    """The wgmma kernel at hd 32 / 64 / 128, causal and not, ragged S
+    (100, 300), non-causal S != T, at the bf16 gate."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(_normal(rng, 2, S, H, hd)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(_normal(rng, 2, T, KV, hd)).to(
+        dev, torch.bfloat16) for _ in range(2))
+    got = attention(q, k, v, causal=causal)
+    _bf16_gate(got, q, k, v, attention_ref, causal=causal)
+    assert kernels.launches()["flash_attention_sm90"] == 1
+    assert kernels.launches()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("B,T,KV,G,hd", [
+    (2, 128, 2, 4, 64), (1, 256, 1, 8, 64), (2, 64, 4, 1, 32),
+    (2, 1000, 2, 16, 128), (3, 700, 2, 8, 64), (1, 2048, 1, 1, 64),
+    (2, 333, 1, 20, 32)])
+@pytest.mark.parametrize("length", [0, 1, 64, 128, "T", "T+5"])
+def test_decode_sm90_bf16_gate(dev, B, T, KV, G, hd, length):
+    """The tensor-core decode kernel at G = 1, 4, 8, 16 and 20 (two
+    blocks a KV head), hd 32 / 64 / 128, lengths 0, 1, T, > T and ending
+    on a tile boundary (64, 128), as an int and as a device tensor."""
+    n = {"T": T, "T+5": T + 5}.get(length, length)
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(_normal(rng, B, KV * G, hd)).to(dev, torch.bfloat16)
+    k, v = (torch.from_numpy(_normal(rng, B, T, KV, hd)).to(
+        dev, torch.bfloat16) for _ in range(2))
+    for ln in (n, torch.tensor(n, device=dev)):
+        got = decode_attention(q, k, v, ln)
+        _bf16_gate(got, q, k, v, decode_attention_ref, ln)
+    assert kernels.launches()["flash_decode_sm90"] == 2
+    assert kernels.launches()["flash_decode"] == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -141,6 +204,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="S == T"):
         attention(q, torch.zeros((1, 128, 2, 32), device=dev),
                   torch.zeros((1, 128, 2, 32), device=dev))
+    # TMA reads 16-byte aligned tensors: a contiguous slice one element in
+    # is refused, for attention and decode alike
+    flat = torch.zeros(64 * 2 * 32 + 1, device=dev, dtype=torch.bfloat16)
+    off = flat[1:].view(1, 64, 2, 32)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    ok = torch.zeros((1, 64, 2, 32), device=dev, dtype=torch.bfloat16)
+    for args in ((off, ok, ok), (ok, off, ok), (ok, ok, off)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            attention(*args)
+    qd = torch.zeros((1, 2, 32), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_attention(qd, off, ok, 10)
+    with pytest.raises(ValueError, match="dtype"):
+        decode_attention(qd, ok.float(), ok, 10)
     x = torch.zeros((1, 16, 1, 128), device=dev)  # head_dim 128 > 64
     dt = torch.zeros((1, 16, 1), device=dev)
     bc = torch.zeros((1, 16, 8), device=dev)
