@@ -8,8 +8,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
 1. Environment: the card's name and power limit, the torch and CUDA
    versions, the time to build the CUDA kernels from `src/repro_torch/
    csrc/` with nvcc (sm_90a), and the registers, shared memory and spills
-   of the attention and scan kernels (the SIMT float32 ones and the bf16
-   tensor-core ones).
+   of the attention, scan and grouped GEMM kernels (the 3xTF32 float32
+   ones, the SIMT float32 ones and the bf16 tensor-core ones).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram (weighted and not, bins below and above the
    shared-memory budget, out-of-range ids), the segment combine (every
@@ -20,7 +20,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    parameter-server path's two projections), and attention, decode
    attention and the SSD scan (see phase 5; bf16 attention and decode take
    the tensor-core kernels `flash_attention_sm90` and `flash_decode_sm90`,
-   float32 the SIMT ones).
+   float32 attention the 3xTF32 kernel `flash_attention_tf32`, float32
+   decode the SIMT one).
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -75,7 +76,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    runs, float32 on the same inputs for bf16) within the tolerances stated
    at ATTN_REL and SSD_REL; each stage must launch its kernel once
    (`ATTN_EXPECTED`: the bf16 attention and decode stages the `*_sm90`
-   kernels, the float32 ones the SIMT kernels). Phase 2 holds the five
+   kernels, float32 attention `flash_attention_tf32`, float32 decode the
+   SIMT kernel). Phase 2 holds the five
    kernels against their plain versions at the FLASH / DECODE / MAMBA
    geometries of tests/test_kernels.py and at edge cases
    (`attention_ssm_parity`).
@@ -85,7 +87,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    `torch._grouped_mm` where it takes float32,
    `F.scaled_dot_product_attention`; none for the SSD scan), and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 67
-   TFLOP/s in float32 or 989 TFLOP/s in bf16, whichever is larger).
+   TFLOP/s in float32 FMAs, 495/3 TFLOP/s for the float32 kernels that
+   run 3xTF32 on the tensor cores (with the FMA bound beside it), or 989
+   TFLOP/s in bf16, whichever is larger).
 7. Device busy share: stages (a)-(c) once more under torch.profiler, after a
    warm-up run; the device's busy time (kernels, copies, fills) against the
    stage's wall time.
@@ -110,6 +114,9 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet) used for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# float32 work on the tensor cores in 3xTF32: three TF32 products (495
+# TFLOP/s dense) for each float32 one (moe_gemm, flash_attention_tf32)
+FP32_TC_OPS_PER_S = 495e12 / 3
 BF16_OPS_PER_S = 989e12  # dense, tensor cores
 
 P = 16
@@ -130,9 +137,9 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_resources(nvcc_log: Path, names=("fa_forward", "fa_sm90",
+def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "fd_split", "fd_sm90",
-                                             "ssd_scan")) -> dict:
+                                             "ssd_scan", "gg_tf32")) -> dict:
     """Registers, shared memory and spills per instantiation of the named
     kernels, as `nvcc -Xptxas=-v` reported them in the build's log."""
     out, entry, spills = {}, None, ""
@@ -389,7 +396,8 @@ def scale_by_context(contexts, reduced):
 def _launch(**kw):
     """A stage's launches per kernel: those named, 0 for the rest."""
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
-            "moe_gemm": 0, "flash_attention": 0, "flash_attention_sm90": 0,
+            "moe_gemm": 0, "flash_attention_tf32": 0,
+            "flash_attention_sm90": 0,
             "flash_decode": 0, "flash_decode_sm90": 0, "mamba_scan": 0,
             **kw}
 
@@ -1008,7 +1016,8 @@ def moe_gemm_timing(dev, t: dict, launches: int) -> dict:
     step: M = 1,024, K = 1,536, N = 1,024, G = 40), its out-projection
     (K = 512, N = 1,536), and a prefill-sized in-projection (4,096 tokens,
     M = 32,768): each against its plain version, the one PyTorch call for
-    it where the installed torch has one, and its bound."""
+    it where the installed torch has one, and its bound in 3xTF32 on the
+    tensor cores (with the FMA bound beside it)."""
     import torch
 
     from repro_torch.core import TorchBackend
@@ -1040,8 +1049,8 @@ def moe_gemm_timing(dev, t: dict, launches: int) -> dict:
         err = gemm_parity(dev, x, w, sz, label)
         bounds = sz.cpu().numpy()
         used = int((bounds > 0).sum())
-        b_ms, b_by = bound(4 * (M * K + used * K * N + M * N + E),
-                           2 * M * K * N)
+        nbytes, ops = 4 * (M * K + used * K * N + M * N + E), 2 * M * K * N
+        b_ms, b_by = bound(nbytes, ops, FP32_TC_OPS_PER_S)
         starts = np.r_[0, np.cumsum(bounds)]
         offs = torch.from_numpy(np.cumsum(bounds).astype(np.int32)).to(dev)
         wc = w.contiguous()  # the library call and the loop get stacks
@@ -1065,7 +1074,8 @@ def moe_gemm_timing(dev, t: dict, launches: int) -> dict:
             max_abs_err=err,
             ms=time_ms(lambda: grouped_gemm(x, w, sz)),
             plain_ms=time_ms(lambda: grouped_gemm_ref(x, w, sz)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            bound_fma_ms=bound(nbytes, ops)[0], library_ms=library_ms,
             library_note=note, matmul_loop_ms=time_ms(loop)))
     row = dict(name="moe_gemm", route="cuda",
                source="src/repro_torch/csrc/moe_gemm.cu",
@@ -1094,7 +1104,10 @@ BF16_ROUND = 2.0 ** -8  # relative rounding of a bf16 output (8-bit mantissa)
 # |want|). The output is a convex combination of v rows; float32 scores,
 # exponentials and sums over up to ~1,000 rows a lane (decode) or 64-key
 # tiles (prefill) leave a relative error of a few 1e-7 (√n·u32), so the JAX
-# suite's 2e-5 has a margin of 10x and more.
+# suite's 2e-5 has a margin of 10x and more. The prefill kernel's 3xTF32
+# products carry 21 bits of each operand (under 3·2^-20 a product, the
+# tensor core truncating each tile's sums); one TF32 rounding of them would
+# miss this gate many times over (tests/test_torch_tf32.py).
 ATTN_REL = 2e-5
 # SSD float32 against float64: |Δ| <= (SSD_REL + 8·u32·max|l|)·Σ|terms| +
 # 1e-6, Σ|terms| being the plain version run on |x|, |B|, |C|. SSD_REL
@@ -1141,9 +1154,12 @@ def attention_ssm_stages() -> list:
 def launched_kernel(kernel: str, dtype: str) -> str:
     """The counter a stage of family `kernel` launches in `dtype`: bf16
     attention and decode take the tensor-core kernels (`*_sm90`), float32
-    the SIMT ones; the scan has one kernel for both."""
+    attention the 3xTF32 one (`flash_attention_tf32`), float32 decode the
+    SIMT one; the scan has one kernel for both."""
     if kernel != "mamba_scan" and dtype == "bfloat16":
         return f"{kernel}_sm90"
+    if kernel == "flash_attention":
+        return "flash_attention_tf32"
     return kernel
 
 
@@ -1251,7 +1267,8 @@ def check_against_plain(st: dict, inputs: tuple, got, dtype: str,
 
 def attention_ssm_parity(dev) -> dict:
     """B5-B7 against their plain versions on the card (phase 2), each
-    case in float32 (the SIMT kernels) and bf16 (the tensor-core ones):
+    case in float32 (the 3xTF32 attention kernel, the SIMT decode and scan
+    kernels) and bf16 (the tensor-core ones):
     the FLASH, DECODE and MAMBA geometries of tests/test_kernels.py, hd 32,
     64 and 128 causal and not, ragged query tiles (S = 100, 300), non-causal
     S != T, decode with G = 1, 4, 8, 16 and 20 (two bf16 blocks a KV head),
@@ -1331,7 +1348,8 @@ def attention_ssm_parity(dev) -> dict:
     dt = 1 + 4 * torch.rand((2, 64, 3), generator=g, device=dev)
     A = -(5 + 20 * torch.rand((3,), generator=g, device=dev))
     run(st, (x, dt, A, Bc, Cc), "float32", "ssd with |dt·A| up to 125")
-    log(f"  attention: {n['flash_attention']} float32 (flash_attention) and "
+    log(f"  attention: {n['flash_attention_tf32']} float32 "
+        f"(flash_attention_tf32) and "
         f"{n['flash_attention_sm90']} bf16 (flash_attention_sm90) cases "
         "(the FLASH geometries, S = 100 and 300, non-causal S != T), causal "
         f"S != T refused; decode: {n['flash_decode']} float32 "
@@ -1398,9 +1416,13 @@ def _work(st: dict, dtype: str) -> tuple:
     """(bytes, operations, peak operations/s) of a stage: each input read
     once and the output written once; the operations its data needs (the
     causal half of the scores and of the scan's c x c products, the valid
-    prefix of a cache)."""
+    prefix of a cache). The rate is the one of the units the kernel runs
+    on: bf16 tensor cores, 3xTF32 on them for float32 attention, FMAs for
+    the other float32 kernels."""
     e = 2 if dtype == "bfloat16" else 4
-    rate = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    rate = BF16_OPS_PER_S if dtype == "bfloat16" else (
+        FP32_TC_OPS_PER_S if st["kernel"] == "flash_attention"
+        else FP32_OPS_PER_S)
     if st["kernel"] == "mamba_scan":
         B, S, nh, hd, ds, c = (st[k] for k in ("B", "S", "nh", "hd", "ds",
                                                 "chunk"))
@@ -1474,8 +1496,8 @@ def time_auto(fn) -> float:
 
 
 KERNEL_SOURCES = {
-    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                        "src/repro/kernels/flash_attention/kernel.py:75"),
+    "flash_attention_tf32": ("src/repro_torch/csrc/flash_attention_tf32.cu",
+                             "src/repro/kernels/flash_attention/kernel.py:75"),
     "flash_attention_sm90": ("src/repro_torch/csrc/flash_attention_sm90.cu",
                              "src/repro/kernels/flash_attention/kernel.py:75"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -1491,9 +1513,11 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
     """B5-B7 at every stage of the path, in float32 and bf16: the kernel,
     its plain version (on the same inputs, so computing in float32), the one
     PyTorch call for it (checked against the plain version first), and the
-    bound (bytes over 3.35 TB/s, or operations over 67 TFLOP/s in float32
-    or 989 TFLOP/s in bf16). One row per kernel; its first shape is the
-    headline, the rest are under `shapes`."""
+    bound (bytes over 3.35 TB/s, or operations at the rate `_work` gives:
+    989 TFLOP/s in bf16, 495/3 in 3xTF32, 67 in float32 FMAs; a 3xTF32
+    kernel's row also carries the FMA bound, `bound_fma_ms`). One row per
+    kernel; its first shape is the headline, the rest are under
+    `shapes`."""
     import torch
 
     by_kernel = {k: [] for k in KERNEL_SOURCES}
@@ -1504,6 +1528,8 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
                 (lambda st=st, inputs=inputs: _plain_call(st, inputs))
             nbytes, ops, rate = _work(st, dtype)
             b_ms, b_by = bound(nbytes, ops, rate)
+            fma = ({"bound_fma_ms": bound(nbytes, ops)[0]}
+                   if rate == FP32_TC_OPS_PER_S else {})
             lib, note = _library_call(st, inputs)
             library_ms = None
             if lib is not None:
@@ -1521,8 +1547,8 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
                 stage=st["tag"], dtype=dtype,
                 shape=f"{st['tag']}: {_stage_shape(st, dtype)}",
                 ms=time_auto(run), plain_ms=time_auto(plain),
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=ops,
-                library_ms=library_ms, library_note=note))
+                bound_ms=b_ms, bound_by=b_by, **fma, bytes=nbytes,
+                operations=ops, library_ms=library_ms, library_note=note))
             del inputs, run, plain, lib
             torch.cuda.empty_cache()
     rows = []
@@ -1535,9 +1561,11 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
         for s in shapes:
             lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
                    else f"null ({s['library_note']})")
+            fma = (f"; {s['bound_fma_ms']:.4f} in FMAs"
+                   if "bound_fma_ms" in s else "")
             log(f"  {name}: {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
                 f"library {lib}, bound {s['bound_ms']:.4f} by "
-                f"{s['bound_by']}) at {s['shape']}")
+                f"{s['bound_by']}{fma}) at {s['shape']}")
     return rows
 
 
@@ -1815,8 +1843,8 @@ def main() -> int:
                else f"null: {s['library_note']}")
         log(f"  moe_gemm: {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
             f"library {lib}, loop of matmuls {s['matmul_loop_ms']:.4f}, "
-            f"bound {s['bound_ms']:.4f} by {s['bound_by']}) at "
-            f"{s['shape']}")
+            f"bound {s['bound_ms']:.4f} by {s['bound_by']}; "
+            f"{s['bound_fma_ms']:.4f} in FMAs) at {s['shape']}")
     rows += attention_ssm_timing(dev, attn_launches, errors)
     for r in rows:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):

@@ -5,8 +5,8 @@
 // src/repro/kernels/flash_attention/kernel.py:75 (`_flash_kernel`), whose
 // grid (B, H, S / block_q, T / block_k) walked the key tiles of a query
 // tile in order on one core, keeping the online-softmax state (m, l, acc)
-// in VMEM scratch from one key tile to the next. float32 inputs keep the
-// SIMT kernel of flash_attention.cu.
+// in VMEM scratch from one key tile to the next. float32 inputs take the
+// 3xTF32 kernel of flash_attention_tf32.cu.
 //
 // o[b, r, h] = softmax_c(q[b, r, h] · k[b, c, h / G] · hd^-0.5) · v[b, c, h / G]
 // with, under `causal`, the score of every key c > r set to -2.0e38 (the

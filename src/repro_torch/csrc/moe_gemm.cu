@@ -20,35 +20,84 @@
 // decode step gives an expert a few dozen rows, so the weights dominate the
 // bytes (a 1,024-row in-projection over 40 experts reads 252 MB of weights
 // and 6 MB of activations). At prefill sizes (tens of thousands of rows)
-// it is the float32 arithmetic.
+// it is the arithmetic: 1.03e11 FLOP at M = 32,768, K = 1,536, N = 1,024.
 //
 // Design: the prologue (`gg_plan`, one block) takes an exclusive scan of
-// the clamped group sizes and of ceil(size / kBM), and writes one entry per
-// row tile: (group, first row, end row). The tiles of the zero tail follow
-// with group -1, and the rest of the worst-case grid of ceil(M/kBM) + G
-// tiles with -2, whose blocks exit at once. The main kernel (`gg_tile`)
-// gives each block one kBM x kBN output tile; x and w[g] pass through
-// shared memory in slices of kBK along K, and each of the 256 threads keeps
-// a 4 x 4 register block of sums in float32 FMA. Every load and store is
-// bounds-checked, so any M, K and N work.
-//
-// Later work, not done here: TF32 or bf16 tensor cores through wgmma, TMA
-// loads into a ring of shared-memory stages, and a persistent schedule.
+// the clamped group sizes and of ceil(size / BM), and writes one entry per
+// row tile of BM rows: (group, first row, end row). The tiles of the zero
+// tail follow with group -1, and the rest of the worst-case grid of
+// ceil(M / BM) + G tiles with -2, whose blocks exit at once. The main
+// kernel (`gg_tf32`) gives each block one BM x 128 output tile, the column
+// tiles of a row tile next to each other in launch order (they share the x
+// tile in L2). BM is 128, or 64 where the groups average fewer than 128
+// rows (a decode step: ~26 an expert), so that a hot expert's rows spread
+// over more blocks, and two blocks share an SM:
+// - Products on the tensor cores in 3xTF32: each float32 operand is split
+//   into TF32 hi (a truncated) and lo = a - hi (truncated to TF32 by the
+//   tensor core; `sm90::split_tf32`), and hi·hi + hi·lo + lo·hi go into
+//   float32 sums (`sm90::mma_3xtf32`). One TF32 rounding would miss the
+//   float32 gate (chip_smoke.py's TF32 control); the split keeps 21 bits
+//   of each operand, at 3 products for one: 165 TFLOP/s of float32 work
+//   at the card's 495 TFLOP/s in TF32, against 67 in FMAs.
+// - `mma.sync` m16n8k8, with fragments read by plain shared-memory loads
+//   and split in registers. TF32 `wgmma` takes B K-major from shared
+//   memory only, and w (K x N, N contiguous) is N-major: it would need a
+//   transposing split pass through shared memory and twice the ring. With
+//   `mma.sync` any layout works, no copy is made, and each thread splits
+//   the values it loads.
+// - The tiles of x and w pass through a ring of kStages shared-memory
+//   stages by `cp.async`, with rows padded so the fragment loads hit 32
+//   banks (x rows kBK + 8 floats, read as float2: the depth of each k8
+//   step is permuted, slot t <-> 2t and t + 4 <-> 2t + 1, the same in a
+//   and b, so a thread's two a values lie side by side; w rows kBN + 4).
+//   The wrapper chooses 16-byte copies where x, w and their strides are
+//   16-byte aligned, and 4-byte copies otherwise. Rows at or past the
+//   tile's end row and columns past K or N are filled with zeros, not read.
+// - 8 warps as 2 x 4, each a BM / 2 x 32 piece (at 128 rows 4 x 4 m16n8
+//   tiles: per k8 step a warp loads 24 values, splits them, and issues 48
+//   products). A warp skips the m16 row tiles past the tile's end row, so
+//   a decode expert of 26 rows costs 2 m16 tiles' products. The number of
+//   row tiles is a template argument of the stage's loop (one switch a
+//   stage), so no branch sits between the products: with one there, ptxas
+//   kept them in order and the loop ran at half the speed.
+// - The tensor core truncates the float32 sum it writes (round toward
+//   zero), so a sum carried through every product of K = 1,536 would
+//   drift by up to 2^-23 of itself per product, 576 of them: several
+//   times the parameter server's gate of 1e-5. Each stage's 12 products go
+//   into sums of their own, which are added to the tile's sums in float32
+//   (rounded to nearest) after the stage.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kBM = 64;  // rows of a tile
-constexpr int kBN = 64;  // columns of a tile
-constexpr int kBK = 16;  // depth of one shared-memory slice
-constexpr int kTM = 4;   // rows of a thread's register block
-constexpr int kTN = 4;   // columns of a thread's register block
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
+constexpr int kBN = 128;  // columns of a tile
+constexpr int kBK = 32;   // depth of one ring stage
+constexpr int kStages = 4;
+constexpr int kThreads = 256;  // 8 warps: 2 along rows x 4 along columns
+constexpr int kWN = 32;        // a warp's columns of the tile
+constexpr int kLdA = kBK + 8;  // x rows in shared memory (floats)
+constexpr int kLdB = kBN + 4;  // w rows in shared memory (floats)
 constexpr int kPlanThreads = 1024;
 
-static_assert(kBM * kBK % kThreads == 0, "x slice must split evenly");
-static_assert(kBK * kBN % kThreads == 0, "w slice must split evenly");
+static_assert(kBN == 4 * kWN, "8 warps as 2 x 4");
+static_assert(kLdA % 32 == 8 && kLdB % 32 == 4, "conflict-free fragments");
+
+// A tile of BM rows (128, or 64 where groups are small): each warp takes
+// BM / 2 rows. At 64 rows two blocks share an SM.
+template <int BM>
+struct Tile {
+  static constexpr int kWM = BM / 2;
+  static constexpr int kStageFloats = BM * kLdA + kBK * kLdB;
+  // 149,504 bytes at 128 rows, 108,544 at 64
+  static constexpr int kSmem = kStages * kStageFloats * 4;
+  static constexpr int kBlocksPerSM = BM == 64 ? 2 : 1;
+  static_assert(BM == 64 || BM == 128, "tiles of 64 or 128 rows");
+};
 
 // Inclusive scan of one value per thread over the block (Hillis-Steele).
 // Leaves the block's total in buf[blockDim.x - 1]; the caller synchronizes
@@ -68,7 +117,8 @@ __device__ long long block_inclusive_scan(long long v, long long* buf) {
 // plan[t] = (group, first row, end row, 0) for t in [0, num_tiles); group
 // -1 marks a tile of the zero tail, -2 a tile with no rows.
 __global__ void gg_plan(const int* __restrict__ sizes, int G, int M,
-                        int num_tiles, int4* __restrict__ plan) {
+                        int tile_rows, int num_tiles,
+                        int4* __restrict__ plan) {
   __shared__ long long buf[kPlanThreads];
   long long row_carry = 0, tile_carry = 0;  // the same in every thread
   for (int base = 0; base < G; base += kPlanThreads) {
@@ -79,15 +129,15 @@ __global__ void gg_plan(const int* __restrict__ sizes, int G, int M,
     __syncthreads();
     const long long r0 = min(rows_incl - s, static_cast<long long>(M));
     const long long r1 = min(rows_incl, static_cast<long long>(M));
-    const long long t = (r1 - r0 + kBM - 1) / kBM;
+    const long long t = (r1 - r0 + tile_rows - 1) / tile_rows;
     const long long tiles_incl = tile_carry + block_inclusive_scan(t, buf);
     const long long tiles_total = buf[kPlanThreads - 1];
     __syncthreads();
     for (long long j = 0; j < t; ++j) {
       const long long tile = tiles_incl - t + j;
       if (tile < num_tiles) {
-        plan[tile] = make_int4(g, static_cast<int>(r0 + j * kBM),
-                               static_cast<int>(min(r0 + (j + 1) * kBM, r1)),
+        plan[tile] = make_int4(g, static_cast<int>(r0 + j * tile_rows),
+                               static_cast<int>(min(r0 + (j + 1) * tile_rows, r1)),
                                0);
       }
     }
@@ -95,114 +145,245 @@ __global__ void gg_plan(const int* __restrict__ sizes, int G, int M,
     tile_carry += tiles_total;
   }
   const long long z0 = min(row_carry, static_cast<long long>(M));
-  const long long zero_tiles = (M - z0 + kBM - 1) / kBM;
+  const long long zero_tiles = (M - z0 + tile_rows - 1) / tile_rows;
   for (long long tile = tile_carry + threadIdx.x; tile < num_tiles;
        tile += blockDim.x) {
     const long long j = tile - tile_carry;
     plan[tile] = j < zero_tiles
-        ? make_int4(-1, static_cast<int>(z0 + j * kBM),
-                    static_cast<int>(min(z0 + (j + 1) * kBM,
+        ? make_int4(-1, static_cast<int>(z0 + j * tile_rows),
+                    static_cast<int>(min(z0 + (j + 1) * tile_rows,
                                          static_cast<long long>(M))), 0)
         : make_int4(-2, 0, 0, 0);
   }
 }
 
-// One kBM x kBN tile of y = x[rows] @ w[g]; blockIdx.x is the row tile,
-// blockIdx.y the column tile.
-__global__ void __launch_bounds__(kThreads)
-gg_tile(const float* __restrict__ x, const float* __restrict__ w,
+// Copy stage `kt` (depth k0 = kt * kBK) of the x rows [row0, row_end) and
+// of w[g]'s columns [n0, n0 + kBN) into shared memory. kVec = 4: 16-byte
+// copies (x, w and their strides 16-byte aligned); kVec = 1: 4-byte ones.
+template <int BM, int kVec>
+__device__ __forceinline__ void load_stage(
+    float* as, float* bs, const float* __restrict__ x,
+    const float* __restrict__ wg, long long w_row_stride, int row0,
+    int row_end, int n0, int k0, int K, int N) {
+  constexpr int kAChunks = BM * kBK / kVec / kThreads;
+  constexpr int kBChunks = kBK * kBN / kVec / kThreads;
+#pragma unroll
+  for (int l = 0; l < kAChunks; ++l) {
+    const int c = threadIdx.x + l * kThreads;
+    const int r = c / (kBK / kVec), kk = (c % (kBK / kVec)) * kVec;
+    const int row = row0 + r, k = k0 + kk;
+    const int n_in = row < row_end ? max(0, min(kVec, K - k)) : 0;
+    const float* src = n_in ? x + static_cast<long long>(row) * K + k : x;
+    if constexpr (kVec == 4)
+      sm90::cp_async16(as + r * kLdA + kk, src, 4 * n_in);
+    else
+      sm90::cp_async4(as + r * kLdA + kk, src, 4 * n_in);
+  }
+#pragma unroll
+  for (int l = 0; l < kBChunks; ++l) {
+    const int c = threadIdx.x + l * kThreads;
+    const int kk = c / (kBN / kVec), nn = (c % (kBN / kVec)) * kVec;
+    const int k = k0 + kk, n = n0 + nn;
+    const int n_in = k < K ? max(0, min(kVec, N - n)) : 0;
+    const float* src = n_in ? wg + k * w_row_stride + n : wg;
+    if constexpr (kVec == 4)
+      sm90::cp_async16(bs + kk * kLdB + nn, src, 4 * n_in);
+    else
+      sm90::cp_async4(bs + kk * kLdB + nn, src, 4 * n_in);
+  }
+}
+
+// One ring stage's products for the warp's first MT m16 row tiles and
+// its kWN columns (as / bs: the warp's rows of the x tile, its columns of
+// the w tile), into stage sums that are then added to acc.
+template <int WM, int MT>
+__device__ __forceinline__ void stage_products(
+    const float* as, const float* bs, float (&acc)[WM / 16][kWN / 8][4]) {
+  const int gr = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  float part[MT][kWN / 8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kBK / 8; ++ks) {
+    uint32_t a_hi[MT][4], a_lo[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float* ap = as + (16 * i + gr) * kLdA + 8 * ks + 2 * t;
+      const float2 u = *reinterpret_cast<const float2*>(ap);
+      const float2 v = *reinterpret_cast<const float2*>(ap + 8 * kLdA);
+      sm90::split_tf32(u.x, a_hi[i][0], a_lo[i][0]);
+      sm90::split_tf32(v.x, a_hi[i][1], a_lo[i][1]);
+      sm90::split_tf32(u.y, a_hi[i][2], a_lo[i][2]);
+      sm90::split_tf32(v.y, a_hi[i][3], a_lo[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j) {
+      const float* bp = bs + (8 * ks + 2 * t) * kLdB + 8 * j + gr;
+      uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
+      sm90::split_tf32(bp[0], b_hi0, b_lo0);
+      sm90::split_tf32(bp[kLdB], b_hi1, b_lo1);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        sm90::mma_3xtf32(part[i][j], a_hi[i], a_lo[i], b_hi0, b_hi1, b_lo0,
+                         b_lo1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// stage_products for the warp's m_tiles row tiles (none for 0): one branch
+// a stage, none between the products.
+template <int WM, int MT = WM / 16>
+__device__ __forceinline__ void stage_products_for(
+    int m_tiles, const float* as, const float* bs,
+    float (&acc)[WM / 16][kWN / 8][4]) {
+  if (m_tiles == MT)
+    stage_products<WM, MT>(as, bs, acc);
+  else if constexpr (MT > 1)
+    stage_products_for<WM, MT - 1>(m_tiles, as, bs, acc);
+}
+
+// One BM x kBN tile of y = x[rows] @ w[g] in 3xTF32; block b is column
+// tile b % n_col_tiles of row tile b / n_col_tiles.
+template <int BM, int kVec>
+__global__ void __launch_bounds__(kThreads, Tile<BM>::kBlocksPerSM)
+gg_tf32(const float* __restrict__ x, const float* __restrict__ w,
         long long w_group_stride, long long w_row_stride,
-        const int4* __restrict__ plan, int K, int N, float* __restrict__ y) {
-  const int4 p = plan[blockIdx.x];
+        const int4* __restrict__ plan, int K, int N, int n_col_tiles,
+        float* __restrict__ y) {
+  const int4 p = plan[blockIdx.x / n_col_tiles];
   const int g = p.x, row0 = p.y, row_end = p.z;
   if (g == -2) return;
-  const int n0 = blockIdx.y * kBN;
+  const int n0 = (blockIdx.x % n_col_tiles) * kBN;
   if (g == -1) {
-    for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
+    for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
       const int r = row0 + i / kBN, c = n0 + i % kBN;
       if (r < row_end && c < N) y[static_cast<long long>(r) * N + c] = 0.f;
     }
     return;
   }
-  // x slice k-major, padded so the 16-byte row reads stay aligned and the
-  // transposing stores spread over the banks
-  __shared__ __align__(16) float xs[kBK][kBM + 4];
-  __shared__ __align__(16) float ws[kBK][kBN];
+  using C = Tile<BM>;
+  constexpr int kWM = C::kWM, kStageFloats = C::kStageFloats;
+  extern __shared__ __align__(16) float smem[];
   const float* wg = w + g * w_group_stride;
-  const int tx = threadIdx.x % (kBN / kTN);  // column lane: tx + 16 j
-  const int ty = threadIdx.x / (kBN / kTN);  // row block: 4 ty + i
-  float acc[kTM][kTN];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  // the warp's m16 row tiles that hold rows of the group
+  const int m_tiles =
+      min(kWM / 16, max(0, (row_end - row0 - wm * kWM + 15) / 16));
+  float acc[kWM / 16][kWN / 8][4];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
+  for (int i = 0; i < kWM / 16; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  const int n_k = (K + kBK - 1) / kBK;
 #pragma unroll
-    for (int l = 0; l < kBM * kBK / kThreads; ++l) {
-      const int i = threadIdx.x + l * kThreads;
-      const int r = i / kBK, kk = i % kBK;
-      const int row = row0 + r, k = k0 + kk;
-      xs[kk][r] = (row < row_end && k < K)
-          ? x[static_cast<long long>(row) * K + k] : 0.f;
-    }
-#pragma unroll
-    for (int l = 0; l < kBK * kBN / kThreads; ++l) {
-      const int i = threadIdx.x + l * kThreads;
-      const int kk = i / kBN, c = i % kBN;
-      const int k = k0 + kk, n = n0 + c;
-      ws[kk][c] = (k < K && n < N) ? wg[k * w_row_stride + n] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], b[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = xs[kk][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = ws[kk][tx + j * (kBN / kTN)];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_k)
+      load_stage<BM, kVec>(smem + s * kStageFloats,
+                           smem + s * kStageFloats + BM * kLdA, x, wg,
+                           w_row_stride, row0, row_end, n0, s * kBK, K, N);
+    sm90::cp_async_commit();
   }
+  for (int kt = 0; kt < n_k; ++kt) {
+    sm90::cp_async_wait<kStages - 2>();  // stage kt has landed
+    __syncthreads();  // ... for every thread, and stage kt - 1 is free
+    const int next = kt + kStages - 1;
+    if (next < n_k) {
+      float* st = smem + (next % kStages) * kStageFloats;
+      load_stage<BM, kVec>(st, st + BM * kLdA, x, wg, w_row_stride, row0,
+                           row_end, n0, next * kBK, K, N);
+    }
+    sm90::cp_async_commit();
+    const float* as = smem + (kt % kStages) * kStageFloats + wm * kWM * kLdA;
+    const float* bs = smem + (kt % kStages) * kStageFloats + BM * kLdA +
+                      wn * kWN;
+    stage_products_for<kWM>(m_tiles, as, bs, acc);
+  }
+  sm90::cp_async_wait<0>();
+
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty * kTM + i;
-    if (r >= row_end) continue;
+  for (int i = 0; i < kWM / 16; ++i) {
+    if (i >= m_tiles) continue;
+    const int r = row0 + wm * kWM + 16 * i + gr;
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = n0 + tx + j * (kBN / kTN);
-      if (c < N) y[static_cast<long long>(r) * N + c] = acc[i][j];
+    for (int j = 0; j < kWN / 8; ++j) {
+      const int c = n0 + wn * kWN + 8 * j + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = r + (e / 2) * 8, cc = c + (e % 2);
+        if (rr < row_end && cc < N)
+          y[static_cast<long long>(rr) * N + cc] = acc[i][j][e];
+      }
     }
   }
 }
 
-}  // namespace
+template <int BM, int kVec>
+cudaError_t launch_tiles(const float* x, const float* w,
+                         long long w_group_stride, long long w_row_stride,
+                         const int4* plan, int K, int N, int num_tiles,
+                         float* y, cudaStream_t stream) {
+  constexpr int kSmem = Tile<BM>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      gg_tf32<BM, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_col_tiles = (N + kBN - 1) / kBN;
+  const long long blocks = static_cast<long long>(num_tiles) * n_col_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  gg_tf32<BM, kVec><<<static_cast<unsigned>(blocks), kThreads, kSmem,
+                      stream>>>(x, w, w_group_stride, w_row_stride, plan, K,
+                                N, n_col_tiles, y);
+  return cudaGetLastError();
+}
 
-extern "C" int tdorch_grouped_gemm_tile_rows() { return kBM; }
+}  // namespace
 
 // x: (M, K) float32, rows sorted by group; w: (G, K, N) float32, element
 // (g, k, n) at w[g * w_group_stride + k * w_row_stride + n]; sizes: (G,)
-// int32 on the device; plan: (num_tiles, 4) int32 scratch with num_tiles =
-// ceil(M / kBM) + G; y: (M, N) float32, fully written.
+// int32 on the device; tile_rows: 64 or 128 (the wrapper takes 64 where the
+// groups average fewer than 128 rows); plan: (num_tiles, 4) int32 scratch
+// with num_tiles = ceil(M / tile_rows) + G; y: (M, N) float32, fully
+// written. vec16: x, w, K and both strides allow 16-byte copies (the
+// wrapper decides from the shape).
 extern "C" int tdorch_grouped_gemm(int device, const float* x, const float* w,
                                    long long w_group_stride,
                                    long long w_row_stride, const int* sizes,
-                                   int M, int K, int N, int G, int num_tiles,
-                                   int* plan, float* y, cudaStream_t stream) {
+                                   int M, int K, int N, int G, int tile_rows,
+                                   int num_tiles, int vec16, int* plan,
+                                   float* y, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (tile_rows != 64 && tile_rows != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0 && N > 0 && num_tiles > 0) {
     int4* plan4 = reinterpret_cast<int4*>(plan);
-    gg_plan<<<1, kPlanThreads, 0, stream>>>(sizes, G, M, num_tiles, plan4);
+    gg_plan<<<1, kPlanThreads, 0, stream>>>(sizes, G, M, tile_rows,
+                                            num_tiles, plan4);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(num_tiles, (N + kBN - 1) / kBN);
-    gg_tile<<<grid, kThreads, 0, stream>>>(x, w, w_group_stride,
-                                           w_row_stride, plan4, K, N, y);
+    using Launch = cudaError_t (*)(const float*, const float*, long long,
+                                   long long, const int4*, int, int, int,
+                                   float*, cudaStream_t);
+    const Launch launch = tile_rows == 64
+        ? (vec16 ? &launch_tiles<64, 4> : &launch_tiles<64, 1>)
+        : (vec16 ? &launch_tiles<128, 4> : &launch_tiles<128, 1>);
+    err = launch(x, w, w_group_stride, w_row_stride, plan4, K, N, num_tiles,
+                 y, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

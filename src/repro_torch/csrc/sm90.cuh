@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the bf16 attention kernels
-// (flash_attention_sm90.cu, flash_decode.cu): mbarriers, TMA tile loads
-// and the host-side tensor maps that describe them, warp-level
-// `ldmatrix` / `mma.sync`, and the exponential in base 2.
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels
+// (flash_attention_sm90.cu, flash_decode.cu, flash_attention_tf32.cu,
+// moe_gemm.cu): mbarriers, TMA tile loads and the host-side tensor maps
+// that describe them, `cp.async` copies, warp-level `ldmatrix` /
+// `mma.sync` (bf16 and TF32), the 3xTF32 split of a float32 value, and
+// the exponential in base 2.
 //
 // The tensor maps are encoded with `cuTensorMapEncodeTiled`, looked up
 // through the runtime (`cudaGetDriverEntryPoint`), so the library links
@@ -97,6 +99,37 @@ __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
   return row * RowBytes + ((chunk ^ x) << 4);
 }
 
+// ---- cp.async ------------------------------------------------------------
+// Copy `bytes` (0-16) of the 16-byte chunk at `src` to `dst` and fill the
+// rest of the 16 bytes with zeros; both addresses 16-byte aligned. With
+// bytes == 0 nothing is read (`src` must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The same for one 4-byte word (bytes 0 or 4), 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `N` of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- warp-level tensor-core operations ------------------------------------
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -126,6 +159,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a · b for one m16n8k8 tile of TF32 operands (a row-major, b column-
+// major; each a 32-bit register whose low 13 bits are zero), float32 d.
+// Fragments (g = lane / 4, t = lane % 4): a = {(g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4)}, b = {(t, g), (t + 4, g)}, d = {(g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---- arithmetic -----------------------------------------------------------
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -144,6 +192,33 @@ __device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// A float32 value as TF32 `hi` and the rest `lo`: hi = a with its 13 low
+// mantissa bits cleared (TF32 by truncation, what the tensor core would
+// read from a alone), lo = a − hi, exact in float32, passed as it is and
+// truncated to TF32 by the tensor core. hi + lo carries 21 bits of a's
+// 24: a product hi·hi + hi·lo + lo·hi misses a·b by less than 3·2^-20 of
+// |a·b| (one TF32 truncation of each operand misses by up to 2^-9). Two
+// instructions, where a rounding to nearest (`cvt.rna`, which compiles to
+// several) would cost about three times as many: the split, not the
+// product, is what these kernels' inner loops issue most.
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(a) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d += a · b in 3xTF32: the two small products first, then the large one,
+// each an m16n8k8 product into the same float32 sums.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           uint32_t b_hi0, uint32_t b_hi1,
+                                           uint32_t b_lo0, uint32_t b_lo1) {
+  mma_tf32(d, a_lo, b_hi0, b_hi1);
+  mma_tf32(d, a_hi, b_lo0, b_lo1);
+  mma_tf32(d, a_hi, b_hi0, b_hi1);
 }
 
 // ---- host: tensor maps ----------------------------------------------------

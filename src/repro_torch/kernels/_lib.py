@@ -29,7 +29,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
-           "stage_fused.cu", "moe_gemm.cu", "flash_attention.cu",
+           "stage_fused.cu", "moe_gemm.cu", "flash_attention_tf32.cu",
            "flash_attention_sm90.cu", "flash_decode.cu", "mamba_scan.cu")
 HEADERS = ("sm90.cuh",)  # included by the sources; part of the build's key
 LIBRARY = "libtdorch_kernels.so"
@@ -37,7 +37,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
-           "flash_attention", "flash_attention_sm90", "flash_decode",
+           "flash_attention_tf32", "flash_attention_sm90", "flash_decode",
            "flash_decode_sm90", "mamba_scan")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -134,10 +134,9 @@ def load() -> ctypes.CDLL:
                                 ptr],
         "tdorch_histogram_shared_bins": [],
         "tdorch_grouped_gemm": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
-                                i32, i32, i32, ptr, ptr, ptr],
-        "tdorch_grouped_gemm_tile_rows": [],
-        "tdorch_flash_attention": [i32, ptr, ptr, ptr, i32, i32, i32, i32,
-                                   i32, i32, f32, i32, ptr, ptr],
+                                i32, i32, i32, i32, i32, ptr, ptr, ptr],
+        "tdorch_flash_attention_tf32": [i32, ptr, ptr, ptr, i32, i32, i32,
+                                        i32, i32, i32, f32, i32, ptr, ptr],
         "tdorch_flash_attention_sm90": [i32, ptr, ptr, ptr, i32, i32, i32,
                                         i32, i32, i32, f32, i32, ptr, ptr],
         "tdorch_flash_decode": [i32, ptr, ptr, ptr, ptr, i64, i32, i32, i32,

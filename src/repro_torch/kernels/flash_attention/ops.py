@@ -1,7 +1,7 @@
 """GQA flash attention: `attention` launches a CUDA kernel for a CUDA
 tensor — `csrc/flash_attention_sm90.cu` (wgmma + TMA) for bfloat16,
-`csrc/flash_attention.cu` (SIMT) for float32 — and runs the plain version
-(`ref.py`) for a CPU tensor."""
+`csrc/flash_attention_tf32.cu` (3xTF32 on the tensor cores) for float32 —
+and runs the plain version (`ref.py`) for a CPU tensor."""
 from __future__ import annotations
 
 import torch
@@ -22,8 +22,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     otherwise: the JAX package's kernel and oracle disagree there). On the
     card q, k, v must be contiguous, 16-byte aligned float32 or bfloat16
     of one dtype, with hd in {32, 64, 128}: bfloat16 launches the
-    tensor-core kernel (counted as "flash_attention_sm90"), float32 the
-    SIMT one ("flash_attention")."""
+    wgmma kernel (counted as "flash_attention_sm90"), float32 the 3xTF32
+    one ("flash_attention_tf32"), whose float32 accuracy does not depend
+    on `torch.backends.cuda.matmul.allow_tf32`."""
     B, S, H, hd, T, KV, G = attention_shapes(q, k, v, causal)
     if not _lib.on_cuda(q):
         return attention_ref(q, k, v, causal=causal)
@@ -41,7 +42,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "kernel's grid")
     out = torch.empty_like(q)
     name = ("flash_attention_sm90" if q.dtype == torch.bfloat16
-            else "flash_attention")
+            else "flash_attention_tf32")
     rc = getattr(_lib.load(), f"tdorch_{name}")(
         dev.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, T, H,
         KV, hd, hd ** -0.5, int(bool(causal)), out.data_ptr(),

@@ -1,6 +1,6 @@
 """Grouped GEMM for MoE experts: `grouped_gemm` launches the CUDA kernel
-(`csrc/moe_gemm.cu`) for a CUDA tensor and runs the plain version
-(`ref.py`) for a CPU tensor.
+(`csrc/moe_gemm.cu`, float32 products in 3xTF32 on the tensor cores) for a
+CUDA tensor and runs the plain version (`ref.py`) for a CPU tensor.
 
 Also home of `gathered_swiglu`, the gathered-weights form of the expert
 FFN that the parameter server's `MoERouter` stage lambda runs: each task
@@ -27,7 +27,8 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     must be contiguous float32, w float32 with dense rows (a strided view,
     such as a slice of wider weight rows, is read in place) and group_sizes
     contiguous int32, all on one device; the sizes stay there (no host
-    sync)."""
+    sync). The kernel's float32 accuracy (3xTF32) does not depend on
+    `torch.backends.cuda.matmul.allow_tf32`."""
     if not _lib.on_cuda(x):
         return grouped_gemm_ref(x, w, group_sizes)
     dev = x.device
@@ -41,8 +42,9 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     if group_sizes.shape[0] != G:
         raise ValueError(f"group_sizes has {group_sizes.shape[0]} entries "
                          f"for {G} groups")
+    rows = tile_rows(M, G)
     # the worst case: every nonempty group adds one partly filled tile
-    num_tiles = -(-M // int(_lib.load().tdorch_grouped_gemm_tile_rows())) + G
+    num_tiles = -(-M // rows) + G
     if max(M, K, N, num_tiles) > _I32_MAX:
         raise ValueError(f"shape (M={M}, K={K}, N={N}, G={G}) is beyond the "
                          "kernel's int32 operands")
@@ -52,11 +54,26 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     plan = torch.empty((num_tiles, 4), dtype=torch.int32, device=dev)
     rc = _lib.load().tdorch_grouped_gemm(
         dev.index or 0, x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
-        group_sizes.data_ptr(), M, K, N, G, num_tiles, plan.data_ptr(),
-        out.data_ptr(), _lib.stream(x))
+        group_sizes.data_ptr(), M, K, N, G, rows, num_tiles,
+        int(copies16(x, w)), plan.data_ptr(), out.data_ptr(), _lib.stream(x))
     _lib.check(rc, "moe_gemm")
     _lib.count("moe_gemm")
     return out
+
+
+def tile_rows(M: int, G: int) -> int:
+    """The kernel's rows a tile: 64 where the G groups average fewer than
+    128 of the M rows (a decode step), else 128."""
+    return 64 if M < 128 * G else 128
+
+
+def copies16(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the kernel may load x and w in 16-byte copies: both bases
+    16-byte aligned, and K and w's group and row strides multiples of 4
+    floats. Otherwise it loads them 4 bytes at a time."""
+    return (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            and x.shape[1] % 4 == 0 and w.stride(0) % 4 == 0
+            and w.stride(1) % 4 == 0)
 
 
 def gathered_swiglu(x, w_in, w_out, gate):

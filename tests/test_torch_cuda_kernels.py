@@ -6,14 +6,17 @@ imports no JAX, so it runs on a machine with the card alone:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
-Inputs are the seeded numpy cases of the FLASH / DECODE / MAMBA families
-of `tests/test_kernels.py`. Tolerances are the JAX suite's: atol = rtol =
-2e-5 for attention and decode in float32 (sums in other orders), 1e-3 for
-the scan, 3e-2 for bf16 (rounding of inputs and outputs). The bf16
-tensor-core kernels (`flash_attention_sm90`, `flash_decode_sm90`) are also
-held to `chip_smoke.py`'s gate: within ATTN_REL·(1+|ref|) + 2^-8·|ref| of
-the plain version run in float32 on the same bf16 inputs (the output's
-own rounding plus the float32 gate).
+Inputs are the seeded numpy cases of the FLASH / DECODE / MAMBA / MOE
+families of `tests/test_kernels.py`. Tolerances are the JAX suite's: atol
+= rtol = 2e-5 for attention and decode in float32 (sums in other orders),
+1e-3 for the scan, 3e-2 for bf16 (rounding of inputs and outputs). The
+bf16 tensor-core kernels (`flash_attention_sm90`, `flash_decode_sm90`) are
+also held to `chip_smoke.py`'s gate: within ATTN_REL·(1+|ref|) +
+2^-8·|ref| of the plain version run in float32 on the same bf16 inputs
+(the output's own rounding plus the float32 gate). The 3xTF32 kernels
+(`flash_attention_tf32`, the grouped GEMM `moe_gemm`) are held to
+chip_smoke.py's float32 gates against the plain version in float64:
+ATTN_REL·(1+|ref|), and 1e-5·Σ|x w| + 1e-6 for the GEMM.
 """
 import numpy as np
 import pytest
@@ -24,6 +27,8 @@ from repro_torch.kernels import attention, decode_attention, mamba_ssd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
+from repro_torch.kernels.moe_gemm.ops import copies16, grouped_gemm, tile_rows
+from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -65,7 +70,7 @@ def test_attention_kernel(dev, geom, dtype):
         dev, getattr(torch, dtype)) for n in (H, KV, KV))
     got = attention(q, k, v, causal=causal)
     want = attention_ref(q, k, v, causal=causal)
-    name = "flash_attention" if dtype == "float32" else \
+    name = "flash_attention_tf32" if dtype == "float32" else \
         "flash_attention_sm90"
     assert kernels.launches()[name] == 1
     tol = TOL["attention" if dtype == "float32" else "bf16"]
@@ -132,7 +137,140 @@ def test_attention_sm90_bf16_gate(dev, S, T, H, KV, hd, causal):
     got = attention(q, k, v, causal=causal)
     _bf16_gate(got, q, k, v, attention_ref, causal=causal)
     assert kernels.launches()["flash_attention_sm90"] == 1
-    assert kernels.launches()["flash_attention"] == 0
+    assert kernels.launches()["flash_attention_tf32"] == 0
+
+
+@pytest.mark.parametrize("S,T,H,KV,hd,causal", [
+    (S, S, H, KV, hd, causal)
+    for (S, H, KV, hd) in [(128, 4, 4, 64), (256, 8, 2, 64),
+                           (128, 4, 1, 128), (64, 2, 2, 32),
+                           (100, 4, 2, 64), (300, 4, 2, 128),
+                           (100, 2, 1, 32)]
+    for causal in (True, False)] + [
+    (48, 80, 4, 2, 32, False), (200, 129, 4, 1, 64, False),
+    (130, 384, 8, 2, 128, False)])
+def test_attention_tf32_float32_gate(dev, S, T, H, KV, hd, causal):
+    """The 3xTF32 kernel at hd 32 / 64 / 128, GQA, causal and not, ragged
+    S (100, 300), non-causal S != T: within ATTN_REL·(1+|ref|) of the
+    plain version in float64."""
+    rng = np.random.default_rng(9)
+    q = torch.from_numpy(_normal(rng, 2, S, H, hd)).to(dev)
+    k, v = (torch.from_numpy(_normal(rng, 2, T, KV, hd)).to(dev)
+            for _ in range(2))
+    got = attention(q, k, v, causal=causal)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    want = attention_ref(q.double(), k.double(), v.double(), causal=causal)
+    err = (got.double() - want).abs()
+    allowed = ATTN_REL * (1 + want.abs())
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+    assert kernels.launches()["flash_attention_tf32"] == 1
+    assert kernels.launches()["flash_attention_sm90"] == 0
+
+
+def _gemm_gate(x, w, sizes):
+    """grouped_gemm on the card within 1e-5·Σ|x w| + 1e-6 of the plain
+    version in float64 (chip_smoke.py's `gemm_parity`)."""
+    got = grouped_gemm(x, w, sizes)
+    want = grouped_gemm_ref(x.double(), w.double(), sizes)
+    mags = grouped_gemm_ref(x.abs().double(), w.abs().double(), sizes)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    err = (got.double() - want).abs()
+    allowed = 1e-5 * mags + 1e-6
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+    return got
+
+
+def _moe(rng, G, M, K, N, dev):
+    cuts = np.sort(rng.integers(0, M + 1, size=G - 1))
+    sizes = np.diff(np.r_[0, cuts, M]).astype(np.int32)
+    x = torch.from_numpy(_normal(rng, M, K)).to(dev)
+    w = torch.from_numpy(_normal(rng, G, K, N) * 0.1).to(dev)
+    return x, w, torch.from_numpy(sizes).to(dev)
+
+
+@pytest.mark.parametrize("geom", [(4, 96, 32, 64), (1, 1, 64, 128),
+                                  (6, 150, 128, 256), (3, 17, 32, 64),
+                                  (40, 1024, 1536, 1024),
+                                  (40, 1024, 512, 1536), (5, 57, 24, 40),
+                                  (3, 300, 30, 50), (2, 200, 33, 7),
+                                  (2, 300, 30, 50), (1, 700, 64, 96),
+                                  (4, 4096, 1536, 1024)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_grouped_gemm_kernel(dev, geom):
+    """The MOE geometries of tests/test_kernels.py, granite's in- and
+    out-projection at decode size (64-row tiles) and an in-projection of
+    4,096 rows (128-row tiles), and K or N not a multiple of 4 (K = 30 and
+    33 take the 4-byte loads, at either tile)."""
+    G, M = geom[:2]
+    assert tile_rows(M, G) == (64 if M < 128 * G else 128)
+    got = _gemm_gate(*_moe(np.random.default_rng(5), *geom, dev))
+    assert got.shape == (geom[1], geom[3])
+    assert kernels.launches()["moe_gemm"] == 1
+
+
+@pytest.mark.parametrize("M", [100, 600], ids=["64-row", "128-row"])
+def test_grouped_gemm_kernel_partial_column_chunk(dev, M):
+    """N = 6 columns of rows 8 apart: 16-byte loads whose last chunk is cut
+    at N (the rest of the chunk filled with zeros, not read)."""
+    rng = np.random.default_rng(10)
+    x, _, sizes = _moe(rng, 2, M, 40, 8, dev)
+    w = torch.from_numpy(_normal(rng, 2, 40, 8)).to(dev)[..., :6]
+    assert copies16(x, w) and not w.is_contiguous()
+    got = _gemm_gate(x, w, sizes)
+    torch.testing.assert_close(got, grouped_gemm(x, w.contiguous(), sizes),
+                               atol=0, rtol=0)
+
+
+def test_grouped_gemm_kernel_empty_groups_and_rows_beyond_the_sum(dev):
+    x = torch.ones((8, 32), device=dev)
+    w = torch.ones((4, 32, 16), device=dev)
+    got = _gemm_gate(x, w, torch.tensor([0, 8, 0, 0], dtype=torch.int32,
+                                        device=dev))
+    assert bool((got == 32).all())
+    rng = np.random.default_rng(6)
+    x, w, _ = _moe(rng, 5, 57, 24, 40, dev)
+    got = _gemm_gate(x, w, torch.tensor([11, 0, 20, 9, 0],
+                                        dtype=torch.int32, device=dev))
+    assert not bool(got[40:].any())
+    assert kernels.launches()["moe_gemm"] == 2
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_grouped_gemm_kernel_reads_strided_weight_views(dev, offset):
+    """w_in and w_out as views of one wider row per expert, as the naive
+    arm passes the store's rows; one element in, the views are not 16-byte
+    aligned and take the 4-byte loads. Both give the stacks' results."""
+    G, M, K, N, F = 3, 40, 24, 16, 8
+    rng = np.random.default_rng(7)
+    x, _, sizes = _moe(rng, G, M, K, N, dev)
+    rows = torch.from_numpy(_normal(rng, G, offset + K * N + N * F)).to(dev)
+    w_in = rows[:, offset:offset + K * N].view(G, K, N)
+    w_out = rows[:, offset + K * N:].view(G, N, F)
+    h = _gemm_gate(x, w_in, sizes)
+    torch.testing.assert_close(h, grouped_gemm(x, w_in.contiguous(), sizes),
+                               atol=0, rtol=0)
+    _gemm_gate(h, w_out, sizes)
+
+
+def test_float32_kernels_ignore_allow_tf32(dev):
+    """allow_tf32 switches no route: the 3xTF32 kernels give the same bits
+    with it on and off."""
+    rng = np.random.default_rng(8)
+    x, w, sizes = _moe(rng, 4, 96, 64, 64, dev)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 128, 2, 64)).to(dev)
+               for _ in range(3))
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        outs = []
+        for allow in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            outs.append((grouped_gemm(x, w, sizes), attention(q, k, v)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    assert kernels.launches()["moe_gemm"] == 2
+    assert kernels.launches()["flash_attention_tf32"] == 2
 
 
 @pytest.mark.parametrize("B,T,KV,G,hd", [

@@ -21,7 +21,8 @@ import torch
 from repro.kernels.moe_gemm.ops import gathered_swiglu as jax_swiglu
 from repro.kernels.moe_gemm.ops import grouped_gemm as jax_grouped_gemm
 from repro_torch import kernels
-from repro_torch.kernels.moe_gemm.ops import gathered_swiglu, grouped_gemm
+from repro_torch.kernels.moe_gemm.ops import (copies16, gathered_swiglu,
+                                              grouped_gemm, tile_rows)
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 
 # one intra-op thread per test process: the suite runs in parallel workers
@@ -178,3 +179,21 @@ def test_require_dense_rows():
     with pytest.raises(ValueError, match="dense rows"):
         _lib.require(view.transpose(1, 2), "w", (torch.float32,), 3,
                      view.device, dense_rows=True)
+
+
+def test_wrapper_chooses_tiles_and_copies_from_the_shape():
+    """What the wrapper hands the kernel, decided from the shape alone:
+    64-row tiles where the groups average fewer than 128 rows (a decode
+    step of granite's naive arm: 1,024 rows over 40 experts), 128-row ones
+    at prefill; 16-byte copies only where x, w, K and w's strides allow."""
+    assert tile_rows(1024, 40) == 64 and tile_rows(32768, 40) == 128
+    assert tile_rows(127, 1) == 64 and tile_rows(128, 1) == 128
+    rows = torch.zeros((3, 4 * 24 * 16 + 64))  # 16-byte aligned storage
+    x = torch.zeros((40, 24))
+    assert rows.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+    assert copies16(x, rows[:, :24 * 16].view(3, 24, 16))
+    assert not copies16(x, rows[:, 1:1 + 24 * 16].view(3, 24, 16))
+    assert not copies16(torch.zeros((40, 30))[:, :30],
+                        torch.zeros((3, 30, 16)))  # K = 30
+    assert not copies16(x, torch.zeros((3, 24, 18))[:, :, :15])  # rows 18
+    assert copies16(x, torch.zeros((3, 24, 16))[:, :, :15])  # rows 16
