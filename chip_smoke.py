@@ -8,14 +8,17 @@ Phases, each of which raises (non-zero exit) on any failed check:
 1. Environment: the card's name and power limit, the torch and CUDA
    versions, the time to build the CUDA kernels from `src/repro_torch/
    csrc/` with nvcc (sm_90a), and the registers, shared memory and spills
-   of the attention, scan and grouped GEMM kernels (the 3xTF32 float32
-   ones, the SIMT float32 ones and the bf16 tensor-core ones).
+   of the attention, scan, grouped GEMM, segment-combine and fused-read
+   kernels (the 3xTF32 float32 ones, the SIMT float32 ones and the bf16
+   tensor-core ones).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram (weighted and not, bins below and above the
    shared-memory budget, out-of-range ids), the segment combine (every
    merge, float32 and float64, empty segments, negative and tied
-   priorities), the fused stage (every read_op x merge, arity-0 rows, a
-   single-row batch), the grouped GEMM (the MOE geometries of
+   priorities, Zipf-2.0 hot segments, NaN / ±inf / ±3e38 under min, max
+   and or), the fused stage (every read_op x merge, arity-0 rows, a
+   single-row batch, NaN and ±3e38 min/max reads below and at the max
+   arity), the grouped GEMM (the MOE geometries of
    tests/test_kernels.py, empty groups, rows beyond the groups' sum, the
    parameter-server path's two projections), and attention, decode
    attention and the SSD scan (see phase 5; bf16 attention and decode take
@@ -89,7 +92,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    time the card could take (bytes over 3.35 TB/s, or operations over 67
    TFLOP/s in float32 FMAs, 495/3 TFLOP/s for the float32 kernels that
    run 3xTF32 on the tensor cores (with the FMA bound beside it), or 989
-   TFLOP/s in bf16, whichever is larger).
+   TFLOP/s in bf16, whichever is larger). The segment combine is timed
+   at the writer combines of stages (a) add (`index_add_`), (c) min
+   (`index_reduce_(..., "amin")`) and (b) write (no one call).
 7. Device busy share: stages (a)-(c) once more under torch.profiler, after a
    warm-up run; the device's busy time (kernels, copies, fills) against the
    stage's wall time.
@@ -139,7 +144,10 @@ def gpu_name_and_power() -> str:
 
 def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "fd_split", "fd_sm90",
-                                             "ssd_scan", "gg_tf32")) -> dict:
+                                             "ssd_states", "ssd_state_pass",
+                                             "ssd_outputs", "gg_tf32",
+                                             "seg_combine",
+                                             "fused_reduce")) -> dict:
     """Registers, shared memory and spills per instantiation of the named
     kernels, as `nvcc -Xptxas=-v` reported them in the build's log."""
     out, entry, spills = {}, None, ""
@@ -221,6 +229,18 @@ def _sum_bound_ok(got, want, mags, rel=1e-6, abs_=1e-6, rel_want=0.0,
     return _within(got, want, allowed, name)[0]
 
 
+def _same_with_nan(got, want, name: str) -> None:
+    """Bit-for-bit equal values, NaN where the plain version has NaN."""
+    import torch
+
+    got = got.cpu()
+    want = want.cpu()
+    nan = torch.isnan(want)
+    if not (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan])):
+        raise AssertionError(f"{name}: differs from the plain version")
+
+
 def _gemm_case(geom, rng):
     """Rows split into G groups at random cuts, as tests/test_kernels.py
     makes its MOE cases."""
@@ -255,8 +275,10 @@ def parity_phase(dev) -> dict:
     from repro_torch.kernels.segment_combine.ops import combine
     from repro_torch.kernels.segment_combine.ref import combine_ref
     from repro_torch.kernels.stage_fused.ops import (FUSED_READ_OPS,
+                                                     fused_reduce,
                                                      fused_stage)
-    from repro_torch.kernels.stage_fused.ref import fused_stage_ref
+    from repro_torch.kernels.stage_fused.ref import (fused_stage_ref,
+                                                     reduce_pairs_ref)
 
     g = torch.Generator().manual_seed(SEED)
     worst = {"histogram": 0.0, "segment_combine": 0.0, "stage_fused": 0.0}
@@ -301,8 +323,49 @@ def parity_phase(dev) -> dict:
                     elif not torch.equal(got, want):
                         raise AssertionError(
                             f"combine {op} {dt} n={n} S={S} differs")
-    log("  segment_combine: 80 cases; min/max/or/write exact, add within "
-        "1e-6*sum|terms| + 1e-6")
+    # Zipf-2.0 hot segments in task order (the warp pre-combine and the
+    # per-warp tables), ids outside the range, tied orders
+    rng = np.random.default_rng(SEED)
+    for dt in (torch.float32, torch.float64):
+        for n, w, S in [(300_000, 16, 20_000), (5000, 3, 700),
+                        (2000, 1536, 300)]:
+            p = 1.0 / np.arange(1, S + 1) ** 2.0
+            seg = torch.from_numpy(rng.choice(S, size=n, p=p / p.sum())
+                                   .astype(np.int32))
+            seg[::97] = S + 1
+            vals = torch.randn(n, w, generator=g, dtype=dt).to(dev)
+            seg = seg.to(dev)
+            order = torch.randint(-3, 3, (n,), generator=g,
+                                  dtype=torch.int32).to(dev)
+            for op in ("add", "min", "max", "or", "write"):
+                got = combine(vals, seg, S, op=op, order=order)
+                want = combine_ref(vals, seg, S, op=op, order=order)
+                if op == "add":
+                    mags = combine_ref(vals.abs(), seg, S, op="add")
+                    worst["segment_combine"] = max(
+                        worst["segment_combine"],
+                        _sum_bound_ok(got, want, mags))
+                elif not torch.equal(got, want):
+                    raise AssertionError(
+                        f"combine {op} {dt} hot n={n} w={w} differs")
+    # NaN, ±inf and ±3e38 under min/max/or: NaN propagates, the identity
+    # folds into hit segments, as the numpy oracle does
+    edge = torch.tensor([np.nan, np.inf, -np.inf, 3e38, -3e38, 1.0, -2.0,
+                         0.0], dtype=torch.float64)
+    for dt in (torch.float32, torch.float64):
+        pick = torch.randint(0, edge.numel(), (4096, 16), generator=g)
+        vals = edge.to(dt)[pick]
+        vals[torch.rand(4096, 16, generator=g) < 0.7] = 1.5
+        seg = torch.randint(-2, 39, (4096,), generator=g,
+                            dtype=torch.int32)
+        vals, seg = vals.to(dev), seg.to(dev)
+        for op in ("min", "max", "or"):
+            _same_with_nan(combine(vals, seg, 37, op=op),
+                           combine_ref(vals, seg, 37, op=op),
+                           f"combine {op} {dt} at NaN/inf")
+    log("  segment_combine: 80 random cases, 30 on Zipf-2.0 hot segments "
+        "(w = 16, 3, 1536) and 6 at NaN/±inf/±3e38; min/max/or/write exact "
+        "(NaN as NaN), add within 1e-6*sum|terms| + 1e-6")
 
     # fused stage: every read_op x merge; min/max/first reads then a
     # non-add merge are exact, anything with a sum within the sum bound
@@ -344,9 +407,27 @@ def parity_phase(dev) -> dict:
                 elif not (torch.equal(ug, uw) and torch.equal(cg, cw)):
                     raise AssertionError(
                         f"fused_stage {read_op}x{merge} n={n} differs")
+    # min/max reads at NaN and ±3e38, below and at the max arity
+    values = torch.tensor([[3e38, 1.0], [np.nan, -3e38], [1.0, np.inf],
+                           [-3e38, -np.inf], [2.0, 0.5]], dtype=torch.float64)
+    tasks = [[0], [0, 1], [2, 3, 4], [4], [2, 0], [], [3, 3, 3], [0, 2]]
+    indptr = torch.tensor(np.r_[0, np.cumsum([len(t) for t in tasks])],
+                          dtype=torch.int32)
+    idx = torch.tensor([k for t in tasks for k in t], dtype=torch.int32)
+    for dt in (torch.float32, torch.float64):
+        for read_op in ("min", "max"):
+            for max_ar in (None, 3, 5):
+                _same_with_nan(
+                    fused_reduce(values.to(dt).to(dev), indptr.to(dev),
+                                 idx.to(dev), read_op=read_op,
+                                 max_arity=max_ar),
+                    reduce_pairs_ref(values.to(dt), indptr, idx,
+                                     read_op=read_op, max_arity=max_ar),
+                    f"fused_reduce {read_op} {dt} at NaN/3e38")
     log("  stage_fused: 60 cases (every read_op x merge, arity-0 rows, a "
-        "single-row batch); sums within 1e-6*sum|terms| + 1e-6, the rest "
-        "exact")
+        "single-row batch) and 12 min/max reads at NaN/±inf/±3e38 below "
+        "and at the max arity; sums within 1e-6*sum|terms| + 1e-6, the "
+        "rest exact (NaN as NaN)")
 
     # grouped GEMM: tests/test_kernels.py's MOE geometries, its empty-group
     # case, rows beyond the groups' sum, and the path's two shapes
@@ -1333,7 +1414,8 @@ def attention_ssm_parity(dev) -> dict:
                         f"({type(ln).__name__}) {dtype}")
 
     for S, nh, hd, ds, chunk in [(32, 2, 8, 8, 16), (64, 3, 16, 8, 16),
-                                 (128, 1, 32, 16, 32), (256, 2, 64, 64, 256)]:
+                                 (128, 1, 32, 16, 32), (256, 2, 64, 64, 256),
+                                 (42, 20, 5, 3, 7), (300, 17, 64, 64, 100)]:
         st = dict(kernel="mamba_scan", B=2, S=S, nh=nh, hd=hd, ds=ds,
                   chunk=chunk)
         for dtype in ATTN_DTYPES:
@@ -1357,7 +1439,8 @@ def attention_ssm_parity(dev) -> dict:
         "(flash_decode_sm90) cases (the DECODE geometries, G = 16 at hd "
         "128, G = 20; lengths 0, 1, 64, 128, the geometry's, T, T + 5, as an "
         f"int and a device tensor); mamba_scan: {n['mamba_scan']} cases (the "
-        "MAMBA geometries, chunk 256 on S = 256, |dt·A| up to 125); within "
+        "MAMBA geometries, chunk 256 on S = 256, hd 5 / ds 3 / chunk 7 / 20 "
+        "heads, chunk 100 / 17 heads, |dt·A| up to 125); within "
         f"{ATTN_REL}·(1+|ref|) (attention) and ({SSD_REL} + 8·u32·max|l|)·"
         "Σ|terms| + 1e-6 (scan) against float64, plus 2^-8·|ref| for bf16 "
         "against float32 on the same inputs")
@@ -1383,11 +1466,13 @@ def attention_ssm_path(dev, stages=None) -> list:
             got = st_runner.run(tag, _kernel_call(st, inputs),
                                 source=st["source"], cut=st["cut"])
             row = st_runner.rows[-1]
+            # the call's own peak (inputs, output and the kernels' scratch,
+            # e.g. the scan's float32 chunk states), before the check
+            row["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                 if on_card else None)
             err, share = check_against_plain(st, inputs, got, dtype, tag)
             row.update(max_abs_err=err, share_of_tolerance=share,
-                       shape=_stage_shape(st, dtype),
-                       peak_bytes=(torch.cuda.max_memory_allocated(dev)
-                                   if on_card else None))
+                       shape=_stage_shape(st, dtype))
             log(f"  {tag} ({st['source']}; cut: {st['cut']}): "
                 f"{row['shape']}; wall {row['wall_s']:.4f} s, max |Δ| "
                 f"{err:.3g} ({share:.3g} of its tolerance)"
@@ -1415,19 +1500,21 @@ def _stage_shape(st: dict, dtype: str) -> str:
 def _work(st: dict, dtype: str) -> tuple:
     """(bytes, operations, peak operations/s) of a stage: each input read
     once and the output written once; the operations its data needs (the
-    causal half of the scores and of the scan's c x c products, the valid
-    prefix of a cache). The rate is the one of the units the kernel runs
-    on: bf16 tensor cores, 3xTF32 on them for float32 attention, FMAs for
-    the other float32 kernels."""
+    causal half of the scores and of the scan's c x c products, C·Bᵀ once
+    per (b, chunk) as its heads share it, the valid prefix of a cache).
+    The rate is the one of the units the kernel runs on: bf16 tensor cores,
+    3xTF32 on them for float32 attention and the float32 scan, FMAs for
+    float32 decode."""
     e = 2 if dtype == "bfloat16" else 4
     rate = BF16_OPS_PER_S if dtype == "bfloat16" else (
-        FP32_TC_OPS_PER_S if st["kernel"] == "flash_attention"
+        FP32_TC_OPS_PER_S if st["kernel"] in ("flash_attention", "mamba_scan")
         else FP32_OPS_PER_S)
     if st["kernel"] == "mamba_scan":
         B, S, nh, hd, ds, c = (st[k] for k in ("B", "S", "nh", "hd", "ds",
                                                 "chunk"))
         pairs = c * (c + 1) // 2
-        ops = B * nh * (S // c) * (2 * pairs * (ds + hd) + 4 * c * hd * ds)
+        ops = B * (S // c) * (2 * pairs * ds
+                              + nh * (2 * pairs * hd + 4 * c * hd * ds))
         return e * (2 * B * S * nh * hd + 2 * B * S * ds) \
             + 4 * (B * S * nh + nh), ops, rate
     B, T, H, KV, hd = (st[k] for k in ("B", "T", "H", "KV", "hd"))
@@ -1572,14 +1659,108 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
 # ---------------------------------------------------------------------------
 # phase 6: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
+def _writer_segments(tasks, all_rows: bool):
+    """A stage's writer combine as the backend runs it: per-row segment ids
+    (np.unique's inverse over the written keys, in task order) and the
+    segment count. With `all_rows` every task keeps a row and non-writers
+    carry the id S (dropped), as on the fused path."""
+    wk = tasks.write_keys
+    live = wk >= 0
+    uniq, inv = np.unique(wk[live], return_inverse=True)
+    if not all_rows:
+        return inv.astype(np.int32), uniq.size
+    seg = np.full(wk.size, uniq.size, dtype=np.int32)
+    seg[live] = inv
+    return seg, uniq.size
+
+
+def segment_combine_timing(dev, by: dict, launches: dict) -> dict:
+    """K2 at three writer combines of the main path, float32 rows of width
+    16 made from the seed: stage (a)'s add over Zipf-2.0 keys (the
+    headline; library `index_add_`), stage (c)'s min over the fused
+    stage's per-task rows (library `index_reduce_(..., "amin")` on the
+    writer rows), stage (b)'s ordered write over uniform keys (no one
+    PyTorch call keeps the lowest-priority row). Bounds: each input read
+    once and each output written once (for write, only the winning rows
+    are read), one operation per element merged."""
+    import torch
+
+    from repro_torch.kernels.segment_combine.ops import combine
+    from repro_torch.kernels.segment_combine.ref import combine_ref, identity
+
+    g = torch.Generator().manual_seed(SEED)
+    shapes, err = [], 0.0
+    for tag, op in (("a", "add"), ("c", "min"), ("b", "write")):
+        tasks = by[tag]
+        seg_np, S = _writer_segments(tasks, all_rows=tag == "c")
+        N, W = seg_np.size, VALUE_WIDTH
+        upd = torch.randn(N, W, generator=g).to(dev)
+        seg = torch.from_numpy(seg_np).to(dev)
+        order = (torch.from_numpy(tasks.priority[tasks.write_keys >= 0]
+                                  .astype(np.int32)).to(dev)
+                 if op == "write" else None)
+        got = combine(upd, seg, S, op=op, order=order)
+        want = combine_ref(upd, seg, S, op=op, order=order)
+        if op == "add":
+            err = max(err, _sum_bound_ok(
+                got, want, combine_ref(upd.abs(), seg, S, op="add")))
+        elif not torch.equal(got, want):
+            raise AssertionError(f"segment_combine {op} at stage {tag} "
+                                 "differs from the plain version")
+        if op == "write":
+            nbytes = 4 * N + 4 * N + 2 * 4 * S * W
+        else:
+            nbytes = 4 * N * W + 4 * N + 4 * S * W
+        b_ms, b_by = bound(nbytes, N * W)
+        library_ms, note = None, ("no one PyTorch call keeps each segment's "
+                                  "row of lowest priority")
+        if op == "add":
+            acc = torch.zeros(S, W, device=dev)
+            library_ms = time_ms(lambda: acc.index_add_(0, seg, upd))
+            note = "Tensor.index_add_"
+        elif op == "min":
+            live = seg < S
+            l_seg, l_upd = seg[live].long(), upd[live].contiguous()
+            acc = torch.full((S, W), identity("min", upd.dtype), device=dev)
+            lib = acc.clone().index_reduce_(0, l_seg, l_upd, "amin")
+            if not torch.equal(lib, want):
+                raise AssertionError("index_reduce_ amin differs from the "
+                                     "plain version")
+            library_ms = time_ms(
+                lambda: acc.index_reduce_(0, l_seg, l_upd, "amin"))
+            note = "Tensor.index_reduce_(..., 'amin') on the writer rows"
+        shapes.append(dict(
+            stage=tag, op=op, ms=time_ms(lambda: combine(
+                upd, seg, S, op=op, order=order)),
+            plain_ms=time_ms(lambda: combine_ref(upd, seg, S, op=op,
+                                                 order=order)),
+            bound_ms=b_ms, bound_by=b_by, bytes=nbytes, operations=N * W,
+            library_ms=library_ms, library_note=note,
+            shape=f"stage ({tag}): ({N}, {W}) float32 -> {S} segments, "
+                  f"{op}"))
+        del upd, seg, order
+    for sh in shapes:
+        lib = (f"{sh['library_ms']:.4f}" if sh["library_ms"] is not None
+               else f"null ({sh['library_note']})")
+        log(f"  segment_combine: {sh['ms']:.4f} ms (plain "
+            f"{sh['plain_ms']:.4f}, library {lib}, bound "
+            f"{sh['bound_ms']:.4f} by {sh['bound_by']}) at {sh['shape']}")
+    head = shapes[0]
+    return dict(name="segment_combine", route="cuda",
+                source="src/repro_torch/csrc/segment_combine.cu",
+                replaces="src/repro/kernels/segment_combine/kernel.py:42",
+                launches=launches["segment_combine"], max_abs_err=err,
+                **{k: head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "shape")},
+                shapes=shapes)
+
+
 def timing_phase(dev, K, stages, init, launches) -> list:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.histogram.ops import count_ids
     from repro_torch.kernels.histogram.ref import histogram_ref
-    from repro_torch.kernels.segment_combine.ops import combine
-    from repro_torch.kernels.segment_combine.ref import combine_ref
     from repro_torch.kernels.stage_fused.ops import fused_reduce
     from repro_torch.kernels.stage_fused.ref import reduce_pairs_ref
 
@@ -1606,31 +1787,7 @@ def timing_phase(dev, K, stages, init, launches) -> list:
                                                   minlength=K)),
         shape=f"ids ({n},) int32 + weights, {K} bins"))
 
-    # K2 at stage (a)'s writer combine: every task writes its Zipf 2.0 key
-    wk = by["a"].write_keys
-    uniq, inv = np.unique(wk, return_inverse=True)
-    S = uniq.size
-    g = torch.Generator().manual_seed(SEED)
-    upd = torch.randn(wk.size, VALUE_WIDTH, generator=g).to(dev)
-    seg = torch.from_numpy(inv.astype(np.int32)).to(dev)
-    got = combine(upd, seg, S, op="add")
-    want = combine_ref(upd, seg, S, op="add")
-    mags = combine_ref(upd.abs(), seg, S, op="add")
-    err = _sum_bound_ok(got, want, mags)
-    N = wk.size
-    b_ms, b_by = bound(4 * N * VALUE_WIDTH + 4 * N + 4 * S * VALUE_WIDTH,
-                       N * VALUE_WIDTH)
-    acc = torch.zeros(S, VALUE_WIDTH, device=dev)
-    rows.append(dict(
-        name="segment_combine", route="cuda",
-        source="src/repro_torch/csrc/segment_combine.cu",
-        replaces="src/repro/kernels/segment_combine/kernel.py:42",
-        launches=launches["segment_combine"], max_abs_err=err,
-        ms=time_ms(lambda: combine(upd, seg, S, op="add")),
-        plain_ms=time_ms(lambda: combine_ref(upd, seg, S, op="add")),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: acc.index_add_(0, seg, upd)),
-        shape=f"({N}, {VALUE_WIDTH}) float32 -> {S} segments, add"))
+    rows.append(segment_combine_timing(dev, by, launches))
 
     # K3 at stage (c)'s gather-reduce; the library call is embedding_bag's
     # CSR gather-sum (empty bags give 0), checked against the plain version
@@ -1664,6 +1821,8 @@ def timing_phase(dev, K, stages, init, launches) -> list:
         shape=f"{nt} tasks, {nnz} pairs over ({K}, {VALUE_WIDTH}) float32, "
               f"{rows_read} distinct rows, read_op add"))
     for r in rows:
+        if r["name"] == "segment_combine":
+            continue  # logged shape by shape
         log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
             f"{r['bound_by']}) at {r['shape']}; {r['launches']} launches "
@@ -1674,8 +1833,7 @@ def timing_phase(dev, K, stages, init, launches) -> list:
 # ---------------------------------------------------------------------------
 # phase 7: how busy the card is during a stage
 # ---------------------------------------------------------------------------
-_OWN_KERNELS = ("hist_", "seg_combine", "write_elect", "write_gather",
-                "fused_reduce")
+_OWN_KERNELS = ("hist_", "seg_combine", "write_gather", "fused_reduce")
 
 
 def busy_phase(K, stages, init) -> list:

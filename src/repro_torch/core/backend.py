@@ -286,7 +286,7 @@ class TorchBackend(NumpyBackend):
                     num_segments=S,
                     read_op=read_op, finish=finish, merge_name=merge_name,
                     combine=combine, want_update=want_update,
-                    want_result=want_result)
+                    want_result=want_result, max_arity=tasks.max_arity)
             else:
                 if combine:
                     w_idx, seg, order = (self._dl(w_rows), self._di(seg_w),

@@ -189,18 +189,20 @@ def run_stage_ragged(values, read_indices, row, col, mask, contexts, w_idx,
 def run_stage_fused(values, indptr, indices, contexts, seg, order, *,
                     num_segments: int, read_op: str, finish,
                     merge_name: str, combine: bool, want_update: bool,
-                    want_result: bool = True):
+                    want_result: bool = True, max_arity: int | None = None):
     """Ragged-native stage numerics for a fused-able lambda
     (`core/fusedlam.FusedStageLambda`): the stage_fused gather-reduce
     kernel walks the CSR pair list, `finish` runs as torch ops on its
     (n, w) output, and the writer ⊗-combine runs the segment-combine
-    kernel over per-task `seg` (== `num_segments`: writes nothing)."""
+    kernel over per-task `seg` (== `num_segments`: writes nothing).
+    `max_arity` is the batch's: min/max reads fold the oracle's padding
+    into the tasks below it."""
     fin = None if finish is None else (
         lambda ctx, red: _call_user(finish, values.device, ctx, red))
     upd, combined = _fused_stage(
         values, indptr, indices, contexts, seg, order,
         num_segments=num_segments, read_op=read_op, finish=fin,
-        merge_name=merge_name, combine=combine)
+        merge_name=merge_name, combine=combine, max_arity=max_arity)
     return {"result": upd if want_result else None,
             "update": upd if want_update else None,
             "combined": combined}

@@ -18,11 +18,15 @@
 // Design: one warp per task. Lanes stride over the w columns and loop over
 // the task's pairs indptr[t]..indptr[t+1], so a warp's loads of one row are
 // contiguous and every lane reads the same index (a broadcast). read_op add
-// sums in the values' type in pair order; min/max start from +-float32max/2
-// (the fill of the TPU kernel); first takes the first pair's row; a task
-// with no pairs (arity 0) gives 0 for every op. A skewed batch with a few
-// very long rows leaves their warps running after the rest: binning tasks by
-// arity is work for a later version.
+// sums in the values' type in pair order; first takes the first pair's row;
+// a task with no pairs (arity 0) gives 0 for every op. min/max start from
+// the task's first pair and propagate NaN (as numpy's min/max do: a compare
+// alone would drop it, and fminf/fmaxf drop it too), then fold in
+// +-float32max/2 where the task's arity is below the batch's max arity:
+// the oracle reduces a padded (n, max_arity, w) view whose empty slots
+// hold that fill, so a task at the max arity reads its pairs alone. A
+// skewed batch with a few very long rows leaves their warps running after
+// the rest: binning tasks by arity is work for a later version.
 
 #include <cuda_runtime.h>
 
@@ -34,11 +38,21 @@ constexpr float kBig = 3.4028234663852886e38f / 2.0f;  // float32 max / 2
 
 enum ReadOp { kAdd = 0, kMin = 1, kMax = 2, kFirst = 3 };
 
+// min / max that return a NaN operand: a NaN anywhere makes the result NaN
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+
 template <typename T, int kOp>
 __global__ void fused_reduce(const T* __restrict__ values, int w,
                              const int* __restrict__ indptr,
                              const int* __restrict__ indices, long long n,
-                             T* __restrict__ out) {
+                             int max_arity, T* __restrict__ out) {
   const long long task =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
   if (task >= n) return;
@@ -49,19 +63,21 @@ __global__ void fused_reduce(const T* __restrict__ values, int w,
   for (int c = lane; c < w; c += kWarp) {
     T acc = T(0);
     if (start < end) {
-      if (kOp == kFirst) {
-        acc = values[static_cast<long long>(indices[start]) * w + c];
-      } else {
-        acc = kOp == kAdd ? T(0) : (kOp == kMin ? T(kBig) : T(-kBig));
-        for (int p = start; p < end; ++p) {
+      acc = values[static_cast<long long>(indices[start]) * w + c];
+      if (kOp != kFirst) {
+        for (int p = start + 1; p < end; ++p) {
           const T v = values[static_cast<long long>(indices[p]) * w + c];
           if (kOp == kAdd) {
             acc += v;
           } else if (kOp == kMin) {
-            acc = v < acc ? v : acc;
+            acc = nan_min(acc, v);
           } else {
-            acc = v > acc ? v : acc;
+            acc = nan_max(acc, v);
           }
+        }
+        if (end - start < max_arity) {  // the padded view's fill
+          if (kOp == kMin) acc = nan_min(acc, T(kBig));
+          if (kOp == kMax) acc = nan_max(acc, T(-kBig));
         }
       }
     }
@@ -71,28 +87,28 @@ __global__ void fused_reduce(const T* __restrict__ values, int w,
 
 template <typename T>
 cudaError_t launch(const T* values, int w, const int* indptr,
-                   const int* indices, long long n, int read_op, T* out,
-                   cudaStream_t stream) {
+                   const int* indices, long long n, int read_op,
+                   int max_arity, T* out, cudaStream_t stream) {
   const long long warps_per_block = kThreads / kWarp;
   const long long blocks = (n + warps_per_block - 1) / warps_per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned int>(blocks));
   switch (read_op) {
     case kAdd:
-      fused_reduce<T, kAdd><<<grid, kThreads, 0, stream>>>(values, w, indptr,
-                                                           indices, n, out);
+      fused_reduce<T, kAdd><<<grid, kThreads, 0, stream>>>(
+          values, w, indptr, indices, n, max_arity, out);
       break;
     case kMin:
-      fused_reduce<T, kMin><<<grid, kThreads, 0, stream>>>(values, w, indptr,
-                                                           indices, n, out);
+      fused_reduce<T, kMin><<<grid, kThreads, 0, stream>>>(
+          values, w, indptr, indices, n, max_arity, out);
       break;
     case kMax:
-      fused_reduce<T, kMax><<<grid, kThreads, 0, stream>>>(values, w, indptr,
-                                                           indices, n, out);
+      fused_reduce<T, kMax><<<grid, kThreads, 0, stream>>>(
+          values, w, indptr, indices, n, max_arity, out);
       break;
     case kFirst:
       fused_reduce<T, kFirst><<<grid, kThreads, 0, stream>>>(
-          values, w, indptr, indices, n, out);
+          values, w, indptr, indices, n, max_arity, out);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -103,20 +119,22 @@ cudaError_t launch(const T* values, int w, const int* indptr,
 }  // namespace
 
 // values: (K, w) float32 (is_f64 == 0) or float64; indptr: (n+1,) int32;
-// indices: (nnz,) int32 keys in [0, K); out: (n, w) of the values' type.
+// indices: (nnz,) int32 keys in [0, K); max_arity: the batch's largest
+// arity (min/max fold the fill into the tasks below it); out: (n, w) of
+// the values' type.
 extern "C" int tdorch_fused_reduce(int device, const void* values, int is_f64,
                                    int w, const int* indptr,
                                    const int* indices, long long n,
-                                   int read_op, void* out,
+                                   int read_op, int max_arity, void* out,
                                    cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0 && w > 0) {
     err = is_f64
         ? launch(static_cast<const double*>(values), w, indptr, indices, n,
-                 read_op, static_cast<double*>(out), stream)
+                 read_op, max_arity, static_cast<double*>(out), stream)
         : launch(static_cast<const float*>(values), w, indptr, indices, n,
-                 read_op, static_cast<float*>(out), stream);
+                 read_op, max_arity, static_cast<float*>(out), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

@@ -130,8 +130,8 @@ def load() -> ctypes.CDLL:
                                    ptr, ptr],
         "tdorch_segment_write": [i32, ptr, i32, ptr, ptr, i64, i32, i32,
                                  ptr, ptr, ptr],
-        "tdorch_fused_reduce": [i32, ptr, i32, i32, ptr, ptr, i64, i32, ptr,
-                                ptr],
+        "tdorch_fused_reduce": [i32, ptr, i32, i32, ptr, ptr, i64, i32, i32,
+                                ptr, ptr],
         "tdorch_histogram_shared_bins": [],
         "tdorch_grouped_gemm": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
                                 i32, i32, i32, i32, i32, ptr, ptr, ptr],
@@ -145,7 +145,7 @@ def load() -> ctypes.CDLL:
                                      i32, i32, i32, i32, i32, i32, f32, ptr,
                                      ptr, ptr, ptr],
         "tdorch_ssd_scan": [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                            i32, i32, i32, ptr, ptr],
+                            i32, i32, i32, ptr, ptr, ptr, ptr],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

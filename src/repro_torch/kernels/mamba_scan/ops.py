@@ -28,7 +28,9 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y: (B, S, nh, hd) in x's dtype: the SSD scan without the D·x term.
     min(chunk, S) must divide S. On the card x, Bc, Cc must be contiguous
     float32 or bfloat16 of one dtype, dt and A contiguous float32, and
-    hd, ds <= 64."""
+    hd, ds <= 64. The kernels keep each chunk's state in a float32
+    scratch of (B, nh, S / chunk, hd, ds), allocated here with one of the
+    chunks' cumulative log-decays l (B, nh, S / chunk, 128)."""
     B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
     if not _lib.on_cuda(x):
         return ssd_scan_ref(x, dt, A, Bc, Cc, chunk=chunk)
@@ -41,16 +43,22 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if hd > MAX_WIDTH or ds > MAX_WIDTH:
         raise ValueError(f"head_dim {hd} / d_state {ds}: the kernel takes "
                          f"at most {MAX_WIDTH}")
-    if B > _MAX_GRID_Y or B * S * nh * hd >= 2**62:
+    if max(B, nh) > _MAX_GRID_Y or B * S * nh * hd >= 2**62:
         raise ValueError(f"shape B={B}, S={S}, nh={nh} is beyond the "
                          "kernel's grid")
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
+    kc = kernel_chunk(c)
+    nc = -(-S // kc)
+    states = torch.empty((B, nh, nc, hd, ds), dtype=torch.float32,
+                         device=dev)
+    l = torch.empty((B, nh, nc, MAX_CHUNK), dtype=torch.float32, device=dev)
     rc = _lib.load().tdorch_ssd_scan(
         dev.index or 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bc.data_ptr(), Cc.data_ptr(), B, S, nh, hd, ds, kernel_chunk(c),
-        int(x.dtype == torch.bfloat16), y.data_ptr(), _lib.stream(x))
+        Bc.data_ptr(), Cc.data_ptr(), B, S, nh, hd, ds, kc,
+        int(x.dtype == torch.bfloat16), states.data_ptr(), l.data_ptr(),
+        y.data_ptr(), _lib.stream(x))
     _lib.check(rc, "mamba_scan")
     _lib.count("mamba_scan")
     return y

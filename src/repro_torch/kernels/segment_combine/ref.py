@@ -6,6 +6,10 @@ segment, and each segment's result is read off its run — a float64 prefix
 sum for ``add``, a per-column sort for ``min``/``max``/``or``, and for
 ``write`` the first row of the run after a stable sort by order (lowest
 order, then lowest row, wins).
+
+As the numpy oracle's ``np.minimum.at`` / ``np.maximum.at``: a NaN in a
+segment's column makes that column NaN, and the merge identity folds into
+every hit segment (a min segment of +inf updates holds ``finfo.max``).
 """
 from __future__ import annotations
 
@@ -35,10 +39,13 @@ def _runs(sorted_seg: torch.Tensor):
 
 
 def combine_ref(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
-                *, op: str = "add",
-                order: torch.Tensor | None = None) -> torch.Tensor:
+                *, op: str = "add", order: torch.Tensor | None = None,
+                fold: bool = True) -> torch.Tensor:
     """(N, W) values, (N,) seg -> (num_segments, W). Rows with seg outside
-    [0, num_segments) are dropped; empty segments hold `identity(op)`."""
+    [0, num_segments) are dropped; empty segments hold `identity(op)`, and
+    with `fold` hit min/max/or segments fold it in too (`fold=False` gives
+    the bare min/max of a segment's rows). NaN propagates through
+    min/max/or."""
     if op not in MERGES:
         raise KeyError(f"no segment combine for merge op {op!r}")
     n, w = values.shape
@@ -59,7 +66,7 @@ def combine_ref(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
         return out
     ranked = rows[torch.sort(seg[rows].long(), stable=True).indices]
     sorted_seg = seg[ranked].long()
-    first, last = _runs(sorted_seg)
+    _, last = _runs(sorted_seg)
     # work column-major: torch scans and sorts fastest along a contiguous
     # last dimension
     vt = values[ranked].T.contiguous()  # (W, rows)
@@ -69,13 +76,18 @@ def combine_ref(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
         out[sorted_seg[last]] = cs.T.to(values.dtype)
         return out
     # every column sorted by value, then stably by segment: each run of a
-    # column then holds that segment's values in ascending order
+    # column then holds that segment's values in ascending order, NaN last,
+    # so its last element is its max, NaN included; min is -max(-v)
+    if op == "min":
+        vt = vt.neg_()
     by_value = torch.sort(vt, dim=1, stable=True).indices
     regroup = torch.sort(sorted_seg[by_value], dim=1, stable=True).indices
     ordered = vt.gather(1, by_value.gather(1, regroup))
+    top = ordered[:, last].T
     if op == "min":
-        out[sorted_seg[first]] = ordered[:, first].T
-    else:
-        top = ordered[:, last].T
-        out[sorted_seg[last]] = top.clamp(min=0) if op == "or" else top
+        top = top.neg_()
+    if fold or op == "or":  # clamp keeps NaN
+        bound = identity(op, values.dtype)
+        top = top.clamp(max=bound) if op == "min" else top.clamp(min=bound)
+    out[sorted_seg[last]] = top
     return out

@@ -13,7 +13,7 @@ import torch
 
 from .. import _lib
 from ..segment_combine.ops import combine as _combine
-from .ref import reduce_pairs_ref
+from .ref import max_step, reduce_pairs_ref
 
 FUSED_READ_OPS = ("add", "min", "max", "first")
 FUSED_MERGES = ("add", "min", "max", "or", "write")
@@ -21,15 +21,20 @@ _READ_CODE = {op: i for i, op in enumerate(FUSED_READ_OPS)}
 
 
 def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
-                 indices: torch.Tensor, *, read_op: str) -> torch.Tensor:
+                 indices: torch.Tensor, *, read_op: str,
+                 max_arity: int | None = None) -> torch.Tensor:
     """(n, w) per-task `read_op` reduction of `values[indices]` over each
-    task's CSR slice ``indptr[t]:indptr[t+1]``; arity-0 tasks give 0. On
-    the card `values` must be contiguous float32/float64 and
-    `indptr`/`indices` contiguous int32."""
+    task's CSR slice ``indptr[t]:indptr[t+1]``; arity-0 tasks give 0.
+    min/max propagate NaN and fold ±float32max/2 into the tasks whose arity
+    is below `max_arity`, the batch's (read off `indptr` when None, a
+    device sync on the card), as the oracle's padded view does. On the card
+    `values` must be contiguous float32/float64 and `indptr`/`indices`
+    contiguous int32."""
     if read_op not in FUSED_READ_OPS:
         raise KeyError(f"fused read op {read_op!r} not in {FUSED_READ_OPS}")
     if not _lib.on_cuda(values):
-        return reduce_pairs_ref(values, indptr, indices, read_op=read_op)
+        return reduce_pairs_ref(values, indptr, indices, read_op=read_op,
+                                max_arity=max_arity)
     dev = values.device
     _lib.require(values, "values", (torch.float32, torch.float64), 2, dev)
     _lib.require(indptr, "indptr", (torch.int32,), 1, dev)
@@ -40,10 +45,12 @@ def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
     out = torch.empty((n, w), dtype=values.dtype, device=dev)
     if n == 0 or w == 0:
         return out
+    if read_op in ("min", "max") and max_arity is None:
+        max_arity = max_step(indptr)
     rc = _lib.load().tdorch_fused_reduce(
         dev.index or 0, values.data_ptr(), int(values.dtype == torch.float64),
         w, indptr.data_ptr(), indices.data_ptr(), n, _READ_CODE[read_op],
-        out.data_ptr(), _lib.stream(values))
+        min(max_arity or 0, 2**31 - 1), out.data_ptr(), _lib.stream(values))
     _lib.check(rc, "stage_fused")
     _lib.count("stage_fused")
     return out
@@ -51,16 +58,19 @@ def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
 
 def fused_stage(values, indptr, indices, contexts, seg, order, *,
                 num_segments: int, read_op: str, finish=None,
-                merge_name: str = "add", combine: bool = True):
+                merge_name: str = "add", combine: bool = True,
+                max_arity: int | None = None):
     """Fused ragged stage: ``(updates (n, w_out), combined
     (num_segments, w_out))`` (combined None when `combine` is False).
     `seg` is per task, with ``seg == num_segments`` meaning "writes
     nothing"; `order` breaks "write" races (lowest order, then lowest
-    row). Callers check indices against the value table: the kernel
-    gathers without bounds checks."""
+    row); `max_arity` is the batch's (see `fused_reduce`). Callers check
+    indices against the value table: the kernel gathers without bounds
+    checks."""
     if combine and merge_name not in FUSED_MERGES:
         raise KeyError(f"merge op {merge_name!r} has no fused combine")
-    red = fused_reduce(values, indptr, indices, read_op=read_op)
+    red = fused_reduce(values, indptr, indices, read_op=read_op,
+                       max_arity=max_arity)
     upd = red if finish is None else torch.as_tensor(
         finish(contexts, red), dtype=values.dtype, device=values.device)
     if not combine:

@@ -16,7 +16,17 @@ also held to `chip_smoke.py`'s gate: within ATTN_REL·(1+|ref|) +
 (the output's own rounding plus the float32 gate). The 3xTF32 kernels
 (`flash_attention_tf32`, the grouped GEMM `moe_gemm`) are held to
 chip_smoke.py's float32 gates against the plain version in float64:
-ATTN_REL·(1+|ref|), and 1e-5·Σ|x w| + 1e-6 for the GEMM.
+ATTN_REL·(1+|ref|), and 1e-5·Σ|x w| + 1e-6 for the GEMM. The tensor-core
+SSD scan (three kernels behind the "mamba_scan" counter) is held to
+chip_smoke.py's scan gates: (SSD_REL + 8·u32·max|l|)·Σ|terms| + 1e-6
+against float64, plus 2^-8·|ref| in bf16 against float32.
+
+The segment combine (B2) and the fused gather-reduce (B3) are held to
+their plain versions exactly (min, max, or, write, reads; NaN equal to
+NaN), sums within chip_smoke.py's 1e-6·Σ|terms| + 1e-6: at NaN, ±inf and
+±3e38 (the inputs of tests/test_torch_merge_edges.py), and for B2 on a
+Zipf-2.0 hot segment, with rows outside the segments, ties of the write
+merge, rows of 3, 16 and 1,536 values and rows not 16-byte aligned.
 """
 import numpy as np
 import pytest
@@ -29,6 +39,10 @@ from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
 from repro_torch.kernels.moe_gemm.ops import copies16, grouped_gemm, tile_rows
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+from repro_torch.kernels.segment_combine.ops import combine
+from repro_torch.kernels.segment_combine.ref import combine_ref
+from repro_torch.kernels.stage_fused.ops import fused_reduce
+from repro_torch.kernels.stage_fused.ref import reduce_pairs_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +60,9 @@ MAMBA_GEOMS = [(32, 2, 8, 8, 16), (64, 3, 16, 8, 16), (128, 1, 32, 16, 32),
 TOL = {"attention": 2e-5, "scan": 1e-3, "bf16": 3e-2}
 ATTN_REL = 2e-5
 BF16_ROUND = 2.0 ** -8
+SSD_REL = 1e-5
+U32 = 2.0 ** -24
+MERGES = ["add", "min", "max", "or", "write"]
 
 
 @pytest.fixture
@@ -362,3 +379,156 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="at most"):
         mamba_ssd(x, dt, torch.zeros(1, device=dev), bc, bc)
     assert kernels.launches() == {k: 0 for k in kernels.KERNELS}
+
+
+# ---- B2 segment combine and B3 fused reads: edges, hot segments ----------
+def _exact(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _sum_gate(got, want, mags):
+    assert bool(((got - want).abs() <= 1e-6 * mags + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", ["min", "max", "or"])
+def test_combine_kernel_nan_inf_and_large_values(dev, op, dtype):
+    """NaN propagates (an update and a stored NaN), ±inf and ±3e38 fold
+    with the identity: the kernel gives the plain version's values, which
+    tests/test_torch_merge_edges.py holds to the numpy oracle."""
+    edge = torch.tensor([np.nan, np.inf, -np.inf, 3e38, -3e38, 1.0, -2.0,
+                         0.0], dtype=dtype)
+    rng = np.random.default_rng(30)
+    n, w, S = 4096, 16, 37
+    vals = edge[torch.from_numpy(rng.integers(0, edge.numel(), (n, w)))]
+    vals[rng.random((n, w)) < 0.7] = 1.5  # most columns NaN-free
+    seg = torch.from_numpy(rng.integers(-2, S + 2, n).astype(np.int32))
+    vals, seg = vals.to(dev), seg.to(dev)
+    _exact(combine(vals, seg, S, op=op), combine_ref(vals, seg, S, op=op))
+    assert kernels.launches()["segment_combine"] == 1
+
+
+def _zipf_segments(n, S, rng, gamma=2.0):
+    """n segment ids of a Zipf(gamma) law over S segments in task order
+    (not sorted), ~60% on one at gamma 2.0, and ids outside [0, S)."""
+    p = 1.0 / np.arange(1, S + 1) ** gamma
+    seg = rng.choice(S, size=n, p=p / p.sum()).astype(np.int32)
+    seg[rng.random(n) < 0.01] = -1
+    seg[rng.random(n) < 0.01] = S + 3
+    return torch.from_numpy(seg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("w", [16, 3, 1536])
+@pytest.mark.parametrize("op", MERGES)
+def test_combine_kernel_hot_segment(dev, op, w, dtype):
+    """A Zipf-2.0 batch (the warp pre-combine and the block table on its
+    hot segments, the global atomics on the rest): exact but for sums."""
+    rng = np.random.default_rng(31)
+    n = 20_000 if w < 1536 else 600
+    S = 5000
+    seg = _zipf_segments(n, S, rng).to(dev)
+    vals = torch.from_numpy(rng.normal(size=(n, w))).to(dev, dtype)
+    order = torch.from_numpy(rng.integers(-3, 3, n).astype(np.int32)).to(dev)
+    got = combine(vals, seg, S, op=op, order=order)
+    want = combine_ref(vals, seg, S, op=op, order=order)
+    if op == "add":
+        _sum_gate(got, want, combine_ref(vals.abs(), seg, S, op="add"))
+    else:
+        _exact(got, want)
+    assert kernels.launches()["segment_combine"] == 1
+
+
+@pytest.mark.parametrize("op", MERGES)
+def test_combine_kernel_rows_not_16_byte_aligned(dev, op):
+    """A contiguous view one float in: the kernel loads rows a value at a
+    time (16-byte vectors need aligned rows)."""
+    rng = np.random.default_rng(32)
+    n, w, S = 3000, 16, 40
+    flat = torch.from_numpy(rng.normal(size=n * w + 1).astype(
+        np.float32)).to(dev)
+    vals = flat[1:].view(n, w)
+    assert vals.is_contiguous() and vals.data_ptr() % 16
+    seg = _zipf_segments(n, S, rng).to(dev)
+    order = torch.zeros(n, dtype=torch.int32, device=dev)  # all tied
+    got = combine(vals, seg, S, op=op, order=order)
+    want = combine_ref(vals, seg, S, op=op, order=order)
+    if op == "add":
+        _sum_gate(got, want, combine_ref(vals.abs(), seg, S, op="add"))
+    else:
+        _exact(got, want)
+
+
+def test_combine_kernel_write_ties_go_to_the_lowest_row(dev):
+    """Every row of a hot segment at the lowest order, in several warps
+    and blocks: the lowest row wins, as in the plain version."""
+    n, S = 50_000, 3
+    seg = torch.zeros(n, dtype=torch.int32)
+    seg[::7] = 1
+    seg[5] = 2
+    order = torch.full((n,), 9, dtype=torch.int32)
+    order[[40_000, 30_001, 45_000]] = -2**31  # three ties at the lowest
+    vals = torch.arange(n, dtype=torch.float32)[:, None].repeat(1, 4)
+    got = combine(vals.to(dev), seg.to(dev), S, op="write",
+                  order=order.to(dev)).cpu()
+    assert got[:, 0].tolist() == [30_001.0, 0.0, 5.0]
+    _exact(got, combine_ref(vals, seg, S, op="write", order=order))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("max_arity", [None, 3, 5])
+@pytest.mark.parametrize("read_op", ["min", "max"])
+def test_fused_reduce_kernel_nan_inf_and_padding_fill(dev, read_op,
+                                                      max_arity, dtype):
+    """NaN and ±3e38 pairs, ±inf, arity below and at the batch's max arity
+    (read off indptr, or stated), and arity 0."""
+    values = torch.tensor([[3e38, 1.0], [np.nan, -3e38], [1.0, np.inf],
+                           [-3e38, -np.inf], [2.0, 0.5]], dtype=dtype)
+    tasks = [[0], [0, 1], [2, 3, 4], [4], [2, 0], [], [3, 3, 3], [0, 2]]
+    indptr = torch.tensor(np.r_[0, np.cumsum([len(t) for t in tasks])],
+                          dtype=torch.int32)
+    indices = torch.tensor([k for t in tasks for k in t], dtype=torch.int32)
+    want = reduce_pairs_ref(values, indptr, indices, read_op=read_op,
+                            max_arity=max_arity)
+    got = fused_reduce(values.to(dev), indptr.to(dev), indices.to(dev),
+                       read_op=read_op, max_arity=max_arity)
+    _exact(got.cpu(), want)
+    assert kernels.launches()["stage_fused"] == 1
+
+
+# ---- B7 on the tensor cores: chip_smoke.py's gates -------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom", MAMBA_GEOMS + [
+    (42, 20, 5, 3, 7), (96, 17, 64, 64, 96), (300, 2, 64, 64, 100),
+    (8, 1, 64, 1, 8)], ids=lambda g: "x".join(map(str, g)))
+def test_ssd_tensor_core_gate(dev, geom, dtype):
+    """The MAMBA geometries, odd widths (hd 5, ds 3), chunks that fill no
+    16-row tile (7) or a few (96 -> 3 tiles, 100 -> 7), 17 and 20 heads
+    (two head groups a block grid column), at chip_smoke.py's gates."""
+    S, nh, hd, ds, chunk = geom
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(_normal(rng, 2, S, nh, hd)).to(dev)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.3, size=(2, S, nh)).astype(
+        np.float32)).to(dev)
+    A = torch.from_numpy(-rng.uniform(0.3, 2.0, size=(nh,)).astype(
+        np.float32)).to(dev)
+    Bc, Cc = (torch.from_numpy(_normal(rng, 2, S, ds)).to(dev)
+              for _ in range(2))
+    if dtype == "bfloat16":
+        x, Bc, Cc = (t.to(torch.bfloat16) for t in (x, Bc, Cc))
+    got = mamba_ssd(x, dt, A, Bc, Cc, chunk=chunk)
+    up = (lambda t: t.double()) if dtype == "float32" else \
+        (lambda t: t.float())
+    lift = [up(t) for t in (x, dt, A, Bc, Cc)]
+    want = ssd_scan_ref(*lift, chunk=chunk).double()
+    c = min(chunk, S)
+    max_l = float((dt.double() * A.double()).reshape(2, -1, c, nh)
+                  .cumsum(2).abs().max())
+    mags = ssd_scan_ref(lift[0].abs(), lift[1], lift[2], lift[3].abs(),
+                        lift[4].abs(), chunk=chunk).double()
+    allowed = (SSD_REL + 8 * U32 * max_l) * mags + 1e-6
+    if dtype == "bfloat16":
+        allowed = allowed + BF16_ROUND * want.abs()
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got.double() - want).abs() <= allowed).all())
+    assert kernels.launches()["mamba_scan"] == 1

@@ -1,0 +1,249 @@
+"""The arithmetic of the port's chunk-parallel SSD scan kernels
+(`csrc/mamba_scan.cu`), emulated in torch on the CPU and held against the
+JAX package's `ssd_scan` (Pallas, interpret mode) and its float64 oracle at
+the gates the kernels are held to on the card.
+
+The kernels run the scan in three passes: (i) each chunk's local state
+s_k = (w ∘ x)ᵀ·B with w_s = exp(l_end − l_s)·dt_s, and its decay
+exp(l_end); (ii) the states passed in chunk order, h_k = exp(l_end,k)·
+h_{k−1} + s_k in float32; (iii) per chunk C·Bᵀ, M = tril(C·Bᵀ ∘
+exp(l_t − l_s) ∘ dt_s) and y = M·x + exp(l_t)·C·h_{k−1}ᵀ. Every product
+runs on the tensor cores with float32 sums a slice of 32 deep outside
+them:
+- float32 in 3xTF32: each operand split hi = a truncated to TF32 (13 low
+  mantissa bits cleared), lo = a − hi truncated again by the tensor core;
+  a product is lo·hi + hi·lo + hi·hi. A product of two TF32 values is
+  exact in float32, so a float32 matmul of the parts is the tensor core's
+  product up to the order of its sums (which it truncates; a slice's sums
+  here round to nearest, a part only the card shows).
+- bf16: x, B and C are exact in bf16, so C·Bᵀ is one product; M, h and
+  w ∘ x are split into bf16 hi (rounded to nearest) + lo (the rest,
+  rounded), two products each.
+
+Gates (chip_smoke.py): float32 against float64, |Δ| <= (SSD_REL +
+8·u32·max|l|)·Σ|terms| + 1e-6, Σ|terms| being the scan of |x|, |B|, |C|;
+bf16 against the float32 scan of the same bf16 inputs, plus 2^-8·|ref|
+for the rounding of the bf16 output. One rounding of M (TF32 or bf16, no
+lo part) lands past the gate on the same inputs (`*_single_*`).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba_scan.kernel import ssd_scan as jax_ssd
+from repro.kernels.mamba_scan.ref import ssd_scan_ref as jax_ssd_ref
+from repro_torch.kernels.mamba_scan.ops import kernel_chunk
+from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
+
+# one intra-op thread per test process: the suite runs in parallel workers
+torch.set_num_threads(1)
+
+SSD_REL = 1e-5            # chip_smoke.py's SSD_REL
+U32 = 2.0 ** -24          # float32 unit roundoff
+BF16_ROUND = 2.0 ** -8    # chip_smoke.py's BF16_ROUND
+SLICE = 32                # mamba_scan.cu's kSlice
+TF32_MASK = -(1 << 13)    # 0xffffe000: clears 13 mantissa bits
+# (S, nh, hd, ds, chunk): the MAMBA family, and chunk 256 (run as 128)
+MAMBA_GEOMS = [(32, 2, 8, 8, 16), (64, 3, 16, 8, 16), (128, 1, 32, 16, 32),
+               (256, 2, 64, 64, 256)]
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    return (x.contiguous().view(torch.int32) & TF32_MASK).view(torch.float32)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _parts(a, route, split):
+    """(hi, lo) of an operand as the tensor core reads it; lo None when the
+    operand is taken whole (exact in bf16, or rounded once)."""
+    if route == "tf32":
+        hi = _tf32(a)
+        return hi, (_tf32(a - hi) if split else None)
+    if route == "bf16":
+        hi = _bf16(a)
+        return hi, (_bf16(a - hi) if split else None)
+    return a, None  # "exact": float64, no rounding
+
+
+def _mm(a, b, route, split_a, split_b):
+    """a @ b on the tensor cores: per slice of 32 along K the small
+    products first, then hi·hi, into sums of their own, added in float32."""
+    out = None
+    for k0 in range(0, a.shape[-1], SLICE):
+        a_hi, a_lo = _parts(a[..., k0:k0 + SLICE], route, split_a)
+        b_hi, b_lo = _parts(b[..., k0:k0 + SLICE, :], route, split_b)
+        part = None
+        if a_lo is not None:
+            part = a_lo @ b_hi
+        if b_lo is not None:
+            part = a_hi @ b_lo if part is None else part + a_hi @ b_lo
+        full = a_hi @ b_hi
+        part = full if part is None else part + full
+        out = part if out is None else out + part
+    return out
+
+
+def emulate_ssd(x, dt, A, Bc, Cc, chunk, route, split_m=True):
+    """The kernels' three passes: x (B, S, nh, hd), dt (B, S, nh), A (nh,),
+    Bc/Cc (B, S, ds) -> y (B, S, nh, hd). route "tf32" (float32 inputs),
+    "bf16" (bf16 values as float32; y rounded to bf16) or "exact" (float64,
+    no rounding: the decomposition's algebra alone)."""
+    B, S, nh, hd = x.shape
+    ds = Bc.shape[-1]
+    c = kernel_chunk(min(chunk, S))
+    NC = S // c
+    tc = route == "tf32"  # x, B, C need a split (not exact in bf16)
+    xc = x.reshape(B, NC, c, nh, hd).permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(B, NC, c, nh).permute(0, 1, 3, 2)  # (B, NC, nh, c)
+    Bcc = Bc.reshape(B, NC, c, ds)
+    Ccc = Cc.reshape(B, NC, c, ds)
+    l = torch.cumsum(dtc * A[:, None], -1)
+    # (i) chunk states and decays
+    w = torch.exp(l[..., -1:] - l) * dtc
+    s = _mm((xc * w[..., None]).transpose(-1, -2), Bcc[:, :, None], route,
+            True, tc)  # (B, NC, nh, hd, ds)
+    decay = torch.exp(l[..., -1])
+    # (ii) state passing, in chunk order
+    h = torch.zeros_like(s[:, 0])
+    h_prev = torch.empty_like(s)
+    for k in range(NC):
+        h_prev[:, k] = h
+        h = decay[:, k, :, None, None] * h + s[:, k]
+    # (iii) outputs
+    CB = _mm(Ccc, Bcc.transpose(-1, -2), route, tc, tc)  # (B, NC, c, c)
+    above = ~torch.tril(torch.ones((c, c), dtype=torch.bool))
+    diff = (l[..., :, None] - l[..., None, :]).masked_fill(above,
+                                                           float("-inf"))
+    M = CB[:, :, None] * torch.exp(diff) * dtc[..., None, :]
+    y = _mm(M, xc, route, split_m, tc)
+    ch = _mm(Ccc[:, :, None], h_prev.transpose(-1, -2), route, tc, True)
+    y = y + torch.exp(l)[..., None] * ch
+    y = y.permute(0, 1, 3, 2, 4).reshape(B, S, nh, hd)
+    return _bf16(y) if route == "bf16" else y
+
+
+def _case(geom, seed, dt_range=(0.01, 0.3), a_range=(0.3, 2.0)):
+    """float32 numpy inputs as tests/test_torch_mamba_scan.py makes them."""
+    S, nh, hd, ds, _ = geom
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(2, S, nh, hd)).astype(np.float32),
+            rng.uniform(*dt_range, size=(2, S, nh)).astype(np.float32),
+            (-rng.uniform(*a_range, size=(nh,))).astype(np.float32),
+            rng.normal(size=(2, S, ds)).astype(np.float32),
+            rng.normal(size=(2, S, ds)).astype(np.float32))
+
+
+def _torch(arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+def _share(got, want, arrays, chunk, bf16_out=False):
+    """max |Δ| / allowed at the card's gate (chip_smoke.py
+    check_against_plain): (SSD_REL + 8·u32·max|l|)·Σ|terms| + 1e-6, plus
+    2^-8·|want| for a bf16 output."""
+    x, dt, A, Bc, Cc = (np.asarray(a, np.float64) for a in arrays)
+    c = min(chunk, x.shape[1])
+    max_l = np.abs(np.cumsum((dt * A).reshape(2, -1, c, x.shape[2]),
+                             axis=2)).max()
+    mags = ssd_scan_ref(*_torch((np.abs(x), dt, A, np.abs(Bc), np.abs(Cc)),
+                                torch.float64), chunk=chunk).numpy()
+    want = np.asarray(want, np.float64)
+    allowed = (SSD_REL + 8 * U32 * max_l) * mags + 1e-6
+    if bf16_out:
+        allowed = allowed + BF16_ROUND * np.abs(want)
+    got = np.asarray(got, np.float64)
+    assert np.isfinite(got).all() and got.shape == want.shape
+    return float((np.abs(got - want) / allowed).max())
+
+
+def _jax_interpret(arrays, chunk):
+    return np.asarray(jax_ssd(*(jnp.asarray(a) for a in arrays), chunk=chunk,
+                              interpret=True))
+
+
+@pytest.mark.parametrize("geom", MAMBA_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_ssd_decomposition_is_the_scan(geom):
+    """Without rounding (float64), the three passes give the port's
+    float64 scan (held to the JAX oracle in tests/test_torch_mamba_scan.py)
+    to float64 rounding: the decomposition is exact algebra."""
+    arrays = _torch(_case(geom, seed=20), torch.float64)
+    got = emulate_ssd(*arrays, geom[-1], "exact")
+    want = ssd_scan_ref(*arrays, chunk=geom[-1])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("want", ["float64", "interpret"])
+@pytest.mark.parametrize("geom", MAMBA_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_ssd_3xtf32_within_the_float32_gate(geom, want):
+    arrays = _case(geom, seed=21)
+    chunk = geom[-1]
+    got = emulate_ssd(*_torch(arrays), chunk, "tf32").numpy()
+    ref = (np.asarray(jax_ssd_ref(*arrays)) if want == "float64"
+           else _jax_interpret(arrays, chunk))
+    assert _share(got, ref, arrays, chunk) <= 1.0
+
+
+def test_ssd_3xtf32_large_decay_is_finite_and_within_the_gate():
+    """|dt·A| up to 125 (chip_smoke.py's case): exp(l_t − l_s) for s > t
+    would be inf in float32; the emulation, like the kernels, forms the
+    decay only for s <= t."""
+    geom = (64, 3, 16, 8, 16)
+    arrays = _case(geom, seed=22, dt_range=(1.0, 5.0), a_range=(5.0, 25.0))
+    got = emulate_ssd(*_torch(arrays), 16, "tf32").numpy()
+    assert _share(got, jax_ssd_ref(*arrays), arrays, 16) <= 1.0
+
+
+def _bf16_case(geom, seed):
+    """float32 inputs with x, B and C rounded to bf16 values."""
+    x, dt, A, Bc, Cc = _case(geom, seed)
+    r = [_bf16(torch.from_numpy(a)).numpy() for a in (x, Bc, Cc)]
+    return r[0], dt, A, r[1], r[2]
+
+
+@pytest.mark.parametrize("geom", MAMBA_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_ssd_bf16_within_the_bf16_gate(geom):
+    """Against the JAX kernel in interpret mode run in float32 on the same
+    bf16 values (chip_smoke.py's bf16 gate: the float32 scan of the same
+    inputs, plus the output's rounding)."""
+    arrays = _bf16_case(geom, seed=23)
+    chunk = geom[-1]
+    got = emulate_ssd(*_torch(arrays), chunk, "bf16").numpy()
+    assert _share(got, _jax_interpret(arrays, chunk), arrays, chunk,
+                  bf16_out=True) <= 1.0
+
+
+def test_ssd_single_tf32_rounding_of_m_breaks_the_float32_gate():
+    """M truncated to TF32 once (no lo part; x still split) errs by up to
+    2^-10 of each weight: far past the float32 gate, which the split
+    holds on the same inputs."""
+    geom = MAMBA_GEOMS[2]
+    arrays = _case(geom, seed=24)
+    want = jax_ssd_ref(*arrays)
+    split = _share(emulate_ssd(*_torch(arrays), 32, "tf32").numpy(), want,
+                   arrays, 32)
+    single = _share(emulate_ssd(*_torch(arrays), 32, "tf32",
+                                split_m=False).numpy(), want, arrays, 32)
+    assert split <= 1.0 < 4.0 < single, (split, single)
+
+
+def test_ssd_single_bf16_rounding_of_m_breaks_the_bf16_gate():
+    """M rounded to bf16 once (no lo part) errs by up to 2^-9 of each
+    weight: outputs whose terms cancel land past the bf16 gate, which the
+    hi/lo split holds on the same inputs."""
+    geom = MAMBA_GEOMS[2]
+    arrays = _bf16_case(geom, seed=25)
+    want = _jax_interpret(arrays, 32)
+    split = _share(emulate_ssd(*_torch(arrays), 32, "bf16").numpy(), want,
+                   arrays, 32, bf16_out=True)
+    single = _share(emulate_ssd(*_torch(arrays), 32, "bf16",
+                                split_m=False).numpy(), want, arrays, 32,
+                    bf16_out=True)
+    assert split <= 1.0 < single, (split, single)
