@@ -12,13 +12,17 @@ Phases, each of which raises (non-zero exit) on any failed check:
    kernels (the 3xTF32 float32 ones, the SIMT float32 ones and the bf16
    tensor-core ones).
 2. Kernel parity: every kernel against its plain PyTorch version on the
-   card — the histogram (weighted and not, bins below and above the
-   shared-memory budget, out-of-range ids), the segment combine (every
+   card — the histogram on each of its routes (`histogram.ops.route`: the
+   shared-memory route below 48 KB and in the opt-in band, the global
+   route; uniform and Zipf ids, weighted and not, out-of-range ids, ids
+   not 16-byte aligned), the segment combine (every
    merge, float32 and float64, empty segments, negative and tied
    priorities, Zipf-2.0 hot segments, NaN / ±inf / ±3e38 under min, max
    and or), the fused stage (every read_op x merge, arity-0 rows, a
    single-row batch, NaN and ±3e38 min/max reads below and at the max
-   arity), the grouped GEMM (the MOE geometries of
+   arity; the gather-reduce on each layout of `stage_fused.ops.layout`,
+   w = 1 ... 1536 in float32 and float64, with a task of arity 1,000 and
+   rows not 16-byte aligned), the grouped GEMM (the MOE geometries of
    tests/test_kernels.py, empty groups, rows beyond the groups' sum, the
    parameter-server path's two projections), and attention, decode
    attention and the SSD scan (see phase 5; bf16 attention and decode take
@@ -94,7 +98,13 @@ Phases, each of which raises (non-zero exit) on any failed check:
    run 3xTF32 on the tensor cores (with the FMA bound beside it), or 989
    TFLOP/s in bf16, whichever is larger). The segment combine is timed
    at the writer combines of stages (a) add (`index_add_`), (c) min
-   (`index_reduce_(..., "amin")`) and (b) write (no one call).
+   (`index_reduce_(..., "amin")`) and (b) write (no one call). The
+   histogram (at stage (b)'s root call, the parameter-server lookup's, a
+   decode step's and `embed_skew_aware`'s raw ids) and the fused gather-reduce (at stage (c) and the
+   parameter-server bags) also get the call's host time and the device
+   time alone (torch.profiler's kernels and fills over 20 calls; CUDA
+   events around calls queued behind a spin kernel where three profiler
+   sessions miss them).
 7. Device busy share: stages (a)-(c) once more under torch.profiler, after a
    warm-up run; the device's busy time (kernels, copies, fills) against the
    stage's wall time.
@@ -128,6 +138,11 @@ P = 16
 TASKS_PER_MACHINE = 50_000
 VALUE_WIDTH = 16
 SEED = 20251111
+# host-clock margin before and after a profiled block: torch.profiler keeps
+# only the device events whose timestamps fall inside its session, and the
+# card's timestamps can sit milliseconds off the host's, more than 20 short
+# calls last
+PROFILE_PAD_S = 0.25
 
 
 def log(msg: str) -> None:
@@ -147,7 +162,8 @@ def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "ssd_states", "ssd_state_pass",
                                              "ssd_outputs", "gg_tf32",
                                              "seg_combine",
-                                             "fused_reduce")) -> dict:
+                                             "fused_reduce", "hist_shared",
+                                             "hist_global")) -> dict:
     """Registers, shared memory and spills per instantiation of the named
     kernels, as `nvcc -Xptxas=-v` reported them in the build's log."""
     out, entry, spills = {}, None, ""
@@ -267,11 +283,129 @@ def gemm_parity(dev, x, w, sizes, name: str) -> float:
     return _sum_bound_ok(got, want, mags, rel=1e-5, name=f"moe_gemm {name}")
 
 
+def _zipf_ids(rng, n: int, bins: int, gamma: float = 1.2) -> np.ndarray:
+    p = 1.0 / np.arange(1, bins + 1) ** gamma
+    return rng.permutation(bins)[rng.choice(bins, size=n, p=p / p.sum())]
+
+
+# (bins, ids): each route of the histogram kernel on an H100 (227 KB of
+# opt-in shared memory a block, 132 SMs): the shared route below 48 KB of
+# bins (300, 12,288, 40) and in the opt-in band (50,000), the global route
+# past the merge's break-even (49,155 and 800,000 bins: the paths' lookup
+# and stage (b)) and past the opt-in limit (60,000)
+HIST_PARITY = [(300, 40_000), (12_288, 8_000_000), (50_000, 8_000_000),
+               (49_155, 8_192), (800_000, 800_000), (60_000, 2_000_000),
+               (40, 1_024), (1, 1)]
+
+
+def histogram_route_parity(dev) -> str:
+    """K1 on each route (`histogram.ops.route`) against its plain version,
+    exactly: uniform and Zipf-1.2 ids, weighted (int32 in [-2, 9)) and
+    not, 1% of the ids below 0 and 1% past the bins; and ids in a view one
+    id into its buffer (not 16-byte aligned). Raises if a route was not
+    taken."""
+    import torch
+
+    from repro_torch.kernels.histogram.ops import (count_ids, device_limits,
+                                                   route)
+    from repro_torch.kernels.histogram.ref import histogram_ref
+
+    rng = np.random.default_rng(SEED)
+    limits = device_limits(dev.index or 0)
+    taken, cases = set(), 0
+    for bins, n in HIST_PARITY:
+        kind = route(n, bins, limits)[0]
+        taken.add(kind if kind == "global" or 4 * bins <= 48 * 1024
+                  else "shared opt-in")
+        for zipf in (False, True):
+            ids = _zipf_ids(rng, n, bins) if zipf else rng.integers(0, bins, n)
+            ids[rng.random(n) < 0.01] = -3
+            ids[rng.random(n) < 0.01] = bins + 5
+            flat = torch.from_numpy(np.r_[0, ids].astype(np.int32)).to(dev)
+            wts = torch.from_numpy(rng.integers(-2, 9, n + 1).astype(
+                np.int32)).to(dev)
+            views = [(flat[1:].clone(), w) for w in (None, wts[1:].clone())]
+            if zipf and kind == "global":
+                views += [(flat[1:], None), (flat[1:], wts[1:])]
+            for k, w in views:
+                cases += 1
+                if not torch.equal(count_ids(k, bins, weights=w),
+                                   histogram_ref(k, bins, w)):
+                    raise AssertionError(
+                        f"histogram {kind} bins={bins} n={n} zipf={zipf} "
+                        f"weighted={w is not None} aligned="
+                        f"{k.data_ptr() % 16 == 0} differs")
+    if taken != {"shared", "shared opt-in", "global"}:
+        raise AssertionError(f"histogram parity took only {taken}")
+    return (f"exact on {cases} cases over the routes {sorted(taken)} "
+            f"(limits {tuple(limits)})")
+
+
+def fused_layout_parity(dev) -> float:
+    """K3's gather-reduce on each layout (`stage_fused.ops.layout`): w in
+    1 ... 1536, float32 and float64, every read op, 300 tasks of arity 0-8
+    and one of 1,000 over 97 rows, rows 16-byte aligned and a view one
+    value in; min/max/first with NaN, ±inf and ±3e38 values, exact (NaN as
+    NaN), add within the sum bound (a·u·Σ|terms| for a task of arity a past
+    1e-6/u); the max-arity fill read off indptr and stated (8). Returns the
+    worst sum error."""
+    import torch
+
+    from repro_torch.kernels.stage_fused.ops import fused_reduce, layout
+    from repro_torch.kernels.stage_fused.ref import reduce_pairs_ref
+
+    rng = np.random.default_rng(SEED)
+    K, n = 97, 301
+    arity = rng.integers(0, 9, n)
+    arity[150] = 1000
+    indptr = torch.from_numpy(np.r_[0, np.cumsum(arity)].astype(
+        np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, K, int(arity.sum())).astype(
+        np.int32)).to(dev)
+    edge = np.array([np.nan, np.inf, -np.inf, 3e38, -3e38])
+    # the sum gate a task: 1e-6, or a·u for a task of arity a, whose pairs
+    # add in the values' type in pair order (each add rounds by at most
+    # u·Σ|terms|; u = 2^-24 in float32): the arity-1,000 task needs it
+    a = torch.from_numpy(arity).to(dev, torch.float64)[:, None]
+    rel = {dt: (a * u).clamp(min=1e-6) for dt, u in (
+        (torch.float32, 2.0 ** -24), (torch.float64, 2.0 ** -53))}
+    worst, layouts = 0.0, set()
+    for w in (1, 3, 4, 5, 16, 17, 33, 1536):
+        for dt in (torch.float32, torch.float64):
+            for read_op in ("add", "min", "max", "first"):
+                vals = rng.normal(size=(K * w + 1))
+                if read_op != "add":
+                    pick = rng.random(vals.size) < 0.05
+                    vals[pick] = edge[rng.integers(0, 5, int(pick.sum()))]
+                flat = torch.from_numpy(vals).to(dev, dt)
+                for values in (flat[:-1].view(K, w), flat[1:].view(K, w)):
+                    layouts.add(layout(w, values.element_size(),
+                                       values.data_ptr() % 16 == 0))
+                    for max_ar in (None, 8):
+                        got = fused_reduce(values, indptr, idx,
+                                           read_op=read_op, max_arity=max_ar)
+                        want = reduce_pairs_ref(values, indptr, idx,
+                                                read_op=read_op,
+                                                max_arity=max_ar)
+                        if read_op == "add":
+                            worst = max(worst, _sum_bound_ok(
+                                got, want, reduce_pairs_ref(
+                                    values.abs(), indptr, idx,
+                                    read_op="add"), rel=rel[dt],
+                                name=f"fused_reduce add w={w} {dt}"))
+                        else:
+                            _same_with_nan(got, want, f"fused_reduce "
+                                           f"{read_op} w={w} {dt}")
+    log(f"  stage_fused: {len(layouts)} layouts (vec, lanes a task, "
+        f"vectors a lane) {sorted(tuple(x) for x in layouts)} over w = 1 "
+        "... 1536, float32 and float64, every read op, with NaN/±inf/±3e38, "
+        "arity 0 and 1,000, rows not 16-byte aligned; exact but sums")
+    return worst
+
+
 def parity_phase(dev) -> dict:
     import torch
 
-    from repro_torch.kernels.histogram.ops import count_ids, shared_bins
-    from repro_torch.kernels.histogram.ref import histogram_ref
     from repro_torch.kernels.segment_combine.ops import combine
     from repro_torch.kernels.segment_combine.ref import combine_ref
     from repro_torch.kernels.stage_fused.ops import (FUSED_READ_OPS,
@@ -283,21 +417,9 @@ def parity_phase(dev) -> dict:
     g = torch.Generator().manual_seed(SEED)
     worst = {"histogram": 0.0, "segment_combine": 0.0, "stage_fused": 0.0}
 
-    # histogram: exact, with ids outside [0, bins) on both sides
-    sb = shared_bins()
-    for bins, n in [(300, 4000), (sb, 200_000), (sb + 1, 200_000),
-                    (800_000, 800_000), (1, 1)]:
-        ids = torch.randint(-7, bins + 7, (n,), generator=g,
-                            dtype=torch.int32).to(dev)
-        wts = torch.randint(0, 5, (n,), generator=g,
-                            dtype=torch.int32).to(dev)
-        for w in (None, wts):
-            got, want = count_ids(ids, bins, weights=w), \
-                histogram_ref(ids, bins, w)
-            if not torch.equal(got, want):
-                raise AssertionError(f"histogram bins={bins} n={n} "
-                                     f"weighted={w is not None} differs")
-    log(f"  histogram: exact on 10 cases (shared-memory budget {sb} bins)")
+    # histogram: exact on each route, with ids outside [0, bins) on both
+    # sides
+    log(f"  histogram: {histogram_route_parity(dev)}")
 
     # segment combine: min/max/or/write exact, add within the sum bound
     for dt in (torch.float32, torch.float64):
@@ -428,6 +550,8 @@ def parity_phase(dev) -> dict:
         "single-row batch) and 12 min/max reads at NaN/±inf/±3e38 below "
         "and at the max arity; sums within 1e-6*sum|terms| + 1e-6, the "
         "rest exact (NaN as NaN)")
+    worst["stage_fused"] = max(worst["stage_fused"],
+                               fused_layout_parity(dev))
 
     # grouped GEMM: tests/test_kernels.py's MOE geometries, its empty-group
     # case, rows beyond the groups' sum, and the path's two shapes
@@ -918,7 +1042,7 @@ def paramserve_path(device: str = "cuda", f: int | None = None,
         if sess.backend._host_lambdas:
             raise AssertionError("embedding: a lambda fell back to the host")
     tensors = dict(router=router, perm=perm, routing=routing, store=store,
-                   ids=ids,
+                   ids=ids, skew_ids=q,
                    bags=(indptr, bag_ids), grads=(up_ids, grads),
                    hot_ids=hot_ids)
     return st.rows, summary, tensors
@@ -1755,79 +1879,236 @@ def segment_combine_timing(dev, by: dict, launches: dict) -> dict:
                 shapes=shapes)
 
 
-def timing_phase(dev, K, stages, init, launches) -> list:
+def device_ms(fn, reps: int = 20) -> tuple:
+    """The device's own time for one `fn()` call: the summed durations of
+    the device events (kernels, fills, copies) that torch.profiler records
+    over `reps` calls, over `reps`; that time by event name; and how it was
+    taken. Beside `time_ms`, which also counts the host's work for the call
+    while the card waits. Where three profiler sessions record none of the
+    calls' device events, the time is `queued_device_ms`'s instead."""
     import torch
-    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events and len(events) % reps == 0:  # every call's, or none
+            break
+        log(f"  the profiler saw {len(events)} device events over {reps} "
+            "calls; profiling again")
+    else:
+        log("  the profiler missed the calls' device events three times; "
+            "timing them queued behind a spin kernel")
+        return queued_device_ms(fn, reps), {}, "events"
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / reps / 1e3
+    return sum(by_name.values()), by_name, "profiler"
+
+
+def queued_device_ms(fn, reps: int = 20) -> float:
+    """Device time of one `fn()` call by CUDA events, none of the host's:
+    the `reps` calls are issued while a spin kernel holds the stream, so
+    the events bracket only the device's work for them (and the gaps
+    between their launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms, far longer than issuing the calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Median host time to issue one `fn()` call (the card idle, nothing
+    waited for): what the wrapper costs before the device starts."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _i32(a, dev):
+    """A host integer array as a contiguous int32 tensor on `dev`."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+
+def _call_times(fn) -> dict:
+    """A kernel call's event time (`ms`: the call as a user makes it, host
+    work included), its host time (`host_ms`) and its device time
+    (`device_ms`; `device_events`: each device event's ms a call;
+    `device_source`: "profiler", or "events" where it fell back to
+    `queued_device_ms`). The host clock reads first, before the profiler
+    has touched the process."""
+    times = dict(ms=time_ms(fn, reps=20), host_ms=host_ms(fn))
+    (times["device_ms"], times["device_events"],
+     times["device_source"]) = device_ms(fn)
+    return times
+
+
+def _log_shapes(name: str, shapes: list) -> None:
+    for s in shapes:
+        lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
+               else "null")
+        events = (", ".join(f"{k} {v:.4f}" for k, v in
+                            s["device_events"].items())
+                  or "CUDA events, the calls queued behind a spin")
+        log(f"  {name}: call {s['ms']:.4f} ms (host {s['host_ms']:.4f}), "
+            f"device {s['device_ms']:.4f} ms ({events}), plain "
+            f"{s['plain_ms']:.4f}, library {lib}, bound {s['bound_ms']:.4f} "
+            f"by {s['bound_by']}; {s['launches']} launches on its path; at "
+            f"{s['shape']}")
+
+
+def histogram_timing(dev, K, by: dict, launches: dict, ps: dict,
+                     ps_launches: dict) -> dict:
+    """K1 at three root calls, each weighted by multiplicity as the engine
+    passes it: stage (b)'s (800,000 uniform keys, every pair reaching the
+    root unmerged, over 800,000 bins; the headline), the parameter-server
+    lookup's (the distinct ids of 8,192 Zipf-1.2 ids over 49,155 bins) and
+    a decode step's (the distinct experts of 1,024 assignments over 40
+    bins); and at `embed_skew_aware`'s unweighted call on its raw 8,192
+    Zipf-1.2 ids over the 49,155 bins, repeats and all (the hot id about a
+    fifth of them), where atomics on one bin would serialize. Library:
+    `torch.bincount` with the same weights. Bound: ids (and weights) read
+    once, the bins written once, one add an id."""
+    import torch
 
     from repro_torch.kernels.histogram.ops import count_ids
     from repro_torch.kernels.histogram.ref import histogram_ref
+
+    keys = by["b"].read_keys
+    ti = ps["routing"][1]
+    cases = [("stage (b) root call", _i32(keys, dev),
+              _i32(np.ones_like(keys), dev), K, launches["histogram"])]
+    for label, ids, bins in (("lookup root call", ps["ids"], ps["store"].V),
+                             ("decode step root call", ti[ti >= 0],
+                              ps["router"].E)):
+        uniq, cnt = np.unique(ids, return_counts=True)
+        cases.append((label, _i32(uniq, dev), _i32(cnt, dev), bins,
+                      ps_launches["histogram"]))
+    cases.append(("skew-aware embedding's raw ids", _i32(ps["skew_ids"], dev),
+                  None, ps["store"].V, ps_launches["histogram"]))
+    shapes = []
+    for label, ids, wts, bins, n_launch in cases:
+        n = ids.numel()
+        got = count_ids(ids, bins, weights=wts)
+        if not torch.equal(got, histogram_ref(ids, bins, wts)):
+            raise AssertionError(f"histogram at the {label} differs")
+        b_ms, b_by = bound(4 * n * (1 + (wts is not None)) + 4 * bins, n)
+        shapes.append(dict(
+            **_call_times(lambda: count_ids(ids, bins, weights=wts)),
+            plain_ms=time_ms(lambda: histogram_ref(ids, bins, wts)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.bincount(ids, weights=wts,
+                                                      minlength=bins)),
+            launches=n_launch,
+            shape=f"{label}: ids ({n},) int32"
+                  f"{'' if wts is None else ' + weights'}, {bins} bins"))
+    _log_shapes("histogram", shapes)
+    return dict(name="histogram", route="cuda",
+                source="src/repro_torch/csrc/histogram.cu",
+                replaces="src/repro/kernels/histogram/kernel.py:37",
+                max_abs_err=0.0, **shapes[0], shapes=shapes)
+
+
+def stage_fused_timing(dev, K, by: dict, init, launches: dict, ps: dict,
+                       ps_launches: dict) -> dict:
+    """K3's gather-reduce (read_op add) at stage (c) (800,000 tasks of
+    arity 1-8 over the (800,000, 16) float32 store, Zipf-1.5 keys; the
+    headline) and at the parameter-server bags (8,192 bags of arity 1-8,
+    Zipf 1.2, over the 49,155 x 1536 float32 table). Library:
+    `F.embedding_bag` (mode "sum"; empty bags give 0), checked against the
+    plain version first. Bound: the distinct rows read once, indptr and
+    indices read once, the output written once, one add a pair and
+    column."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import TorchBackend
     from repro_torch.kernels.stage_fused.ops import fused_reduce
     from repro_torch.kernels.stage_fused.ref import reduce_pairs_ref
 
-    by = {s[0]: s[2] for s in stages}
-    rows = []
-
-    # K1 at stage (b)'s Phase-1 root call: every pair reaches the root
-    # unmerged on uniform keys, one weighted row each
-    keys = torch.from_numpy(by["b"].read_keys.astype(np.int32)).to(dev)
-    ones = torch.ones_like(keys)
-    n = keys.numel()
-    got, want = count_ids(keys, K, weights=ones), histogram_ref(keys, K, ones)
-    err = float((got - want).abs().max().item())
-    b_ms, b_by = bound(4 * n + 4 * n + 4 * K, n)
-    rows.append(dict(
-        name="histogram", route="cuda",
-        source="src/repro_torch/csrc/histogram.cu",
-        replaces="src/repro/kernels/histogram/kernel.py:37",
-        launches=launches["histogram"], max_abs_err=err,
-        ms=time_ms(lambda: count_ids(keys, K, weights=ones)),
-        plain_ms=time_ms(lambda: histogram_ref(keys, K, ones)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.bincount(keys, weights=ones,
-                                                  minlength=K)),
-        shape=f"ids ({n},) int32 + weights, {K} bins"))
-
-    rows.append(segment_combine_timing(dev, by, launches))
-
-    # K3 at stage (c)'s gather-reduce; the library call is embedding_bag's
-    # CSR gather-sum (empty bags give 0), checked against the plain version
     tc = by["c"]
-    vals = torch.from_numpy(init.astype(np.float32)).to(dev)
-    indptr = torch.from_numpy(tc.read_indptr.astype(np.int32)).to(dev)
-    idx = torch.from_numpy(tc.read_indices.astype(np.int32)).to(dev)
-    got = fused_reduce(vals, indptr, idx, read_op="add")
-    want = reduce_pairs_ref(vals, indptr, idx, read_op="add")
-    mags = reduce_pairs_ref(vals.abs(), indptr, idx, read_op="add")
-    err = _sum_bound_ok(got, want, mags)
+    cases = [("stage (c)", torch.from_numpy(init.astype(np.float32)).to(dev),
+              _i32(tc.read_indptr, dev), _i32(tc.read_indices, dev),
+              launches["stage_fused"]),
+             ("parameter-server bags",
+              TorchBackend(device=dev).device_values(ps["store"].store),
+              _i32(ps["bags"][0], dev), _i32(ps["bags"][1], dev),
+              ps_launches["stage_fused"])]
+    shapes, err = [], 0.0
+    for label, vals, indptr, idx, n_launch in cases:
+        want = reduce_pairs_ref(vals, indptr, idx, read_op="add")
+        mags = reduce_pairs_ref(vals.abs(), indptr, idx, read_op="add")
+        err = max(err, _sum_bound_ok(
+            fused_reduce(vals, indptr, idx, read_op="add"), want, mags,
+            name=f"stage_fused at {label}"))
 
-    def bag():
-        return F.embedding_bag(idx, vals, indptr, mode="sum",
-                               include_last_offset=True)
+        def bag(vals=vals, indptr=indptr, idx=idx):
+            return F.embedding_bag(idx, vals, indptr, mode="sum",
+                                   include_last_offset=True)
 
-    _sum_bound_ok(bag(), want, mags)
-    rows_read = np.unique(tc.read_indices).size
-    nt, nnz = tc.n, tc.nnz
-    b_ms, b_by = bound(4 * rows_read * VALUE_WIDTH + 4 * (nt + 1) + 4 * nnz
-                       + 4 * nt * VALUE_WIDTH, nnz * VALUE_WIDTH)
-    rows.append(dict(
-        name="stage_fused", route="cuda",
-        source="src/repro_torch/csrc/stage_fused.cu",
-        replaces="src/repro/kernels/stage_fused/kernel.py:162",
-        launches=launches["stage_fused"], max_abs_err=err,
-        ms=time_ms(lambda: fused_reduce(vals, indptr, idx, read_op="add")),
-        plain_ms=time_ms(lambda: reduce_pairs_ref(vals, indptr, idx,
-                                                  read_op="add")),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(bag),
-        shape=f"{nt} tasks, {nnz} pairs over ({K}, {VALUE_WIDTH}) float32, "
-              f"{rows_read} distinct rows, read_op add"))
-    for r in rows:
-        if r["name"] == "segment_combine":
-            continue  # logged shape by shape
-        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
-            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-            f"{r['bound_by']}) at {r['shape']}; {r['launches']} launches "
-            f"on the main path")
-    return rows
+        _sum_bound_ok(bag(), want, mags, name=f"embedding_bag at {label}")
+        del want, mags
+        nt, nnz = indptr.numel() - 1, idx.numel()
+        rows_read = int(torch.unique(idx).numel())
+        w = vals.shape[1]
+        b_ms, b_by = bound(4 * rows_read * w + 4 * (nt + 1) + 4 * nnz
+                           + 4 * nt * w, nnz * w)
+        shapes.append(dict(
+            **_call_times(lambda: fused_reduce(vals, indptr, idx,
+                                               read_op="add")),
+            plain_ms=time_ms(lambda: reduce_pairs_ref(vals, indptr, idx,
+                                                      read_op="add")),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(bag),
+            launches=n_launch,
+            shape=f"{label}: {nt} tasks, {nnz} pairs over "
+                  f"({vals.shape[0]}, {w}) float32, {rows_read} distinct "
+                  "rows, read_op add"))
+        torch.cuda.empty_cache()
+    _log_shapes("stage_fused", shapes)
+    return dict(name="stage_fused", route="cuda",
+                source="src/repro_torch/csrc/stage_fused.cu",
+                replaces="src/repro/kernels/stage_fused/kernel.py:162",
+                max_abs_err=err, **shapes[0], shapes=shapes)
+
+
+def timing_phase(dev, K, stages, init, launches, ps: dict,
+                 ps_launches: dict) -> list:
+    """K1-K3 at the main path's and the parameter-server path's shapes.
+    A row's top-level numbers are its first shape's; `launches` there is
+    the main path's count, a shape's own is its path's."""
+    by = {s[0]: s[2] for s in stages}
+    return [histogram_timing(dev, K, by, launches, ps, ps_launches),
+            segment_combine_timing(dev, by, launches),
+            stage_fused_timing(dev, K, by, init, launches, ps, ps_launches)]
 
 
 # ---------------------------------------------------------------------------
@@ -1857,16 +2138,24 @@ def busy_phase(K, stages, init) -> list:
         sess = Orchestrator(st, backend="torch", replication=rep)
         sess.run_stage(tasks, f, write_back=merge, return_results=True)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            sess.run_stage(tasks, f, write_back=merge, return_results=True)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        if not spans:
+        for _ in range(3):  # a session now and then records no device events
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_PAD_S)
+                t0 = time.perf_counter()
+                sess.run_stage(tasks, f, write_back=merge,
+                               return_results=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                time.sleep(PROFILE_PAD_S)
+            spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                           for e in prof.events()
+                           if e.device_type == DeviceType.CUDA)
+            if spans:
+                break
+            log(f"  stage {name}: the profiler saw no device activity; "
+                "profiling again")
+        else:
             raise AssertionError(f"stage {name}: the profiler saw no "
                                  "device activity")
         busy_us, end = 0.0, -np.inf
@@ -1992,7 +2281,8 @@ def main() -> int:
               for k in KERNEL_SOURCES}
 
     log("[6/7] kernel times at the paths' shapes")
-    rows = timing_phase(dev, K, stages, init, launches)
+    rows = timing_phase(dev, K, stages, init, launches, ps_data,
+                        ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
     for r in rows:  # the worst error of either path's parity check
         r["max_abs_err"] = max(r["max_abs_err"], ps_parity.get(r["name"], 0))

@@ -125,14 +125,14 @@ def load() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float
     sig = {
-        "tdorch_histogram": [i32, ptr, ptr, i64, i32, ptr, ptr],
+        "tdorch_histogram": [i32, ptr, ptr, i64, i32, i32, i32, ptr, ptr],
+        "tdorch_histogram_limits": [i32, ptr],
         "tdorch_segment_combine": [i32, ptr, i32, ptr, i64, i32, i32, i32,
                                    ptr, ptr],
         "tdorch_segment_write": [i32, ptr, i32, ptr, ptr, i64, i32, i32,
                                  ptr, ptr, ptr],
         "tdorch_fused_reduce": [i32, ptr, i32, i32, ptr, ptr, i64, i32, i32,
-                                ptr, ptr],
-        "tdorch_histogram_shared_bins": [],
+                                i32, i32, i32, ptr, ptr],
         "tdorch_grouped_gemm": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
                                 i32, i32, i32, i32, i32, ptr, ptr, ptr],
         "tdorch_flash_attention_tf32": [i32, ptr, ptr, ptr, i32, i32, i32,
@@ -165,8 +165,9 @@ def check(rc: int, kernel: str) -> None:
 
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    """torch's current stream on `t`'s device, as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """torch's current stream on `t`'s device, as a C pointer (the raw
+    handle, without building a `torch.cuda.Stream` on every launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

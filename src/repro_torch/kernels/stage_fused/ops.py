@@ -9,6 +9,8 @@ always run.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import _lib
@@ -18,6 +20,35 @@ from .ref import max_step, reduce_pairs_ref
 FUSED_READ_OPS = ("add", "min", "max", "first")
 FUSED_MERGES = ("add", "min", "max", "or", "write")
 _READ_CODE = {op: i for i, op in enumerate(FUSED_READ_OPS)}
+# The layouts `tdorch_fused_reduce` compiles; it refuses any other with an
+# error (raised by `_lib.check`), so these cannot drift from the kernel.
+NARROW_VECTORS = 32  # a row of at most this many vectors: one per lane
+WIDE_COLS = 4  # wide rows: vectors a lane a column pass
+
+
+class Layout(NamedTuple):
+    """How the kernel covers a row: `vec` values a load (16 bytes' worth,
+    or 1), `group` lanes a task (32 / group tasks a warp), `cols` vectors a
+    lane a column pass (1 for narrow rows, `WIDE_COLS` for wide ones)."""
+    vec: int
+    group: int
+    cols: int
+
+
+def layout(w: int, itemsize: int, aligned: bool) -> Layout:
+    """The kernel's layout for rows of `w` values of `itemsize` bytes.
+    16-byte loads and stores need w a multiple of the vector and 16-byte
+    aligned rows (`aligned`: both bases); otherwise the kernel moves one
+    value at a time. A row of at most 32 vectors (512 bytes in 16-byte
+    vectors) is narrow: the next power of two of its vector count in lanes,
+    one vector each. A wider row takes the whole warp, `WIDE_COLS` vectors
+    a lane a column pass."""
+    per16 = 16 // itemsize
+    vec = per16 if aligned and w % per16 == 0 else 1
+    nvec = max(w // vec, 1)
+    if nvec > NARROW_VECTORS:
+        return Layout(vec, 32, WIDE_COLS)
+    return Layout(vec, 1 << (nvec - 1).bit_length(), 1)
 
 
 def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
@@ -29,7 +60,7 @@ def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
     is below `max_arity`, the batch's (read off `indptr` when None, a
     device sync on the card), as the oracle's padded view does. On the card
     `values` must be contiguous float32/float64 and `indptr`/`indices`
-    contiguous int32."""
+    contiguous int32; `layout` picks how the kernel covers a row."""
     if read_op not in FUSED_READ_OPS:
         raise KeyError(f"fused read op {read_op!r} not in {FUSED_READ_OPS}")
     if not _lib.on_cuda(values):
@@ -47,10 +78,13 @@ def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
         return out
     if read_op in ("min", "max") and max_arity is None:
         max_arity = max_step(indptr)
+    lay = layout(w, values.element_size(),
+                 values.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     rc = _lib.load().tdorch_fused_reduce(
         dev.index or 0, values.data_ptr(), int(values.dtype == torch.float64),
         w, indptr.data_ptr(), indices.data_ptr(), n, _READ_CODE[read_op],
-        min(max_arity or 0, 2**31 - 1), out.data_ptr(), _lib.stream(values))
+        min(max_arity or 0, 2**31 - 1), lay.vec, lay.group.bit_length() - 1,
+        lay.cols, out.data_ptr(), _lib.stream(values))
     _lib.check(rc, "stage_fused")
     _lib.count("stage_fused")
     return out

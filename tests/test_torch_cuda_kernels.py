@@ -26,7 +26,14 @@ their plain versions exactly (min, max, or, write, reads; NaN equal to
 NaN), sums within chip_smoke.py's 1e-6·Σ|terms| + 1e-6: at NaN, ±inf and
 ±3e38 (the inputs of tests/test_torch_merge_edges.py), and for B2 on a
 Zipf-2.0 hot segment, with rows outside the segments, ties of the write
-merge, rows of 3, 16 and 1,536 values and rows not 16-byte aligned.
+merge, rows of 3, 16 and 1,536 values and rows not 16-byte aligned. B3 is
+also held on each of its layouts (`stage_fused.ops.layout`: 16-byte or
+one-value loads, narrow or wide rows) at w = 1 ... 1536 in float32 and
+float64, with every read op, arity 0, NaN, ±3e38, the max-arity fill, a
+row view that is not 16-byte aligned and one task of arity 1,000. The
+histogram (B1) is held exactly on each route (`histogram.ops.route`: the
+shared route below 48 KB and in the opt-in band, the global route), with
+uniform and Zipf ids, weighted and not, ids out of range on both sides.
 """
 import numpy as np
 import pytest
@@ -36,12 +43,14 @@ from repro_torch import kernels
 from repro_torch.kernels import attention, decode_attention, mamba_ssd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+from repro_torch.kernels.histogram.ops import count_ids, device_limits, route
+from repro_torch.kernels.histogram.ref import histogram_ref
 from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
 from repro_torch.kernels.moe_gemm.ops import copies16, grouped_gemm, tile_rows
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 from repro_torch.kernels.segment_combine.ops import combine
 from repro_torch.kernels.segment_combine.ref import combine_ref
-from repro_torch.kernels.stage_fused.ops import fused_reduce
+from repro_torch.kernels.stage_fused.ops import fused_reduce, layout
 from repro_torch.kernels.stage_fused.ref import reduce_pairs_ref
 
 pytestmark = pytest.mark.cuda
@@ -386,8 +395,8 @@ def _exact(got, want):
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
-def _sum_gate(got, want, mags):
-    assert bool(((got - want).abs() <= 1e-6 * mags + 1e-6).all())
+def _sum_gate(got, want, mags, rel=1e-6):
+    assert bool(((got - want).abs() <= rel * mags + 1e-6).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -494,6 +503,154 @@ def test_fused_reduce_kernel_nan_inf_and_padding_fill(dev, read_op,
                        read_op=read_op, max_arity=max_arity)
     _exact(got.cpu(), want)
     assert kernels.launches()["stage_fused"] == 1
+
+
+def _ragged_case(rng, w, dtype, read_op, dev, aligned):
+    """300 tasks of arity 0-8 and one of arity 1,000 over 97 rows; for
+    min/max/first some values are NaN, ±inf or ±3e38. With `aligned` False
+    the rows are a contiguous view one value into a buffer (not 16-byte
+    aligned)."""
+    K, n = 97, 301
+    arity = rng.integers(0, 9, n)
+    arity[::9] = 0
+    arity[150] = 1000
+    indptr = np.r_[0, np.cumsum(arity)].astype(np.int32)
+    idx = rng.integers(0, K, int(indptr[-1])).astype(np.int32)
+    vals = rng.normal(size=(K, w))
+    if read_op != "add":
+        edge = np.array([np.nan, np.inf, -np.inf, 3e38, -3e38])
+        pick = rng.random((K, w)) < 0.05
+        vals[pick] = edge[rng.integers(0, edge.size, int(pick.sum()))]
+    flat = torch.from_numpy(vals.reshape(-1)).to(dtype)
+    flat = torch.cat([flat.new_zeros(1), flat]) if not aligned else flat
+    flat = flat.to(dev)
+    values = (flat[1:] if not aligned else flat).view(K, w)
+    assert values.is_contiguous()
+    return values, torch.from_numpy(indptr).to(dev), \
+        torch.from_numpy(idx).to(dev)
+
+
+def _pair_order_rel(indptr, dtype):
+    """Per task, the relative sum gate: 1e-6, or a·u where a task of
+    arity a sums its pairs in the values' type in pair order (each add
+    rounds by at most u·Σ|terms|: u = 2^-24 in float32), which the
+    arity-1,000 task passes in float32 and 1e-6 would not."""
+    u = 2.0 ** (-24 if dtype == torch.float32 else -53)
+    arity = (indptr[1:] - indptr[:-1]).double()
+    return (arity * u).clamp(min=1e-6)[:, None]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("w", [1, 3, 4, 5, 16, 17, 33, 1536])
+@pytest.mark.parametrize("read_op", ["add", "min", "max", "first"])
+def test_fused_reduce_kernel_layouts(dev, read_op, w, dtype, aligned):
+    """Every layout of the gather-reduce: exact for min/max/first (NaN as
+    NaN), the sum gate for add (a·u for the long task); the max-arity fill
+    read off indptr (the arity-1,000 task is the max) and stated (8: the
+    long task is past it, tasks of arity 8 read their pairs alone)."""
+    rng = np.random.default_rng(34)
+    values, indptr, idx = _ragged_case(rng, w, dtype, read_op, dev, aligned)
+    lay = layout(w, values.element_size(), values.data_ptr() % 16 == 0)
+    if not aligned and w > 1:
+        assert lay.vec == 1
+    for max_arity in (None, 8):
+        got = fused_reduce(values, indptr, idx, read_op=read_op,
+                           max_arity=max_arity)
+        want = reduce_pairs_ref(values, indptr, idx, read_op=read_op,
+                                max_arity=max_arity)
+        if read_op == "add":
+            mags = reduce_pairs_ref(values.abs(), indptr, idx, read_op="add")
+            _sum_gate(got, want, mags, rel=_pair_order_rel(indptr, dtype))
+        else:
+            _exact(got, want)
+    assert kernels.launches()["stage_fused"] == 2
+
+
+def _ids(rng, n, bins, zipf: bool):
+    """n int32 ids over [0, bins) (uniform, or Zipf 1.2 over permuted
+    ranks), 1% of them below 0 and 1% at or past `bins`."""
+    if zipf:
+        p = 1.0 / np.arange(1, bins + 1) ** 1.2
+        ids = rng.permutation(bins)[rng.choice(bins, size=n, p=p / p.sum())]
+    else:
+        ids = rng.integers(0, bins, n)
+    ids[rng.random(n) < 0.01] = -3
+    ids[rng.random(n) < 0.01] = bins + 5
+    return ids.astype(np.int32)
+
+
+# (bins, ids, route): the shared route below 48 KB of bins and in the
+# opt-in band, the global route past the merge's break-even (a lookup's
+# 8,192 ids over 49,155 bins, stage (b)'s 800,000 over 800,000) and past
+# the opt-in limit
+HIST_ROUTES = [(300, 40_000, "shared"), (12_288, 8_000_000, "shared"),
+               (50_000, 8_000_000, "shared"), (49_155, 8_192, "global"),
+               (800_000, 800_000, "global"), (60_000, 2_000_000, "global"),
+               (40, 1_024, "shared")]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("zipf", [False, True])
+@pytest.mark.parametrize("bins,n,kind", HIST_ROUTES,
+                         ids=lambda v: str(v))
+def test_histogram_kernel_routes(dev, bins, n, kind, zipf, weighted):
+    """Each route exact against the plain version (on an H100: 227 KB of
+    opt-in shared memory a block, 132 SMs)."""
+    assert route(n, bins, device_limits(dev.index or 0))[0] == kind
+    rng = np.random.default_rng(35)
+    ids = torch.from_numpy(_ids(rng, n, bins, zipf)).to(dev)
+    wts = torch.from_numpy(rng.integers(-2, 9, n).astype(np.int32)).to(dev) \
+        if weighted else None
+    got = count_ids(ids, bins, weights=wts)
+    assert torch.equal(got, histogram_ref(ids, bins, wts))
+    assert kernels.launches()["histogram"] == 1
+
+
+def test_histogram_kernel_ids_not_16_byte_aligned(dev):
+    """The global route on Zipf ids, repeats and all, read from a view one
+    id into its buffer (not 16-byte aligned)."""
+    rng = np.random.default_rng(36)
+    n, bins = 100_001, 70_000
+    flat = torch.from_numpy(_ids(rng, n, bins, zipf=True)).to(dev)
+    ids = flat[1:]
+    wflat = torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)).to(dev)
+    assert ids.data_ptr() % 16 and ids.is_contiguous()
+    for wts in (None, wflat[1:]):
+        assert torch.equal(count_ids(ids, bins, weights=wts),
+                           histogram_ref(ids, bins, wts))
+
+
+def test_histogram_limits_come_from_the_kernel(dev):
+    """`route` reads the block size the kernel was built with and the
+    device's own limits, through `tdorch_histogram_limits`."""
+    got = device_limits(dev.index or 0)
+    props = torch.cuda.get_device_properties(dev)
+    assert got.block_threads == 256
+    assert got.sms == props.multi_processor_count
+    assert got.sm_threads == props.max_threads_per_multi_processor
+    assert got.sm_threads % got.block_threads == 0
+    assert 48 * 1024 <= got.block_shared <= got.sm_shared
+    assert 0 <= got.reserved_shared < 48 * 1024
+
+
+def test_fused_reduce_refuses_a_layout_it_does_not_compile(dev):
+    """The C entry compiles one or `WIDE_COLS` = 4 vectors a lane (4 only
+    with 32 lanes a task) and returns an error for any other layout."""
+    from repro_torch.kernels import _lib
+
+    values = torch.zeros((4, 64), dtype=torch.float32, device=dev)
+    indptr = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)
+    idx = torch.tensor([0, 3], dtype=torch.int32, device=dev)
+    out = torch.empty((2, 64), dtype=torch.float32, device=dev)
+    for vec, log_g, cols in ((4, 5, 2), (4, 4, 4), (4, 6, 1), (3, 5, 1)):
+        rc = _lib.load().tdorch_fused_reduce(
+            dev.index or 0, values.data_ptr(), 0, 64, indptr.data_ptr(),
+            idx.data_ptr(), 2, 0, 0, vec, log_g, cols, out.data_ptr(),
+            _lib.stream(values))
+        with pytest.raises(RuntimeError, match="stage_fused"):
+            _lib.check(rc, "stage_fused")
+    torch.cuda.synchronize()
 
 
 # ---- B7 on the tensor cores: chip_smoke.py's gates -------------------------
