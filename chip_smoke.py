@@ -108,6 +108,30 @@ Phases, each of which raises (non-zero exit) on any failed check:
 7. Device busy share: stages (a)-(c) once more under torch.profiler, after a
    warm-up run; the device's busy time (kernels, copies, fills) against the
    stage's wall time.
+8. The other engines and multi-round plans, at phase 3's full setting:
+   stages (a)-(c) through `Orchestrator(engine=e)` for e in "pull", "push",
+   "sort" and "auto" on the card and, on a copy of the store, on the numpy
+   oracle: `phase_signature()`, `exec_site`, `refcount`, values within
+   `_check_values`' tolerance, `auto`'s decisions equal to the oracle's,
+   no lambda on the host path, launches as `ENGINE_EXPECTED` (plus
+   `AUTO_ESTIMATE` under auto). Then benchmarks/bench_plan.py's two cells
+   at their full sizes, engine "pull" — pagerank_stages (Barabási-Albert
+   n = 50,000, 10 rounds of two stages) and bfs_stages (n = 100,000, from
+   vertex 0) — each through `run_plan` and the same `run_stage` loop on
+   the card and `run_plan` on numpy: equal session reports
+   (`assert_session_parity`), values within the reckoned tolerance (BFS
+   exact), at most one host sync a round under the plan, the walls of both.
+9. TDO-GP: Erdős-Rényi (2^19 vertices, average degree 16) and star (2^19)
+   graphs and bench_graph's Barabási-Albert graph (30,000, attach 8),
+   ingested at P=16 on the card and on the numpy oracle (every layout
+   array and the ingest bill equal), then BFS, SSSP, CC, PageRank (10
+   rounds, tol 0) and BC from vertex 0 both ways: rounds and every
+   round's `phase_signature()` equal, BFS / SSSP / CC values exact, BC
+   within BC_REL; PageRank's device-route combines are measured against
+   exact sums (`_measured_combines`) and the float32 ranks' error is
+   reported; PageRank once more in float64 on the ER graph is the gate,
+   within PAGERANK_F64_ABS. The ER ingest's Phase-1 root call is timed as
+   one more histogram shape of phase 6 (row 1e).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -225,10 +249,15 @@ def _within(got, want, allowed, name: str) -> tuple:
     err = (got - want).abs()
     if not err.numel():
         return 0.0, 0.0
-    share = float((err / allowed.clamp(min=1e-300)).max().item())
+    ratio = err / allowed.clamp(min=1e-300)
+    share = float(ratio.max().item())
     if not bool((err <= allowed).all()):
-        raise AssertionError(f"{name}: beyond tolerance, max |Δ| "
-                             f"{err.max().item()} ({share:.3g} of it)")
+        i = tuple(int(x) for x in torch.nonzero(ratio == share)[0])
+        raise AssertionError(
+            f"{name}: beyond tolerance, max |Δ| {err.max().item()} ({share:.3g}"
+            f" of it; at {i}: got {got[i].item()}, want {want[i].item()}, "
+            f"allowed {allowed[i].item()}; {int((err > allowed).sum())} "
+            "elements beyond)")
     return float(err.max().item()), share
 
 
@@ -739,13 +768,12 @@ def _same_bill(name, a, b) -> None:
         raise AssertionError(f"{name}: exec_site differs")
 
 
-def _timed_backend(sess):
-    """Wrap the session backend's device calls to split a stage's wall time
+def _timed_backend(be):
+    """Wrap a torch backend's device calls to split a stage's wall time
     into device numerics (these calls, synchronized) and the host cost
     model (the rest)."""
     import torch
 
-    be = sess.backend
     be.numerics_s = 0.0
     for meth in ("execute", "apply_writes", "key_counts"):
         inner = getattr(be, meth)
@@ -781,7 +809,7 @@ def main_path(device: str = "cuda", tpm: int = TASKS_PER_MACHINE):
         backend = "torch" if device == "cuda" else TorchBackend(device=device)
         s_dev = Orchestrator(st_dev, backend=backend, replication=rep)
         s_ora = Orchestrator(st_ora, backend="numpy", replication=rep)
-        _timed_backend(s_dev)
+        _timed_backend(s_dev.backend)
         kind = "fused" if tasks.max_arity > 1 else "muladd"
         for k in range(n_stages):
             # the oracle starts each stage from the torch store's values
@@ -1594,7 +1622,21 @@ def attention_ssm_path(dev, stages=None) -> list:
             # e.g. the scan's float32 chunk states), before the check
             row["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                                  if on_card else None)
-            err, share = check_against_plain(st, inputs, got, dtype, tag)
+            try:
+                err, share = check_against_plain(st, inputs, got, dtype, tag)
+            except AssertionError as exc:
+                # a second call of the kernel and of the plain version tell
+                # an output that changes from call to call from a steady one
+                again = _kernel_call(st, inputs)()
+                up = (lambda t: t.double()) if dtype == "float32" else \
+                    (lambda t: t.float())
+                plain = [_plain_call(st, inputs, up) for _ in range(2)]
+                raise AssertionError(
+                    f"{exc}; a second kernel call is "
+                    f"{'' if torch.equal(again, got) else 'not '}identical "
+                    f"to the first, two plain calls are "
+                    f"{'' if torch.equal(*plain) else 'not '}identical"
+                ) from exc
             row.update(max_abs_err=err, share_of_tolerance=share,
                        shape=_stage_shape(st, dtype))
             log(f"  {tag} ({st['source']}; cut: {st['cut']}): "
@@ -1986,6 +2028,32 @@ def _log_shapes(name: str, shapes: list) -> None:
             f"{s['shape']}")
 
 
+def _histogram_shape(label, ids, wts, bins: int, n_launch: int) -> dict:
+    """K1 at one call: checked against its plain version exactly, then
+    timed beside the plain version and `torch.bincount` with the same
+    weights. Bound: ids (and weights) read once, the bins written once,
+    one add an id."""
+    import torch
+
+    from repro_torch.kernels.histogram.ops import count_ids
+    from repro_torch.kernels.histogram.ref import histogram_ref
+
+    n = ids.numel()
+    got = count_ids(ids, bins, weights=wts)
+    if not torch.equal(got, histogram_ref(ids, bins, wts)):
+        raise AssertionError(f"histogram at the {label} differs")
+    b_ms, b_by = bound(4 * n * (1 + (wts is not None)) + 4 * bins, n)
+    return dict(
+        **_call_times(lambda: count_ids(ids, bins, weights=wts)),
+        plain_ms=time_ms(lambda: histogram_ref(ids, bins, wts)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.bincount(ids, weights=wts,
+                                                  minlength=bins)),
+        launches=n_launch,
+        shape=f"{label}: ids ({n},) int32"
+              f"{'' if wts is None else ' + weights'}, {bins} bins")
+
+
 def histogram_timing(dev, K, by: dict, launches: dict, ps: dict,
                      ps_launches: dict) -> dict:
     """K1 at three root calls, each weighted by multiplicity as the engine
@@ -1995,14 +2063,8 @@ def histogram_timing(dev, K, by: dict, launches: dict, ps: dict,
     a decode step's (the distinct experts of 1,024 assignments over 40
     bins); and at `embed_skew_aware`'s unweighted call on its raw 8,192
     Zipf-1.2 ids over the 49,155 bins, repeats and all (the hot id about a
-    fifth of them), where atomics on one bin would serialize. Library:
-    `torch.bincount` with the same weights. Bound: ids (and weights) read
-    once, the bins written once, one add an id."""
-    import torch
-
-    from repro_torch.kernels.histogram.ops import count_ids
-    from repro_torch.kernels.histogram.ref import histogram_ref
-
+    fifth of them), where atomics on one bin would serialize
+    (`_histogram_shape`)."""
     keys = by["b"].read_keys
     ti = ps["routing"][1]
     cases = [("stage (b) root call", _i32(keys, dev),
@@ -2015,22 +2077,7 @@ def histogram_timing(dev, K, by: dict, launches: dict, ps: dict,
                       ps_launches["histogram"]))
     cases.append(("skew-aware embedding's raw ids", _i32(ps["skew_ids"], dev),
                   None, ps["store"].V, ps_launches["histogram"]))
-    shapes = []
-    for label, ids, wts, bins, n_launch in cases:
-        n = ids.numel()
-        got = count_ids(ids, bins, weights=wts)
-        if not torch.equal(got, histogram_ref(ids, bins, wts)):
-            raise AssertionError(f"histogram at the {label} differs")
-        b_ms, b_by = bound(4 * n * (1 + (wts is not None)) + 4 * bins, n)
-        shapes.append(dict(
-            **_call_times(lambda: count_ids(ids, bins, weights=wts)),
-            plain_ms=time_ms(lambda: histogram_ref(ids, bins, wts)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: torch.bincount(ids, weights=wts,
-                                                      minlength=bins)),
-            launches=n_launch,
-            shape=f"{label}: ids ({n},) int32"
-                  f"{'' if wts is None else ' + weights'}, {bins} bins"))
+    shapes = [_histogram_shape(*case) for case in cases]
     _log_shapes("histogram", shapes)
     return dict(name="histogram", route="cuda",
                 source="src/repro_torch/csrc/histogram.cu",
@@ -2180,6 +2227,580 @@ def busy_phase(K, stages, init) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the other engines and multi-round plans
+# ---------------------------------------------------------------------------
+ENGINES = ("pull", "push", "sort", "auto")
+# launches of each kernel in stages (a)-(c) under each fixed engine: the
+# baselines never call Phase 1's histogram, every stage's writer combine is
+# one K2 and the ragged stage (c) one K3; TD-Orch's are phase 3's
+ENGINE_EXPECTED = {
+    **{eng: {"a": _launch(segment_combine=1),
+             "b": _launch(segment_combine=1),
+             "c": _launch(segment_combine=1, stage_fused=1)}
+       for eng in ("pull", "push", "sort")},
+    "tdorch": {k: EXPECTED_LAUNCHES[k] for k in "abc"},
+}
+# engine="auto" replays every candidate's bill before it runs the stage on
+# the one it picks: TD-Orch's replay makes its Phase-1 root call, which
+# launches K1 where phase 3's TD-Orch stage does, at (b)
+AUTO_ESTIMATE = {"a": _launch(), "b": _launch(histogram=1), "c": _launch()}
+
+
+def _plus(x: dict, y: dict) -> dict:
+    return {k: x[k] + y[k] for k in x}
+
+
+def _torch_backend(device: str, **kw):
+    from repro_torch.core import TorchBackend
+
+    return TorchBackend(**kw) if device == "cuda" \
+        else TorchBackend(device=device, **kw)
+
+
+def _same_decisions(name, a, b) -> None:
+    """engine="auto": the torch session's decision ledger equal to the
+    numpy session's (chosen engine, every candidate's predicted bill)."""
+    ka = [(d.choice, d.predicted, d.predicted_words, d.switched)
+          for d in a.report.policy_decisions]
+    kb = [(d.choice, d.predicted, d.predicted_words, d.switched)
+          for d in b.report.policy_decisions]
+    if ka != kb:
+        raise AssertionError(f"{name}: policy decisions differ: {ka} / {kb}")
+
+
+def engines_path(device: str = "cuda", tpm: int = TASKS_PER_MACHINE):
+    """Stages (a)-(c) of phase 3 through `Orchestrator(engine=e)` for every
+    e of ENGINES, one session a backend and engine (the stages chain, so
+    `auto`'s hysteresis sees its incumbent), on the card and on a copy of
+    the store through the numpy oracle. Each stage is held to the oracle as
+    in phase 3; under `auto` the decisions must be the oracle's too. Returns
+    (one row a stage, the launches expected of each stage)."""
+    from repro_torch.core import DataStore, Orchestrator
+
+    K, stages = make_stages(tpm)
+    init = np.random.default_rng(SEED + 1).standard_normal((K, VALUE_WIDTH))
+    expected: dict = {}
+    st = _Stages(device, expected)
+    for eng in ENGINES:
+        st_dev = DataStore.create(K, P, value_width=VALUE_WIDTH)
+        st_ora = DataStore.create(K, P, value_width=VALUE_WIDTH)
+        st_dev.write_rows(np.arange(K), init)
+        s_dev = Orchestrator(st_dev, engine=eng,
+                             backend=_torch_backend(device))
+        s_ora = Orchestrator(st_ora, engine=eng, backend="numpy")
+        _timed_backend(s_dev.backend)
+        for name, desc, tasks, f, merge, _, _ in stages:
+            if name not in "abc":
+                continue
+            tag = f"{eng}/{name}"
+            st_ora.write_rows(np.arange(K), st_dev.values)
+            old = st_ora.values.copy()
+            mags = term_magnitudes(tasks, old, "fused" if tasks.max_arity > 1
+                                   else "muladd")
+            # the oracle first: under auto its decision names the engine
+            # whose launches the torch stage must show
+            t0 = time.perf_counter()
+            r_ora = s_ora.run_stage(tasks, f, write_back=merge,
+                                    return_results=True)
+            wall_ora = time.perf_counter() - t0
+            choice = r_ora.decision.choice if eng == "auto" else eng
+            expected[tag] = ENGINE_EXPECTED[choice][name]
+            if eng == "auto":
+                expected[tag] = _plus(expected[tag], AUTO_ESTIMATE[name])
+            s_dev.backend.numerics_s = 0.0
+            r_dev = st.run(tag, lambda: s_dev.run_stage(
+                tasks, f, write_back=merge, return_results=True),
+                desc=desc, tasks=tasks.n, pairs=tasks.nnz)
+            row = st.rows[-1]
+            if s_dev.backend._host_lambdas:
+                raise AssertionError(f"{tag}: a lambda fell back to the "
+                                     "host path")
+            _same_bill(tag, r_dev, r_ora)
+            if eng == "auto":
+                _same_decisions(tag, s_dev, s_ora)
+            res_err = _sum_bound_ok(
+                np.asarray(r_dev.results, dtype=np.float64),
+                np.asarray(r_ora.results, dtype=np.float64), mags,
+                rel_want=1e-5, name=f"{tag} results")
+            val_err, val_share = _check_values(
+                tag, st_dev.values, st_ora.values, old, tasks, mags, merge)
+            wall, numerics = row["wall_s"], s_dev.backend.numerics_s
+            row.update(engine=eng, chosen=choice, numerics_s=numerics,
+                       host_cost_model_s=wall - numerics,
+                       oracle_wall_s=wall_ora, max_result_err=res_err,
+                       max_value_err=val_err,
+                       max_value_err_share_of_tolerance=val_share)
+            log(f"  {tag}{f' (chose {choice})' if eng == 'auto' else ''}: "
+                f"wall {wall:.3f} s = host {wall - numerics:.3f} + backend "
+                f"calls {numerics:.3f} (oracle {wall_ora:.3f} s); max |Δ| "
+                f"results {res_err:.3g}, store {val_err:.3g} ({val_share:.3g}"
+                f" of its tolerance); signature/refcount/exec_site"
+                f"{'/decisions' if eng == 'auto' else ''} equal; launches "
+                f"{ {k: v for k, v in row['launches'].items() if v} }")
+    return st.rows, expected
+
+
+# benchmarks/bench_plan.py's two cells at their full sizes, engine "pull"
+PLAN_SEED = 23
+PLAN_P = 8
+PLAN_ROUNDS = 10
+ALPHA = 0.85
+
+
+def _f_contrib(ctx, vals):
+    """rank-bank gather × (alpha/deg) per edge task."""
+    return {"update": vals * ctx[:, 0:1]}
+
+
+def _f_apply(ctx, vals):
+    """rank' = (1-alpha)/n + acc for the rank half; 0 for the acc reset."""
+    return {"update": ctx[:, 0:1] + vals * ctx[:, 1:2]}
+
+
+def _f_bfs(ctx, vals):
+    """distance candidate = the round number riding in the context."""
+    return {"update": ctx[:, 0:1] + vals * 0.0}
+
+
+def pagerank_stages(n: int) -> dict:
+    """bench_plan's pagerank_stages: power iteration over a two-bank store
+    (ranks, accumulators), two stages a round of fixed shapes and no user
+    callback; PLAN_ROUNDS rounds on a Barabási-Albert graph (attach 8)."""
+    from repro_torch.core import DataStore, StagePlan, TaskBatch
+    from repro_torch.graph import generators
+
+    g = generators.barabasi_albert(n, 8, seed=PLAN_SEED)
+    deg = np.bincount(g.src, minlength=n).astype(np.float64)
+    ctx_a = np.where(deg[g.src] > 0, ALPHA / np.maximum(deg[g.src], 1.0),
+                     0.0)[:, None]
+    batch_a = TaskBatch(contexts=ctx_a, read_keys=g.src, write_keys=n + g.dst,
+                        origin=TaskBatch.even_origins(g.m, PLAN_P))
+    ctx_rank = np.zeros((n, 2))
+    ctx_rank[:, 0] = (1.0 - ALPHA) / n
+    ctx_rank[:, 1] = 1.0
+    batch_b = TaskBatch.concat([
+        TaskBatch(contexts=ctx_rank, read_keys=np.arange(n) + n,
+                  write_keys=np.arange(n, dtype=np.int64),
+                  origin=TaskBatch.even_origins(n, PLAN_P)),
+        TaskBatch(contexts=np.zeros((n, 2)),
+                  read_keys=np.full(n, -1, dtype=np.int64),
+                  write_keys=np.arange(n, dtype=np.int64) + n,
+                  origin=TaskBatch.even_origins(n, PLAN_P))])
+
+    def fresh():
+        store = DataStore.create(2 * n, PLAN_P, value_width=1, chunk_words=1)
+        vals = np.zeros((2 * n, 1))
+        vals[:n] = 1.0 / n
+        store.write_rows(np.arange(2 * n), vals)
+        return store
+
+    def loop(sess, store):
+        for _ in range(PLAN_ROUNDS):
+            sess.run_stage(batch_a, _f_contrib, "add")
+            sess.run_stage(batch_b, _f_apply, "write")
+        return PLAN_ROUNDS
+
+    plan = StagePlan("pagerank-stages").loop(
+        StagePlan().stage(batch_a, _f_contrib, "add")
+                   .stage(batch_b, _f_apply, "write"),
+        until=None, max_rounds=PLAN_ROUNDS)
+
+    # float32 sums of nonnegative terms: a round adds at most (k + 3)·2^-24
+    # to a rank's relative error for k in-edges (the context's and the
+    # product's roundings, k - 1 adds in any order, the base's rounding and
+    # its add), so R rounds at most R·(max in-degree + 3)·2^-24, plus
+    # 2^-24 for the first ranks' rounding
+    rel = (PLAN_ROUNDS * (int(np.bincount(g.dst, minlength=n).max()) + 3)
+           + 1) * 2.0 ** -24
+    # no user callback reads the host: the plan flushes once, at its exit
+    return dict(name="pagerank_stages", fresh=fresh, loop=loop,
+                plan=lambda sess, store: sess.run_plan(plan).rounds,
+                stages_a_round=2, values=lambda store: store.values[:n, 0],
+                rel=rel, fewer_syncs=True,
+                desc=f"BA n={n} m={g.m}, {PLAN_ROUNDS} rounds")
+
+
+def bfs_stages(n: int) -> dict:
+    """bench_plan's bfs_stages from source 0: frontier BFS with a min merge
+    over per-round edge batches whose sizes drift; the plan's emission reads
+    the host values once a round. Barabási-Albert graph (attach 4)."""
+    from repro_torch.core import CARRY, StagePlan, TaskBatch, DataStore
+    from repro_torch.graph import generators
+
+    g = generators.barabasi_albert(n, 4, seed=PLAN_SEED + 1)
+    order = np.argsort(g.src, kind="stable")
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, g.src + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    out_dst = g.dst[order]
+    inf = float(n + 10)
+
+    def frontier_batch(frontier, rnd):
+        counts = indptr[frontier + 1] - indptr[frontier]
+        total = int(counts.sum())
+        if total == 0:
+            return None
+        offs = np.repeat(np.cumsum(counts) - counts, counts)
+        flat = np.repeat(indptr[frontier], counts) \
+            + np.arange(total, dtype=np.int64) - offs
+        return TaskBatch(contexts=np.full((total, 1), float(rnd)),
+                         read_keys=np.full(total, -1, dtype=np.int64),
+                         write_keys=out_dst[flat],
+                         origin=TaskBatch.even_origins(total, PLAN_P))
+
+    def fresh():
+        store = DataStore.create(n, PLAN_P, value_width=1, chunk_words=1)
+        vals = np.full((n, 1), inf)
+        vals[0] = 0.0
+        store.write_rows(np.arange(n), vals)
+        return store
+
+    def loop(sess, store):
+        rnd, batch = 1, frontier_batch(np.array([0]), 1)
+        while batch is not None:
+            sess.run_stage(batch, _f_bfs, "min")
+            newly = np.flatnonzero(store.values[:, 0] == rnd)
+            rnd += 1
+            batch = frontier_batch(newly, rnd) if newly.size else None
+        return rnd - 1
+
+    def plan(sess, store):
+        def emit(state, res):
+            newly = np.flatnonzero(store.values[:, 0] == state.round + 1)
+            return (frontier_batch(newly, state.round + 2) if newly.size
+                    else None)
+
+        plan = StagePlan("bfs-stages").loop(
+            StagePlan().stage(CARRY, _f_bfs, "min", emit=emit),
+            until="empty", max_rounds=n)
+        return sess.run_plan(plan, carry=frontier_batch(np.array([0]),
+                                                        1)).rounds
+
+    # the emission reads the host values every round: a flush a round, as
+    # many host syncs as the loop's write-back of its one stage
+    return dict(name="bfs_stages", fresh=fresh, loop=loop, plan=plan,
+                stages_a_round=1, values=lambda store: store.values[:, 0],
+                rel=0.0, fewer_syncs=False,
+                desc=f"BA n={n} m={g.m}, source 0")
+
+
+def plans_path(device: str = "cuda", n_pagerank: int = 50_000,
+               n_bfs: int = 100_000):
+    """Each plan cell three ways, one session each over a fresh store,
+    engine "pull": `run_plan` on the card, the same `run_stage` loop on the
+    card, `run_plan` on the numpy oracle. The three session reports must be
+    equal (`assert_session_parity`), the values within the cell's reckoned
+    tolerance of the oracle's (BFS exact), the plan at most one host sync a
+    round and no more than the loop (fewer where no callback reads the
+    host); each stage launches one K2."""
+    import torch
+
+    from repro_torch.core import Orchestrator, assert_session_parity
+
+    rows, expected = [], {}
+    st = _Stages(device, expected)
+    for cell in (pagerank_stages(n_pagerank), bfs_stages(n_bfs)):
+        name, runs = cell["name"], {}
+        for mode, backend, drive in (
+                ("numpy", "numpy", cell["plan"]),
+                ("plan", _torch_backend(device), cell["plan"]),
+                ("loop", _torch_backend(device), cell["loop"])):
+            store = cell["fresh"]()
+            sess = Orchestrator(store, engine="pull", backend=backend)
+            before = sess.backend.host_syncs
+            tag = f"{name}/{mode}"
+            if mode == "numpy":
+                t0 = time.perf_counter()
+                rounds = drive(sess, store)
+                wall = time.perf_counter() - t0
+            else:
+                expected[tag] = _launch(segment_combine=cell["stages_a_round"]
+                                        * runs["numpy"]["rounds"])
+                rounds = st.run(tag, lambda: drive(sess, store))
+                wall = st.rows[-1]["wall_s"]
+                if sess.backend._host_lambdas:
+                    raise AssertionError(f"{tag}: a lambda fell back to the "
+                                         "host path")
+            runs[mode] = dict(rounds=rounds, wall_s=wall,
+                                syncs=sess.backend.host_syncs - before,
+                                report=sess.report,
+                                values=cell["values"](store).copy())
+        want = runs["numpy"]
+        for mode in ("plan", "loop"):
+            got = runs[mode]
+            if got["rounds"] != want["rounds"]:
+                raise AssertionError(f"{name}/{mode}: {got['rounds']} "
+                                     f"rounds, oracle {want['rounds']}")
+            assert_session_parity(got["report"], want["report"])
+            err = np.abs(got["values"] - want["values"])
+            allowed = cell["rel"] * np.abs(want["values"])
+            if not (err <= allowed).all():
+                i = int(np.argmax(err - allowed))
+                raise AssertionError(
+                    f"{name}/{mode}: value {i} {got['values'][i]} against "
+                    f"{want['values'][i]} (allowed {allowed[i]})")
+            got["max_abs_err"] = float(err.max(initial=0.0))
+            got["err_share"] = float((err / np.maximum(allowed, 1e-300))
+                                     .max(initial=0.0)) if cell["rel"] else 0.0
+        rounds = want["rounds"]
+        spr = {d: runs[d]["syncs"] / rounds for d in ("plan", "loop")}
+        if spr["plan"] > 1.0:
+            raise AssertionError(f"{name}: {spr['plan']} host syncs a round "
+                                 "under the plan")
+        if spr["plan"] > spr["loop"] or (cell["fewer_syncs"]
+                                         and spr["plan"] >= spr["loop"]):
+            raise AssertionError(f"{name}: the plan syncs {spr['plan']} a "
+                                 f"round, the loop {spr['loop']}")
+        row = dict(cell=name, desc=cell["desc"], rounds=rounds,
+                   **{f"{d}_{k}": runs[d][k] for d in runs
+                      for k in ("wall_s", "syncs")},
+                   host_syncs_a_round=spr,
+                   max_abs_err={d: runs[d]["max_abs_err"]
+                                for d in ("plan", "loop")},
+                   err_share_of_tolerance={d: runs[d]["err_share"]
+                                           for d in ("plan", "loop")})
+        rows.append(row)
+        log(f"  {name} ({cell['desc']}): {rounds} rounds; wall plan "
+            f"{runs['plan']['wall_s']:.3f} s, loop {runs['loop']['wall_s']:.3f}"
+            f" s (numpy plan {runs['numpy']['wall_s']:.3f} s); host syncs a "
+            f"round plan {spr['plan']:.3f}, loop {spr['loop']:.3f}; reports "
+            f"equal; max |Δ| plan {runs['plan']['max_abs_err']:.3g}, loop "
+            f"{runs['loop']['max_abs_err']:.3g}")
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return rows, expected
+
+
+# ---------------------------------------------------------------------------
+# phase 9: TDO-GP on the card
+# ---------------------------------------------------------------------------
+# Graph500's scale-20 problem cut to scale 19 (2^19 vertices: at 2^20 the
+# host's cost model and oracle combines take phase 9 past 6 minutes), at
+# average degree 16 (Graph500: 32) and with Erdős-Rényi / star /
+# Barabási-Albert graphs standing in for its Kronecker generator; P = 16,
+# as benchmarks/bench_graph.py
+GRAPH_SCALE = 19
+GRAPH_P = 16
+GRAPH_BA_N = 30_000  # bench_graph's full size
+INGEST_ARRAYS = ("vertex_home", "edge_machine", "out_indptr", "out_edges",
+                 "in_indptr", "in_edges", "src_grp_indptr",
+                 "src_grp_machines", "dst_grp_indptr", "dst_grp_machines")
+PAGERANK_ROUNDS = 10
+# the float64 PageRank's ranks against the oracle's
+PAGERANK_F64_ABS = 1e-12
+BC_REL = 1e-9
+# one kernel on the graph path: the ingest stage's Phase-1 root call
+GRAPH_EXPECTED_INGEST = _launch(histogram=1)
+
+
+def graph_specs(scale: int = GRAPH_SCALE, ba_n: int = GRAPH_BA_N) -> list:
+    from repro_torch.graph import barabasi_albert, erdos_renyi, star_graph
+
+    return [("er", lambda: erdos_renyi(2 ** scale, avg_degree=16, seed=2)),
+            ("star", lambda: star_graph(2 ** scale)),
+            ("ba", lambda: barabasi_albert(ba_n, attach=8, seed=1))]
+
+
+def _algorithms() -> list:
+    from repro_torch.graph import bc, bfs, cc, pagerank, sssp
+
+    return [("bfs", lambda og, **kw: bfs(og, 0, **kw)),
+            ("sssp", lambda og, **kw: sssp(og, 0, **kw)),
+            ("cc", lambda og, **kw: cc(og, **kw)),
+            ("pagerank", lambda og, **kw: pagerank(
+                og, max_iter=PAGERANK_ROUNDS, tol=0.0, **kw)),
+            ("bc", lambda og, **kw: bc(og, 0, **kw))]
+
+
+def _measured_combines(be, unit: float, log_rows: list) -> None:
+    """Measure every `combine_by_key` call that takes the device route
+    (`sorted_segment_sum`: one counted host sync) against the exact float64
+    segment sums of the same inputs, beside a rounding model of a prefix
+    sum in the backend's dtype (unit roundoff `unit`): a segment's error at
+    most unit·((k + 4)·M + Σ|its terms|), M the prefix's magnitude at its
+    end and k its terms (a sequential scan's k adds, or a blocked scan's
+    two end adds, one carry and partials below M). The card's scan exceeds
+    that model (PERF.md §6), and no bound that holds for any scan
+    order is smaller than the ranks themselves, so the model's share is
+    reported, not gated: the float64 run's ranks are the gate. Appends
+    (max |Δ|, share of the model) a device call."""
+    inner = be.combine_by_key
+
+    def combine(values, keys, num_keys, merge, order):
+        syncs = be.host_syncs
+        uniq, got = inner(values, keys, num_keys, merge, order)
+        if be.host_syncs == syncs:
+            return uniq, got
+        v = np.asarray(values, dtype=np.float64)[:, 0]
+        exact = np.bincount(keys, weights=v, minlength=num_keys)[uniq]
+        seg_mag = np.bincount(keys, weights=np.abs(v),
+                              minlength=num_keys)[uniq]
+        k = np.bincount(keys, minlength=num_keys)[uniq]
+        model = unit * ((k + 4.0) * np.cumsum(seg_mag) + seg_mag)
+        err = np.abs(got[:, 0] - exact)
+        if not np.isfinite(got).all():
+            raise AssertionError("device edge combine: a sum is not finite")
+        log_rows.append((float(err.max(initial=0.0)), float(
+            (err / np.maximum(model, 1e-300)).max(initial=0.0))))
+        return uniq, got
+
+    be.combine_by_key = combine
+
+
+def _check_algorithm(tag, name, got, want, info_t, info_n) -> dict:
+    if info_t.rounds != info_n.rounds:
+        raise AssertionError(f"{tag}: {info_t.rounds} rounds, oracle "
+                             f"{info_n.rounds}")
+    sig_t = [s.report.phase_signature() for s in info_t.stats]
+    sig_n = [s.report.phase_signature() for s in info_n.stats]
+    if sig_t != sig_n:
+        raise AssertionError(f"{tag}: a round's phase_signature differs")
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        raise AssertionError(f"{tag}: shape {got.shape}, want {want.shape}")
+    if name in ("bfs", "sssp", "cc"):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{tag}: values differ from the oracle's")
+        return dict(max_abs_err=0.0)
+    err = np.abs(got - want)
+    if name == "bc":
+        allowed = BC_REL * (1.0 + np.abs(want))
+        if not (err <= allowed).all():
+            raise AssertionError(f"{tag}: max |Δ| {err.max()} beyond "
+                                 f"{BC_REL}·(1+|ref|)")
+    return dict(max_abs_err=float(err.max(initial=0.0)),
+                max_rel_err=float((err / np.maximum(np.abs(want), 1e-300))
+                                  .max(initial=0.0)),
+                l1_err=float(err.sum()))
+
+
+def graph_path(device: str = "cuda", scale: int = GRAPH_SCALE,
+               ba_n: int = GRAPH_BA_N):
+    """TDO-GP on the card: each graph ingested at P=16 (seed 0, weights
+    from seed 3) on the card and through the numpy oracle, then BFS, SSSP,
+    CC, PageRank (10 rounds, tol 0) and BC from vertex 0 both ways; on the
+    Erdős-Rényi graph PageRank once more in float64. Returns (rows, the
+    launches expected of each stage, the ingest's Phase-1 root call on the
+    Erdős-Rényi graph: keys, bins, weights)."""
+    import torch
+
+    from repro_torch.graph import ingest
+
+    rows, expected, root_call = [], {}, None
+    st = _Stages(device, expected)
+    for gname, make in graph_specs(scale, ba_n):
+        t0 = time.perf_counter()
+        g = make().with_weights(seed=3)
+        log(f"  graph {gname}: n {g.n}, m {g.m} (made in "
+            f"{time.perf_counter() - t0:.2f} s)")
+        be = _torch_backend(device)
+        _timed_backend(be)
+        calls = []
+        counts = be.key_counts
+
+        def recorded(keys, num_keys, weights=None, _inner=counts):
+            calls.append((np.asarray(keys), num_keys, weights))
+            return _inner(keys, num_keys, weights)
+
+        be.key_counts = recorded
+        tag = f"ingest/{gname}"
+        expected[tag] = GRAPH_EXPECTED_INGEST
+        og_t = st.run(tag, lambda: ingest(g, GRAPH_P, seed=0, backend=be))
+        wall = st.rows[-1]["wall_s"]
+        if be._host_lambdas:
+            raise AssertionError(f"{tag}: the ingest lambda fell back to the "
+                                 "host path")
+        t0 = time.perf_counter()
+        og_n = ingest(g, GRAPH_P, seed=0, backend="numpy")
+        wall_ora = time.perf_counter() - t0
+        for arr in INGEST_ARRAYS:
+            if not np.array_equal(getattr(og_t, arr), getattr(og_n, arr)):
+                raise AssertionError(f"{tag}: {arr} differs")
+        if og_t.ingest_report.phase_signature() \
+                != og_n.ingest_report.phase_signature():
+            raise AssertionError(f"{tag}: phase_signature differs")
+        if gname == "er":
+            root_call = calls[0]
+        st.rows[-1].update(graph=gname, n=g.n, m=g.m,
+                           numerics_s=be.numerics_s,
+                           host_s=wall - be.numerics_s, oracle_wall_s=wall_ora,
+                           root_call_ids=int(calls[0][0].size))
+        log(f"  {tag}: wall {wall:.3f} s = host (cost model, trees, CSR) "
+            f"{wall - be.numerics_s:.3f} + backend calls "
+            f"{be.numerics_s:.3f} (oracle {wall_ora:.3f} s); root call "
+            f"{calls[0][0].size} ids over {calls[0][1]} bins; arrays and "
+            f"signature equal")
+        del calls
+        runs = [(name, alg, {}) for name, alg in _algorithms()]
+        if gname == "er":
+            runs.append(("pagerank", _algorithms()[3][1],
+                         dict(dtype="float64")))
+        oracle = {}  # the float64 PageRank is held to the same oracle run
+        for name, alg, kw in runs:
+            tag = f"{name}{'_f64' if kw else ''}/{gname}"
+            be_a = _torch_backend(device, **kw)
+            combines: list = []
+            if name == "pagerank":
+                _measured_combines(
+                    be_a, 2.0 ** (-53 if kw else -24), combines)
+            expected[tag] = _launch()
+            got, info_t = st.run(tag, lambda: alg(og_t, backend=be_a))
+            wall = st.rows[-1]["wall_s"]
+            if name not in oracle:
+                t0 = time.perf_counter()
+                oracle[name] = (*alg(og_n, backend="numpy"),
+                                time.perf_counter() - t0)
+            want, info_n, wall_ora = oracle[name]
+            res = _check_algorithm(tag, name, got, want, info_t, info_n)
+            res["device_rounds"] = be_a.host_syncs
+            if name == "pagerank":
+                if len(combines) != be_a.host_syncs:
+                    raise AssertionError(f"{tag}: unmeasured device rounds")
+                res.update(combine_max_abs_err=max(
+                    (c[0] for c in combines), default=0.0),
+                    combine_model_share=max((c[1] for c in combines),
+                                            default=0.0))
+                if kw and res["max_abs_err"] > PAGERANK_F64_ABS:
+                    raise AssertionError(f"{tag}: max |Δ| "
+                                         f"{res['max_abs_err']} beyond "
+                                         f"{PAGERANK_F64_ABS}")
+            st.rows[-1].update(graph=gname, algorithm=name,
+                               rounds=info_t.rounds, oracle_wall_s=wall_ora,
+                               **res)
+            extra = ""
+            if name == "pagerank":
+                extra = (f"; device combines max |Δ| "
+                         f"{res['combine_max_abs_err']:.3g}, "
+                         f"{res['combine_model_share']:.3g} of the rounding "
+                         f"model; ranks max |Δ| {res['max_abs_err']:.3g} "
+                         f"(max relative {res['max_rel_err']:.3g}), L1 "
+                         f"{res['l1_err']:.3g}"
+                         + (f", gate {PAGERANK_F64_ABS}" if kw else ""))
+            elif name == "bc":
+                extra = f"; max |Δ| {res['max_abs_err']:.3g}"
+            log(f"  {tag}: {info_t.rounds} rounds, wall {wall:.3f} s "
+                f"(oracle {wall_ora:.3f} s), {be_a.host_syncs} rounds on "
+                f"the device route of combine_by_key; rounds and "
+                f"signatures equal{'' if name in ('pagerank', 'bc') else ', values exact'}"
+                f"{extra}")
+        del og_t, og_n, g
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return st.rows, expected, root_call
+
+
+def ingest_histogram_timing(dev, call, launches: int) -> dict:
+    """K1 at the Erdős-Rényi ingest's Phase-1 root call (every edge's
+    source, weighted by the meta-task counts the engine passes, over
+    2^GRAPH_SCALE bins): the largest n >> bins call of any path."""
+    keys, bins, weights = call
+    shape = _histogram_shape("ingest root call", _i32(keys, dev),
+                             _i32(weights, dev), bins, launches)
+    _log_shapes("histogram", [shape])
+    return shape
+
+
 def _check_path_launches(path: str, launches: dict, expected: dict) -> None:
     """A path's launches must be its table's totals, and every kernel of
     the path (any that its table expects) must have run."""
@@ -2224,7 +2845,7 @@ def main() -> int:
     from repro_torch.kernels import _lib
 
     card = gpu_name_and_power()
-    log(f"[1/7] environment: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/9] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -2237,11 +2858,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/7] kernel parity against the plain PyTorch versions")
+    log("[2/9] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/7] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    log("[3/9] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -2249,7 +2870,7 @@ def main() -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/7] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    log("[4/9] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -2267,7 +2888,7 @@ def main() -> int:
         f"{GATE_MIX}: orchestrated {ps_summary['gate_orchestrated']}, "
         f"naive {ps_summary['gate_naive']}")
 
-    log("[5/7] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    log("[5/9] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -2280,7 +2901,7 @@ def main() -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    log("[6/7] kernel times at the paths' shapes")
+    log("[6/9] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -2298,16 +2919,40 @@ def main() -> int:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[7/7] device busy share of a stage (torch.profiler)")
+    log("[7/9] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
+
+    log("[8/9] engines and plans: stages (a)-(c) under engine='pull', "
+        "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
+        "bfs_stages through run_plan and the run_stage loop")
+    kernels.reset_launches()
+    engine_rows, engine_expected = engines_path("cuda")
+    plan_rows, plan_expected = plans_path("cuda")
+    torch.cuda.synchronize()
+    _check_path_launches("engines and plans path", kernels.launches(),
+                         {**engine_expected, **plan_expected})
+
+    log(f"[9/9] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+        f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
+        "CC, PageRank, BC, backend='torch' vs the numpy oracle")
+    kernels.reset_launches()
+    graph_rows, graph_expected, root_call = graph_path("cuda")
+    torch.cuda.synchronize()
+    graph_launches = kernels.launches()
+    _check_path_launches("graph path", graph_launches, graph_expected)
+    log("  phase 6, row 1e: K1 at the Erdős-Rényi ingest's root call")
+    rows[0]["shapes"].append(ingest_histogram_timing(
+        dev, root_call, graph_launches["histogram"]))
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "stages": stages_out, "kernels": rows,
          "device_busy": busy, "paramserve": {"stages": ps_rows,
                                              **ps_summary},
-         "attention_ssm": {"stages": attn_rows, "resources": resources}},
-        indent=1))
+         "attention_ssm": {"stages": attn_rows, "resources": resources},
+         "engines": engine_rows, "plans": plan_rows, "graph": graph_rows},
+        indent=1, default=str))
 
     log(gpu_name_and_power())
     log(json.dumps({"kernels": [{k: r[k] for k in (

@@ -1,7 +1,8 @@
 """The TD-Orch core on PyTorch: task-data orchestration (Fig. 1) and the
 TD-Orch engine (§3) — communication forest + meta-task sets + distributed
-push-pull + merge-able write-backs — with reusable Orchestrator sessions,
-and hot-chunk replication. Numerics run on the CUDA card through
+push-pull + merge-able write-backs — plus the §2.3 baselines, the
+cost-model-driven `engine="auto"` policy, reusable Orchestrator sessions,
+declarative multi-round `StagePlan`s and hot-chunk replication. Numerics run on the CUDA card through
 `TorchBackend` (the default backend) or on the host through the float64
 numpy oracle; the cost model is host-side numpy and bit-identical across
 backends."""
@@ -12,10 +13,14 @@ from .cost import (ELASTIC_PHASES, CostAccumulator, PhaseCost, SessionReport,
                    StageReport, assert_cost_parity, assert_session_parity)
 from .datastore import DataStore, ShardLayout, TaskBatch
 from .engine import OrchestrationResult, TDOrchEngine
+from .baselines import DirectPullEngine, DirectPushEngine, SortBasedEngine
 from .execution import gather_values
 from .fusedlam import FUSED_READ_OPS, FusedStageLambda, fused_read
 from .interface import ENGINES, make_engine, orchestration, register_engine
 from .mergeops import MERGE_OPS, MergeOp, get_merge_op
+from .plan import CARRY, LoopRecord, PlanResult, PlanState, StagePlan
+from .policy import (AutoEngine, PhaseCostEstimate, PolicyConfig,
+                     PolicyDecision, StageLayout, StagePolicy)
 from .replication import (HotChunkReplicator, ReplicaSet, ReplicationConfig,
                           make_replicator)
 from .session import Orchestrator
@@ -28,10 +33,14 @@ __all__ = [
     "assert_cost_parity", "assert_session_parity", "ELASTIC_PHASES",
     "DataStore", "ShardLayout", "TaskBatch",
     "OrchestrationResult", "TDOrchEngine",
+    "DirectPullEngine", "DirectPushEngine", "SortBasedEngine",
     "gather_values",
     "FUSED_READ_OPS", "FusedStageLambda", "fused_read",
     "ENGINES", "make_engine", "orchestration", "register_engine",
     "MERGE_OPS", "MergeOp", "get_merge_op",
+    "CARRY", "LoopRecord", "PlanResult", "PlanState", "StagePlan",
+    "AutoEngine", "PhaseCostEstimate", "PolicyConfig", "PolicyDecision",
+    "StageLayout", "StagePolicy",
     "HotChunkReplicator", "ReplicaSet", "ReplicationConfig", "make_replicator",
     "Orchestrator",
 ]

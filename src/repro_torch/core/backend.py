@@ -15,9 +15,11 @@ words/rounds). This module makes the numeric half pluggable:
   lambda runs as torch ops, the Phase-4 ⊗-combine runs the segment-combine
   kernel, ragged stages with a fused-able lambda run the stage_fused
   kernel, and the store's values stay device-resident between stages (a
-  cache keyed on `DataStore.version`). Values are computed in float32 by
-  default and match the oracle within float tolerance; ``dtype="float64"``
-  matches it to round-off.
+  cache keyed on `DataStore.version`). Inside a `StagePlan` scope
+  (`core/plan.py`) write-backs stay on the device and the host copy is
+  refreshed only at flush points. Values are computed in float32 by default
+  and match the oracle within float tolerance; ``dtype="float64"`` matches
+  it to round-off.
 
 The backend-parity contract: per-phase **words and rounds are bit-identical**
 across backends, because every quantity the cost model consumes (execution
@@ -68,7 +70,8 @@ class NumpyBackend:
 
     name = "numpy"
     # device→host state-array transfers (results / update rows / combined
-    # write-backs). Always 0 here — the oracle IS host-resident.
+    # write-backs / plan flushes / device edge combines). Always 0 here —
+    # the oracle IS host-resident.
     host_syncs = 0
 
     # -- StagePlan device-residency hooks (no-ops for the host oracle) ------
@@ -148,10 +151,29 @@ class TorchBackend(NumpyBackend):
     cost-model input is still produced by the host code paths, so reports
     are bit-identical to the numpy backend's.
 
-    The plan scope, `prefetch`/`sync` and `combine_by_key` are the
-    inherited oracle behaviour until `core/plan.py`, `serve/` and `graph/`
-    are ported: without a plan scope every write-back goes through to the
-    host copy at once, so nothing is deferred.
+    Plan scope (`begin_plan` / `end_plan`, opened by `Orchestrator.run_plan`):
+    a fused write-back onto the scope's store stays on the device — the
+    store's version is bumped, the device copy re-pinned and the written
+    keys recorded — and the host copy catches up at `plan_flush` (one gather
+    of the written rows, one device→host copy), which runs before any code
+    that reads the host values: the host route of `execute`, the oracle
+    apply of `apply_writes`, every user callback of the plan, and plan exit.
+    Batches are not padded to power-of-two sizes as the JAX backend does in
+    a plan scope: that padding only lets jit reuse one executable across
+    drifting batch sizes, and eager PyTorch launches the same kernels at any
+    size, so it would only add work.
+
+    `combine_by_key` (the DistEdgeMap's per-destination combine) follows the
+    JAX backend's route: an add merge over at least 4,096 keys whose key set
+    repeats (PageRank re-reduces the same edges every round) builds the
+    stable permutation and segment ends on its second sighting and runs the
+    permute → prefix sum → difference of `torchexec.sorted_segment_sum` on
+    the device from then on; every other combine takes the oracle's.
+
+    `host_syncs` counts the transfers of state arrays, as the JAX backend's
+    does; the Phase-1 counts and the Phase-2 routing permutation, which the
+    host cost model reads every stage, are not counted. `prefetch` / `sync`
+    stay the inherited no-ops until `serve/` is ported.
     """
 
     name = "torch"
@@ -191,9 +213,54 @@ class TorchBackend(NumpyBackend):
         self._torch_dtype = getattr(torch, dtype)
         self._host_lambdas: set = set()  # ids of fns torch cannot run
         self._stash = None  # one-slot (execute → apply_writes) carry
-        # device→host transfer counter (results / update rows / combined
-        # write-backs)
+        self._route = None  # one-slot combine_by_key routing cache
+        # device→host state-array transfer counter (results / update rows /
+        # combined write-backs / plan flushes / device edge combines)
         self.host_syncs = 0
+        # StagePlan device-residency scope (core/plan.py): while a plan runs
+        # over `_plan_store`, write-backs stay on the device and the host
+        # copy is refreshed at flush points (user callbacks, plan exit)
+        self._plan_store = None
+        self._plan_depth = 0
+        self._plan_written: list = []
+        self._plan_dirty = False
+
+    # -- StagePlan device-residency scope -----------------------------------
+    def begin_plan(self, store) -> None:
+        """Enter a plan scope: fused write-backs onto `store` defer their
+        host copy to the next flush point."""
+        if self._plan_depth == 0:
+            self._plan_store = store
+        self._plan_depth += 1
+
+    def end_plan(self) -> None:
+        self._plan_depth = max(self._plan_depth - 1, 0)
+        if self._plan_depth == 0:
+            self.plan_flush()
+            self._plan_store = None
+
+    def plan_flush(self) -> None:
+        """Refresh the host store copy from the device-resident values: one
+        gather of every row written since the last flush and one
+        device→host copy. Called by the plan runner before any user
+        callback and at plan exit."""
+        if not self._plan_dirty:
+            return
+        store = self._plan_store
+        # a cache hit: every deferred apply re-pins the copy after touch()
+        dv = self.device_values(store)
+        wk = np.unique(np.concatenate(self._plan_written))
+        self._plan_written = []
+        self._plan_dirty = False
+        rows = self._to_host(dv.index_select(0, self._dl(wk)))
+        store.write_rows(wk, rows.astype(store.values.dtype, copy=False))
+        self._remember_values(store, dv)
+
+    def _flush_if_deferred(self, store) -> None:
+        """Host code is about to read `store.values`: make the host copy
+        current first."""
+        if self._plan_store is store and self._plan_dirty:
+            self.plan_flush()
 
     # -- device-resident store values --------------------------------------
     def _cache_key(self):
@@ -241,6 +308,7 @@ class TorchBackend(NumpyBackend):
             tasks.contexts, dtype=self._np_dtype)).to(self.device)
 
     def _to_host(self, t) -> np.ndarray:
+        """A state array to the host, counted in `host_syncs`."""
         self.host_syncs += 1
         return t.cpu().numpy() if isinstance(t, torch.Tensor) \
             else np.asarray(t)
@@ -254,6 +322,7 @@ class TorchBackend(NumpyBackend):
         # whose keys or CSR offsets (nnz) overflow the kernels' int32
         if tasks.n == 0 or id(f) in self._host_lambdas \
                 or store.num_keys >= 2**30 or tasks.nnz > _I32.max:
+            self._flush_if_deferred(store)
             return execution.execute(tasks, store, f)
 
         n = tasks.n
@@ -323,6 +392,7 @@ class TorchBackend(NumpyBackend):
                           "the host numpy path from now on", RuntimeWarning,
                           stacklevel=2)
             self._host_lambdas.add(id(f))
+            self._flush_if_deferred(store)
             return execution.execute(tasks, store, f)
 
         host: Dict[str, Optional[np.ndarray]] = {"result": None,
@@ -374,6 +444,7 @@ class TorchBackend(NumpyBackend):
             return
         stash, updates = self._take_stash(tasks, updates, merge)
         if stash is None:
+            self._flush_if_deferred(store)
             execution.apply_writes(tasks, store, updates, merge, cost)
             return
         _, _, _, uniq, combined_dev, _, dv = stash
@@ -383,6 +454,14 @@ class TorchBackend(NumpyBackend):
         # device-side ⊙-apply, so the next stage needs no full re-upload
         new_dv = self._tx.apply_rows(dv, self._dl(uniq), combined_dev,
                                      merge_name=merge.name)
+        if self._plan_store is store:
+            # plan scope: the write-back stays on the device — the host copy
+            # is refreshed at the next flush point, not per stage
+            store.touch()
+            self._remember_values(store, new_dv)
+            self._plan_written.append(uniq)
+            self._plan_dirty = True
+            return
         # authoritative host apply (store dtype), exactly the oracle's ⊙
         combined = self._to_host(combined_dev).astype(store.values.dtype,
                                                       copy=False)
@@ -399,15 +478,46 @@ class TorchBackend(NumpyBackend):
                 or num_keys >= 2**31:
             return super().key_counts(keys, num_keys, weights)
         w = None if weights is None else self._di(weights)
-        counts = self._to_host(self._tx.contention_counts(
-            self._di(keys), int(num_keys), weights=w))
+        # a cost-model input, not a state array: not a counted host sync
+        counts = self._tx.contention_counts(
+            self._di(keys), int(num_keys), weights=w).cpu().numpy()
         uk = np.flatnonzero(counts)
         return uk.astype(np.int64), counts[uk].astype(np.int64)
 
     # -- phase 2 ------------------------------------------------------------
     def argsort_stable(self, keys: np.ndarray) -> np.ndarray:
-        return self._to_host(self._tx.stable_argsort(
-            self._dl(keys))).astype(np.int64)
+        return self._tx.stable_argsort(
+            self._dl(keys)).cpu().numpy().astype(np.int64)
+
+    # -- DistEdgeMap local combine ------------------------------------------
+    def combine_by_key(self, values, keys, num_keys, merge: MergeOp, order):
+        """Add-combines over a *repeated* key set (PageRank re-reduces the
+        same edge list every round) run scatter-free on the device via the
+        cached routing permutation; everything else — first sighting of a
+        key set, non-add merges, batches under 4,096 keys — takes the
+        oracle path, exactly as the JAX backend routes them. The returned
+        key list is identical either way; combined sums agree within the
+        float32 prefix-sum tolerance."""
+        if merge.name == "add" and keys.size >= 4096 and num_keys < 2**31:
+            rt = self._route
+            if (rt is not None and rt[0].size == keys.size
+                    and np.array_equal(rt[0], keys)):
+                if len(rt) == 1:
+                    # second sighting: the key set repeats — now the argsort
+                    # pays off (a one-shot key set never sorts, it only
+                    # pays the O(m) copy + compare)
+                    perm = np.argsort(keys, kind="stable")
+                    sk = keys[perm]
+                    ends = np.flatnonzero(np.r_[sk[1:] != sk[:-1], True])
+                    rt = self._route = (rt[0], self._dl(perm),
+                                        self._dl(ends),
+                                        sk[ends].astype(np.int64))
+                vals = torch.from_numpy(np.ascontiguousarray(
+                    values, dtype=self._np_dtype)).to(self.device)
+                dev = self._tx.sorted_segment_sum(vals, rt[1], rt[2])
+                return rt[3].copy(), self._to_host(dev).astype(np.float64)
+            self._route = (keys.copy(),)  # candidate; routed if seen again
+        return super().combine_by_key(values, keys, num_keys, merge, order)
 
 
 def make_backend(spec) -> NumpyBackend:

@@ -31,9 +31,10 @@ __all__ = ["SessionConfig", "KWARG_ALIASES", "resolve_session_config"]
 class SessionConfig:
     """Everything that shapes an orchestration session, in one place.
 
-    engine          scheduling strategy: "tdorch" (default; the §2.3
-                    baselines are not ported yet), or a prebuilt engine
-                    instance (shares its forest/backend caches).
+    engine          scheduling strategy: "tdorch" (default), a §2.3
+                    baseline name ("push"/"pull"/"sort"), "auto" (the
+                    per-stage policy of `core/policy.py`), or a prebuilt
+                    engine instance (shares its forest/backend caches).
     backend         numeric execution backend: None/"torch" — the PyTorch
                     pipeline on the CUDA card (raises without one);
                     "numpy" — the float64 oracle; or a backend instance

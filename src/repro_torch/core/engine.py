@@ -227,6 +227,67 @@ class TDOrchEngine:
             refcount=refcount,
         )
 
+    def estimate_cost(self, histogram, layout):
+        """Analytic cost estimate for running `layout`'s stage on THIS engine
+        (the `engine="auto"` policy contract, core/policy.py).
+
+        Replays the exact Phase 1–4 charging paths above — the same forest
+        climb, meta-task parking, pull broadcast, and reverse-tree write-back
+        — against a scratch `CostAccumulator`, without executing the lambda.
+        The estimate is therefore bit-identical to the realized stage report
+        whenever the layout's assumptions hold: the lambda returns
+        `layout.update_width`-wide updates for every declared write key and
+        `layout.result_width`-wide results when `return_results` is set.
+        `histogram` (the Phase-1 demand
+        histogram) is accepted per the estimator contract; TD-Orch's climb
+        is replayed from the pair stream itself, which the histogram is a
+        projection of."""
+        from .policy import PhaseCostEstimate  # local: policy imports engines
+        tasks, store, replicas = layout.tasks, layout.store, layout.replicas
+        sigma = self.sigma_override or layout.sigma
+        B = store.chunk_words
+        C = self.C_override or max(2, int(math.ceil(B / max(sigma, 1))))
+        cost = CostAccumulator(self.P)
+        has_read = tasks.arity > 0
+        pair_site = tasks.origin[tasks.pair_task]
+        if replicas is not None and replicas.hot_ids.size and tasks.nnz:
+            pair_local = replicas.holds(tasks.read_indices, pair_site)
+        else:
+            pair_local = np.zeros(tasks.nnz, dtype=bool)
+        stores = _Stores()
+        cost.begin("phase1_contention_detection")
+        if tasks.nnz:
+            pair_site, _, _ = self._phase1(tasks, store, cost, stores,
+                                           pair_site, sigma, C,
+                                           climb=~pair_local)
+        cost.end()
+        exec_site = tasks.origin.copy()
+        exec_site[has_read] = pair_site[tasks.read_indptr[:-1][has_read]]
+        cost.begin("phase2_push_pull")
+        self._phase2_pull(store, cost, stores, B)
+        self._phase2_replica_local(tasks, store, cost, pair_local)
+        self._phase2_secondary(tasks, store, cost, pair_site, exec_site,
+                               replicas)
+        cost.end()
+        cost.begin("phase3_execute")
+        cost.work(exec_site, self.work_per_task)
+        if self.work_per_pair and tasks.nnz:
+            cost.work(exec_site[tasks.pair_task], self.work_per_pair)
+        if layout.return_results:
+            cost.send(exec_site, tasks.origin, layout.result_width + 1)
+            cost.tick()
+        cost.end()
+        cost.begin("phase4_write_back")
+        if layout.assume_updates:
+            wrote = self._phase4_charge(tasks, store, cost, stores, exec_site,
+                                        layout.update_width, replicas)
+            if wrote:
+                # the authoritative ⊙-apply charge (execution.apply_writes)
+                uniq = np.unique(tasks.write_keys[tasks.write_keys >= 0])
+                cost.work(store.home[uniq], 1.0)
+        cost.end()
+        return PhaseCostEstimate("tdorch", cost.totals())
+
     # ------------------------------------------------------------------
     def _phase1(self, tasks, store, cost, stores, pair_site, sigma, C,
                 climb=None):

@@ -7,10 +7,9 @@ CSR — or the flat `read_keys` convenience for arity-1 batches; OutputPointers
 = write_keys; LocalContexts = contexts); `f` is the batched lambda
 (contexts, in_values[, mask]) -> {"update": ..., "result": ...}; `write_back`
 names a merge-able ⊕ (Definition 2). The `engine` kwarg selects the
-scheduling strategy through the `@register_engine` registry; this package
-has "tdorch" so far (the §2.3 baselines and `engine="auto"` arrive with the
-ports of `core/baselines.py` and `core/policy.py`, and asking for them
-raises the registry's unknown-engine error until then).
+scheduling strategy through the `@register_engine` registry: "tdorch", the
+§2.3 baselines "pull", "push" and "sort", and "auto", which picks one of the
+four per stage from their predicted bills (`core/policy.py`).
 `return_results=True` ships each task's per-task result back to its origin
 (and is what makes the device backend materialize results at all).
 
@@ -35,7 +34,9 @@ from typing import Callable, Dict
 import numpy as np
 
 # importing the engine modules populates the registry
+from . import baselines as _baselines  # noqa: F401
 from . import engine as _engine  # noqa: F401
+from . import policy as _policy  # noqa: F401
 from .config import SessionConfig, resolve_session_config
 from .datastore import DataStore, TaskBatch
 from .engine import OrchestrationResult

@@ -14,7 +14,8 @@ what makes the repro usable as a platform rather than a one-shot solver.
     sess.report.phase_totals()                    # summed across both stages
 
 `orchestration(...)` in `interface.py` remains as a thin one-shot shim over a
-throwaway session. (`run_plan` arrives with the port of `core/plan.py`.)
+throwaway session, and `run_plan` runs a whole declarative multi-round
+`StagePlan` (core/plan.py) against the session.
 """
 from __future__ import annotations
 
@@ -187,6 +188,24 @@ class Orchestrator:
                 [ph for r in pre for ph in r.phases] + res.report.phases)
         self._report.add(res.report)
         return res
+
+    # ------------------------------------------------------------------
+    def run_plan(self, plan, *, carry=None, state=None):
+        """Execute a declarative `StagePlan` (core/plan.py) — the whole
+        multi-round program in one call against this session.
+
+        `carry` seeds the plan's continuation slot (the first round's
+        `TaskBatch` for CARRY-consuming stages); `state` seeds user slots on
+        the threaded `PlanState`. Stage-by-stage this calls `run_stage`
+        exactly as a hand-rolled loop would — per-phase cost reports
+        are bit-identical — but on the torch backend the plan runs inside a
+        device-residency scope: write-backs stay on the device, and the host
+        store copy is refreshed only at flush points (before user callbacks,
+        at plan exit). Returns a `PlanResult` (records, per-loop rounds/stop
+        reasons, final state).
+        """
+        from .plan import execute_plan  # local: plan.py is engine-agnostic
+        return execute_plan(self, plan, carry=carry, state=state)
 
     # ------------------------------------------------------------------
     def reset_report(self) -> SessionReport:

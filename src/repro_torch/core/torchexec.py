@@ -6,8 +6,9 @@ needs).
 through these: the Phase-1 contention histogram (`kernels.histogram`), the
 Phase-3 gather + lambda, the Phase-4 merge-able segment-combine
 (`kernels.segment_combine`, every merge including the ordered "write"), the
-ragged fused stage (`kernels.stage_fused`), and the ⊙-apply onto the
-device-resident store copy.
+ragged fused stage (`kernels.stage_fused`), the ⊙-apply onto the
+device-resident store copy, and the DistEdgeMap's per-destination combines
+(`combine_dense`, `sorted_segment_sum`).
 
 PyTorch runs eagerly, so nothing here pads to static shapes: writer lists
 hold exactly the writers and `num_segments` is the real segment count. A
@@ -206,6 +207,28 @@ def run_stage_fused(values, indptr, indices, contexts, seg, order, *,
     return {"result": upd if want_result else None,
             "update": upd if want_update else None,
             "combined": combined}
+
+
+def combine_dense(values, seg, *, num_segments: int, merge_name: str):
+    """Dense segment combine over the full key range — the DistEdgeMap
+    per-destination-vertex write-combine in one segment-combine call (the
+    kernel on the card). "write" keeps, per segment, its lowest row."""
+    order = torch.zeros(values.shape[0], dtype=torch.int32,
+                        device=values.device)
+    return _segment_combine(values, seg, num_segments, merge_name, order)
+
+
+def sorted_segment_sum(values, order, seg_ends):
+    """Segment sum via a cached routing permutation: permute rows into
+    segment-contiguous order, prefix-sum, difference at segment ends. No
+    scatter at all — the route for workloads that reduce one key set
+    stage after stage (PageRank re-reduces the same edges every round).
+    `seg_ends[i]` is the last permuted row of segment i. Accuracy: sums are
+    differences of a prefix sum in the values' dtype, so a segment's
+    absolute error grows with the prefix's magnitude, not its own."""
+    cs = torch.cumsum(values.index_select(0, order), dim=0)
+    ends = cs.index_select(0, seg_ends)
+    return torch.cat([ends[:1], ends[1:] - ends[:-1]])
 
 
 # ---------------------------------------------------------------------------

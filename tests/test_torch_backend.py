@@ -280,7 +280,7 @@ def test_backend_options_rejected():
             port.TorchBackend(device="cpu", kernel_backend=route)
     store = port.DataStore.create(60, 4, value_width=3)
     with pytest.raises(KeyError, match="unknown engine"):
-        port.Orchestrator(store, engine="push", backend="numpy")
+        port.Orchestrator(store, engine="no_such_engine", backend="numpy")
     with pytest.raises(NotImplementedError, match="elasticity"):
         port.Orchestrator(store, backend="numpy",
                           elasticity={"migration": True})

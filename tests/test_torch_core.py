@@ -211,9 +211,15 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith('repro_torch')))\n")
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}{os.pathsep}{REPO}")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 36  # every module was imported
+    walked = set(out.stdout.split())
+    assert len(walked) >= 68  # every module was imported
+    assert {"repro_torch.core.baselines", "repro_torch.core.policy",
+            "repro_torch.core.plan", "repro_torch.graph.algorithms",
+            "repro_torch.graph.distedgemap", "repro_torch.graph.partition",
+            "repro_torch.graph.session"} <= walked

@@ -34,6 +34,10 @@ row view that is not 16-byte aligned and one task of arity 1,000. The
 histogram (B1) is held exactly on each route (`histogram.ops.route`: the
 shared route below 48 KB and in the opt-in band, the global route), with
 uniform and Zipf ids, weighted and not, ids out of range on both sides.
+
+A small `StagePlan` runs through `Orchestrator.run_plan` on the card: its
+write-backs stay on the device until the plan exits (one counted host sync
+in all), and every engine runs there when no device is named.
 """
 import numpy as np
 import pytest
@@ -689,3 +693,57 @@ def test_ssd_tensor_core_gate(dev, geom, dtype):
     assert bool(torch.isfinite(got).all())
     assert bool(((got.double() - want).abs() <= allowed).all())
     assert kernels.launches()["mamba_scan"] == 1
+
+
+def _unit_plan_session(engine="tdorch"):
+    from repro_torch.core import DataStore, Orchestrator, TaskBatch
+
+    store = DataStore.create(4096, 4, value_width=2, chunk_words=4, init=1.0)
+    tb = TaskBatch(contexts=np.ones((1024, 1)), read_keys=np.arange(1024),
+                   origin=TaskBatch.even_origins(1024, 4))
+    return store, tb, Orchestrator(store, engine=engine)
+
+
+def _inc(ctx, vals):
+    return {"update": vals * 0.0 + 1.0}
+
+
+def test_plan_write_backs_stay_on_the_card_until_exit(dev):
+    """Five rounds of +1 under a plan scope: the host copy is not touched
+    until the plan exits (one flush, the one host sync), then holds the
+    card's values; the same rounds through run_stage sync every stage."""
+    from repro_torch.core import StagePlan
+
+    store, tb, sess = _unit_plan_session()
+    assert sess.backend.device.type == "cuda"
+    seen = []
+    plan = (StagePlan()
+            .loop(StagePlan().stage(tb, _inc, "add"), until=None,
+                  max_rounds=5)
+            .host(lambda st: seen.append(store.values[:1024].copy())))
+    before = sess.backend.host_syncs
+    out = sess.run_plan(plan)
+    assert out.rounds == 5
+    assert sess.backend.host_syncs - before == 1  # the flush before .host
+    np.testing.assert_array_equal(seen[0], 6.0)
+    np.testing.assert_array_equal(store.values[:1024], 6.0)
+    np.testing.assert_array_equal(store.values[1024:], 1.0)
+    dv = sess.backend.device_values(store)
+    assert dv.is_cuda
+    np.testing.assert_array_equal(dv.cpu().numpy(), store.values)
+
+    store, tb, sess = _unit_plan_session()
+    before = sess.backend.host_syncs
+    for _ in range(5):
+        sess.run_stage(tb, _inc, "add")
+    assert sess.backend.host_syncs - before == 5
+
+
+@pytest.mark.parametrize("engine", ["pull", "push", "sort", "auto"])
+def test_engines_run_on_the_card_by_default(dev, engine):
+    store, tb, sess = _unit_plan_session(engine)
+    assert sess.backend.device.type == "cuda"
+    kernels.reset_launches()
+    sess.run_stage(tb, _inc, "add")
+    assert kernels.launches()["segment_combine"] == 1
+    np.testing.assert_array_equal(store.values[:1024], 2.0)
