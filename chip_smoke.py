@@ -133,12 +133,44 @@ Phases, each of which raises (non-zero exit) on any failed check:
    within PAGERANK_F64_ABS. The ER ingest's Phase-1 root call is timed as
    one more histogram shape of phase 6 (row 1e).
 
+10. The KV store and the serve tier (`repro_torch.kvstore`,
+   `repro_torch.serve`) at the main path's table:
+   `DistributedHashTable(800,000, 16, value_width=16)` (bench_ycsb's full
+   setting, 51 MB of float32 on the card), YCSB Zipf 1.5 with a
+   stationary hot set. One-shot: `execute_batch` of YCSB A and B (800,000
+   operations), `multi_get` of 100,000 tasks of arity 1-8 and `run_chain`
+   over 100,000 chains of 4 hops, each against the numpy backend
+   (`phase_signature()`, `refcount`, `exec_site` exactly, values within
+   `_check_values`' gates; `execute_batch` also against
+   `DistributedHashTable.oracle`). Streaming, sync mode: 65,536 GET / RMW
+   requests (10% RMW) and 4,096 multi-gets through `table.serve()` at
+   max_batch 256 and 8,192 (size trigger only), every result bit-identical
+   to `execute_batch` / `multi_get` on the card over the same coalesced
+   batches and within a float32-drift gate of the numpy backend's replay.
+   Thread mode: bench_serve's 20,000 requests offered at 80% of the sync
+   rate at 256, with `TorchBackend.prefetch` and with it a no-op: every
+   future resolves without an error, the numpy replay of the batches the
+   executor ran matches each result and the final table; requests/s, p50,
+   p99, `overlap_frac`. The card's busy share of a sync run
+   (torch.profiler). Then `MoEFrontend` (128 tokens, bit-identical to
+   `decode_step`) and `EmbeddingFrontend` (8,192 lookups and bags
+   bit-identical to `lookup` / `lookup_bags`, 8,192 gradient pushes within
+   K2's sum bound) at phase 4's granite widths. Launches by
+   `SERVE_EXPECTED` and, for a streamed run, by its batches' kinds
+   (`SERVE_BATCH`); no lambda may go to the host route.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
 name and power limit.
+
+A diagnostic of the open fault C2 (ROADMAP), not in the default run:
+``--c2-repeats N`` runs phase 5's bf16 prefill_mha stage N times after
+phase 4 and reads every share of its gate, then runs phases 5-10 as
+always.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -607,17 +639,6 @@ def parity_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
-def zipf_keys(n, num_keys, gamma, rng, perm=None):
-    """n keys from Zipf(gamma) over num_keys ranks, identities permuted:
-    by a fresh permutation, or by `perm` to keep the hot keys of earlier
-    batches (a stationary stream)."""
-    p = np.arange(1, num_keys + 1, dtype=np.float64) ** (-gamma)
-    p /= p.sum()
-    if perm is None:
-        perm = rng.permutation(num_keys)
-    return perm[rng.choice(num_keys, size=n, p=p)]
-
-
 def muladd(contexts, vals):
     out = vals * contexts[:, 0:1] + contexts[:, 1:2]
     return {"update": out, "result": out}
@@ -652,6 +673,7 @@ EXPECTED_LAUNCHES = {
 def make_stages(tpm: int):
     """The four stages' task batches (numpy, from the seed)."""
     from repro_torch.core import TaskBatch, fused_read
+    from repro_torch.kvstore.ycsb import zipf_keys_stationary as zipf
 
     rng = np.random.default_rng(SEED)
     n, K = P * tpm, 16 * tpm
@@ -660,7 +682,8 @@ def make_stages(tpm: int):
     def ctx():
         return rng.standard_normal((n, 2))
 
-    a = TaskBatch(contexts=ctx(), read_keys=zipf_keys(n, K, 2.0, rng),
+    a = TaskBatch(contexts=ctx(), read_keys=zipf(n, K, 2.0, rng,
+                                                     rng.permutation(K)),
                   origin=origin)
     b = TaskBatch(contexts=ctx(), read_keys=rng.integers(0, K, n),
                   origin=origin,
@@ -669,7 +692,8 @@ def make_stages(tpm: int):
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(arity, out=indptr[1:])
     c = TaskBatch(contexts=ctx(), origin=origin, read_indptr=indptr,
-                  read_indices=zipf_keys(int(indptr[-1]), K, 1.5, rng))
+                  read_indices=zipf(int(indptr[-1]), K, 1.5, rng,
+                                     rng.permutation(K)))
     return K, [
         ("a", "arity-1 zipf2.0 add", a, muladd, "add", None, 1),
         ("b", "arity-1 uniform write", b, muladd, "write", None, 1),
@@ -958,6 +982,7 @@ def paramserve_path(device: str = "cuda", f: int | None = None,
 
     from repro_torch.core import TorchBackend
     from repro_torch.core.embedding import embed_skew_aware
+    from repro_torch.kvstore.ycsb import zipf_keys_stationary as zipf
     from repro_torch.paramserve import EmbeddingStore, MoERouter
 
     E, d, k = GRANITE["E"], GRANITE["d"], GRANITE["k"]
@@ -1016,7 +1041,7 @@ def paramserve_path(device: str = "cuda", f: int | None = None,
     rng = np.random.default_rng(PS_SEED)
     perm_v = rng.permutation(V)
     n = EMBED_N
-    ids = zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+    ids = zipf(n, V, PS_ALPHA, rng, perm_v)
     table0 = store.table.copy()
     res = st.run("lookup", lambda: store.lookup(ids, backend=backend))
     st.rows[-1]["max_abs_err"] = _check_close(
@@ -1024,7 +1049,7 @@ def paramserve_path(device: str = "cuda", f: int | None = None,
     arity = rng.integers(1, 9, n)
     indptr = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(arity, out=indptr[1:])
-    bag_ids = zipf_keys(int(indptr[-1]), V, PS_ALPHA, rng, perm_v)
+    bag_ids = zipf(int(indptr[-1]), V, PS_ALPHA, rng, perm_v)
     res = st.run("bags", lambda: store.lookup_bags((indptr, bag_ids),
                                                    backend=backend),
                  pairs=int(indptr[-1]))
@@ -1032,7 +1057,7 @@ def paramserve_path(device: str = "cuda", f: int | None = None,
     mags = np.add.reduceat(np.abs(table0[bag_ids]), indptr[:-1], axis=0)
     st.rows[-1]["max_abs_err"] = _sum_bound_ok(res.values, sums, mags,
                                                rel_want=1e-5, name="bags")
-    up_ids = zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+    up_ids = zipf(n, V, PS_ALPHA, rng, perm_v)
     grads = rng.standard_normal((n, D))
     st.run("update", lambda: store.update(up_ids, grads, backend=backend))
     want = EmbeddingStore.oracle_update(table0, up_ids, grads)
@@ -1042,7 +1067,7 @@ def paramserve_path(device: str = "cuda", f: int | None = None,
                                                rel_want=1e-5, name="update")
     hot_kw = dict(backend=backend, replicate=EMBED_HOT)
     table1 = store.table.copy()
-    hot_ids = [zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+    hot_ids = [zipf(n, V, PS_ALPHA, rng, perm_v)
                for _ in range(DECODE_STEPS)]
     for s, h in enumerate(hot_ids):
         res = st.run(f"hot{s}", lambda: store.lookup(h, **hot_kw))
@@ -1051,7 +1076,7 @@ def paramserve_path(device: str = "cuda", f: int | None = None,
     cache = store.device_cache(**hot_kw, device=device)
     dev = torch.device(device)
     table_dev = torch.from_numpy(table1.astype(np.float32)).to(dev)
-    q = zipf_keys(n, V, PS_ALPHA, rng, perm_v)
+    q = zipf(n, V, PS_ALPHA, rng, perm_v)
     q_dev = torch.from_numpy(q.astype(np.int32)).to(dev)
     out, cache2, hit = st.run("skew_aware", lambda: embed_skew_aware(
         table_dev, q_dev, cache))
@@ -2164,15 +2189,61 @@ def timing_phase(dev, K, stages, init, launches, ps: dict,
 _OWN_KERNELS = ("hist_", "seg_combine", "write_gather", "fused_reduce")
 
 
-def busy_phase(K, stages, init) -> list:
-    """Device busy and idle share of stages (a)-(c) on the torch backend, by
+def device_busy(name: str, run) -> dict:
+    """Wall time of `run()` and the device's busy time in it, by
     torch.profiler: busy is the union of the device's own events (kernels,
-    copies, fills) over a stage's wall time, in a second run of the stage
-    (the first one uploads the store). Device time is split into this
-    port's kernels, host<->device copies, and torch's other kernels."""
+    copies, fills), split into this port's kernels, host<->device copies
+    and torch's other kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a session now and then records no device events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_PAD_S)
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+        log(f"  {name}: the profiler saw no device activity; profiling "
+            "again")
+    else:
+        raise AssertionError(f"{name}: the profiler saw no device activity")
+    busy_us, end = 0.0, -np.inf
+    split = {"port_kernels_ms": 0.0, "copies_ms": 0.0,
+             "other_device_ms": 0.0}
+    for s, e, ev_name in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+        key = ("port_kernels_ms" if any(k in ev_name for k in _OWN_KERNELS)
+               else "copies_ms" if ev_name.startswith("Memcpy")
+               else "other_device_ms")
+        split[key] += (e - s) / 1e3
+    busy = busy_us / 1e6
+    return dict(wall_s=wall, device_busy_s=busy,
+                idle_share=1.0 - busy / wall, **split)
+
+
+def _log_busy(label, row) -> None:
+    log(f"  {label}: wall {row['wall_s']:.3f} s, device busy "
+        f"{row['device_busy_s'] * 1e3:.2f} ms (idle "
+        f"{row['idle_share']:.4f}); port kernels "
+        f"{row['port_kernels_ms']:.3f} ms, copies {row['copies_ms']:.3f} "
+        f"ms, other device work {row['other_device_ms']:.3f} ms")
+
+
+def busy_phase(K, stages, init) -> list:
+    """Device busy and idle share of stages (a)-(c) on the torch backend
+    (`device_busy`), in a second run of each stage (the first one uploads
+    the store)."""
+    import torch
 
     from repro_torch.core import DataStore, Orchestrator
 
@@ -2185,44 +2256,10 @@ def busy_phase(K, stages, init) -> list:
         sess = Orchestrator(st, backend="torch", replication=rep)
         sess.run_stage(tasks, f, write_back=merge, return_results=True)
         torch.cuda.synchronize()
-        for _ in range(3):  # a session now and then records no device events
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                time.sleep(PROFILE_PAD_S)
-                t0 = time.perf_counter()
-                sess.run_stage(tasks, f, write_back=merge,
-                               return_results=True)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                time.sleep(PROFILE_PAD_S)
-            spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                           for e in prof.events()
-                           if e.device_type == DeviceType.CUDA)
-            if spans:
-                break
-            log(f"  stage {name}: the profiler saw no device activity; "
-                "profiling again")
-        else:
-            raise AssertionError(f"stage {name}: the profiler saw no "
-                                 "device activity")
-        busy_us, end = 0.0, -np.inf
-        split = {"port_kernels_ms": 0.0, "copies_ms": 0.0,
-                 "other_device_ms": 0.0}
-        for s, e, ev_name in spans:
-            busy_us += max(0.0, e - max(s, end))
-            end = max(end, e)
-            key = ("port_kernels_ms" if any(k in ev_name for k in _OWN_KERNELS)
-                   else "copies_ms" if ev_name.startswith("Memcpy")
-                   else "other_device_ms")
-            split[key] += (e - s) / 1e3
-        busy = busy_us / 1e6
-        row = dict(stage=name, desc=desc, wall_s=wall, device_busy_s=busy,
-                   idle_share=1.0 - busy / wall, **split)
-        log(f"  stage {name} ({desc}): wall {wall:.3f} s, device busy "
-            f"{busy * 1e3:.2f} ms (idle {row['idle_share']:.4f}); port "
-            f"kernels {split['port_kernels_ms']:.3f} ms, copies "
-            f"{split['copies_ms']:.3f} ms, other device work "
-            f"{split['other_device_ms']:.3f} ms")
+        row = dict(stage=name, desc=desc, **device_busy(
+            f"stage {name}", lambda: sess.run_stage(
+                tasks, f, write_back=merge, return_results=True)))
+        _log_busy(f"stage {name} ({desc})", row)
         rows.append(row)
     return rows
 
@@ -2801,6 +2838,748 @@ def ingest_histogram_timing(dev, call, launches: int) -> dict:
     return shape
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the KV store and the streaming serve tier
+# ---------------------------------------------------------------------------
+# benchmarks/bench_ycsb.py's full setting (P = 16, 50,000 tasks a machine,
+# 16 keys a task, rows of 16 words) and benchmarks/bench_serve.py's stream
+# (Zipf 1.5, 10% read-modify-writes of (1.0, 0.5), its open-loop window)
+SERVE_P = 16
+SERVE_TPM = 50_000
+SERVE_KEYS = 16 * SERVE_TPM  # 800,000 rows of 16: 51 MB of float32
+SERVE_WIDTH = 16
+SERVE_GAMMA = 1.5
+SERVE_SEED = 29
+MGET_N = 100_000  # one-shot multi-get tasks, arity 1-8
+CHAIN_N = 100_000  # one-shot read-modify-write chains
+CHAIN_HOPS = 4
+STREAM_N = 65_536  # sync-mode GET / RMW requests
+STREAM_MGETS = 4_096  # sync-mode multi-gets, arity 1-8
+STREAM_BATCHES = (256, 8_192)
+THREAD_N = 20_000  # bench_serve's open-loop count
+THREAD_LOAD = 0.8  # offered: this share of the sync rate at max_batch 256
+THREAD_TURNS = (True, False, False, True)  # prefetch on / off, in turns
+THREAD_WINDOW = {"max_batch": 256, "min_window": 100e-6,
+                 "max_window": 5e-3, "max_queue": 1 << 15}
+RMW_OPERAND = (1.0, 0.5)
+FRONT_T = 128  # tokens through MoEFrontend
+FRONT_N = 8_192  # lookups, bags and gradient pushes a front door's stage
+
+# launches of the one-shot stages: K2 for every write merge (each YCSB batch,
+# each chain hop); no K1, as every Phase-1 root call here covers fewer than
+# an eighth of the 800,000 keys (the backend's host cutoff), and no K3, as
+# the KV lambdas are not fused reads
+SERVE_EXPECTED = {
+    "ycsb_A": _launch(segment_combine=1),
+    "ycsb_B": _launch(segment_combine=1),
+    "multi_get": _launch(),
+    "chain": _launch(segment_combine=CHAIN_HOPS),
+    "moe_front": _launch(histogram=1), "moe_shot": _launch(histogram=1),
+    "embed_front": _launch(histogram=2, stage_fused=1, segment_combine=1),
+    "embed_shot": _launch(histogram=2, stage_fused=1),
+}
+# launches of one streamed batch, by kind: a GET / RMW batch with a writer
+# combines once (K2); the GETs-only batch and the multi-gets launch nothing
+# (their Phase-1 calls cover at most 8,192 keys of 800,000: the host route)
+SERVE_BATCH = {"kv_write": _launch(segment_combine=1), "kv_read": _launch(),
+               "mget": _launch()}
+
+
+def _capture(sess) -> list:
+    """The OrchestrationResult of every stage `sess` runs from now on (for
+    `exec_site`, which the kvstore results do not carry)."""
+    box, inner = [], sess.run_stage
+
+    def run_stage(*a, **k):
+        res = inner(*a, **k)
+        box.append(res)
+        return res
+
+    sess.run_stage = run_stage
+    return box
+
+
+def _kv_table(device, K, init):
+    from repro_torch.kvstore import DistributedHashTable
+
+    t = DistributedHashTable(K, SERVE_P, value_width=SERVE_WIDTH,
+                             seed=SERVE_SEED)
+    t.bulk_load(np.arange(K), init)
+    return t
+
+
+def _card_backend(device):
+    """None (the entry points' default: the card) on the card; the plain
+    versions on the CPU for a rehearsal."""
+    from repro_torch.core import TorchBackend
+
+    return None if device == "cuda" else TorchBackend(device=device)
+
+
+def _no_host_route(name, table) -> None:
+    for sess in table._sessions.values():
+        be = sess.backend
+        if getattr(be, "_host_lambdas", None):
+            raise AssertionError(f"{name}: a lambda fell back to the host")
+
+
+def _results_close(name, got, want) -> float:
+    """Fetched rows, float32 of the float64 rows: |Δ| <= 1e-6·|want| +
+    1e-6 (one rounding is 2^-24·|want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return _sum_bound_ok(got, want, np.abs(want), name=name)
+
+
+def kv_one_shot(device, st, K, tpm, n_mget, n_chain, init) -> dict:
+    """execute_batch (YCSB A and B), multi_get and run_chain through the
+    table's entry points on the card, each against the numpy backend on a
+    twin table that starts from the card table's values (so each check sees
+    one stage's rounding): bills, refcounts and exec sites exactly, values
+    within `_check_values`' gates; execute_batch also against
+    `DistributedHashTable.oracle`."""
+    from repro_torch.kvstore import DistributedHashTable, make_ycsb_stream
+    from repro_torch.kvstore.ycsb import zipf_keys_stationary
+
+    be = _card_backend(device)
+    t_dev, t_ora = _kv_table(device, K, init), _kv_table(device, K, init)
+    box_dev = _capture(t_dev.session(backend=be))
+    box_ora = _capture(t_ora.session(backend="numpy"))
+    out = {}
+
+    def twin():
+        t_ora.store.write_rows(np.arange(K), t_dev.values)
+        box_dev.clear()
+        box_ora.clear()
+        return t_dev.values.copy()
+
+    def same_sites(tag):
+        if len(box_dev) != len(box_ora) or not all(
+                np.array_equal(a.exec_site, b.exec_site)
+                for a, b in zip(box_dev, box_ora)):
+            raise AssertionError(f"{tag}: exec_site differs")
+
+    for wl in ("A", "B"):
+        tag = f"ycsb_{wl}"
+        keys, is_read, operand = next(make_ycsb_stream(
+            wl, tpm, SERVE_P, K, SERVE_GAMMA, SERVE_SEED))
+        old = twin()
+        r_dev = st.run(tag, lambda: t_dev.execute_batch(
+            keys, is_read, operand, backend=be), tasks=keys.size)
+        t0 = time.perf_counter()
+        r_ora = t_ora.execute_batch(keys, is_read, operand, backend="numpy")
+        st.rows[-1]["oracle_wall_s"] = time.perf_counter() - t0
+        _same_bill(tag, r_dev, r_ora)
+        same_sites(tag)
+        tasks = t_dev._make_batch(keys, is_read, operand, None)
+        mags = np.abs(old[keys]) * np.abs(operand[:, 0:1]) \
+            + np.abs(operand[:, 1:2])
+        err = _results_close(tag, r_dev.values, r_ora.values)
+        _check_values(tag, t_dev.values, t_ora.values, old, tasks, mags,
+                      "write")
+        want_vals, want_res = DistributedHashTable.oracle(
+            old, keys, is_read, operand)
+        _results_close(f"{tag} oracle", r_dev.values, want_res)
+        val_err, share = _check_values(f"{tag} oracle", t_dev.values,
+                                       want_vals, old, tasks, mags, "write")
+        st.rows[-1].update(max_result_err=err, max_value_err=val_err,
+                           max_value_err_share_of_tolerance=share,
+                           reads=int(is_read.sum()))
+        out[tag] = _log_one_shot(st.rows[-1], f"{keys.size} operations, "
+                                 f"{int(is_read.sum())} reads")
+
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    perm = rng.permutation(K)
+    arity = rng.integers(1, 9, n_mget)
+    indptr = np.zeros(n_mget + 1, dtype=np.int64)
+    np.cumsum(arity, out=indptr[1:])
+    indices = zipf_keys_stationary(int(indptr[-1]), K, SERVE_GAMMA, rng, perm)
+    twin()
+    r_dev = st.run("multi_get", lambda: t_dev.multi_get(
+        (indptr, indices), backend=be), tasks=n_mget, pairs=indices.size)
+    t0 = time.perf_counter()
+    r_ora = t_ora.multi_get((indptr, indices), backend="numpy")
+    oracle_wall = time.perf_counter() - t0
+    _same_bill("multi_get", r_dev, r_ora)
+    same_sites("multi_get")
+    if not np.array_equal(r_dev.mask, r_ora.mask):
+        raise AssertionError("multi_get: mask differs")
+    m = r_dev.mask
+    st.rows[-1].update(oracle_wall_s=oracle_wall,
+                       max_result_err=_results_close(
+                           "multi_get", r_dev.values[m], r_ora.values[m]))
+    out["multi_get"] = _log_one_shot(st.rows[-1], f"{n_mget} tasks, "
+                                     f"{indices.size} pairs")
+
+    keys = zipf_keys_stationary(n_chain * CHAIN_HOPS, K, SERVE_GAMMA, rng,
+                                perm).reshape(n_chain, CHAIN_HOPS)
+    operand = rng.random((n_chain, 2))
+    old = twin()
+    c_dev = st.run("chain", lambda: t_dev.run_chain(keys, operand,
+                                                    backend=be),
+                   tasks=n_chain, hops=CHAIN_HOPS)
+    t0 = time.perf_counter()
+    c_ora = t_ora.run_chain(keys, operand, backend="numpy")
+    st.rows[-1]["oracle_wall_s"] = time.perf_counter() - t0
+    if c_dev.hops != c_ora.hops or not np.array_equal(c_dev.keys,
+                                                      c_ora.keys):
+        raise AssertionError("chain: hops or keys differ")
+    for j, (a, b) in enumerate(zip(c_dev.reports, c_ora.reports)):
+        if a.phase_signature() != b.phase_signature():
+            raise AssertionError(f"chain hop {j}: phase_signature differs")
+    same_sites("chain")
+    # each hop rounds v·m + a once in float32, 2^-24 of its magnitude; four
+    # hops compound to under 4·3·2^-24 ≈ 7e-7 of it (|v| < 5 here): the
+    # gate 1e-5·|want| + 1e-5 covers that many times over
+    live = ~np.isnan(c_ora.values)
+    allowed = 1e-5 * np.abs(c_ora.values[live]) + 1e-5
+    err = np.abs(c_dev.values[live] - c_ora.values[live])
+    table_err = np.abs(t_dev.values - t_ora.values)
+    if not (np.array_equal(live, ~np.isnan(c_dev.values))
+            and (err <= allowed).all()
+            and (table_err <= 1e-5 * np.abs(t_ora.values) + 1e-5).all()):
+        raise AssertionError(f"chain: values beyond 1e-5·|want| + 1e-5 "
+                             f"(max |Δ| {err.max()}, table "
+                             f"{table_err.max()})")
+    st.rows[-1].update(max_result_err=float(err.max()),
+                       max_value_err=float(table_err.max()))
+    out["chain"] = _log_one_shot(st.rows[-1], f"{n_chain} chains of "
+                                 f"{c_dev.hops} hops")
+    del old
+    _no_host_route("one-shot", t_dev)
+    return out
+
+
+def _log_one_shot(row, what) -> dict:
+    log(f"  {row['stage']} ({what}): wall {row['wall_s']:.3f} s (numpy "
+        f"oracle {row['oracle_wall_s']:.3f} s); bills, refcounts and exec "
+        f"sites equal, max |Δ| results {row['max_result_err']:.3g}"
+        + (f", table {row['max_value_err']:.3g}"
+           if "max_value_err" in row else ""))
+    return row
+
+
+def serve_stream(K, n, n_mget, seed):
+    """The closed-loop stream: GETs and RMWs (1.0, 0.5) on Zipf 1.5 keys of
+    a stationary hot set, and multi-gets of arity 1-8, one after every
+    n / n_mget GET / RMW requests."""
+    from repro_torch.kvstore.ycsb import zipf_keys_stationary
+
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(K)
+    keys = zipf_keys_stationary(n, K, SERVE_GAMMA, rng, perm)
+    is_rmw = rng.random(n) < 0.10
+    arity = rng.integers(1, 9, n_mget)
+    flat = zipf_keys_stationary(int(arity.sum()), K, SERVE_GAMMA, rng, perm)
+    groups = np.split(flat, np.cumsum(arity)[:-1]) if n_mget else []
+    return dict(keys=keys, is_rmw=is_rmw, groups=groups,
+                mget_after=(np.arange(n_mget) * n) // max(n_mget, 1))
+
+
+def _drive(fe, stream, rate=None):
+    """Submit the stream (paced at `rate` requests/s if given); returns the
+    futures in request order: GET / RMW requests, then multi-gets."""
+    keys, is_rmw, groups = stream["keys"], stream["is_rmw"], stream["groups"]
+    after = stream["mget_after"]
+    kv, mg, j = [], [], 0
+    t0 = time.monotonic()
+    for i in range(keys.size):
+        if rate is not None:
+            lag = t0 + i / rate - time.monotonic()
+            if lag > 1e-4:
+                time.sleep(lag)
+        kv.append(fe.read_modify_write(int(keys[i]), *RMW_OPERAND)
+                  if is_rmw[i] else fe.get(int(keys[i])))
+        while j < len(groups) and after[j] == i:
+            mg.append(fe.multi_get(groups[j]))
+            j += 1
+    return kv, mg
+
+
+def _record_batches(fe) -> list:
+    """The batches the frontend's executor runs, in order, as (tag, request
+    futures): recorded here by wrapping the frontend object's `_execute`,
+    not in the library."""
+    ran, inner = [], fe._execute
+
+    def execute(prepared):
+        ran.append((prepared.spec.name,
+                    [r.future for r in prepared.requests]))
+        inner(prepared)
+
+    fe._execute = execute
+    return ran
+
+
+def _batches_as_requests(ran, kv, mg):
+    """(tag, request indices) of each executed batch."""
+    index = {id(f): i for i, f in enumerate(kv)}
+    index.update({id(f): i for i, f in enumerate(mg)})
+    return [(tag, np.array([index[id(f)] for f in futs], dtype=np.int64))
+            for tag, futs in ran]
+
+
+def _batch_kind(tag, idx, stream) -> str:
+    if tag == "mget":
+        return "mget"
+    return "kv_write" if stream["is_rmw"][idx].any() else "kv_read"
+
+
+def _one_shot_batch(table, tag, idx, stream, backend):
+    """The batch `execute_batch` / `multi_get` builds for these requests:
+    the per-request results, in batch order."""
+    if tag == "kv":
+        rmw = stream["is_rmw"][idx]
+        operand = np.where(rmw[:, None], RMW_OPERAND, (1.0, 0.0))
+        res = table.execute_batch(stream["keys"][idx], ~rmw, operand,
+                                  backend=backend)
+        return list(res.values)
+    res = table.multi_get([stream["groups"][i] for i in idx],
+                          backend=backend)
+    return [res.values[j][res.mask[j]] for j in range(idx.size)]
+
+
+def _replay_numpy(name, table, served, batches, stream, kv, mg) -> float:
+    """Replay the executed batches through the numpy backend on `table`,
+    which starts from the served table's initial values; every request's
+    result and the final table against the card's (`served`). The card's
+    values drift from float64 by one float32 rounding (2^-24·|v|) at each
+    write of a key, and by one at the load: a row read or left after w
+    writes is held to (w + 1)·2^-23·|v| + 1e-6 (twice the drift). Returns
+    the largest share of that gate."""
+    writes = np.zeros(table.store.num_keys, dtype=np.int64)
+    worst = 0.0
+
+    def gate(got, want, w):
+        nonlocal worst
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        allowed = (w[:, None] + 1) * 2 * U32 * np.abs(want) + 1e-6
+        err = np.abs(got - want)
+        if got.shape != want.shape or not (err <= allowed).all():
+            raise AssertionError(f"{name} numpy replay: |Δ| {err.max()} "
+                                 "beyond (w + 1)·2^-23·|want| + 1e-6")
+        worst = max(worst, float((err / allowed).max(initial=0.0)))
+
+    for tag, idx in batches:
+        want = _one_shot_batch(table, tag, idx, stream, "numpy")
+        futs = kv if tag == "kv" else mg
+        for j, i in enumerate(idx):
+            ks = np.atleast_1d(stream["keys"][i] if tag == "kv"
+                               else stream["groups"][i])
+            gate(np.atleast_2d(futs[i].result(timeout=0)),
+                 np.atleast_2d(want[j]), writes[ks])
+        if tag == "kv":
+            written = np.unique(stream["keys"][idx][stream["is_rmw"][idx]])
+            writes[written] += 1
+    gate(served.values, table.values, writes)
+    return worst
+
+
+def _check_futures(name, kv, mg, fe) -> None:
+    """Every future resolved, none with an error, no admission refused."""
+    errors = []
+    for f in kv + mg:
+        try:
+            f.result(timeout=0)
+        except Exception as exc:  # noqa: BLE001 - collected, then raised
+            errors.append(exc)
+    if errors or fe.stats.failed or fe.stats.rejected:
+        raise AssertionError(
+            f"{name}: {len(errors)} futures unresolved or rejected (failed "
+            f"{fe.stats.failed}, refused {fe.stats.rejected})"
+            + (f"; first: {errors[0]!r}" if errors else ""))
+
+
+def _note_launches(st, tag, ran, kinds) -> dict:
+    """A streamed run's launches against its batches' kinds (SERVE_BATCH),
+    checked and kept in `st.expected` like a stage's."""
+    expected = _launch()
+    for k in kinds:
+        expected = _plus(expected, SERVE_BATCH[k])
+    st.expected[tag] = expected
+    if st.device == "cuda" and ran != expected:
+        raise AssertionError(f"stage {tag}: kernel launches {ran}, "
+                             f"expected {expected}")
+    return expected
+
+
+def serve_sync(device, st, K, init, stream, max_batch) -> dict:
+    """The closed loop in sync mode at `max_batch`, only the size trigger
+    firing: every request bit-identical to `execute_batch` / `multi_get`
+    on the card over the same coalesced batches (a twin table replays
+    them), and within the replay gate of the numpy backend."""
+    be = _card_backend(device)
+    table, twin = _kv_table(device, K, init), _kv_table(device, K, init)
+    fe = table.serve(backend=be, mode="sync", config={
+        "max_batch": max_batch, "min_window": 1.0, "max_window": 1.0,
+        "max_queue": 1 << 16})
+    ran = _record_batches(fe)
+    tag = f"sync{max_batch}"
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    kv, mg = _drive(fe, stream)
+    fe.flush()
+    fe.drain()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts(before)
+    rep = fe.report()
+    fe.close()
+    _check_futures(tag, kv, mg, fe)
+    batches = _batches_as_requests(ran, kv, mg)
+    kinds = [_batch_kind(t, i, stream) for t, i in batches]
+    st.expected[f"{tag}_replay"] = _note_launches(st, tag, launches, kinds)
+    row = dict(stage=tag, wall_s=wall, launches=launches,
+               requests=len(kv) + len(mg), batches=len(batches))
+    st.rows.append(row)
+    twin_be = _card_backend(device)
+    shots = st.run(f"{tag}_replay", lambda: [
+        _one_shot_batch(twin, b_tag, idx, stream, twin_be)
+        for b_tag, idx in batches])
+    replay_wall = st.rows[-1]["wall_s"]
+    for (b_tag, idx), want in zip(batches, shots):
+        futs = kv if b_tag == "kv" else mg
+        for j, i in enumerate(idx):
+            if not np.array_equal(futs[i].result(timeout=0), want[j]):
+                raise AssertionError(f"{tag}: request {b_tag}#{i} differs "
+                                     "from the one-shot batch")
+    if not np.array_equal(table.values, twin.values):
+        raise AssertionError(f"{tag}: the table differs from the one-shot "
+                             "batches'")
+    worst = _replay_numpy(tag, _kv_table(device, K, init), table, batches,
+                          stream, kv, mg)
+    _no_host_route(tag, table)
+    _no_host_route(f"{tag} replay", twin)
+    exec_s = fe.stats.overlap.busy["exec"]
+    row.update(requests_per_s=row["requests"] / wall,
+               ms_per_batch=wall / len(batches) * 1e3,
+               exec_ms_per_batch=exec_s / len(batches) * 1e3,
+               admission_us_per_request=(wall - exec_s) / row["requests"]
+               * 1e6,
+               batches_by_trigger=rep["batches_by_trigger"],
+               kinds={k: kinds.count(k) for k in SERVE_BATCH},
+               p50_s=rep["p50_s"], p99_s=rep["p99_s"],
+               replay_share_of_gate=worst)
+    log(f"  {tag}: {row['requests']} requests in {len(batches)} batches "
+        f"({row['kinds']}; triggers {rep['batches_by_trigger']}), wall "
+        f"{wall:.3f} s = {row['requests_per_s']:.0f} requests/s: the "
+        f"executor {row['exec_ms_per_batch']:.3f} ms a batch, admission "
+        f"{row['admission_us_per_request']:.1f} us a request; every result "
+        f"bit-identical to the one-shot batches (their wall "
+        f"{replay_wall:.3f} s), the numpy replay within {worst:.3g} of its "
+        "gate")
+    return row
+
+
+def prefetch_cost(device, K, init, reps: int = 200) -> dict:
+    """Host time, single-threaded, of what `TorchBackend.prefetch` moves
+    off the executor for a 256-request GET batch: the prefetch itself
+    (pinned copy, side-stream copy, event), the executor's pickup of the
+    staged contexts (event wait, `record_stream`) and the upload the
+    executor makes without a prefetch (one pageable copy); medians of
+    `reps` calls, synchronized between calls."""
+    import torch
+
+    from repro_torch.core import make_backend
+
+    table = _kv_table(device, K, init)
+    be = make_backend(_card_backend(device))
+    n = THREAD_WINDOW["max_batch"]
+    tasks = table._make_batch(np.arange(n), np.ones(n, dtype=bool),
+                              np.tile((1.0, 0.0), (n, 1)), None)
+    times = {"prefetch_us": [], "pickup_us": [], "upload_us": []}
+
+    def clock(key, fn):
+        if be.device.type == "cuda":
+            torch.cuda.synchronize(be.device)
+        t0 = time.perf_counter()
+        fn()
+        times[key].append((time.perf_counter() - t0) * 1e6)
+
+    for _ in range(reps):
+        clock("prefetch_us", lambda: be.prefetch(tasks, table.store))
+        clock("pickup_us", lambda: be._dctx(tasks))
+        clock("upload_us", lambda: be._dctx(tasks))
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  prefetch of a {n}-request batch's contexts: "
+        f"{out['prefetch_us']:.1f} us of the router's time; the executor's "
+        f"pickup {out['pickup_us']:.1f} us against an upload of "
+        f"{out['upload_us']:.1f} us without it (medians of {reps})")
+    return out
+
+
+def serve_busy(device, st, K, init) -> dict:
+    """Device busy and idle share of the serve tier (`device_busy`): a
+    sync-mode run at max_batch 256 of a quarter of the closed-loop stream
+    (16,384 GET / RMW requests and 1,024 multi-gets), on a fresh table."""
+    table = _kv_table(device, K, init)
+    stream = serve_stream(K, STREAM_N // 4, STREAM_MGETS // 4,
+                          SERVE_SEED + 4)
+    fe = table.serve(backend=_card_backend(device), mode="sync", config={
+        "max_batch": 256, "min_window": 1.0, "max_window": 1.0,
+        "max_queue": 1 << 16})
+    ran, futs = _record_batches(fe), []
+    before = _launch_counts()
+
+    def run():
+        futs.extend(_drive(fe, stream))
+        fe.flush()
+
+    row = dict(stage="busy_sync256", **device_busy("busy_sync256", run))
+    fe.close()
+    kv, mg = futs
+    batches = _batches_as_requests(ran, kv, mg)
+    _note_launches(st, "busy_sync256", _launch_counts(before),
+                   [_batch_kind(t, i, stream) for t, i in batches])
+    row.update(requests=len(kv) + len(mg), batches=len(batches))
+    _log_busy(f"sync256 under the profiler ({row['requests']} requests, "
+              f"{len(batches)} batches)", row)
+    return row
+
+
+def serve_thread(device, st, K, init, stream, rate, tag,
+                 prefetch=True) -> dict:
+    """bench_serve's open loop in thread mode: the stream offered at `rate`
+    requests/s to the router / executor pair. Every future must resolve
+    without an error, and replaying the batches the executor ran through the
+    numpy backend must give each result and the final table within the
+    replay gate. `prefetch=False` runs the same with the backend's prefetch
+    a no-op (overridden on this backend object only), to see what staging
+    the contexts takes off the executor."""
+    be = _card_backend(device)
+    table = _kv_table(device, K, init)
+    fe = table.serve(backend=be, mode="thread", config=THREAD_WINDOW)
+    backend = fe.sessions[0].backend
+    if not prefetch:
+        backend.prefetch = lambda tasks, store: None
+    ran = _record_batches(fe)
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    kv, mg = _drive(fe, stream, rate=rate)
+    fe.drain(timeout=300.0)
+    wall = time.perf_counter() - t0
+    rep = fe.report()
+    fe.close()
+    ran_launches = _launch_counts(before)
+    _check_futures(tag, kv, mg, fe)
+    batches = _batches_as_requests(ran, kv, mg)
+    _note_launches(st, tag, ran_launches,
+                   [_batch_kind(t, i, stream) for t, i in batches])
+    worst = _replay_numpy(tag, _kv_table(device, K, init), table, batches,
+                          stream, kv, mg)
+    _no_host_route(tag, table)
+    busy = fe.stats.overlap.busy
+    row = dict(stage=tag, wall_s=wall, launches=ran_launches,
+               requests=len(kv) + len(mg), offered_per_s=rate,
+               requests_per_s=rep["completed"] / wall,
+               p50_s=rep["p50_s"], p99_s=rep["p99_s"],
+               overlap_frac=rep["overlap_fraction"],
+               exec_busy_s=busy["exec"], route_busy_s=busy["route"],
+               batches=len(batches), merged=rep["merged_batches"],
+               exec_ms_per_batch=busy["exec"] / len(batches) * 1e3,
+               occupancy=rep["batch_occupancy"],
+               queue_peak=rep["queue_peak"], replay_share_of_gate=worst)
+    st.rows.append(row)
+    log(f"  {tag}: {row['requests']} requests offered at {rate:.0f}/s: "
+        f"{row['requests_per_s']:.0f} requests/s, p50 "
+        f"{row['p50_s'] * 1e3:.3f} ms, p99 {row['p99_s'] * 1e3:.3f} ms, "
+        f"overlap_frac {row['overlap_frac']:.4f}; {len(batches)} batches "
+        f"({row['merged']} merged, occupancy {row['occupancy']:.3f}), "
+        f"executor {row['exec_ms_per_batch']:.3f} ms a batch, router "
+        f"{busy['route']:.3f} s; the numpy replay within {worst:.3g} of its "
+        "gate")
+    return row
+
+
+def _launch_counts(before=None) -> dict:
+    from repro_torch import kernels
+
+    now = kernels.launches()
+    return now if before is None else {k: v - before[k]
+                                       for k, v in now.items()}
+
+
+def front_doors(device, st, ps: dict) -> dict:
+    """MoEFrontend and EmbeddingFrontend at phase 4's granite widths (its
+    router and table): 128 routed tokens bit-identical to `decode_step` on
+    the card for the same admission order (and within DECODE_REL of the
+    float64 expert reference); 8,192 lookups and bags bit-identical to
+    `lookup` / `lookup_bags`; 8,192 gradient pushes within K2's sum bound
+    of the float64 update."""
+    from repro_torch.kvstore.ycsb import zipf_keys_stationary
+    from repro_torch.paramserve import EmbeddingStore
+
+    be = _card_backend(device)
+    router, store = ps["router"], ps["store"]
+    sync = {"min_window": 1.0, "max_window": 1.0}
+    x, ti, g = router.zipf_routing(FRONT_T, alpha=PS_ALPHA,
+                                   seed=PS_SEED + 100, rank_perm=ps["perm"])
+    fe = router.serve(backend=be, mode="sync",
+                      config={"max_batch": FRONT_T, **sync})
+
+    def decode_all():
+        futs = [fe.decode(x[t], ti[t], g[t]) for t in range(FRONT_T)]
+        return np.stack([f.result(timeout=0) for f in futs])
+
+    y = st.run("moe_front", decode_all, tokens=FRONT_T)
+    fe.close()
+    one = st.run("moe_shot", lambda: router.decode_step(x, ti, g,
+                                                        backend=be))
+    if fe.stats.batches != 1 or not np.array_equal(y, one.y):
+        raise AssertionError("MoEFrontend: not bit-identical to decode_step")
+    w_in, w_out = router.layer_weights(0)
+    err = _check_close("moe_front", y, expert_reference(x, ti, g, w_in,
+                                                        w_out))
+    st.rows[-2]["max_abs_err"] = err
+
+    rng = np.random.default_rng(PS_SEED + 100)
+    V, d = store.V, store.d
+    perm = rng.permutation(V)
+    ids = zipf_keys_stationary(FRONT_N, V, PS_ALPHA, rng, perm)
+    arity = rng.integers(1, 9, FRONT_N)
+    flat = zipf_keys_stationary(int(arity.sum()), V, PS_ALPHA, rng, perm)
+    bags = np.split(flat, np.cumsum(arity)[:-1])
+    up_ids = zipf_keys_stationary(FRONT_N, V, PS_ALPHA, rng, perm)
+    grads = rng.standard_normal((FRONT_N, d))
+    # the front door and the one-shot calls each start from one upload of
+    # the same host table (the card's float32 copy after phase 4's push
+    # holds sums rounded on the card, not the host's float64 ones)
+    table0 = store.table.copy()
+    store.store.write_rows(np.arange(V), table0)
+    fe = store.serve(backend=be, mode="sync",
+                     config={"max_batch": FRONT_N, **sync})
+
+    def serve_all():
+        lk = [fe.lookup(int(i)) for i in ids]
+        bg = [fe.lookup_bag(b) for b in bags]
+        gr = [fe.push_grad(int(i), gv) for i, gv in zip(up_ids, grads)]
+        fe.flush()
+        return ([f.result(timeout=0) for f in lk],
+                [f.result(timeout=0) for f in bg],
+                [f.result(timeout=0) for f in gr])
+
+    lk, bg, gr = st.run("embed_front", serve_all, requests=3 * FRONT_N)
+    fe.close()
+    if fe.stats.batches != 3 or any(r is not None for r in gr):
+        raise AssertionError("EmbeddingFrontend: batches or pushes differ")
+    want = EmbeddingStore.oracle_update(table0, up_ids, grads)
+    mags = EmbeddingStore.oracle_update(np.abs(table0), up_ids,
+                                        np.abs(grads))
+    grad_err = _sum_bound_ok(store.table, want, mags, rel_want=1e-5,
+                             name="push_grad")
+    store.store.write_rows(np.arange(V), table0)
+    indptr = np.zeros(FRONT_N + 1, dtype=np.int64)
+    np.cumsum(arity, out=indptr[1:])
+
+    def one_shot():
+        return (store.lookup(ids, backend=be).values,
+                store.lookup_bags((indptr, flat), backend=be).values)
+
+    want_lk, want_bg = st.run("embed_shot", one_shot)
+    if not (np.array_equal(np.stack(lk), want_lk)
+            and np.array_equal(np.stack(bg), want_bg)):
+        raise AssertionError("EmbeddingFrontend: lookups or bags not "
+                             "bit-identical to lookup / lookup_bags")
+    st.rows[-2]["max_abs_err"] = grad_err
+    for sess in list(router._sessions.values()) + list(
+            store._sessions.values()):
+        if getattr(sess.backend, "_host_lambdas", None):
+            raise AssertionError("front doors: a lambda fell back to the "
+                                 "host")
+    walls = {r["stage"]: r["wall_s"] for r in st.rows[-4:]}
+    log(f"  MoEFrontend: {FRONT_T} tokens in one batch "
+        f"({walls['moe_front']:.4f} s; decode_step {walls['moe_shot']:.4f} "
+        f"s), bit-identical to decode_step, max |Δ| {err:.3g} from the "
+        f"float64 reference; 3 x {FRONT_N} embedding requests "
+        f"{walls['embed_front']:.4f} s (lookup + lookup_bags "
+        f"{walls['embed_shot']:.4f} s); "
+        f"EmbeddingFrontend: {FRONT_N} lookups and bags bit-identical to "
+        f"lookup / lookup_bags, {FRONT_N} gradient pushes max |Δ| "
+        f"{grad_err:.3g} (within 1e-6·Σ|terms| + 1e-5·|want| + 1e-6)")
+    return dict(moe_max_abs_err=err, grad_max_abs_err=grad_err)
+
+
+def serve_path(device: str, ps: dict, *,
+               K: int = SERVE_KEYS, tpm: int = SERVE_TPM,
+               n_mget: int = MGET_N, n_chain: int = CHAIN_N,
+               n_stream: int = STREAM_N, n_stream_mget: int = STREAM_MGETS,
+               n_thread: int = THREAD_N, batches=STREAM_BATCHES):
+    """Phase 10: the one-shot KV stages, the closed loop in sync mode at
+    each of `batches`, the open loop in thread mode (with and without
+    prefetch) and the parameter-server front doors (on `ps`, phase 4's
+    tensors). Returns (rows, summary, expected launches by stage). The
+    keyword sizes cut it down for a rehearsal on the CPU."""
+    st = _Stages(device, dict(SERVE_EXPECTED))
+    init = np.random.default_rng(SERVE_SEED).random((K, SERVE_WIDTH))
+    summary = {"one_shot": kv_one_shot(device, st, K, tpm, n_mget, n_chain,
+                                       init)}
+    stream = serve_stream(K, n_stream, n_stream_mget, SERVE_SEED + 2)
+    sync = {b: serve_sync(device, st, K, init, stream, b) for b in batches}
+    rate = THREAD_LOAD * sync[batches[0]]["requests_per_s"]
+    t_stream = serve_stream(K, n_thread, 0, SERVE_SEED + 3)
+    # with prefetch and without, in turns: the two are compared only
+    # within this run, and the turns show the spread between runs
+    summary["thread"] = [
+        serve_thread(device, st, K, init, t_stream, rate,
+                     f"thread{i}" + ("" if on else "_no_prefetch"), on)
+        for i, on in enumerate(THREAD_TURNS)]
+    summary["prefetch_cost"] = prefetch_cost(device, K, init)
+    if device == "cuda":  # the profiler reads the card's events
+        summary["busy"] = serve_busy(device, st, K, init)
+    summary["front_doors"] = front_doors(device, st, ps)
+    return st.rows, summary, st.expected
+
+
+# ---------------------------------------------------------------------------
+# C2: bf16 prefill_mha once beyond its gate (a diagnostic, not in the default
+# run: `--c2-repeats N`)
+# ---------------------------------------------------------------------------
+
+
+def c2_repeats(dev, n: int) -> dict:
+    """Phase 5's bf16 prefill_mha stage `n` times in this process, on its
+    own inputs (same seed): each repeat calls the kernel and the float32
+    plain version again and reads the share of the gate (ATTN_REL·(1+|ref|)
+    + 2^-8·|ref|), and whether the kernel's output and the plain version's
+    are bit-identical to their first calls. Raises after the last repeat if
+    any share passed 1."""
+    import torch
+
+    stages = attention_ssm_stages()
+    i = next(j for j, s in enumerate(stages) if s["tag"] == "prefill_mha")
+    st = stages[i]
+    inputs = stage_inputs(st, "bfloat16", dev, SEED + 100 + i)
+    call = _kernel_call(st, inputs)
+    first = call()
+    want0 = _plain_call(st, inputs, lambda t: t.float())
+    shares, worst_at, out_same, ref_same = [], [], 0, 0
+    for _ in range(n):
+        got = call()
+        want = _plain_call(st, inputs, lambda t: t.float())
+        out_same += bool(torch.equal(got, first))
+        ref_same += bool(torch.equal(want, want0))
+        w = want.double()
+        ratio = (got.double() - w).abs() / (ATTN_REL * (1 + w.abs())
+                                           + BF16_ROUND * w.abs())
+        share = float(ratio.max().item())
+        shares.append(share)
+        worst_at.append(tuple(int(x) for x in
+                              torch.nonzero(ratio == share)[0]))
+        del got, want, w, ratio
+    torch.cuda.empty_cache()
+    out = dict(repeats=n, shares=shares, worst_at=worst_at,
+               kernel_identical=out_same, plain_identical=ref_same,
+               tf32=torch.backends.cuda.matmul.allow_tf32)
+    log(f"  C2: {n} repeats of prefill_mha/bfloat16 after phases 2-4: "
+        f"share of the gate min {min(shares):.6g}, max {max(shares):.6g} "
+        f"(first five {[round(s, 6) for s in shares[:5]]}); kernel output "
+        f"identical to its first call {out_same}/{n}, plain version "
+        f"{ref_same}/{n}; worst elements {sorted(set(worst_at))[:4]}; "
+        f"allow_tf32 {out['tf32']}")
+    if max(shares) > 1:
+        raise AssertionError(f"C2: prefill_mha/bfloat16 beyond its gate in "
+                             f"{sum(s > 1 for s in shares)} of {n} repeats")
+    return out
+
+
 def _check_path_launches(path: str, launches: dict, expected: dict) -> None:
     """A path's launches must be its table's totals, and every kernel of
     the path (any that its table expects) must have run."""
@@ -2829,7 +3608,19 @@ def _log_paramserve(rows, summary) -> None:
         f"rows, hit rate {summary['embed_hit_rate']:.4f}")
 
 
-def main() -> int:
+def parse_args(argv):
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU "
+        "(phases in the module docstring). With no arguments it runs every "
+        "phase and prints the result lines.")
+    ap.add_argument("--c2-repeats", type=int, default=0, metavar="N",
+                    help="after phase 4, run phase 5's bf16 prefill_mha "
+                    "stage N times and read each share of its gate")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke.py runs from a checkout of the repo: "
               f"{SRC / 'repro_torch'} is missing", file=sys.stderr)
@@ -2845,7 +3636,7 @@ def main() -> int:
     from repro_torch.kernels import _lib
 
     card = gpu_name_and_power()
-    log(f"[1/9] environment: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/10] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -2858,11 +3649,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/9] kernel parity against the plain PyTorch versions")
+    log("[2/10] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/9] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    log("[3/10] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -2870,7 +3661,7 @@ def main() -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/9] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    log("[4/10] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -2888,7 +3679,8 @@ def main() -> int:
         f"{GATE_MIX}: orchestrated {ps_summary['gate_orchestrated']}, "
         f"naive {ps_summary['gate_naive']}")
 
-    log("[5/9] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
+    log("[5/10] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -2901,7 +3693,7 @@ def main() -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    log("[6/9] kernel times at the paths' shapes")
+    log("[6/10] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -2919,10 +3711,10 @@ def main() -> int:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[7/9] device busy share of a stage (torch.profiler)")
+    log("[7/10] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    log("[8/9] engines and plans: stages (a)-(c) under engine='pull', "
+    log("[8/10] engines and plans: stages (a)-(c) under engine='pull', "
         "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
         "bfs_stages through run_plan and the run_stage loop")
     kernels.reset_launches()
@@ -2932,7 +3724,7 @@ def main() -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    log(f"[9/9] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    log(f"[9/10] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -2944,6 +3736,15 @@ def main() -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
+    log("[10/10] KV store and serve tier: DistributedHashTable(800,000, "
+        "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
+        "streamed in sync and thread mode, and the MoE / embedding front "
+        "doors at granite-moe-3b-a800m's widths")
+    kernels.reset_launches()
+    serve_rows, serve_summary, serve_expected = serve_path("cuda", ps_data)
+    torch.cuda.synchronize()
+    _check_path_launches("serving path", kernels.launches(), serve_expected)
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -2951,7 +3752,8 @@ def main() -> int:
          "device_busy": busy, "paramserve": {"stages": ps_rows,
                                              **ps_summary},
          "attention_ssm": {"stages": attn_rows, "resources": resources},
-         "engines": engine_rows, "plans": plan_rows, "graph": graph_rows},
+         "engines": engine_rows, "plans": plan_rows, "graph": graph_rows,
+         "serve": {"stages": serve_rows, **serve_summary}, "c2": c2},
         indent=1, default=str))
 
     log(gpu_name_and_power())

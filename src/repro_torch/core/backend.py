@@ -172,8 +172,19 @@ class TorchBackend(NumpyBackend):
 
     `host_syncs` counts the transfers of state arrays, as the JAX backend's
     does; the Phase-1 counts and the Phase-2 routing permutation, which the
-    host cost model reads every stage, are not counted. `prefetch` / `sync`
-    stay the inherited no-ops until `serve/` is ported.
+    host cost model reads every stage, are not counted.
+
+    `prefetch` (a serving frontend's router thread, batch k+1) stages only
+    the batch's contexts: in the backend's dtype into pinned host memory,
+    then one non-blocking copy to the card on a side stream the backend
+    owns, with an event recorded behind it. `execute` (the executor thread,
+    after batch k) takes the staged tensor when dtype and device match: its
+    current stream waits on the event, and the tensor is recorded on that
+    stream so the caching allocator keeps the block until the stage is
+    done. The store's values are never staged: the executor may be writing
+    them. On the CPU the staged contexts are a plain tensor and no stream
+    is used. `sync` waits for the copy stream and, when the store has
+    values cached on the card, for the device's queued work.
     """
 
     name = "torch"
@@ -224,6 +235,7 @@ class TorchBackend(NumpyBackend):
         self._plan_depth = 0
         self._plan_written: list = []
         self._plan_dirty = False
+        self._copy_stream = None  # prefetch's side stream, made on first use
 
     # -- StagePlan device-residency scope -----------------------------------
     def begin_plan(self, store) -> None:
@@ -304,8 +316,57 @@ class TorchBackend(NumpyBackend):
             arr, dtype=np.int64)).to(self.device)
 
     def _dctx(self, tasks) -> torch.Tensor:
+        """The batch's contexts on the device: the tensor `prefetch` staged
+        when its dtype, device and shape match (behind its copy's event),
+        else a fresh upload."""
+        pre = tasks.__dict__.pop("_device_ctx", None)
+        if pre is not None:
+            dtype, t, ev, _ = pre
+            if (dtype == self.dtype and t.device == self.device
+                    and tuple(t.shape) == tasks.contexts.shape):
+                if ev is not None:
+                    cur = torch.cuda.current_stream(self.device)
+                    cur.wait_event(ev)
+                    t.record_stream(cur)
+                return t
         return torch.from_numpy(np.ascontiguousarray(
             tasks.contexts, dtype=self._np_dtype)).to(self.device)
+
+    # -- non-blocking dispatch hooks (serve.Frontend double-buffering) -----
+    def prefetch(self, tasks, store) -> None:
+        """Stage the batch's contexts for `execute` (see the class
+        docstring): pinned host copy, one non-blocking copy on the side
+        stream, an event behind it. Kept as (dtype, tensor, event, pinned
+        buffer) in `tasks.__dict__["_device_ctx"]`."""
+        if tasks.n == 0:
+            return
+        ctx = np.ascontiguousarray(tasks.contexts, dtype=self._np_dtype)
+        if self.device.type != "cuda":
+            tasks.__dict__["_device_ctx"] = (self.dtype, torch.tensor(ctx),
+                                             None, None)
+            return
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        pinned = torch.empty(ctx.shape, dtype=self._torch_dtype,
+                             pin_memory=True)
+        pinned.numpy()[...] = ctx
+        with torch.cuda.stream(self._copy_stream):
+            t = pinned.to(self.device, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._copy_stream)
+        tasks.__dict__["_device_ctx"] = (self.dtype, t, ev, pinned)
+
+    def sync(self, store=None) -> None:
+        """Wait for the staged copies, and for the device's queued work
+        when `store` has values cached there (its stages' kernels and
+        copies). No-op on the CPU."""
+        if self.device.type != "cuda":
+            return
+        if self._copy_stream is not None:
+            self._copy_stream.synchronize()
+        if store is not None and self._cache_key() in store.__dict__.get(
+                "_device_values", {}):
+            torch.cuda.synchronize(self.device)
 
     def _to_host(self, t) -> np.ndarray:
         """A state array to the host, counted in `host_syncs`."""

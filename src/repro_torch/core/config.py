@@ -24,7 +24,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
-__all__ = ["SessionConfig", "KWARG_ALIASES", "resolve_session_config"]
+__all__ = ["SessionConfig", "KWARG_ALIASES", "resolve_session_config",
+           "check_kernel_backend"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,3 +116,13 @@ def resolve_session_config(config=None, engine_opts: Dict[str, Any] | None
     if engine_opts:
         updates["engine_opts"] = {**cfg.engine_opts, **engine_opts}
     return dataclasses.replace(cfg, **updates) if updates else cfg
+
+
+def check_kernel_backend(kernel_backend) -> None:
+    """Front doors keep the JAX package's `kernel_backend=` spelling, but
+    the port has the one route "auto" (None means the same): any other
+    value raises."""
+    if kernel_backend not in (None, "auto"):
+        raise ValueError(
+            f"unsupported kernel_backend {kernel_backend!r}: the torch "
+            "port has the one route 'auto'")

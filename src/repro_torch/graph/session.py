@@ -25,7 +25,7 @@ from typing import List, Tuple
 import numpy as np
 
 from ..core.backend import make_backend
-from ..core.config import resolve_session_config
+from ..core.config import check_kernel_backend, resolve_session_config
 from ..core.cost import CostAccumulator, SessionReport
 from ..core.replication import make_replicator
 
@@ -148,10 +148,7 @@ class GraphSession:
 
     def __post_init__(self):
         og = self.og
-        if self.kernel_backend not in (None, "auto"):
-            raise ValueError(
-                f"unsupported kernel_backend {self.kernel_backend!r}: the "
-                "torch port has the one route 'auto'")
+        check_kernel_backend(self.kernel_backend)
         cfg = resolve_session_config(
             self.config, backend=self.backend,
             replication=self.replication, replicate=self.replicate,

@@ -3,13 +3,15 @@
 over Orchestrator sessions — tokens/lookups are lambda-tasks, expert weight
 blocks/vocab rows are data chunks, routing skew is the paper's hot-chunk
 regime. Both take the unified `SessionConfig` and run on the CUDA card by
-default (`TorchBackend`), or on the float64 numpy oracle. The streaming
-`serve()` front doors wait for the port of the serve subsystem."""
-from .embedding import EmbeddingStore, LookupResult, UpdateResult
-from .moe import DecodeResult, MoEFFNLambda, MoERouter, NaiveDispatchResult
+default (`TorchBackend`), or on the float64 numpy oracle, and both expose
+`serve()` streaming front doors over `repro_torch.serve`."""
+from .embedding import (EmbeddingFrontend, EmbeddingStore, LookupResult,
+                        UpdateResult)
+from .moe import (DecodeResult, MoEFFNLambda, MoEFrontend, MoERouter,
+                  NaiveDispatchResult)
 
 __all__ = [
-    "MoERouter", "MoEFFNLambda",
+    "MoERouter", "MoEFFNLambda", "MoEFrontend",
     "DecodeResult", "NaiveDispatchResult",
-    "EmbeddingStore", "LookupResult", "UpdateResult",
+    "EmbeddingStore", "EmbeddingFrontend", "LookupResult", "UpdateResult",
 ]

@@ -13,8 +13,9 @@ detection, elected by `replication.decayed_election`) is the one hot-row
 electorate: `device_cache()` exports it as the `EmbedCache` view that
 `core.embedding.embed_skew_aware` consumes.
 
-The streaming front door (`serve()`, `EmbeddingFrontend`) waits for the
-port of `repro.serve`.
+The streaming front door (`serve()`, `EmbeddingFrontend`) admits single
+lookups, bags and gradient pushes and coalesces them into the exact batches
+the one-shot methods build (`serve.Frontend`).
 """
 from __future__ import annotations
 
@@ -25,14 +26,12 @@ import numpy as np
 
 from ..core import DataStore, Orchestrator, TaskBatch, fused_read, \
     resolve_session_config
-from ._sessions import cached_session
+from ..core.config import check_kernel_backend
+from ..core.session import cached_session
+from ..serve import Frontend, RequestFuture
 
-__all__ = ["EmbeddingStore", "LookupResult", "UpdateResult"]
-
-_SERVE_PENDING = (
-    "the streaming front door ({what}) needs the serve subsystem, which is "
-    "not ported to the torch package yet (the repro.serve slice); call "
-    "lookup / lookup_bags / update on whole batches")
+__all__ = ["EmbeddingStore", "EmbeddingFrontend", "LookupResult",
+           "UpdateResult"]
 
 
 def _grad_update(contexts, vals):
@@ -223,14 +222,50 @@ class EmbeddingStore:
                                      device=device)
 
     # ---- streaming serving mode -------------------------------------------
-    def serve(self, **kw) -> "EmbeddingFrontend":
-        raise NotImplementedError(_SERVE_PENDING.format(
-            what="EmbeddingStore.serve"))
+    def serve(self, *, engine=None, backend=None, kernel_backend=None,
+              replicate=None, config=None, session_config=None,
+              mode: str = "thread", double_buffer: bool = True,
+              **kw) -> "EmbeddingFrontend":
+        """Streaming front door: single lookups / bag-pools / gradient
+        pushes admitted one at a time, coalesced into the exact batches the
+        one-shot methods build, on the pinned double-buffered session pair
+        — on the card unless the session's backend says otherwise.
+        `kernel_backend=` takes only the port's one route, "auto"."""
+        check_kernel_backend(kernel_backend)
+        sess = self.session(engine, replicate=replicate, backend=backend,
+                            config=session_config)
+        return EmbeddingFrontend(self, sess, config=config, mode=mode,
+                                 double_buffer=double_buffer, **kw)
 
 
-class EmbeddingFrontend:
-    """The streaming lookup front door of the JAX package; not ported."""
+class EmbeddingFrontend(Frontend):
+    """`serve.Frontend` specialized to the embedding request kinds (built by
+    `EmbeddingStore.serve()`):
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(_SERVE_PENDING.format(
-            what="EmbeddingFrontend"))
+    * ``lookup(id)`` — future of the row `(d,)`;
+    * ``lookup_bag(ids)`` — future of the ⊕-pooled `(d,)` bag sum;
+    * ``push_grad(id, grad)`` — the ⊙-apply gradient push (future resolves
+      to None once the write has landed).
+    """
+
+    def __init__(self, table: EmbeddingStore, session, **kw):
+        super().__init__(session, **kw)
+        self.table = table
+        self.register("lookup", fused_read("first"), write_back="add",
+                      ctx_width=1, result="row")
+        self.register("bag", fused_read("add"), write_back="add",
+                      ctx_width=1, result="row")
+        self.register("grad", _grad_update, write_back="add",
+                      ctx_width=table.d, result="row")
+
+    def lookup(self, row_id: int, *, deadline=None) -> RequestFuture:
+        return self.submit("lookup", [int(row_id)], deadline=deadline)
+
+    def lookup_bag(self, ids, *, deadline=None) -> RequestFuture:
+        return self.submit("bag", ids, deadline=deadline)
+
+    def push_grad(self, row_id: int, grad, *, deadline=None
+                  ) -> RequestFuture:
+        grad = np.asarray(grad, dtype=np.float64).reshape(self.table.d)
+        return self.submit("grad", np.empty(0, dtype=np.int64), ctx=grad,
+                           write_key=int(row_id), deadline=deadline)

@@ -24,8 +24,9 @@ at its expert's home shard (classic expert parallelism), so per-machine
 work is exactly expert demand. With ``gemm="torch"`` its two projections
 run the grouped-GEMM kernel (`kernels.moe_gemm.grouped_gemm`).
 
-The streaming front door (`serve()`, `MoEFrontend`) waits for the port of
-`repro.serve`.
+The streaming front door (`serve()`, `MoEFrontend`) admits routed tokens
+one at a time and coalesces them into the exact batches `decode_step`
+builds (`serve.Frontend`).
 """
 from __future__ import annotations
 
@@ -37,16 +38,13 @@ import torch
 
 from ..core import (DataStore, Orchestrator, TaskBatch, TorchBackend,
                     resolve_session_config)
+from ..core.config import check_kernel_backend
+from ..core.session import cached_session
 from ..kernels.moe_gemm.ops import gathered_swiglu, grouped_gemm
-from ._sessions import cached_session
+from ..serve import Frontend, RequestFuture
 
-__all__ = ["MoERouter", "MoEFFNLambda", "DecodeResult",
+__all__ = ["MoERouter", "MoEFFNLambda", "MoEFrontend", "DecodeResult",
            "NaiveDispatchResult"]
-
-_SERVE_PENDING = (
-    "the streaming front door ({what}) needs the serve subsystem, which is "
-    "not ported to the torch package yet (the repro.serve slice); call "
-    "decode_step on whole batches")
 
 
 class MoEFFNLambda:
@@ -392,13 +390,55 @@ class MoERouter:
         return x, top_i, gates
 
     # ---- streaming serving mode -------------------------------------------
-    def serve(self, **kw) -> "MoEFrontend":
-        raise NotImplementedError(_SERVE_PENDING.format(
-            what="MoERouter.serve"))
+    def serve(self, *, engine=None, backend=None, kernel_backend=None,
+              replicate=None, config=None, session_config=None,
+              layer: int = 0, mode: str = "thread",
+              double_buffer: bool = True, **kw) -> "MoEFrontend":
+        """The router's streaming front door: single routed tokens admitted
+        one at a time, coalesced into the exact decode batches
+        `decode_step` builds (serve.Frontend's windowing), executed on the
+        pinned double-buffered session pair — on the card unless the
+        session's backend says otherwise. `kernel_backend=` takes only the
+        port's one route, "auto"."""
+        check_kernel_backend(kernel_backend)
+        sess = self.session(engine, backend=backend, replicate=replicate,
+                            config=session_config)
+        return MoEFrontend(self, sess, layer=layer, config=config, mode=mode,
+                           double_buffer=double_buffer, **kw)
 
 
-class MoEFrontend:
-    """The streaming decode front door of the JAX package; not ported."""
+class MoEFrontend(Frontend):
+    """`serve.Frontend` specialized to routed-token decode requests (built
+    by `MoERouter.serve()`): ``decode(x_row, experts, gates)`` returns the
+    future of the token's (d,) gated expert mixture. Tokens coalesce into
+    the same ragged CSR batches `decode_step` builds, so per-token results
+    are bit-identical to the one-shot path for the same admission order."""
 
-    def __init__(self, *args, **kw):
-        raise NotImplementedError(_SERVE_PENDING.format(what="MoEFrontend"))
+    def __init__(self, router: MoERouter, session, *, layer: int = 0, **kw):
+        super().__init__(session, **kw)
+        self.router = router
+        self.layer = int(layer)
+        router._chunk(self.layer)  # refuse a layer out of range here
+        self._lam = _ffn_lambda(router.d, router.f, router.k)
+        self.register("ffn", self._lam, write_back="add",
+                      ctx_width=router.d + router.k, result="row")
+
+    def decode(self, x_row, experts, gates, *, deadline=None
+               ) -> RequestFuture:
+        """Admit one routed token: `x_row` (d,), `experts`/`gates` its ≤k
+        routed experts and combine weights (kept order; -1 drops a slot)."""
+        r = self.router
+        experts = np.atleast_1d(np.asarray(experts, dtype=np.int64))
+        gates = np.atleast_1d(np.asarray(gates, dtype=np.float64))
+        if experts.size > r.k or experts.size != gates.size:
+            raise ValueError(
+                f"token routes to ≤ k={r.k} experts with one gate each, got "
+                f"{experts.size} experts / {gates.size} gates")
+        keep = experts >= 0
+        gctx = np.zeros(r.k)
+        gctx[:int(keep.sum())] = gates[keep]
+        base = self.layer * r.E
+        ctx = np.concatenate([np.asarray(x_row, dtype=np.float64).ravel(),
+                              gctx])
+        return self.submit("ffn", base + experts[keep], ctx=ctx,
+                           deadline=deadline)

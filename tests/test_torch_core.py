@@ -218,8 +218,11 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     walked = set(out.stdout.split())
-    assert len(walked) >= 68  # every module was imported
+    assert len(walked) >= 75  # every module was imported
     assert {"repro_torch.core.baselines", "repro_torch.core.policy",
             "repro_torch.core.plan", "repro_torch.graph.algorithms",
             "repro_torch.graph.distedgemap", "repro_torch.graph.partition",
-            "repro_torch.graph.session"} <= walked
+            "repro_torch.graph.session", "repro_torch.kvstore.hashtable",
+            "repro_torch.kvstore.ycsb", "repro_torch.serve.batching",
+            "repro_torch.serve.frontend", "repro_torch.serve.futures",
+            "repro_torch.serve.stats"} <= walked

@@ -21,9 +21,9 @@ import torch
 import repro.core as ref
 import repro_torch.core as port
 from repro.core.policy import StageLayout as RefLayout
-from repro.kvstore.ycsb import zipf_keys_stationary
 from repro_torch.core.cost import POLICY_PHASE
 from repro_torch.core.policy import StageLayout as PortLayout
+from repro_torch.kvstore.ycsb import zipf_keys_stationary
 
 # one intra-op thread per test process: the suite runs in parallel workers
 torch.set_num_threads(1)

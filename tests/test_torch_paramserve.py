@@ -26,13 +26,15 @@ import torch
 from repro.core.embedding import embed_skew_aware as jax_embed
 from repro.core.embedding import init_cache as jax_init_cache
 from repro.core.embedding import refresh_cache as jax_refresh_cache
-from repro.kvstore import zipf_keys_stationary
 from repro.paramserve import EmbeddingStore as JaxStore
+from repro.paramserve import EmbeddingFrontend as JaxEmbeddingFrontend
+from repro.paramserve import MoEFrontend as JaxMoEFrontend
 from repro.paramserve import MoERouter as JaxRouter
 from repro_torch import kernels
 from repro_torch.core import TorchBackend
 from repro_torch.core.embedding import (embed_skew_aware, init_cache,
                                         refresh_cache)
+from repro_torch.kvstore import zipf_keys_stationary
 from repro_torch.paramserve import EmbeddingStore, MoERouter
 from repro_torch.paramserve.embedding import EmbeddingFrontend
 from repro_torch.paramserve.moe import MoEFrontend
@@ -435,11 +437,139 @@ def test_from_reference_round_trip():
     assert (port_e.V, port_e.d, port_e.P) == (ref_e.V, ref_e.d, ref_e.P)
 
 
-def test_serving_front_doors_not_ported():
-    _, port_r = _routers(2)
-    _, port_e = _tables(2)
-    for call in (port_r.serve, port_e.serve, MoEFrontend, EmbeddingFrontend):
-        with pytest.raises(NotImplementedError, match="repro.serve"):
+# ---------------------------------------------------------------------------
+# the streaming front doors (MoEFrontend, EmbeddingFrontend)
+# ---------------------------------------------------------------------------
+SYNC = {"min_window": 1.0, "max_window": 1.0}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("case", ["zipf", "dropped", "layer1"])
+def test_moe_frontend_matches_decode_step_and_jax(case, dtype):
+    """Tokens admitted one at a time coalesce into the batches
+    `decode_step` builds: per-token outputs bit-identical to the one-shot
+    step on the same backend, within tolerance of the JAX package's
+    `MoEFrontend` on numpy, and the same bill per buffer session."""
+    kw, routing, layer, _ = DECODE_CASES[case]
+    ref, port = _routers(**kw)
+    x, ti, g = routing(ref)
+    T = x.shape[0]
+    be = _cpu(dtype)
+    cfg = {"max_batch": T, **SYNC}
+    fe = port.serve(backend=be, layer=layer, mode="sync", config=cfg)
+    rfe = ref.serve(backend="numpy", layer=layer, mode="sync", config=cfg)
+    assert isinstance(fe, MoEFrontend) and isinstance(rfe, JaxMoEFrontend)
+    futs = [(fe.decode(x[t], ti[t], g[t]), rfe.decode(x[t], ti[t], g[t]))
+            for t in range(T)]
+    assert fe.stats.batches == rfe.stats.batches == 1
+    got = np.stack([f.result() for f, _ in futs])
+    one = port.decode_step(x, ti, g, layer=layer, backend=_cpu(dtype))
+    np.testing.assert_array_equal(got, one.y)
+    tol = (F64_TOL, F64_TOL) if dtype == "float64" else (RTOL, ATOL)
+    np.testing.assert_allclose(got, np.stack([r.result() for _, r in futs]),
+                               rtol=tol[0], atol=tol[1])
+    np.testing.assert_allclose(got, ref.oracle(x, ti, g, layer=layer),
+                               rtol=tol[0], atol=tol[1])
+    assert fe.sessions[0].report.stages[0].phase_signature() == \
+        rfe.sessions[0].report.stages[0].phase_signature()
+    assert fe.sessions[0].report.stages[0].phase_signature() == \
+        one.report.phase_signature()
+    assert not be._host_lambdas
+    fe.close()
+    rfe.close()
+
+
+def test_moe_frontend_refuses_bad_tokens():
+    _, port = _routers(2, k=2)
+    fe = port.serve(backend=_cpu(), mode="sync")
+    x = np.zeros(port.d)
+    with pytest.raises(ValueError, match="k=2"):
+        fe.decode(x, [0, 1, 2], [0.3, 0.3, 0.4])
+    with pytest.raises(ValueError, match="one gate each"):
+        fe.decode(x, [0, 1], [1.0])
+    fe.close()
+    with pytest.raises(ValueError, match="layer 1 out of range"):
+        port.serve(backend=_cpu(), layer=1, mode="sync")
+    with pytest.raises(ValueError, match="one route 'auto'"):
+        port.serve(backend=_cpu(), kernel_backend="padded", mode="sync")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_embedding_frontend_matches_one_shot_and_jax(dtype):
+    """Lookups, bags and gradient pushes admitted one at a time: lookups
+    and bags bit-identical to `lookup` / `lookup_bags` on the same backend,
+    the pushes' table equal to `update`'s (one merged batch: the same
+    ⊗-combine), every value within tolerance of the JAX package's
+    `EmbeddingFrontend` on numpy, and the same bills."""
+    ref, port = _tables(4)
+    _, twin = _tables(4)
+    be = _cpu(dtype)
+    tol = (F64_TOL, F64_TOL) if dtype == "float64" else (RTOL, ATOL)
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, port.V, 12)
+    bags = [rng.integers(0, port.V, rng.integers(0, 5)).tolist()
+            for _ in range(10)]
+    bags[4] = []
+    up_ids = np.array([3, 7, 3, 3, 11, 7, 0, 39])
+    grads = rng.normal(size=(up_ids.size, port.d))
+    init = port.table.copy()
+    fe = port.serve(backend=be, mode="sync", config={"max_batch": 12, **SYNC})
+    rfe = ref.serve(backend="numpy", mode="sync",
+                    config={"max_batch": 12, **SYNC})
+    assert isinstance(fe, EmbeddingFrontend)
+    assert isinstance(rfe, JaxEmbeddingFrontend)
+    out = []
+    for front in (fe, rfe):
+        lk = [front.lookup(int(i)) for i in ids]
+        bg = [front.lookup_bag(b) for b in bags]
+        gr = [front.push_grad(int(i), gv) for i, gv in zip(up_ids, grads)]
+        front.flush()
+        out.append((lk, bg, gr))
+    (lk, bg, gr), (rlk, rbg, rgr) = out
+    twin_be = _cpu(dtype)
+    want_lk = twin.lookup(ids, backend=twin_be).values
+    want_bg = twin.lookup_bags(bags, backend=twin_be).values
+    np.testing.assert_array_equal(np.stack([f.result() for f in lk]),
+                                  want_lk)
+    np.testing.assert_array_equal(np.stack([f.result() for f in bg]),
+                                  want_bg)
+    assert all(f.result() is None for f in gr)
+    twin.update(up_ids, grads, backend=twin_be)
+    np.testing.assert_array_equal(port.table, twin.table)
+    for mine, theirs in ((lk, rlk), (bg, rbg)):
+        np.testing.assert_allclose(np.stack([f.result() for f in mine]),
+                                   np.stack([f.result() for f in theirs]),
+                                   rtol=tol[0], atol=tol[1])
+    np.testing.assert_allclose(port.table, ref.table, rtol=tol[0],
+                               atol=tol[1])
+    np.testing.assert_allclose(
+        port.table, EmbeddingStore.oracle_update(init, up_ids, grads),
+        rtol=tol[0], atol=tol[1])
+    for s, r in zip(fe.sessions, rfe.sessions):
+        assert [x.phase_signature() for x in s.report.stages] == \
+            [x.phase_signature() for x in r.report.stages]
+    assert fe.stats.batches == rfe.stats.batches == 3
+    assert not be._host_lambdas
+    fe.close()
+    rfe.close()
+
+
+def test_front_doors_run_on_the_card_by_default():
+    """With no backend named both front doors build a session on the
+    card, and never quietly on the CPU: with no CUDA device, each
+    raises."""
+    _, router = _routers(2)
+    _, table = _tables(2)
+    if torch.cuda.is_available():  # pragma: no cover - needs the card
+        for door in (router.serve(mode="sync"), table.serve(mode="sync")):
+            assert door.sessions[0].backend.device.type == "cuda"
+            door.close()
+        return
+    for call in (lambda: router.serve(mode="sync"),
+                 lambda: table.serve(mode="sync"),
+                 lambda: MoEFrontend(router, router.store, mode="sync"),
+                 lambda: EmbeddingFrontend(table, table.store, mode="sync")):
+        with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
 
