@@ -158,6 +158,30 @@ Phases, each of which raises (non-zero exit) on any failed check:
    K2's sum bound) at phase 4's granite widths. Launches by
    `SERVE_EXPECTED` and, for a streamed run, by its batches' kinds
    (`SERVE_BATCH`); no lambda may go to the host route.
+11. Elasticity (`repro_torch.core.elasticity`) at the main path's table
+   (800,000 keys x 16), each elastic session against a numpy session under
+   the same spec: (a) stage (a)'s traffic for 6 stages uninterrupted, with a
+   restart recovery (machines 2 and 9 die at stage 3; durable snapshots
+   every 2 stages, npz + sha256, in a temporary directory) and with a shrink
+   (machine 5 dies for good): every stage's `phase_signature()` (elastic
+   phases included) and `exec_site` equal to numpy's, the restart's equal
+   to the uninterrupted run's without them, every stage's values within
+   `_check_values`' gate of a numpy stage from the card's pre-stage values,
+   no task or chunk left on the dead machine; the ms of each snapshot,
+   recovery and 51 MB table re-upload. (b) Work stealing at stage (a) under
+   TD-Orch and push, on and off, and at (b), (c) under TD-Orch: max / mean
+   tasks a machine, stolen tasks, steal words. (c) benchmarks/
+   bench_elastic.py's three arms at its full setting over the same table
+   (engine "push", P=8): bills, results and moves equal numpy's every stage,
+   and its gate (words and work within 10% of the stationary arm with
+   migration, above 1.10x without); `MigrationPlanner.observe` and the
+   elections timed. (d) Phase 10's `run_chain` (100,000 x 4 hops) with
+   machine 4 killed before hop 2: values and the table bit-identical to the
+   uninterrupted chain's, hop bills equal. (e) A sync-mode `serve(
+   elasticity={"stealing": True, "migration": True})` over phase 10's stream
+   at 256: the report's "elastic" block equal to the shared manager's
+   `counters()`, results within the numpy replay's gate. Launches by stage
+   as phases 3, 8 and 10 (K1-K3 through elastic sessions).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -165,7 +189,7 @@ name and power limit.
 
 A diagnostic of the open fault C2 (ROADMAP), not in the default run:
 ``--c2-repeats N`` runs phase 5's bf16 prefill_mha stage N times after
-phase 4 and reads every share of its gate, then runs phases 5-10 as
+phase 4 and reads every share of its gate, then runs phases 5-11 as
 always.
 """
 from __future__ import annotations
@@ -3529,6 +3553,520 @@ def serve_path(device: str, ps: dict, *,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: elasticity at the main path's size
+# ---------------------------------------------------------------------------
+ELASTIC_STAGES = 6  # stages a recovery arm runs
+KILL_AT = 3  # the stage boundary at which machines die
+RESTART_DEAD = [2, 9]
+SHRINK_DEAD = [5]
+CHAIN_KILL = {2: [4]}  # run_chain: machine 4 dies before hop 2
+ELASTIC_SERVE = {"stealing": True, "migration": True}
+# benchmarks/bench_elastic.py's traffic and knobs at its full setting, over
+# the main path's table: machine m's era-A hot set is keys [16m, 16m + 16)
+# (homed on m), its era-B one [128 + 16m, ...) (homed on m % 2)
+MIG_P = 8
+MIG_HOT = 16
+MIG_ERA_B = MIG_P * MIG_HOT
+MIG_HOT_FRAC = 0.8
+MIG_ALPHA = 1.3
+MIG_SEED = 23
+MIG_TPM = 4_000
+MIG_ERAS = (10, 12)
+MIG_WINDOW = 6
+MIGRATION = {"refresh": 2, "decay": 0.5, "min_count": 16.0,
+             "max_moves": 256}
+MIG_GATE = 0.10  # bench_elastic.py's: recovered within 10%, control > 1.10x
+
+
+def _elastic_clock(sess) -> dict:
+    """Milliseconds of the session's boundary snapshots, recoveries and
+    full-table uploads (a miss of the backend's value cache), each
+    synchronized: wrappers on this session's objects, not in the
+    library."""
+    import torch
+
+    clock = {"snapshot_ms": [], "recovery_ms": [], "upload_ms": []}
+    be = sess.backend
+
+    def sync():
+        if be.device.type == "cuda":
+            torch.cuda.synchronize(be.device)
+
+    def timed(obj, name, key):
+        inner = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = inner(*a, **k)
+            sync()
+            clock[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(obj, name, wrapper)
+
+    rec = sess.elastic.recovery if sess.elastic is not None else None
+    if rec is not None:
+        timed(rec, "_snapshot", "snapshot_ms")
+        timed(rec, "_recover", "recovery_ms")
+    inner_dv = be.device_values
+
+    def device_values(store):
+        ent = store.__dict__.get("_device_values", {}).get(be._cache_key())
+        if ent is not None and ent[0] == store.version:
+            return inner_dv(store)
+        sync()
+        t0 = time.perf_counter()
+        out = inner_dv(store)
+        sync()
+        clock["upload_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    be.device_values = device_values
+    return clock
+
+
+def _fresh_store(K, init, machines=P):
+    from repro_torch.core import DataStore
+
+    s = DataStore.create(K, machines, value_width=VALUE_WIDTH)
+    s.write_rows(np.arange(K), init)
+    return s
+
+
+def elastic_recovery(device, st, K, stage, init, tmp) -> dict:
+    """(a) Stage (a)'s traffic for ELASTIC_STAGES stages in three sessions
+    on copies of one store: uninterrupted; restart (machines RESTART_DEAD
+    die at KILL_AT; durable snapshots every 2 stages); shrink (SHRINK_DEAD
+    dies for good). Each elastic session is held to a numpy session under
+    the same spec (every stage's `phase_signature()`, elastic phases
+    included, and `exec_site`; the counters and homes), the restart arm's
+    bills to the uninterrupted run's without the elastic phases, and every
+    elastic stage's values to a plain numpy stage from the card's pre-stage
+    values (`_check_values`: a lost row restored wrong fails it)."""
+    from repro_torch.core import ELASTIC_PHASES, Orchestrator
+    from repro_torch.core.cost import assert_cost_parity
+
+    _, desc, tasks, f, merge, _, _ = stage
+
+    def spec(arm, who):
+        if arm == "restart":
+            return {"recovery": {"injector": {KILL_AT: RESTART_DEAD},
+                                 "checkpoint_every": 2,
+                                 "directory": str(tmp / f"{arm}-{who}")}}
+        if arm == "shrink":
+            return {"recovery": {"injector": {KILL_AT: SHRINK_DEAD},
+                                 "on_failure": "shrink"}}
+        return None
+
+    chk_store = _fresh_store(K, init)
+    chk = Orchestrator(chk_store, backend="numpy")
+    bills, out = {}, {}
+    for arm in ("uninterrupted", "restart", "shrink"):
+        s_dev = Orchestrator(_fresh_store(K, init),
+                             backend=_torch_backend(device),
+                             elasticity=spec(arm, "card"))
+        s_ora = None if arm == "uninterrupted" else Orchestrator(
+            _fresh_store(K, init), backend="numpy",
+            elasticity=spec(arm, "numpy"))
+        _timed_backend(s_dev.backend)
+        clock = _elastic_clock(s_dev)
+        bills[arm] = []
+        for k in range(ELASTIC_STAGES):
+            tag = f"recovery/{arm}{k}"
+            st.expected[tag] = EXPECTED_LAUNCHES["a"]
+            old = s_dev.store.values.copy() if s_ora is not None else None
+            seen = {key: len(v) for key, v in clock.items()}
+            s_dev.backend.numerics_s = 0.0
+            r_dev = st.run(tag, lambda: s_dev.run_stage(
+                tasks, f, write_back=merge), desc=desc, tasks=tasks.n)
+            row = st.rows[-1]
+            row.update({key: v[seen[key]:] for key, v in clock.items()},
+                       numerics_s=s_dev.backend.numerics_s)
+            if s_dev.backend._host_lambdas:
+                raise AssertionError(f"{tag}: a lambda fell back to the "
+                                     "host path")
+            bills[arm].append(r_dev.report)
+            if arm == "restart":
+                assert_cost_parity(bills["uninterrupted"][k], r_dev.report,
+                                   ignore=ELASTIC_PHASES)
+            if s_ora is not None:
+                t0 = time.perf_counter()
+                r_ora = s_ora.run_stage(tasks, f, write_back=merge)
+                row["oracle_wall_s"] = time.perf_counter() - t0
+                if r_dev.report.phase_signature() != \
+                        r_ora.report.phase_signature():
+                    raise AssertionError(f"{tag}: phase_signature differs "
+                                         "from the numpy session's")
+                if not np.array_equal(r_dev.exec_site, r_ora.exec_site):
+                    raise AssertionError(f"{tag}: exec_site differs")
+                chk_store.write_rows(np.arange(K), old)
+                chk.run_stage(tasks, f, write_back=merge)
+                row["max_value_err"], row["max_value_err_share"] = \
+                    _check_values(tag, s_dev.store.values, chk_store.values,
+                                  old, tasks,
+                                  term_magnitudes(tasks, old, "muladd"),
+                                  merge)
+            if arm == "shrink" and k >= KILL_AT and np.isin(
+                    r_dev.exec_site, SHRINK_DEAD).any():
+                raise AssertionError(f"{tag}: a task executed on a dead "
+                                     "machine")
+            log(f"  {tag}: wall {row['wall_s']:.3f} s (backend calls "
+                f"{row['numerics_s']:.3f}); snapshot ms "
+                f"{[round(x, 1) for x in row['snapshot_ms']]}, recovery ms "
+                f"{[round(x, 1) for x in row['recovery_ms']]}, table upload "
+                f"ms {[round(x, 1) for x in row['upload_ms']]}"
+                + (f"; store |Δ| {row['max_value_err']:.3g} "
+                   f"({row['max_value_err_share']:.3g} of its tolerance)"
+                   if s_ora is not None else ""))
+        summary = {"walls_s": [r.get("wall_s") for r in st.rows[
+            -ELASTIC_STAGES:]]}
+        if s_ora is not None:
+            got, want = s_dev.elastic.counters(), s_ora.elastic.counters()
+            if got != want or not np.array_equal(s_dev.store.home,
+                                                 s_ora.store.home):
+                raise AssertionError(f"recovery/{arm}: counters {got} or "
+                                     f"homes differ from numpy's {want}")
+            summary["counters"] = got
+        if arm == "restart" and (got["recoveries"] != len(RESTART_DEAD)
+                                 or got["machines_alive"] != P):
+            raise AssertionError(f"recovery/restart: counters {got}")
+        if arm == "shrink" and (np.isin(s_dev.store.home, SHRINK_DEAD).any()
+                                or got["machines_alive"] != P - 1):
+            raise AssertionError("recovery/shrink: a chunk is still homed "
+                                 f"on a dead machine, or counters {got}")
+        out[arm] = summary
+        log(f"  recovery/{arm}: counters {summary.get('counters')}")
+    return out
+
+
+def elastic_stealing(device, st, K, stages, init) -> dict:
+    """(b) Phase-3 work stealing (`stealing=True`) against the same stage
+    without it: stage (a) under TD-Orch and push, and stages (b), (c) under
+    TD-Orch (their K1 and K3). Each stage from the same values, held to a
+    numpy session under the same spec as in phase 8 (bills, refcounts,
+    exec sites, values)."""
+    from repro_torch.core import Orchestrator
+
+    by_name = {s[0]: s for s in stages}
+    out = {}
+    for eng, name, steal in (("tdorch", "a", False), ("tdorch", "a", True),
+                             ("push", "a", False), ("push", "a", True),
+                             ("tdorch", "b", True), ("tdorch", "c", True)):
+        _, desc, tasks, f, merge, _, _ = by_name[name]
+        spec = {"stealing": True} if steal else None
+        tag = f"steal/{eng}/{name}" + ("" if steal else "_off")
+        st.expected[tag] = ENGINE_EXPECTED[eng][name]
+        s_dev = Orchestrator(_fresh_store(K, init), engine=eng,
+                             backend=_torch_backend(device), elasticity=spec)
+        s_ora = Orchestrator(_fresh_store(K, init), engine=eng,
+                             backend="numpy", elasticity=spec)
+        kind = "fused" if tasks.max_arity > 1 else "muladd"
+        mags = term_magnitudes(tasks, init, kind)
+        r_dev = st.run(tag, lambda: s_dev.run_stage(tasks, f,
+                                                    write_back=merge),
+                       desc=desc, tasks=tasks.n)
+        row = st.rows[-1]
+        if s_dev.backend._host_lambdas:
+            raise AssertionError(f"{tag}: a lambda fell back to the host "
+                                 "path")
+        t0 = time.perf_counter()
+        r_ora = s_ora.run_stage(tasks, f, write_back=merge)
+        row["oracle_wall_s"] = time.perf_counter() - t0
+        _same_bill(tag, r_dev, r_ora)
+        val_err, share = _check_values(tag, s_dev.store.values,
+                                       s_ora.store.values, init, tasks, mags,
+                                       merge)
+        counts = np.bincount(r_dev.exec_site, minlength=P)
+        stolen = int(s_dev.report.stolen_out.sum())
+        if steal and s_dev.elastic.counters()["stolen_tasks"] != stolen:
+            raise AssertionError(f"{tag}: stolen_tasks differs from the "
+                                 "report's per-machine steals")
+        row.update(max_tasks=int(counts.max()), mean_tasks=counts.mean(),
+                   stolen_tasks=stolen,
+                   steal_words=float(s_dev.report.steal_words),
+                   max_value_err=val_err)
+        out[tag] = {k: row[k] for k in ("wall_s", "max_tasks", "mean_tasks",
+                                        "stolen_tasks", "steal_words")}
+        log(f"  {tag}: wall {row['wall_s']:.3f} s (oracle "
+            f"{row['oracle_wall_s']:.3f}); tasks a machine max "
+            f"{row['max_tasks']} / mean {row['mean_tasks']:.1f}; stolen "
+            f"{stolen}, steal words {row['steal_words']:.0f}; bills, exec "
+            f"sites equal, store |Δ| {val_err:.3g} ({share:.3g} of its "
+            "tolerance)")
+    return out
+
+
+def _mig_store(K, vals):
+    """bench_elastic.py's placement over a table of K rows: hashed homes
+    over MIG_P machines, then each hot set re-homed as there."""
+    s = _fresh_store(K, vals, MIG_P)
+    for m in range(MIG_P):
+        s.rehome(np.arange(m * MIG_HOT, (m + 1) * MIG_HOT), m)
+        s.rehome(np.arange(MIG_ERA_B + m * MIG_HOT,
+                           MIG_ERA_B + (m + 1) * MIG_HOT), m % 2)
+    return s
+
+
+def _mig_stage(rng, era_base, n_m):
+    """bench_elastic.py's `_stage`: per machine, Zipf reads over its hot
+    set at `era_base` plus uniform background over the era-A region."""
+    from repro_torch.core import TaskBatch
+
+    nh = int(MIG_HOT_FRAC * n_m)
+    keys, origin = [], []
+    for m in range(MIG_P):
+        base = era_base + m * MIG_HOT
+        hot = base + (rng.zipf(MIG_ALPHA, size=nh) - 1) % MIG_HOT
+        bg = rng.integers(0, MIG_ERA_B, size=n_m - nh)
+        keys.append(np.concatenate([hot, bg]))
+        origin.append(np.full(n_m, m, dtype=np.int64))
+    keys = np.concatenate(keys)
+    return TaskBatch(contexts=np.zeros((keys.size, 1)), read_keys=keys,
+                     write_keys=np.full(keys.size, -1, dtype=np.int64),
+                     origin=np.concatenate(origin))
+
+
+def _mig_read(contexts, values):
+    return {"result": values[:, :1]}
+
+
+def elastic_migration(device, st, K, n_m=MIG_TPM, eras=MIG_ERAS,
+                      window=MIG_WINDOW) -> dict:
+    """(c) bench_elastic.py's three arms (engine "push") over a table of K
+    rows, on the card and on numpy: bills, exec sites, results and the
+    `moves` log equal every stage; then the benchmark's gate on the card's
+    bills over the last `window` stages. `MigrationPlanner.observe` (the
+    (K, MIG_P) float64 histogram's np.add.at) and `maybe_migrate` are
+    timed on the shifted arm."""
+    from repro_torch.core import Orchestrator
+
+    vals = np.random.default_rng(MIG_SEED + 1).standard_normal(
+        (K, VALUE_WIDTH))
+    arms = {"stationary/mig_on": (False, True), "shift/mig_on": (True, True),
+            "shift/mig_off": (True, False)}
+    wpt, ratio, out = {}, {}, {}
+    for name, (shift, migrate) in arms.items():
+        rng = np.random.default_rng(MIG_SEED)
+        rng.standard_normal((2 * MIG_ERA_B, 4))  # the bench's store draw
+        spec = {"migration": MIGRATION} if migrate else None
+        s_dev = Orchestrator(_mig_store(K, vals), engine="push",
+                             backend=_torch_backend(device), elasticity=spec)
+        s_ora = Orchestrator(_mig_store(K, vals), engine="push",
+                             backend="numpy", elasticity=spec)
+        clock = _elastic_clock(s_dev)
+        host = {"observe_ms": [], "maybe_migrate_ms": []}
+        if migrate:
+            planner = s_dev.elastic.planner
+            for meth in ("observe", "maybe_migrate"):
+                inner = getattr(planner, meth)
+
+                def timed(*a, _inner=inner, _key=f"{meth}_ms", **k):
+                    t0 = time.perf_counter()
+                    res = _inner(*a, **k)
+                    host[_key].append((time.perf_counter() - t0) * 1e3)
+                    return res
+
+                setattr(planner, meth, timed)
+        plan = [0] * eras[0] + ([MIG_ERA_B] if shift else [0]) * eras[1]
+        walls = []
+        for i, era in enumerate(plan):
+            if i == len(plan) - window:
+                w0 = float(s_dev.report.sent.sum())
+                work0 = s_dev.report.per_machine()["work"].copy()
+            tasks = _mig_stage(rng, era, n_m)
+            tag = f"migration/{name}/{i}"
+            st.expected[tag] = _launch()
+            r_dev = st.run(tag, lambda: s_dev.run_stage(
+                tasks, _mig_read, return_results=True))
+            walls.append(st.rows.pop()["wall_s"])
+            r_ora = s_ora.run_stage(tasks, _mig_read, return_results=True)
+            _same_bill(tag, r_dev, r_ora)
+            _results_close(tag, r_dev.results, r_ora.results)
+        if migrate and s_dev.elastic.planner.moves != \
+                s_ora.elastic.planner.moves:
+            raise AssertionError(f"migration/{name}: moves differ from the "
+                                 "numpy session's")
+        if not np.array_equal(s_dev.store.home, s_ora.store.home):
+            raise AssertionError(f"migration/{name}: homes differ")
+        dwork = s_dev.report.per_machine()["work"] - work0
+        wpt[name] = (float(s_dev.report.sent.sum()) - w0) / (window * n_m
+                                                             * MIG_P)
+        ratio[name] = float(dwork.max() / max(dwork.mean(), 1e-12))
+        row = dict(stage=f"migration/{name}", launches=_launch(),
+                   wall_s=sum(walls), stage_walls_s=walls,
+                   words_per_task=wpt[name], work_ratio=ratio[name],
+                   migration_words=float(s_dev.report.migration_words),
+                   migrations=(s_dev.elastic.counters()["migrations"]
+                               if migrate else 0),
+                   upload_ms=clock["upload_ms"], **host)
+        st.rows.append(row)
+        out[name] = row
+        log(f"  migration/{name}: {len(plan)} stages of {n_m * MIG_P} tasks "
+            f"in {sum(walls):.3f} s; window words/task {wpt[name]:.4f}, "
+            f"work ratio {ratio[name]:.4f}, {row['migrations']} chunks "
+            f"moved ({row['migration_words']:.0f} words); table uploads "
+            f"{len(clock['upload_ms'])} "
+            f"({sum(clock['upload_ms']):.1f} ms)"
+            + (f"; observe {np.mean(host['observe_ms']):.3f} ms mean / "
+               f"{max(host['observe_ms']):.3f} max, maybe_migrate "
+               f"{np.mean(host['maybe_migrate_ms']):.3f} ms mean"
+               if migrate else "") + "; bills, results, moves equal numpy's")
+    gaps = {"words_gap": abs(wpt["shift/mig_on"] / wpt["stationary/mig_on"]
+                             - 1.0),
+            "work_gap": abs(ratio["shift/mig_on"] / ratio["stationary/mig_on"]
+                            - 1.0),
+            "off_words": wpt["shift/mig_off"] / wpt["stationary/mig_on"],
+            "off_work": ratio["shift/mig_off"] / ratio["stationary/mig_on"]}
+    log(f"  bench_elastic gate: with migration words gap "
+        f"{gaps['words_gap']:.4f}, work gap {gaps['work_gap']:.4f} (at most "
+        f"{MIG_GATE}); without, words {gaps['off_words']:.3f}x, work "
+        f"{gaps['off_work']:.3f}x (above {1 + MIG_GATE})")
+    if not (gaps["words_gap"] <= MIG_GATE and gaps["work_gap"] <= MIG_GATE
+            and gaps["off_words"] > 1 + MIG_GATE
+            and gaps["off_work"] > 1 + MIG_GATE):
+        raise AssertionError(f"bench_elastic gate failed: {gaps}")
+    out["gate"] = gaps
+    return out
+
+
+def elastic_chain(device, st, K, init, n_chain) -> dict:
+    """(d) A machine killed mid-plan: `run_chain` (n_chain chains of
+    CHAIN_HOPS hops, one plan under the torch plan scope) uninterrupted and
+    with `recovery={"injector": CHAIN_KILL}` on the card, and the killed
+    one on numpy: fetched values and the table equal the uninterrupted
+    chain's exactly (the write merge has no order-dependent sums), each
+    hop's bill equals it without the elastic phases and the numpy chain's
+    with them."""
+    from repro_torch.core import ELASTIC_PHASES
+    from repro_torch.core.cost import assert_cost_parity
+    from repro_torch.kvstore.ycsb import zipf_keys_stationary
+
+    rng = np.random.default_rng(SERVE_SEED + 4)
+    perm = rng.permutation(K)
+    keys = zipf_keys_stationary(n_chain * CHAIN_HOPS, K, SERVE_GAMMA, rng,
+                                perm).reshape(n_chain, CHAIN_HOPS)
+    operand = rng.random((n_chain, 2))
+    spec = {"recovery": {"injector": CHAIN_KILL}}
+    be = _card_backend(device)
+    t_plain, t_kill, t_ora = (_kv_table(device, K, init) for _ in range(3))
+    for tag in ("chain/plain", "chain/kill"):
+        st.expected[tag] = _launch(segment_combine=CHAIN_HOPS)
+    c_plain = st.run("chain/plain", lambda: t_plain.run_chain(
+        keys, operand, backend=be), tasks=n_chain)
+    c_kill = st.run("chain/kill", lambda: t_kill.run_chain(
+        keys, operand, backend=be, elasticity=spec), tasks=n_chain)
+    c_ora = t_ora.run_chain(keys, operand, backend="numpy", elasticity=spec)
+    if (c_kill.hops != c_plain.hops
+            or not np.array_equal(c_kill.keys, c_plain.keys)
+            or not np.array_equal(c_kill.values, c_plain.values,
+                                  equal_nan=True)
+            or not np.array_equal(t_kill.values, t_plain.values)):
+        raise AssertionError("chain/kill: values or the table differ from "
+                             "the uninterrupted chain's")
+    for j, (a, b, c) in enumerate(zip(c_plain.reports, c_kill.reports,
+                                      c_ora.reports)):
+        assert_cost_parity(a, b, ignore=ELASTIC_PHASES)
+        if b.phase_signature() != c.phase_signature():
+            raise AssertionError(f"chain/kill hop {j}: phase_signature "
+                                 "differs from the numpy chain's")
+    sess = t_kill.session(backend=be, elasticity=spec)
+    counters = sess.elastic.counters()
+    want = t_ora.session(backend="numpy", elasticity=spec).elastic.counters()
+    if counters != want or counters["recoveries"] != 1:
+        raise AssertionError(f"chain/kill: counters {counters}, numpy's "
+                             f"{want}")
+    _no_host_route("chain/kill", t_kill)
+    walls = [r["wall_s"] for r in st.rows[-2:]]
+    log(f"  chain: {n_chain} chains of {c_kill.hops} hops, machine "
+        f"{CHAIN_KILL} killed: wall {walls[1]:.3f} s against "
+        f"{walls[0]:.3f} uninterrupted; fetched values and the table "
+        f"bit-identical, hop bills equal; counters {counters}")
+    return {"walls_s": walls, "counters": counters}
+
+
+def elastic_serve(device, st, K, init, n_stream, n_stream_mget) -> dict:
+    """(e) A sync-mode `table.serve(elasticity=ELASTIC_SERVE)` over phase
+    10's stream at max_batch 256: every future resolves, launches by batch
+    kind, results and the table within the numpy replay's gate (elasticity
+    moves no value), and the report's "elastic" block equal to the shared
+    manager's `counters()`."""
+    stream = serve_stream(K, n_stream, n_stream_mget, SERVE_SEED + 2)
+    table = _kv_table(device, K, init)
+    fe = table.serve(backend=_card_backend(device), mode="sync",
+                     elasticity=ELASTIC_SERVE, config={
+                         "max_batch": STREAM_BATCHES[0], "min_window": 1.0,
+                         "max_window": 1.0, "max_queue": 1 << 16})
+    ran = _record_batches(fe)
+    tag = "serve/elastic"
+    before = _launch_counts()
+    t0 = time.perf_counter()
+    kv, mg = _drive(fe, stream)
+    fe.flush()
+    fe.drain()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts(before)
+    rep = fe.report()
+    fe.close()
+    _check_futures(tag, kv, mg, fe)
+    batches = _batches_as_requests(ran, kv, mg)
+    kinds = [_batch_kind(t, i, stream) for t, i in batches]
+    _note_launches(st, tag, launches, kinds)
+    manager = fe.sessions[0].elastic
+    if manager is None or any(s.elastic is not manager
+                              for s in fe.sessions):
+        raise AssertionError(f"{tag}: the buffer sessions do not share one "
+                             "elasticity manager")
+    if rep.get("elastic") != manager.counters():
+        raise AssertionError(f"{tag}: the report's elastic block "
+                             f"{rep.get('elastic')} is not the manager's "
+                             f"{manager.counters()}")
+    worst = _replay_numpy(tag, _kv_table(device, K, init), table, batches,
+                          stream, kv, mg)
+    _no_host_route(tag, table)
+    row = dict(stage=tag, wall_s=wall, launches=launches,
+               requests=len(kv) + len(mg), batches=len(batches),
+               requests_per_s=(len(kv) + len(mg)) / wall,
+               elastic=rep["elastic"], replay_share_of_gate=worst)
+    st.rows.append(row)
+    log(f"  {tag}: {row['requests']} requests in {len(batches)} batches, "
+        f"wall {wall:.3f} s = {row['requests_per_s']:.0f} requests/s; "
+        f"elastic block {rep['elastic']} equal to counters(); the numpy "
+        f"replay within {worst:.3g} of its gate")
+    return row
+
+
+def elastic_path(device: str, K: int, stages, init, *,
+                 n_chain: int = CHAIN_N, n_stream: int = STREAM_N,
+                 n_stream_mget: int = STREAM_MGETS, mig_tpm: int = MIG_TPM,
+                 mig_eras=MIG_ERAS, mig_window: int = MIG_WINDOW):
+    """Phase 11: (a) recovery, (b) work stealing, (c) migration, (d) a
+    mid-plan kill and (e) the serve tier's counters, on the main path's
+    table (`K`, `stages` and `init` from phase 3; the KV and serve parts
+    on phase 10's). Durable snapshots go to a temporary directory removed
+    at the end. Returns (rows, summary, expected launches by stage); the
+    keyword sizes cut it down for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    st = _Stages(device, {})
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_elastic_"))
+    try:
+        summary = {"recovery": elastic_recovery(device, st, K, stages[0],
+                                                init, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary["stealing"] = elastic_stealing(device, st, K, stages, init)
+    summary["migration"] = elastic_migration(device, st, K, mig_tpm,
+                                             mig_eras, mig_window)
+    kv_init = np.random.default_rng(SERVE_SEED).random((K, SERVE_WIDTH))
+    summary["chain"] = elastic_chain(device, st, K, kv_init, n_chain)
+    summary["serve"] = elastic_serve(device, st, K, kv_init, n_stream,
+                                     n_stream_mget)
+    return st.rows, summary, st.expected
+
+
+# ---------------------------------------------------------------------------
 # C2: bf16 prefill_mha once beyond its gate (a diagnostic, not in the default
 # run: `--c2-repeats N`)
 # ---------------------------------------------------------------------------
@@ -3636,7 +4174,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _lib
 
     card = gpu_name_and_power()
-    log(f"[1/10] environment: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/11] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -3649,11 +4187,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/10] kernel parity against the plain PyTorch versions")
+    log("[2/11] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/10] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    log("[3/11] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -3661,7 +4199,7 @@ def main(argv=None) -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/10] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    log("[4/11] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -3680,7 +4218,7 @@ def main(argv=None) -> int:
         f"naive {ps_summary['gate_naive']}")
 
     c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
-    log("[5/10] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    log("[5/11] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -3693,7 +4231,7 @@ def main(argv=None) -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    log("[6/10] kernel times at the paths' shapes")
+    log("[6/11] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -3711,10 +4249,10 @@ def main(argv=None) -> int:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[7/10] device busy share of a stage (torch.profiler)")
+    log("[7/11] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    log("[8/10] engines and plans: stages (a)-(c) under engine='pull', "
+    log("[8/11] engines and plans: stages (a)-(c) under engine='pull', "
         "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
         "bfs_stages through run_plan and the run_stage loop")
     kernels.reset_launches()
@@ -3724,7 +4262,7 @@ def main(argv=None) -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    log(f"[9/10] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    log(f"[9/11] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -3736,7 +4274,7 @@ def main(argv=None) -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
-    log("[10/10] KV store and serve tier: DistributedHashTable(800,000, "
+    log("[10/11] KV store and serve tier: DistributedHashTable(800,000, "
         "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
         "streamed in sync and thread mode, and the MoE / embedding front "
         "doors at granite-moe-3b-a800m's widths")
@@ -3744,6 +4282,15 @@ def main(argv=None) -> int:
     serve_rows, serve_summary, serve_expected = serve_path("cuda", ps_data)
     torch.cuda.synchronize()
     _check_path_launches("serving path", kernels.launches(), serve_expected)
+
+    log("[11/11] elasticity at the main path's size: recovery (restart with "
+        "durable snapshots, shrink), work stealing, bench_elastic's "
+        "migration arms over 800,000 keys, a mid-plan kill in run_chain and "
+        "the serve tier's elastic counters, backend='torch' vs numpy")
+    kernels.reset_launches()
+    el_rows, el_summary, el_expected = elastic_path("cuda", K, stages, init)
+    torch.cuda.synchronize()
+    _check_path_launches("elastic path", kernels.launches(), el_expected)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3753,7 +4300,8 @@ def main(argv=None) -> int:
                                              **ps_summary},
          "attention_ssm": {"stages": attn_rows, "resources": resources},
          "engines": engine_rows, "plans": plan_rows, "graph": graph_rows,
-         "serve": {"stages": serve_rows, **serve_summary}, "c2": c2},
+         "serve": {"stages": serve_rows, **serve_summary},
+         "elastic": {"stages": el_rows, **el_summary}, "c2": c2},
         indent=1, default=str))
 
     log(gpu_name_and_power())

@@ -2,7 +2,9 @@
 TD-Orch engine (§3) — communication forest + meta-task sets + distributed
 push-pull + merge-able write-backs — plus the §2.3 baselines, the
 cost-model-driven `engine="auto"` policy, reusable Orchestrator sessions,
-declarative multi-round `StagePlan`s and hot-chunk replication. Numerics run on the CUDA card through
+declarative multi-round `StagePlan`s, hot-chunk replication and the elastic
+subsystem (live chunk migration, Phase-3 work stealing, stage-boundary
+failure recovery). Numerics run on the CUDA card through
 `TorchBackend` (the default backend) or on the host through the float64
 numpy oracle; the cost model is host-side numpy and bit-identical across
 backends."""
@@ -12,6 +14,9 @@ from .config import KWARG_ALIASES, SessionConfig, resolve_session_config
 from .cost import (ELASTIC_PHASES, CostAccumulator, PhaseCost, SessionReport,
                    StageReport, assert_cost_parity, assert_session_parity)
 from .datastore import DataStore, ShardLayout, TaskBatch
+from .elasticity import (ElasticityConfig, ElasticityManager, MigrationConfig,
+                         MigrationPlanner, RecoveryConfig, RecoveryManager,
+                         StealConfig, WorkStealer, make_elasticity)
 from .engine import OrchestrationResult, TDOrchEngine
 from .baselines import DirectPullEngine, DirectPushEngine, SortBasedEngine
 from .execution import gather_values
@@ -32,6 +37,9 @@ __all__ = [
     "CostAccumulator", "PhaseCost", "SessionReport", "StageReport",
     "assert_cost_parity", "assert_session_parity", "ELASTIC_PHASES",
     "DataStore", "ShardLayout", "TaskBatch",
+    "ElasticityConfig", "ElasticityManager", "MigrationConfig",
+    "MigrationPlanner", "RecoveryConfig", "RecoveryManager",
+    "StealConfig", "WorkStealer", "make_elasticity",
     "OrchestrationResult", "TDOrchEngine",
     "DirectPullEngine", "DirectPushEngine", "SortBasedEngine",
     "gather_values",

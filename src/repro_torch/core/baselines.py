@@ -173,7 +173,7 @@ class DirectPushEngine:
         self.backend = make_backend(backend)
 
     def run_stage(self, tasks, store, f, write_back="add", return_results=False,
-                  replicas=None):
+                  replicas=None, stealer=None):
         merge = get_merge_op(write_back)
         cost = CostAccumulator(self.P)
         sigma = tasks.ctx_words
@@ -191,6 +191,26 @@ class DirectPushEngine:
             prim_local[reads] = replicas.holds(primary[reads],
                                                tasks.origin[reads])
             exec_site[prim_local] = tasks.origin[prim_local]
+
+        # ---- Phase-3 work stealing (core/elasticity.py): reassign over-
+        # subscribed homes' RPCs before they are issued. The offload below
+        # already carries the context to wherever exec_site points, so the
+        # steal only pays for the primary chunk following the task.
+        if stealer is not None:
+            cost.begin("phase3_steal")
+            moved, dst = stealer.plan(exec_site, eligible=~prim_local)
+            if moved.size:
+                src = exec_site[moved].copy()
+                exec_site = exec_site.copy()
+                exec_site[moved] = dst
+                rd = moved[reads[moved]]
+                if rd.size:
+                    mch, key = _dedup_pairs(exec_site[rd], primary[rd],
+                                            store.num_keys)
+                    cost.send(store.home[key], mch, B + 1)
+                    cost.tick()
+                stealer.note(src, dst)
+            cost.end()
 
         cost.begin("push_offload")
         cost.send(tasks.origin, exec_site, sigma + _L0_HEADER)

@@ -44,8 +44,10 @@ class SessionConfig:
     replication     the adaptive hot-chunk subsystem
                     (`core/replication.py`): True / kwargs dict /
                     `ReplicationConfig` / a shared `HotChunkReplicator`.
-    elasticity      the elastic-cluster subsystem; not ported yet, so a
-                    session refuses any value but None.
+    elasticity      the elastic-cluster subsystem (`core/elasticity.py`):
+                    an `ElasticityConfig` (or kwargs dict) bundling
+                    migration=, stealing=, recovery= — or a shared
+                    `ElasticityManager`.
     engine_opts     extra engine-constructor kwargs (fanout=, C=, sigma=,
                     work_per_task=, ...), exactly what the legacy
                     `**engine_opts` tail carried.

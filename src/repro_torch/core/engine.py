@@ -136,6 +136,7 @@ class TDOrchEngine:
         write_back: str | MergeOp = "add",
         return_results: bool = False,
         replicas: ReplicaSet | None = None,
+        stealer=None,
     ) -> OrchestrationResult:
         merge = get_merge_op(write_back)
         P, forest = self.P, self.forest
@@ -172,6 +173,21 @@ class TDOrchEngine:
         cost.end()
         exec_site = tasks.origin.copy()
         exec_site[has_read] = pair_site[tasks.read_indptr[:-1][has_read]]
+
+        # ---------------- Phase-3 work stealing (core/elasticity.py) -------
+        # Rebalance exec-site assignment BEFORE Phase 2, so a stolen task's
+        # secondary values forward straight to the thief. Replica-local
+        # primaries stay put — stealing them would forfeit the local read.
+        if stealer is not None:
+            cost.begin("phase3_steal")
+            prim_local = np.zeros(tasks.n, dtype=bool)
+            if pair_local.any():
+                prim_local[has_read] = \
+                    pair_local[tasks.read_indptr[:-1][has_read]]
+            exec_site = stealer.steal(tasks, exec_site, cost,
+                                      value_width=store.value_width,
+                                      eligible=~prim_local)
+            cost.end()
 
         # ---------------- Phase 2: push-pull co-location -------------------
         cost.begin("phase2_push_pull")
@@ -237,7 +253,8 @@ class TDOrchEngine:
         The estimate is therefore bit-identical to the realized stage report
         whenever the layout's assumptions hold: the lambda returns
         `layout.update_width`-wide updates for every declared write key and
-        `layout.result_width`-wide results when `return_results` is set.
+        `layout.result_width`-wide results when `return_results` is set,
+        and no Phase-3 work stealing intervenes.
         `histogram` (the Phase-1 demand
         histogram) is accepted per the estimator contract; TD-Orch's climb
         is replayed from the pair stream itself, which the histogram is a

@@ -17,8 +17,9 @@ Session-level options ride the same call: `backend=` picks the numeric
 execution backend — None/"torch", the PyTorch pipeline with the CUDA
 kernels on the card (the default), or "numpy", the float64 oracle; cost
 reports are bit-identical across them — and `replication=` opts into the
-adaptive hot-chunk subsystem; both forward to the underlying
-`Orchestrator` (`elasticity=` is not ported yet and raises there).
+adaptive hot-chunk subsystem, and `elasticity=` into migration, work
+stealing and failure recovery (`core/elasticity.py`); all forward to the
+underlying `Orchestrator`.
 `config=` carries every session-level option in one `SessionConfig`
 (core/config.py).
 

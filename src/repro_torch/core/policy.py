@@ -41,6 +41,7 @@ the chosen fixed engine with `assert_cost_parity(..., ignore=("policy",))`.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -329,7 +330,7 @@ class AutoEngine:
 
     # ------------------------------------------------------------------
     def run_stage(self, tasks, store, f, write_back="add",
-                  return_results=False, replicas=None):
+                  return_results=False, replicas=None, stealer=None):
         layout = StageLayout.capture(tasks, store, replicas=replicas,
                                      return_results=return_results)
         # Phase-1 demand histogram, decision input — plain numpy bincount so
@@ -345,9 +346,16 @@ class AutoEngine:
         policy_report = decision_phase(
             self.P, np.unique(tasks.origin), self.policy.config)
         decision.policy_words = float(policy_report.sent.sum())
-        res = self.engines[decision.choice].run_stage(
-            tasks, store, f, write_back=write_back,
-            return_results=return_results, replicas=replicas)
+        engine = self.engines[decision.choice]
+        # only an engine that declares the hook takes the stealer (pull
+        # executes at the origins, sort is balanced by construction)
+        extra = {}
+        if stealer is not None and "stealer" in inspect.signature(
+                engine.run_stage).parameters:
+            extra["stealer"] = stealer
+        res = engine.run_stage(tasks, store, f, write_back=write_back,
+                               return_results=return_results,
+                               replicas=replicas, **extra)
         decision.realized_words = float(res.report.sent.sum())
         # the decision bill rides this stage's report as its own phase
         res.report = StageReport(res.report.P,

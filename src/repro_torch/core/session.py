@@ -19,6 +19,7 @@ throwaway session, and `run_plan` runs a whole declarative multi-round
 """
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -27,6 +28,7 @@ from .backend import make_backend
 from .config import SessionConfig, resolve_session_config
 from .cost import SessionReport, StageReport
 from .datastore import DataStore, TaskBatch
+from .elasticity import make_elasticity
 from .engine import OrchestrationResult
 from .mergeops import MergeOp
 from .registry import make_engine
@@ -58,8 +60,13 @@ class Orchestrator:
     per-kwarg spellings remain as a compatibility shim resolved through the
     same alias table; passing a kwarg that contradicts the config raises.
 
-    `elasticity=` (or `SessionConfig.elasticity`) is not ported yet: any
-    value but None raises `NotImplementedError`.
+    `elasticity=` (or `SessionConfig.elasticity`) turns on the
+    elastic-cluster subsystem (`core.elasticity`): an `ElasticityConfig`
+    (or kwargs dict) bundling live chunk migration (`migration=`), Phase-3
+    work stealing (`stealing=`), and stage-boundary failure recovery
+    (`recovery=`). Boundary work is charged under dedicated `migration`/
+    `phase3_steal`/`recovery` phases on the stage it happens in; an
+    existing `ElasticityManager` is adopted as-is (shared across forks).
     """
 
     def __init__(self, store: DataStore, engine=None, *, config=None,
@@ -69,11 +76,6 @@ class Orchestrator:
             config, engine_opts=engine_opts, engine=engine, backend=backend,
             replication=replication, replicate=replicate,
             elasticity=elasticity)
-        if cfg.elasticity is not None:
-            raise NotImplementedError(
-                "elasticity= is not ported to the torch package yet "
-                "(migration, work stealing and recovery); run elastic "
-                "sessions on the JAX package")
         self.config: SessionConfig = cfg
         self.store = store
         engine = cfg.engine
@@ -92,6 +94,14 @@ class Orchestrator:
             self.engine = engine
         self.replicator = make_replicator(cfg.replication, store.home,
                                           store.P, store.chunk_words)
+        self.elastic = make_elasticity(cfg.elasticity, store)
+        # work stealing plugs in between exec-site assignment and Phase 3 —
+        # only engines whose run_stage declares `stealer=` support it (pull
+        # executes strictly at the origin, sort is balanced by construction)
+        self._stealer_ok = self.elastic is not None \
+            and self.elastic.stealer is not None \
+            and "stealer" in inspect.signature(
+                self.engine.run_stage).parameters
         self._report = SessionReport(store.P)
 
     # ------------------------------------------------------------------
@@ -127,8 +137,8 @@ class Orchestrator:
     def fork(self) -> "Orchestrator":
         """A sibling session over the same store that SHARES the engine
         instance (and with it the CommForest and the backend's device
-        caches) and the replication state, while accumulating its own
-        `SessionReport`.
+        caches), the replication state and the elasticity manager, while
+        accumulating its own `SessionReport`.
 
         This is the double-buffer handoff a serving frontend is built on:
         batch k executes on one buffer while batch k+1 is admitted,
@@ -140,7 +150,8 @@ class Orchestrator:
         execution and overlaps only the host-side admission work.
         """
         return Orchestrator(self.store, engine=self.engine,
-                            replication=self.replicator)
+                            replication=self.replicator,
+                            elasticity=self.elastic)
 
     # ------------------------------------------------------------------
     def run_stage(
@@ -152,10 +163,25 @@ class Orchestrator:
         return_results: bool = False,
     ) -> OrchestrationResult:
         """Run one orchestration stage against the session's store and fold
-        its cost report into the session report."""
+        its cost report into the session report.
+
+        With elasticity on, the stage boundary runs first: failure recovery
+        (dead machines' chunks restored from the last boundary snapshot,
+        then this stage proceeds — which IS the replay) and any due
+        migration election, each charged as its own phase on this stage's
+        bill; the work stealer is threaded into the engine's exec-site
+        assignment; and the post-stage write-log/boundary bookkeeping runs
+        last."""
         pre: List[StageReport] = []
+        if self.elastic is not None:
+            tasks = self.elastic.adapt_batch(tasks)
         tasks.validate(self.store)
         extra: Dict[str, object] = {}
+        if self.elastic is not None:
+            pre.extend(self.elastic.on_stage_start(
+                self.store, self.replicas, self.backend))
+            if self._stealer_ok:
+                extra["stealer"] = self.elastic.stealer
         ref_report: Optional[StageReport] = None
         if self.replicator is not None:
             ref_report = self.replicator.maybe_refresh()
@@ -179,8 +205,14 @@ class Orchestrator:
                 self.replicator.observe(res.refcount)
             else:
                 self.replicator.observe_keys(tasks.read_indices)
+        if self.elastic is not None:
+            self.elastic.observe(tasks)
+            self.elastic.after_stage(tasks, self.store, self.backend)
+            if self._stealer_ok:
+                for src, dst in self.elastic.stealer.drain():
+                    self._report.record_steals(src, dst)
         if pre:
-            # boundary work (the replica refresh) belongs
+            # boundary work (recovery, migration, replica refresh) belongs
             # to this stage's bill, each as its own phase — phase_totals()
             # and the SessionReport phase splits keep them separable
             res.report = StageReport(

@@ -2,8 +2,10 @@
 
 Sort-based, so it neither shares code with the CUDA kernel nor calls the
 library's scatter reductions: the in-range rows are stably sorted by
-segment, and each segment's result is read off its run — a float64 prefix
-sum for ``add``, a per-column sort for ``min``/``max``/``or``, and for
+segment, and each segment's result is read off its run — a float64 sum of
+the run for ``add`` (`torch.segment_reduce`: a prefix-sum difference would
+carry the magnitude of every earlier segment into a small segment's
+error), a per-column sort for ``min``/``max``/``or``, and for
 ``write`` the first row of the run after a stable sort by order (lowest
 order, then lowest row, wins).
 
@@ -67,14 +69,15 @@ def combine_ref(values: torch.Tensor, seg: torch.Tensor, num_segments: int,
     ranked = rows[torch.sort(seg[rows].long(), stable=True).indices]
     sorted_seg = seg[ranked].long()
     _, last = _runs(sorted_seg)
-    # work column-major: torch scans and sorts fastest along a contiguous
-    # last dimension
-    vt = values[ranked].T.contiguous()  # (W, rows)
     if op == "add":
-        cs = torch.cumsum(vt.to(torch.float64), 1)[:, last]
-        cs[:, 1:] -= cs[:, :-1].clone()
-        out[sorted_seg[last]] = cs.T.to(values.dtype)
+        lengths = torch.diff(last, prepend=last.new_full((1,), -1))
+        sums = torch.segment_reduce(values[ranked].to(torch.float64), "sum",
+                                    lengths=lengths, axis=0)
+        out[sorted_seg[last]] = sums.to(values.dtype)
         return out
+    # work column-major: torch sorts fastest along a contiguous last
+    # dimension
+    vt = values[ranked].T.contiguous()  # (W, rows)
     # every column sorted by value, then stably by segment: each run of a
     # column then holds that segment's values in ascending order, NaN last,
     # so its last element is its max, NaN included; min is -max(-v)

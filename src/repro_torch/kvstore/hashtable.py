@@ -126,8 +126,10 @@ class DistributedHashTable:
         `config=` carries all of the above as one `SessionConfig` — every
         kwarg here resolves through the same alias table the core session
         uses, so `replicate=` and `replication=` can never drift, and a
-        kwarg that contradicts the config raises. `elasticity=` is not
-        ported: a session refuses any value but None.
+        kwarg that contradicts the config raises. `elasticity=` opts the
+        session into the elastic-cluster subsystem (migration / stealing /
+        recovery, `repro_torch.core.elasticity`), and is part of the cache
+        key.
         """
         check_kernel_backend(kernel_backend)
         cfg = resolve_session_config(
@@ -332,8 +334,8 @@ class DistributedHashTable:
 
     # ---- streaming serving mode (serve/) -----------------------------------
     def serve(self, *, engine: str = None, backend=None,
-              kernel_backend=None, replicate=None, config=None,
-              session_config=None,
+              kernel_backend=None, replicate=None, elasticity=None,
+              config=None, session_config=None,
               mode: str = "thread", double_buffer: bool = True,
               **kw) -> "KVFrontend":
         """The table's streaming front door: a `serve.Frontend` over a
@@ -343,10 +345,11 @@ class DistributedHashTable:
         are bit-identical to the one-shot path for the same request
         sequence.
 
-        `engine=`/`backend=`/`kernel_backend=`/`replicate=` select the
-        session exactly as `session()` does (the frontend forks it for the
-        second buffer); `session_config=` carries the same selection as one
-        `SessionConfig`;
+        `engine=`/`backend=`/`kernel_backend=`/`replicate=`/`elasticity=`
+        select the session exactly as `session()` does (the frontend forks
+        it for the second buffer, sharing its elasticity manager);
+        `session_config=` carries the same selection as one
+        `SessionConfig` (including `elasticity=`);
         `config` takes `serve.BatchingConfig` knobs (or a dict);
         `mode="sync"` runs the pipeline inline and deterministic, `"thread"`
         (default) runs the double-buffered router/executor pair. Close the
@@ -354,7 +357,7 @@ class DistributedHashTable:
         """
         sess = self.session(engine, replicate=replicate, backend=backend,
                             kernel_backend=kernel_backend,
-                            config=session_config)
+                            elasticity=elasticity, config=session_config)
         return KVFrontend(self, sess, config=config, mode=mode,
                           double_buffer=double_buffer, **kw)
 

@@ -17,10 +17,9 @@ machine); `ServeStats` bills the *serving pipeline* wrapped around it:
 
 `report()` folds in the underlying buffer sessions' `SessionReport`s
 (summed across the double buffers), so one dict carries the serving metrics
-*and* the orchestration words/rounds they cost. The keys are the JAX
-package's; the migration, steal and recovery words stay 0 until elasticity
-is ported (a session refuses `elasticity=`), and no "elastic" block is
-added.
+*and* the orchestration words/rounds they cost, plus an "elastic" block of
+the elasticity counters when the sessions run elastic. The keys are the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -197,4 +196,18 @@ class ServeStats:
                               "rounds": rounds, "replica_local_words": local,
                               "migration_words": mig, "steal_words": steal,
                               "recovery_words": rec, "stolen_tasks": stolen}
+            # elastic-subsystem counters: the buffer sessions share one
+            # ElasticityManager (Orchestrator.fork), so dedupe by identity
+            managers = {id(e): e for e in
+                        (getattr(s, "elastic", None) for s in sessions)
+                        if e is not None}
+            if managers:
+                elastic: Dict[str, int] = {}
+                for e in managers.values():
+                    for k, v in e.counters().items():
+                        if k == "machines_alive":
+                            elastic[k] = min(elastic.get(k, v), v)
+                        else:
+                            elastic[k] = elastic.get(k, 0) + v
+                out["elastic"] = elastic
         return out

@@ -281,9 +281,16 @@ def test_backend_options_rejected():
     store = port.DataStore.create(60, 4, value_width=3)
     with pytest.raises(KeyError, match="unknown engine"):
         port.Orchestrator(store, engine="no_such_engine", backend="numpy")
-    with pytest.raises(NotImplementedError, match="elasticity"):
-        port.Orchestrator(store, backend="numpy",
-                          elasticity={"migration": True})
+    # elasticity= is accepted, and a bad spec raises as in the reference
+    sess = port.Orchestrator(store, backend="numpy",
+                             elasticity={"migration": True})
+    assert sess.elastic is not None and sess.elastic.planner is not None
+    for bad in ({"migration": 3}, 7):
+        with pytest.raises(TypeError, match="bad .*spec"):
+            ref.Orchestrator(ref.DataStore.create(60, 4, value_width=3),
+                             backend="numpy", elasticity=bad)
+        with pytest.raises(TypeError, match="bad .*spec"):
+            port.Orchestrator(store, backend="numpy", elasticity=bad)
 
 
 def test_padded_route_matches_fused_route():

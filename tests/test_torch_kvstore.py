@@ -361,13 +361,29 @@ def test_kernel_backend_takes_only_auto():
 
 
 def test_elasticity_is_refused():
-    ht, _, _ = _tables(K=64)
-    with pytest.raises(NotImplementedError, match="elasticity"):
-        ht.session(backend="numpy", elasticity={"migration": True})
-    with pytest.raises(NotImplementedError, match="elasticity"):
-        ht.serve(session_config={"backend": "numpy",
-                                 "elasticity": {"migration": True}},
-                 mode="sync")
+    """Named for the refusal it once pinned: a table session now takes
+    `elasticity=`. With a restart recovery (machine 3 dies at batch 2) and
+    migration, YCSB-A batches match the JAX table's: bills, fetched values, the table and the elastic counters."""
+    ht, rt, _ = _tables(K=64)
+    spec = {"recovery": {"injector": {2: [3]}, "checkpoint_every": 2},
+            "migration": {"refresh": 2, "min_count": 2.0}}
+    be = _backend("torch_cpu64")
+    for i in range(5):
+        keys, is_read, operand = port_kv.make_ycsb_batch(
+            "A", 200, 8, 64, 1.5, seed=40 + i)
+        a = ht.execute_batch(keys, is_read, operand, backend=be,
+                             elasticity=spec)
+        b = rt.execute_batch(keys, is_read, operand, backend="numpy",
+                             elasticity=spec)
+        _same_bill(a, b)
+        np.testing.assert_allclose(a.values, b.values, **_tol("torch_cpu64"))
+    np.testing.assert_allclose(ht.values, rt.values, **_tol("torch_cpu64"))
+    s, r = ht.session(backend=be, elasticity=spec), \
+        rt.session(backend="numpy", elasticity=spec)
+    assert s.elastic.counters() == r.elastic.counters()
+    assert s.elastic.counters()["recoveries"] == 1
+    np.testing.assert_array_equal(ht.store.home, rt.store.home)
+    _no_host_lambdas(be)
 
 
 def test_sessions_are_cached_per_option():

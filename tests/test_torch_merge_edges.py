@@ -200,6 +200,32 @@ def test_combine_ref_matches_numpy_ufunc_at(op):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_combine_ref_add_sums_each_segment_alone(dtype):
+    """An add segment's error is its own terms' rounding, whatever the
+    other segments hold: 1e14-sized segments beside unit ones (a prefix-sum
+    difference would leave ~0.02 of error in the unit ones), and ±inf in a
+    segment stays in that segment."""
+    rng = np.random.default_rng(6)
+    n, S = 3000, 60
+    seg = rng.integers(0, S, n)
+    values = rng.normal(size=(n, 2))
+    values[seg % 3 == 0] *= 1e14
+    values = torch.from_numpy(values).to(dtype)
+    seg_t = torch.from_numpy(seg.astype(np.int32))
+    got = combine_ref(values, seg_t, S, op="add").double().numpy()
+    want = _np_combine(values.double().numpy(), seg, S, "add")
+    mags = _np_combine(values.double().abs().numpy(), seg, S, "add")
+    # float64 sums of each segment's rows, then one rounding to the dtype
+    unit = 2.0 ** -53 if dtype == torch.float64 else 2.0 ** -24
+    assert (np.abs(got - want) <= 64 * 2.0 ** -53 * mags
+            + unit * np.abs(want)).all()
+    values[5, 0] = np.inf
+    got = combine_ref(values, seg_t, S, op="add").numpy()
+    assert np.isinf(got[seg[5], 0])
+    assert np.isfinite(np.delete(got[:, 0], seg[5])).all()
+
+
 def test_combine_ref_folds_the_identity_per_dtype():
     seg = torch.tensor([0, 0, 1], dtype=torch.int32)
     for dt in (torch.float32, torch.float64):

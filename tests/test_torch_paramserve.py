@@ -102,6 +102,13 @@ DECODE_CASES = {
                    lambda r: r.zipf_routing(48, alpha=1.5, seed=9), 0,
                    {"replicate": {"num_hot": 3, "refresh": 1,
                                   "min_count": 1.0}}),
+    # an elastic session: steals and moves ride the same bills
+    "elastic": (dict(P=4, E=8),
+                lambda r: r.zipf_routing(48, alpha=1.5, seed=9), 0,
+                {"elasticity": {"stealing": {"threshold": 1.05,
+                                             "min_tasks": 4},
+                                "migration": {"refresh": 1,
+                                              "min_count": 1.0}}}),
 }
 
 
@@ -137,6 +144,11 @@ def test_decode_matches_jax(case, dtype):
     assert sa.replica_local_words == sb.replica_local_words
     np.testing.assert_array_equal(sa.per_machine()["work"],
                                   sb.per_machine()["work"])
+    if "elasticity" in sess_kw:
+        ca = ref.session(backend="numpy", **sess_kw).elastic.counters()
+        cb = port.session(backend=be, **sess_kw).elastic.counters()
+        assert ca == cb and cb["stolen_tasks"] > 0
+        np.testing.assert_array_equal(sa.stolen_out, sb.stolen_out)
 
 
 def test_route_batch_and_layer_bounds_match_jax():

@@ -462,10 +462,23 @@ def test_bare_store_frontend_builds_its_session():
     np.testing.assert_array_equal(np.stack([f.result() for f in futs]),
                                   vals[[3, 4]])
     fe.close()
-    with pytest.raises(NotImplementedError, match="elasticity"):
-        Frontend(store, session_config={"backend": "numpy",
-                                        "elasticity": {"migration": True}},
-                 mode="sync")
+    # an elastic session config: the report's "elastic" block holds the
+    # counters of the one manager the two buffer sessions share
+    efe = Frontend(store, session_config={
+        "backend": "numpy", "elasticity": {"stealing": True,
+                                           "migration": True}},
+        mode="sync", config={"max_batch": 2})
+    assert efe.sessions[0].elastic is efe.sessions[1].elastic
+    efe.register("g", lambda c, v: {"result": v}, ctx_width=1)
+    futs = [efe.submit("g", [k]) for k in range(8)]
+    np.testing.assert_array_equal(np.stack([f.result() for f in futs]),
+                                  vals[:8])
+    rep = efe.report()
+    assert rep["elastic"] == efe.sessions[0].elastic.counters()
+    assert set(rep["elastic"]) == {"migrations", "migration_elections",
+                                   "stolen_tasks", "steal_rebalances"}
+    efe.close()
+    assert "elastic" not in fe.report()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Frontend(store, mode="sync")
