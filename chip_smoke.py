@@ -182,6 +182,28 @@ Phases, each of which raises (non-zero exit) on any failed check:
    at 256: the report's "elastic" block equal to the shared manager's
    `counters()`, results within the numpy replay's gate. Launches by stage
    as phases 3, 8 and 10 (K1-K3 through elastic sessions).
+12. Multi-device execution (`repro_torch.core.shardexec`, `core.spmd`):
+   `backend="torch_spmd"` on the stacked mesh (one shard a machine, all on
+   the card) against the numpy oracle. (a) Phase 3's four stages, not cut
+   (P=16, 800,000 tasks, 800,000 keys x 16): bills, `refcount`,
+   `exec_site` equal, values within phase 3's gate, `ShardStageStats`
+   equal to a numpy recount from the exec sites, the layout and the
+   replica set, the measured work_ratio equal to the charged one; a
+   stage's wall, host share, peak device memory and all-to-all bytes, and
+   its wall under `backend="torch"`. (b) tests/test_elastic.py's
+   TestChaosSharded at (a)'s size (machine 3 dies at stage 4, migration
+   on, a Zipf-1.4 stream of write-merge stages): session parity with
+   numpy, one recovery, values within rtol 2e-4 / atol 1e-5. (c)
+   `moe_push_pull`, `moe_direct_push`, `moe_direct_pull` at phase 4's
+   granite widths, ep 8, 8,192 Zipf-1.2 tokens: against `moe_reference`
+   with a capacity that drops nothing, drops logged at 1.25. (d)
+   `embed_skew_aware` on 8 shards over phase 4's table. (e) The group
+   mesh: 4 gloo ranks sharing the card on stage (a)'s traffic at P=4,
+   200,000 tasks, gloo's collectives on CUDA tensors: stats equal to the
+   stacked mesh's. (f) benchmarks/bench_spmd.py's YCSB cells (P=8, Zipf 1.2
+   and 2.0, replication on and off): charged and measured work_ratio and
+   its gate. Launches by stage: K1 once a sharded stage plus the cost
+   model's calls, K2 twice a writing stage, K4 twice a grouped SwiGLU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -189,7 +211,7 @@ name and power limit.
 
 A diagnostic of the open fault C2 (ROADMAP), not in the default run:
 ``--c2-repeats N`` runs phase 5's bf16 prefill_mha stage N times after
-phase 4 and reads every share of its gate, then runs phases 5-11 as
+phase 4 and reads every share of its gate, then runs phases 5-12 as
 always.
 """
 from __future__ import annotations
@@ -798,6 +820,8 @@ class _Stages:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ran = {k: v - before[k] for k, v in kernels.launches().items()}
+        if callable(self.expected.get(tag)):  # known after the stage ran
+            self.expected[tag] = self.expected[tag]()
         if self.device == "cuda" and ran != self.expected[tag]:
             raise AssertionError(f"stage {tag}: kernel launches {ran}, "
                                  f"expected {self.expected[tag]}")
@@ -4067,6 +4091,649 @@ def elastic_path(device: str, K: int, stages, init, *,
 
 
 # ---------------------------------------------------------------------------
+# phase 12: multi-device execution — the stacked mesh on one card
+# ---------------------------------------------------------------------------
+CHAOS_STAGES = 6
+CHAOS_SPEC = {"recovery": {"injector": {4: [3]}},
+              "migration": {"refresh": 3, "min_count": 4.0}}
+CHAOS_ZIPF = 1.4  # tests/test_elastic.py's skewed stream
+MOE_EP = 8
+MOE_T = 8_192  # tokens over the mesh (1,024 a shard)
+MOE_HOT = 4
+MOE_TIGHT = 1.25  # the dispatch's default capacity factor
+EMBED_SHARDS = 8
+GROUP_P = 4
+GROUP_TPM = 50_000  # 200,000 tasks over 4 ranks
+GROUP_TIMEOUT_S = 300
+YCSB_P, YCSB_TPM, YCSB_KEYS, YCSB_STAGES, YCSB_SEED = 8, 2_000, 16_000, 8, 17
+YCSB_GAMMAS = (1.2, 2.0)
+YCSB_REPLICATION = {"num_hot": 64, "refresh": 2, "decay": 0.5,
+                    "min_count": 8.0}
+YCSB_GATE = 1.5  # bench_spmd.py's: charged work_ratio at Zipf 1.2, rep on
+MESH_REL = 2e-4  # TestChaosSharded's float32 gate: rtol 2e-4, atol 1e-5
+MESH_ABS = 1e-5
+
+# launches a stage of the sharded path: K1 once for the mesh's Phase 1 (one
+# launch over all shards) besides the host cost model's calls, K2 twice for
+# a stage that writes (the local and the owner-side combine); the fused-able
+# stage (c) runs its padded form on the mesh, as the JAX package's sharded
+# program does, so no K3. The cost model's K1 calls are phase 3's (the same
+# engine code decides them); where a stream's are not known ahead (b, e, f),
+# `_sharded_launches` reads them off the backend after the stage.
+SPMD_STAGE = {t: _launch(histogram=e["histogram"] + 1, segment_combine=2)
+              for t, e in EXPECTED_LAUNCHES.items()}
+# (c): the histogram once a dispatch, K4 twice a grouped SwiGLU (push-pull
+# with hot experts runs two: the pulled and the pushed); (d) one histogram
+MOE_LAUNCHES = {"moe_reference": _launch(moe_gemm=2),
+                "moe_push_pull/cffree": _launch(histogram=1, moe_gemm=4),
+                f"moe_push_pull/cf{MOE_TIGHT}": _launch(histogram=1,
+                                                        moe_gemm=4),
+                "moe_direct_push/cffree": _launch(histogram=1, moe_gemm=2),
+                f"moe_direct_push/cf{MOE_TIGHT}": _launch(histogram=1,
+                                                          moe_gemm=2),
+                "moe_direct_pull/cffree": _launch(histogram=1, moe_gemm=2)}
+SPMD_EXPECTED = {
+    **SPMD_STAGE,
+    **{f"{t}/torch": EXPECTED_LAUNCHES[t] for t in SPMD_STAGE},
+    **MOE_LAUNCHES,
+    "embed_mesh": _launch(histogram=1),
+}
+
+
+def _cost_model_k1(be) -> None:
+    """Count on `be.cost_model_k1` the histogram launches its host cost
+    model's Phase-1 calls (`key_counts`) make."""
+    from repro_torch import kernels
+
+    be.cost_model_k1 = 0
+    inner = be.key_counts
+
+    def counted(*a, **k):
+        before = kernels.launches()["histogram"]
+        out = inner(*a, **k)
+        be.cost_model_k1 += kernels.launches()["histogram"] - before
+        return out
+
+    be.key_counts = counted
+
+
+def _sharded_launches(be, writes: bool, shards: bool = True):
+    """The expected launches of the stage about to run on `be` (wrapped by
+    `_cost_model_k1`), known once it has run: the cost model's K1 calls
+    plus, on a mesh (`shards`), its one K1 and, for a stage that writes,
+    two K2 (one on a single device)."""
+    before = be.cost_model_k1
+    return lambda: _launch(
+        histogram=int(shards) + be.cost_model_k1 - before,
+        segment_combine=(1 + int(shards)) * int(writes))
+
+
+def recount_stats(tasks, exec_site, store, replicas, combine: bool) -> dict:
+    """`ShardStageStats` counted in numpy from the placement alone: the
+    exec sites, the store's layout and the fully replicated chunks."""
+    P_ = store.P
+    site = np.asarray(exec_site, dtype=np.int64)
+    owner = store.shard_layout().owner
+
+    def count(x):
+        return np.bincount(x, minlength=P_).astype(np.int64)
+
+    if tasks.max_arity > 1:
+        p_site, p_key = site[tasks.pair_task], tasks.read_indices
+    else:
+        has = tasks.read_keys >= 0
+        p_site, p_key = site[has], tasks.read_keys[has]
+    full = np.zeros(store.num_keys, dtype=bool)
+    if replicas is not None and replicas.hot_ids.size:
+        full[np.asarray(replicas.hot_ids)[replicas.holders.all(axis=1)]] = True
+    rep = full[p_key]
+    wk = tasks.write_keys
+    w = wk >= 0
+    out = dict(tasks=count(site), pairs=count(p_site),
+               fetch_sent=count(p_site[~rep]),
+               fetch_recv=count(owner[p_key[~rep]]),
+               replica_local=count(p_site[rep]), writers=count(site[w]),
+               combine_sent=np.zeros(P_, np.int64),
+               combine_recv=np.zeros(P_, np.int64),
+               owned_demand=count(owner[p_key]))
+    if combine:
+        pairs = np.unique(site[w] * store.num_keys + wk[w])
+        out["combine_sent"] = count(pairs // store.num_keys)
+        out["combine_recv"] = count(owner[pairs % store.num_keys])
+    return out
+
+
+def _check_stats(name, stats, want: dict) -> None:
+    for field, arr in want.items():
+        if not np.array_equal(getattr(stats, field), arr):
+            raise AssertionError(f"{name}: measured {field} "
+                                 f"{getattr(stats, field)}, recount {arr}")
+
+
+def charged_work_ratio(report) -> float:
+    """max/mean of a stage's charged Phase-3 work (tasks at their exec
+    sites, one unit each)."""
+    ph = next(p for p in report.phases if p.name == "phase3_execute")
+    return float(ph.compute.max() / max(ph.compute.mean(), 1e-12))
+
+
+def _check_ratio(name, stats, report) -> tuple:
+    measured, charged = stats.work_ratio(), charged_work_ratio(report)
+    if abs(measured - charged) > 1e-12 * charged:
+        raise AssertionError(f"{name}: measured work_ratio {measured} != "
+                             f"charged {charged}")
+    return measured, charged
+
+
+def _peak_reset(device) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def spmd_main_path(device, st, K, stages, init) -> list:
+    """(a) Phase 3's four stages, not cut, through `backend="torch_spmd"`
+    (the stacked mesh: 16 shards on the card) against the numpy oracle,
+    with the same stage's wall under `backend="torch"` beside it."""
+    from repro_torch.core import (DataStore, Orchestrator, TorchBackend,
+                                  TorchSpmdBackend)
+
+    sx_be, tx_be = TorchSpmdBackend(device=device), TorchBackend(
+        device=device)
+    _timed_backend(sx_be)
+    _timed_backend(tx_be)
+    st_sx, st_tx, st_ora = (DataStore.create(K, P, value_width=VALUE_WIDTH)
+                            for _ in range(3))
+    rows = []
+    for name, desc, tasks, f, merge, rep, n_stages in stages:
+        if name in ("a", "d"):  # (a) again, from the same starting values
+            st_sx.write_rows(np.arange(K), init)
+            st_tx.write_rows(np.arange(K), init)
+        s_sx = Orchestrator(st_sx, backend=sx_be, replication=rep)
+        s_tx = Orchestrator(st_tx, backend=tx_be, replication=rep)
+        s_ora = Orchestrator(st_ora, backend="numpy", replication=rep)
+        kind = "fused" if tasks.max_arity > 1 else "muladd"
+        for k in range(n_stages):
+            tag = f"{name}{k}" if n_stages > 1 else name
+            st_ora.write_rows(np.arange(K), st_sx.values)
+            old = st_ora.values.copy()
+            mags = term_magnitudes(tasks, old, kind)
+            sx_be.numerics_s = tx_be.numerics_s = 0.0
+            a2a = sx_be.a2a_bytes
+            _peak_reset(device)
+            r_sx = st.run(tag, lambda: s_sx.run_stage(
+                tasks, f, write_back=merge, return_results=True),
+                desc=desc, tasks=tasks.n, pairs=tasks.nnz)
+            row = st.rows[-1]
+            peak = _peak(device)
+            if sx_be._host_lambdas:
+                raise AssertionError(f"sharded {tag}: a lambda fell back to "
+                                     "the host path")
+            r_tx = st.run(f"{tag}/torch", lambda: s_tx.run_stage(
+                tasks, f, write_back=merge, return_results=True))
+            r_ora = s_ora.run_stage(tasks, f, write_back=merge,
+                                    return_results=True)
+            _same_bill(f"sharded {tag}", r_sx, r_ora)
+            _same_bill(f"sharded {tag} (torch)", r_tx, r_ora)
+            res_err = _sum_bound_ok(
+                np.asarray(r_sx.results, dtype=np.float64),
+                np.asarray(r_ora.results, dtype=np.float64), mags,
+                rel_want=1e-5, name=f"sharded {tag} results")
+            val_err, val_share = _check_values(
+                f"sharded {tag}", st_sx.values, st_ora.values, old, tasks,
+                mags, merge)
+            stats = sx_be.stage_stats[-1]
+            _check_stats(f"sharded {tag}", stats, recount_stats(
+                tasks, r_sx.exec_site, st_sx, s_sx.replicas,
+                combine=bool((tasks.write_keys >= 0).any())))
+            measured, charged = _check_ratio(f"sharded {tag}", stats,
+                                             r_sx.report)
+            wall, numerics = row["wall_s"], sx_be.numerics_s
+            row.update(numerics_s=numerics, host_s=wall - numerics,
+                       host_share=(wall - numerics) / wall,
+                       peak_device_bytes=peak,
+                       a2a_bytes=sx_be.a2a_bytes - a2a,
+                       torch_wall_s=st.rows[-1]["wall_s"],
+                       torch_numerics_s=tx_be.numerics_s,
+                       max_result_err=res_err, max_value_err=val_err,
+                       max_value_err_share_of_tolerance=val_share,
+                       work_ratio=measured, charged_work_ratio=charged,
+                       stats={k_: v.tolist() for k_, v in
+                              stats._asdict().items()})
+            rows.append(row)
+            log(f"  (a) stage {tag} ({desc}): wall {wall:.4f} s (host "
+                f"{wall - numerics:.4f} s, share {row['host_share']:.3f}), "
+                f"backend='torch' {row['torch_wall_s']:.4f} s; peak "
+                f"{peak / 1e9:.3f} GB; all-to-all send buffers "
+                f"{row['a2a_bytes'] / 1e9:.3f} GB; max |Δ| results "
+                f"{res_err:.3g}, store {val_err:.3g} ({val_share:.3g} of the "
+                f"gate); work_ratio {measured:.6f} = charged; stats = "
+                "recount; launches "
+                f"{ {k_: v for k_, v in row['launches'].items() if v} }")
+    return rows
+
+
+def _chaos_batches(K: int, tpm: int) -> list:
+    from repro_torch.core import TaskBatch
+
+    n = P * tpm
+    out = []
+    for i in range(CHAOS_STAGES):
+        r = np.random.default_rng(SEED + 300 + i)
+        keys = (r.zipf(CHAOS_ZIPF, size=n) % K).astype(np.int64)
+        out.append(TaskBatch(contexts=r.standard_normal((n, 2)),
+                             read_keys=keys, write_keys=keys.copy(),
+                             origin=r.integers(0, P, size=n)))
+    return out
+
+
+def spmd_chaos(device, st, K, init, tpm) -> dict:
+    """(b) `tests/test_elastic.py`'s TestChaosSharded at (a)'s size: a
+    skewed stream (Zipf 1.4 over 800,000 keys, 800,000 tasks a stage),
+    machine 3 killed at stage 4, migration on; `"torch_spmd"` and
+    `"torch"` each against numpy under the same spec. The write merge
+    (ties to the lowest task row) keeps float32 and float64 within the
+    test's gate over six stages; an add at this skew compounds hundreds of
+    thousands of float32 terms a key a stage."""
+    from repro_torch.core import (DataStore, Orchestrator, TorchBackend,
+                                  TorchSpmdBackend, assert_session_parity)
+
+    sx_be, tx_be = TorchSpmdBackend(device=device), TorchBackend(
+        device=device)
+    _cost_model_k1(sx_be)
+    _cost_model_k1(tx_be)
+    stores = [DataStore.create(K, P, value_width=VALUE_WIDTH)
+              for _ in range(3)]
+    for s in stores:
+        s.write_rows(np.arange(K), init)
+    sessions = [Orchestrator(s, backend=be, elasticity=CHAOS_SPEC)
+                for s, be in zip(stores, (sx_be, tx_be, "numpy"))]
+    walls, worst = {"torch_spmd": [], "torch": []}, 0.0
+    for i, tasks in enumerate(_chaos_batches(K, tpm)):
+        st.expected[f"chaos{i}"] = _sharded_launches(sx_be, writes=True)
+        r = st.run(f"chaos{i}", lambda: sessions[0].run_stage(
+            tasks, muladd, write_back="write"), tasks=tasks.n)
+        walls["torch_spmd"].append(st.rows[-1]["wall_s"])
+        st.expected[f"chaos{i}/torch"] = _sharded_launches(
+            tx_be, writes=True, shards=False)
+        st.run(f"chaos{i}/torch", lambda: sessions[1].run_stage(
+            tasks, muladd, write_back="write"))
+        walls["torch"].append(st.rows[-1]["wall_s"])
+        sessions[2].run_stage(tasks, muladd, write_back="write")
+        for got in stores[:2]:
+            err = np.abs(got.values - stores[2].values)
+            allowed = MESH_REL * np.abs(stores[2].values) + MESH_ABS
+            if not (err <= allowed).all():
+                raise AssertionError(f"chaos stage {i}: values beyond rtol "
+                                     f"{MESH_REL} / atol {MESH_ABS}")
+            worst = max(worst, float((err / allowed).max()))
+        _check_stats(f"chaos stage {i}", sx_be.stage_stats[-1],
+                     recount_stats(tasks, r.exec_site, stores[0],
+                                   sessions[0].replicas, combine=True))
+    for s in sessions[:2]:
+        assert_session_parity(sessions[2].report, s.report)
+    rec = [s.elastic.counters()["recoveries"] for s in sessions]
+    if rec != [1, 1, 1]:
+        raise AssertionError(f"chaos: recoveries {rec}, expected one each")
+    out = dict(walls_s=walls, worst_share_of_gate=worst, recoveries=1,
+               migrations=sessions[0].elastic.counters().get("migrations"))
+    log(f"  (b) chaos: {CHAOS_STAGES} stages of {P * tpm} tasks, walls "
+        f"{[round(w, 4) for w in walls['torch_spmd']]} s (backend='torch' "
+        f"{[round(w, 4) for w in walls['torch']]}); session parity with "
+        f"numpy (elastic phases included) on both, 1 recovery, "
+        f"{out['migrations']} migrations; values at most {worst:.3g} of the "
+        "gate")
+    return out
+
+
+def _moe_capacity_free(ti: np.ndarray, S: int) -> float:
+    """A capacity factor with which no shard drops an assignment: the
+    largest (shard, owner) bucket of the direct push."""
+    e_local = GRANITE["E"] // MOE_EP
+    owner = ti.reshape(S, -1) // e_local
+    need = max(int(np.bincount(o, minlength=MOE_EP).max()) for o in owner)
+    per_shard = ti.size / S / MOE_EP
+    return (need + 0.5) / per_shard
+
+
+def spmd_moe(device, st, ps: dict, tokens: int = MOE_T) -> dict:
+    """(c) `moe_push_pull`, `moe_direct_push` and `moe_direct_pull` at
+    granite-moe-3b-a800m's widths (phase 4's layer: 40 experts, top-8, d
+    1536, expert width 512) over an 8-shard stacked mesh: 8,192 tokens of
+    Zipf-1.2 routing, against `moe_reference`; with a capacity that drops
+    nothing (every engine must equal the reference) and at the default
+    1.25 (drops logged)."""
+    import torch
+
+    from repro_torch.core import spmd
+    from repro_torch.core.shardexec import StackedMesh
+
+    dev = torch.device(device)
+    router = ps["router"]
+    x, ti, g = router.zipf_routing(tokens, alpha=PS_ALPHA, seed=PS_SEED + 40,
+                                   rank_perm=ps["perm"])
+    w_in, w_out = (torch.from_numpy(np.ascontiguousarray(w, dtype=np.float32))
+                   .to(dev) for w in router.layer_weights(0))
+    E, k, d = GRANITE["E"], GRANITE["k"], x.shape[1]
+    S, e_loc, T = MOE_EP, GRANITE["E"] // MOE_EP, tokens // MOE_EP
+    xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+    tit = torch.from_numpy(ti).to(dev)
+    gt = torch.from_numpy(g.astype(np.float32)).to(dev)
+    want = st.run("moe_reference", lambda: spmd.moe_reference(
+        xt, tit, gt, w_in, w_out))
+    ref_wall = st.rows[-1]["wall_s"]
+    mesh = StackedMesh(S, dev)
+    args = (xt.view(S, T, d), tit.view(S, T, k), gt.view(S, T, k),
+            w_in.view((S, e_loc) + w_in.shape[1:]),
+            w_out.view((S, e_loc) + w_out.shape[1:]))
+    free = _moe_capacity_free(ti, S)
+    out = {"capacity_free": free}
+    for name, hot in (("moe_push_pull", MOE_HOT), ("moe_direct_push", 0),
+                      ("moe_direct_pull", 0)):
+        for cf in ((free, MOE_TIGHT) if name != "moe_direct_pull"
+                   else (free,)):
+            cfg = spmd.MoEDispatchConfig(num_experts=E, top_k=k,
+                                         capacity_factor=cf, num_hot=hot,
+                                         mesh=mesh)
+            tag = f"{name}/cf{'free' if cf == free else cf}"
+            _peak_reset(device)
+            y, aux = st.run(tag, lambda: getattr(spmd, name)(*args, cfg))
+            y = y.reshape(tokens, d)
+            dropped = int(aux.dropped_assignments[0])
+            row = dict(wall_s=st.rows[-1]["wall_s"], dropped=dropped,
+                       peak_device_bytes=_peak(device))
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"{tag}: non-finite output")
+            counts = aux.expert_counts[0].cpu().numpy()
+            if not np.array_equal(counts, np.bincount(ti.ravel(),
+                                                      minlength=E)):
+                raise AssertionError(f"{tag}: expert counts differ")
+            if cf == free:
+                if dropped:
+                    raise AssertionError(f"{tag}: {dropped} dropped")
+                row["max_abs_err"] = _check_close(
+                    tag, y.double().cpu().numpy(),
+                    want.double().cpu().numpy())
+            out[tag] = row
+            log(f"  (c) {tag}: wall {row['wall_s']:.4f} s, dropped "
+                f"{dropped} of {ti.size}, peak "
+                f"{row['peak_device_bytes'] / 1e9:.3f} GB"
+                + (f", max |Δ| {row['max_abs_err']:.3g} against "
+                   "moe_reference" if "max_abs_err" in row else ""))
+    out["reference_wall_s"] = ref_wall
+    return out
+
+
+def spmd_embed(device, st, ps: dict) -> dict:
+    """(d) `embed_skew_aware` on an 8-shard stacked mesh over phase 4's
+    49,155 x 1536 table: phase 4's 8,192 Zipf-1.2 ids split over the
+    shards, a cache of the 768 hottest rows. Embeddings exact, the cache's
+    counts the global histogram, each shard's hit rate its own."""
+    import torch
+
+    from repro_torch.core.embedding import EmbedCache, embed_skew_aware
+    from repro_torch.core.shardexec import StackedMesh
+
+    dev = torch.device(device)
+    table = np.asarray(ps["store"].table, dtype=np.float32)
+    V = table.shape[0]
+    ids = np.asarray(ps["skew_ids"], dtype=np.int64)
+    freq = np.bincount(ids, minlength=V)
+    hot = np.argsort(-freq, kind="stable")[:EMBED_HOT["num_hot"]]
+    lookup = np.full(V, -1, dtype=np.int32)
+    lookup[hot] = np.arange(hot.size, dtype=np.int32)
+    tt = torch.from_numpy(table).to(dev)
+    cache = EmbedCache(
+        hot_ids=torch.from_numpy(hot.astype(np.int32)).to(dev),
+        hot_rows=tt[torch.from_numpy(hot).to(dev)],
+        lookup=torch.from_numpy(lookup).to(dev),
+        counts=torch.zeros(V, dtype=torch.int32, device=dev))
+    mesh = StackedMesh(EMBED_SHARDS, dev)
+    q = torch.from_numpy(ids.reshape(EMBED_SHARDS, -1).astype(np.int32)) \
+        .to(dev)
+    out, cache2, hit = st.run("embed_mesh", lambda: embed_skew_aware(
+        tt, q, cache, mesh))
+    want_hit = (lookup[ids.reshape(EMBED_SHARDS, -1)] >= 0).mean(1)
+    if not (torch.equal(out.reshape(-1, table.shape[1]).cpu(),
+                        torch.from_numpy(table[ids]))
+            and np.array_equal(cache2.counts.cpu().numpy(), freq)
+            and np.allclose(hit.cpu().numpy(), want_hit, rtol=1e-6)):
+        raise AssertionError("embed_skew_aware on the mesh differs from its "
+                             "reference")
+    row = dict(wall_s=st.rows[-1]["wall_s"],
+               hit_rates=hit.cpu().numpy().tolist())
+    log(f"  (d) embed_skew_aware, {EMBED_SHARDS} shards: wall "
+        f"{row['wall_s']:.4f} s, hit rates "
+        f"{[round(h, 4) for h in row['hit_rates']]}; exact")
+    return row
+
+
+def _group_stage(tpm: int):
+    """Stage (a)'s traffic at GROUP_P machines: Zipf-2.0 reads and
+    read-modify-write adds, `tpm` tasks a machine, as many keys as tasks."""
+    from repro_torch.core import TaskBatch
+    from repro_torch.kvstore.ycsb import zipf_keys_stationary as zipf
+
+    rng = np.random.default_rng(SEED + 500)
+    n = GROUP_P * tpm
+    K = n
+    tasks = TaskBatch(contexts=rng.standard_normal((n, 2)),
+                      read_keys=zipf(n, K, 2.0, rng, rng.permutation(K)),
+                      origin=TaskBatch.even_origins(n, GROUP_P))
+    init = rng.standard_normal((K, VALUE_WIDTH))
+    return K, tasks, init
+
+
+def _group_rank(rank: int, world: int, port: int, out: str, tpm: int,
+                device: str) -> None:
+    """One machine of the group mesh: a gloo rank on the shared card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.core import DataStore, Orchestrator, TorchSpmdBackend
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        K, tasks, init = _group_stage(tpm)
+        store = DataStore.create(K, GROUP_P, value_width=VALUE_WIDTH)
+        store.write_rows(np.arange(K), init)
+        be = TorchSpmdBackend(device=device)
+        sess = Orchestrator(store, backend=be)
+        kernels.reset_launches()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sess.run_stage(tasks, muladd, write_back="add",
+                             return_results=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rank == 0:
+            st = be.stage_stats[-1]
+            np.savez(out, values=store.values,
+                     results=np.asarray(res.results),
+                     stats=np.stack([np.asarray(v) for v in st]))
+            Path(out + ".json").write_text(json.dumps(dict(
+                wall_s=wall, launches=kernels.launches(),
+                kind=be.mesh(GROUP_P).kind, a2a_bytes=be.a2a_bytes)))
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_group(device, st, tpm: int = GROUP_TPM) -> dict:
+    """(e) The group mesh: GROUP_P gloo ranks (one process a machine)
+    sharing the card, on stage (a)'s traffic at P=4; its stats must equal
+    the stacked mesh's on the same batch, both within phase 3's gate of the
+    numpy oracle. The ranks are joined with a deadline and killed past
+    it."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.core import DataStore, Orchestrator, TorchSpmdBackend
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_group_"))
+    try:
+        out = str(tmp / "rank0.npz")
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_group_rank, args=(GROUP_P, port, out, tpm,
+                                                    device),
+                                 nprocs=GROUP_P, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + GROUP_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError("the group mesh's ranks passed their "
+                                     f"{GROUP_TIMEOUT_S} s deadline")
+        spawn_wall = time.perf_counter() - t0
+        got = np.load(out)
+        info = json.loads(Path(out + ".json").read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    K, tasks, init = _group_stage(tpm)
+    be = TorchSpmdBackend(device=device)
+    _cost_model_k1(be)
+    stores = [DataStore.create(K, GROUP_P, value_width=VALUE_WIDTH)
+              for _ in range(2)]
+    for s in stores:
+        s.write_rows(np.arange(K), init)
+    st.expected["group/stacked"] = _sharded_launches(be, writes=True)
+    st.run("group/stacked", lambda: Orchestrator(
+        stores[0], backend=be).run_stage(tasks, muladd, write_back="add",
+                                         return_results=True))
+    Orchestrator(stores[1], backend="numpy").run_stage(
+        tasks, muladd, write_back="add")
+    stacked = np.stack([np.asarray(v) for v in be.stage_stats[-1]])
+    if info["kind"] != "group" or not np.array_equal(got["stats"], stacked):
+        raise AssertionError(f"group mesh stats {got['stats'].tolist()} != "
+                             f"stacked {stacked.tolist()}")
+    ran = info["launches"]
+    if device == "cuda" and (ran["histogram"] < 1
+                             or ran["segment_combine"] != 2):
+        raise AssertionError(f"group mesh rank 0 launched {ran}: the "
+                             "sharded stage's K1 and two K2 expected")
+    mags = term_magnitudes(tasks, init, "muladd")
+    errs = [_check_values(f"group/{tag}", vals, stores[1].values, init,
+                          tasks, mags, "add")
+            for tag, vals in (("ranks", got["values"]),
+                              ("stacked", stores[0].values))]
+    row = dict(spawn_wall_s=spawn_wall, rank0_stage_wall_s=info["wall_s"],
+               stacked_wall_s=st.rows[-1]["wall_s"],
+               rank0_launches=info["launches"],
+               rank0_a2a_bytes=info["a2a_bytes"],
+               value_err_share=[e[1] for e in errs])
+    log(f"  (e) group mesh, {GROUP_P} gloo ranks on one card, "
+        f"{tasks.n} tasks: rank 0's stage {info['wall_s']:.4f} s (spawn and "
+        f"all {spawn_wall:.2f} s), the stacked mesh {row['stacked_wall_s']:.4f}"
+        f" s; stats equal; values {row['value_err_share']} of the gate "
+        "(gloo's collectives on the card's tensors); rank 0's launches "
+        f"{ {k_: v for k_, v in info['launches'].items() if v} }")
+    return row
+
+
+def _ycsb_muladd(contexts, in_vals):
+    return {"update": in_vals * contexts[:, 1:2] + contexts[:, 2:3],
+            "result": in_vals}
+
+
+def spmd_ycsb(device, st) -> list:
+    """(f) `benchmarks/bench_spmd.py`'s YCSB-C cells at their own settings
+    (P=8, Zipf 1.2 and 2.0, replication on and off, 2,000 tasks a machine,
+    16,000 keys, 8 stages) on the stacked mesh: charged and measured
+    work_ratio, and bench_spmd's gate (charged <= 1.5 at Zipf 1.2 with
+    replication on)."""
+    from repro_torch.core import (DataStore, Orchestrator, TaskBatch,
+                                  TorchSpmdBackend)
+    from repro_torch.kvstore import make_ycsb_stream
+
+    be = TorchSpmdBackend(device=device)
+    _cost_model_k1(be)
+    rows = []
+    for gamma in YCSB_GAMMAS:
+        for rep_on in (False, True):
+            tag = f"ycsb/zipf{gamma}/rep{'on' if rep_on else 'off'}"
+            store = DataStore.create(YCSB_KEYS, YCSB_P, value_width=8,
+                                     chunk_words=8)
+            sess = Orchestrator(store, engine="tdorch", backend=be,
+                                replication=(YCSB_REPLICATION if rep_on
+                                             else None))
+            origin = TaskBatch.even_origins(YCSB_TPM * YCSB_P, YCSB_P)
+            be.reset_stats()
+            t0 = time.perf_counter()
+            for i, (keys, is_read, operand) in enumerate(make_ycsb_stream(
+                    "C", YCSB_TPM, YCSB_P, YCSB_KEYS, gamma=gamma,
+                    seed=YCSB_SEED, stages=YCSB_STAGES)):
+                ctx = np.concatenate(
+                    [is_read[:, None].astype(np.float64), operand], axis=1)
+                tasks = TaskBatch(contexts=ctx, read_keys=keys,
+                                  write_keys=np.where(is_read, np.int64(-1),
+                                                      keys),
+                                  origin=origin)
+                st.expected[f"{tag}/{i}"] = _sharded_launches(
+                    be, writes=bool((tasks.write_keys >= 0).any()))
+                r = st.run(f"{tag}/{i}", lambda: sess.run_stage(
+                    tasks, _ycsb_muladd, write_back="write"))
+                _check_stats(f"{tag} stage {i}", be.stage_stats[-1],
+                             recount_stats(tasks, r.exec_site, store,
+                                           sess.replicas,
+                                           combine=bool((tasks.write_keys
+                                                         >= 0).any())))
+                _check_ratio(f"{tag} stage {i}", be.stage_stats[-1], r.report)
+            wall = time.perf_counter() - t0
+            pm = sess.report.per_machine()
+            measured = sum(s_.tasks for s_ in be.stage_stats)
+            m_ratio = float(measured.max() / max(measured.mean(), 1e-12))
+            rows.append(dict(cell=tag, work_ratio=pm["work_ratio"],
+                             measured_work_ratio=m_ratio,
+                             h_ratio=pm["h_ratio"], wall_s=wall))
+            log(f"  (f) {tag}: charged work_ratio {pm['work_ratio']:.4f}, "
+                f"measured {m_ratio:.4f}, h_ratio {pm['h_ratio']:.4f}, "
+                f"{YCSB_STAGES} stages in {wall:.3f} s")
+            if gamma == 1.2 and rep_on and pm["work_ratio"] > YCSB_GATE:
+                raise AssertionError(f"{tag}: work_ratio {pm['work_ratio']} "
+                                     f"> {YCSB_GATE} (bench_spmd's gate)")
+    return rows
+
+
+def spmd_path(device: str, K: int, stages, init, ps: dict, *,
+              tpm: int = TASKS_PER_MACHINE, group_tpm: int = GROUP_TPM,
+              moe_tokens: int = MOE_T):
+    """Phase 12: (a) phase 3's stages, (b) the chaos scenario, (c) the MoE
+    dispatch, (d) `embed_skew_aware`, (e) the group mesh and (f)
+    bench_spmd's cells, each on a mesh of one shard a machine. Returns
+    (rows, summary, expected launches by stage); the keyword sizes cut it
+    down for a rehearsal on the CPU."""
+    st = _Stages(device, dict(SPMD_EXPECTED))
+    summary = {"stages": spmd_main_path(device, st, K, stages, init),
+               "chaos": spmd_chaos(device, st, K, init, tpm),
+               "moe": spmd_moe(device, st, ps, moe_tokens),
+               "embed": spmd_embed(device, st, ps),
+               "group": spmd_group(device, st, group_tpm),
+               "ycsb": spmd_ycsb(device, st)}
+    return st.rows, summary, st.expected
+
+
+# ---------------------------------------------------------------------------
 # C2: bf16 prefill_mha once beyond its gate (a diagnostic, not in the default
 # run: `--c2-repeats N`)
 # ---------------------------------------------------------------------------
@@ -4174,7 +4841,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _lib
 
     card = gpu_name_and_power()
-    log(f"[1/11] environment: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/12] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -4187,11 +4854,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/11] kernel parity against the plain PyTorch versions")
+    log("[2/12] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/11] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    log("[3/12] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -4199,7 +4866,7 @@ def main(argv=None) -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/11] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    log("[4/12] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -4218,7 +4885,7 @@ def main(argv=None) -> int:
         f"naive {ps_summary['gate_naive']}")
 
     c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
-    log("[5/11] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    log("[5/12] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -4231,7 +4898,7 @@ def main(argv=None) -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    log("[6/11] kernel times at the paths' shapes")
+    log("[6/12] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -4249,10 +4916,10 @@ def main(argv=None) -> int:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[7/11] device busy share of a stage (torch.profiler)")
+    log("[7/12] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    log("[8/11] engines and plans: stages (a)-(c) under engine='pull', "
+    log("[8/12] engines and plans: stages (a)-(c) under engine='pull', "
         "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
         "bfs_stages through run_plan and the run_stage loop")
     kernels.reset_launches()
@@ -4262,7 +4929,7 @@ def main(argv=None) -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    log(f"[9/11] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    log(f"[9/12] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -4274,7 +4941,7 @@ def main(argv=None) -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
-    log("[10/11] KV store and serve tier: DistributedHashTable(800,000, "
+    log("[10/12] KV store and serve tier: DistributedHashTable(800,000, "
         "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
         "streamed in sync and thread mode, and the MoE / embedding front "
         "doors at granite-moe-3b-a800m's widths")
@@ -4283,7 +4950,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("serving path", kernels.launches(), serve_expected)
 
-    log("[11/11] elasticity at the main path's size: recovery (restart with "
+    log("[11/12] elasticity at the main path's size: recovery (restart with "
         "durable snapshots, shrink), work stealing, bench_elastic's "
         "migration arms over 800,000 keys, a mid-plan kill in run_chain and "
         "the serve tier's elastic counters, backend='torch' vs numpy")
@@ -4291,6 +4958,17 @@ def main(argv=None) -> int:
     el_rows, el_summary, el_expected = elastic_path("cuda", K, stages, init)
     torch.cuda.synchronize()
     _check_path_launches("elastic path", kernels.launches(), el_expected)
+
+    log("[12/12] multi-device execution: backend='torch_spmd' on the "
+        "stacked mesh (one shard a machine) — phase 3's stages at P=16, the "
+        "chaos scenario, the MoE dispatch at granite's widths (ep 8), "
+        "embed_skew_aware on 8 shards, the group mesh of 4 gloo ranks, "
+        "bench_spmd's YCSB cells")
+    kernels.reset_launches()
+    sp_rows, sp_summary, sp_expected = spmd_path("cuda", K, stages, init,
+                                                 ps_data)
+    torch.cuda.synchronize()
+    _check_path_launches("sharded path", kernels.launches(), sp_expected)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4301,7 +4979,8 @@ def main(argv=None) -> int:
          "attention_ssm": {"stages": attn_rows, "resources": resources},
          "engines": engine_rows, "plans": plan_rows, "graph": graph_rows,
          "serve": {"stages": serve_rows, **serve_summary},
-         "elastic": {"stages": el_rows, **el_summary}, "c2": c2},
+         "elastic": {"stages": el_rows, **el_summary},
+         "spmd": {"stages": sp_rows, **sp_summary}, "c2": c2},
         indent=1, default=str))
 
     log(gpu_name_and_power())

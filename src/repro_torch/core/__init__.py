@@ -5,10 +5,12 @@ cost-model-driven `engine="auto"` policy, reusable Orchestrator sessions,
 declarative multi-round `StagePlan`s, hot-chunk replication and the elastic
 subsystem (live chunk migration, Phase-3 work stealing, stage-boundary
 failure recovery). Numerics run on the CUDA card through
-`TorchBackend` (the default backend) or on the host through the float64
-numpy oracle; the cost model is host-side numpy and bit-identical across
+`TorchBackend` (the default backend), over a mesh of one shard a machine
+through `TorchSpmdBackend` (``backend="torch_spmd"``), or on the host
+through the float64 numpy oracle; the cost model is host-side numpy and bit-identical across
 backends."""
-from .backend import NumpyBackend, TorchBackend, make_backend
+from .backend import (NumpyBackend, TorchBackend, TorchSpmdBackend,
+                      make_backend)
 from .comm_forest import CommForest, theory_fanout
 from .config import KWARG_ALIASES, SessionConfig, resolve_session_config
 from .cost import (ELASTIC_PHASES, CostAccumulator, PhaseCost, SessionReport,
@@ -31,7 +33,7 @@ from .replication import (HotChunkReplicator, ReplicaSet, ReplicationConfig,
 from .session import Orchestrator
 
 __all__ = [
-    "NumpyBackend", "TorchBackend", "make_backend",
+    "NumpyBackend", "TorchBackend", "TorchSpmdBackend", "make_backend",
     "CommForest", "theory_fanout",
     "KWARG_ALIASES", "SessionConfig", "resolve_session_config",
     "CostAccumulator", "PhaseCost", "SessionReport", "StageReport",

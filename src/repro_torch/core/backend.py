@@ -20,6 +20,9 @@ words/rounds). This module makes the numeric half pluggable:
   refreshed only at flush points. Values are computed in float32 by default
   and match the oracle within float tolerance; ``dtype="float64"`` matches
   it to round-off.
+* `TorchSpmdBackend` (``"torch_spmd"``) — the same pass over a mesh of
+  one shard a machine (`core/shardexec.py`): each shard holds the chunks
+  its machine homes and runs the tasks the cost model placed there.
 
 The backend-parity contract: per-phase **words and rounds are bit-identical**
 across backends, because every quantity the cost model consumes (execution
@@ -581,13 +584,155 @@ class TorchBackend(NumpyBackend):
         return super().combine_by_key(values, keys, num_keys, merge, order)
 
 
+@register_backend("torch_spmd")
+class TorchSpmdBackend(TorchBackend):
+    """The mesh-sharded execution backend (`core/shardexec.py`), the
+    counterpart of the JAX package's ``"jax_spmd"``.
+
+    Machines become real: one mesh shard per machine, each materializing
+    only the `DataStore` chunks it homes (plus the session's fully
+    replicated chunks) and executing only the tasks the cost model placed
+    on it (`exec_site`). Phase 1 is a per-shard histogram plus a sum over
+    the mesh; Phases 2 and 4 move values and ⊗-combined write-backs through
+    bucketed power-of-two all-to-alls; replicated chunks are read from a
+    shard-local slab and written through by a masked sum.
+
+    The mesh (`shardexec.get_mesh`): without a `torch.distributed` process
+    group, the stacked mesh — all P machines in this process on `device`,
+    which needs no environment variable on the CPU; inside an initialized
+    process group, the group mesh — one machine a rank, the group's world
+    size must be P. `device` defaults to ``"cuda"`` and raises without a
+    card; ``device="cpu"`` runs the plain versions of the kernels.
+
+    The parity contract is `TorchBackend`'s: cost-model inputs are
+    host-computed by the oracle's code (per-phase words/rounds
+    bit-identical), values match the oracle within float tolerance
+    (float64 to round-off). `stage_stats` gathers one `ShardStageStats` a
+    sharded stage — what the mesh measured — and `a2a_bytes` the bytes of
+    the all-to-alls' send buffers.
+    """
+
+    name = "torch_spmd"
+
+    def __init__(self, device=None, dtype: str = "float32",
+                 kernel_backend: str = "auto"):
+        # the sharded Phase 3 runs fused-able lambdas through their padded
+        # form, as the JAX package's sharded program does: per-shard pair
+        # lists are built on the device, not walked by the fused kernel
+        super().__init__(device=device, dtype=dtype,
+                         kernel_backend=kernel_backend)
+        from . import shardexec
+
+        self._sx = shardexec
+        self._mesh = None
+        self.stage_stats: list = []
+        self.a2a_bytes = 0
+
+    def mesh(self, P: int):
+        """The mesh of `P` machines (rebuilt when P or the process group
+        changes); raises when a process group's world size is not P."""
+        m = self._mesh
+        if m is None or m.P != P or m.kind != self._sx.get_mesh_kind():
+            m = self._mesh = self._sx.get_mesh(int(P), self.device)
+        return m
+
+    # -- fail-fast machine-count validation ---------------------------------
+    def validate_machines(self, P: int) -> None:
+        """Raise when the mesh cannot give every machine a shard (called by
+        sessions at construction; `execute` re-checks)."""
+        self.mesh(int(P))
+
+    def reset_stats(self) -> list:
+        out, self.stage_stats = self.stage_stats, []
+        return out
+
+    def prefetch(self, tasks, store) -> None:
+        """Sharded stages lay the batch out per shard from the host copy
+        inside `execute` — there is no whole-batch upload to stage ahead,
+        so this stays a no-op."""
+
+    def sync(self, store=None) -> None:
+        """Wait for the card's queued work (no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- phase 3 (sharded) + fused phase-4 ----------------------------------
+    def execute(self, tasks, store, f: Callable, merge: Optional[MergeOp] = None,
+                want_result: bool = True, exec_site=None,
+                replicas=None) -> Dict[str, Optional[np.ndarray]]:
+        self._stash = None
+        self.mesh(store.P)  # a machine-count failure must not degrade
+        if tasks.n == 0 or id(f) in self._host_lambdas \
+                or store.num_keys >= 2**30:
+            self._flush_if_deferred(store)
+            return execution.execute(tasks, store, f)
+        w_rows, combine, want_update = _combine_eligibility(tasks, merge)
+        self._flush_if_deferred(store)  # slabs materialize from host values
+        try:
+            out = self._sx.run_sharded_stage(
+                self, tasks, store, f, merge, want_result, combine,
+                want_update, exec_site, replicas)
+        except self._sx.ShardStageError as exc:
+            # a lambda the shards cannot run (or update rows of a width
+            # the store cannot take): this function object runs on the
+            # oracle path from now on, where a broken one raises. Kernel,
+            # collective and layout failures are not caught.
+            warnings.warn(f"{self.name} backend: {exc}; this lambda runs on "
+                          "the host numpy path from now on", RuntimeWarning,
+                          stacklevel=2)
+            self._host_lambdas.add(id(f))
+            return execution.execute(tasks, store, f)
+        self.stage_stats.append(out["stats"])
+        host: Dict[str, Optional[np.ndarray]] = {"result": out["result"],
+                                                 "update": out["update"]}
+        # update_width == 0: the lambda returned no "update" — nothing to
+        # combine, and the engine must see None, as from the oracle
+        if combine and out["update_width"] > 0:
+            uniq = np.unique(tasks.write_keys[w_rows])
+            placeholder = np.broadcast_to(
+                np.zeros((), dtype=self._np_dtype),
+                (tasks.n, out["update_width"]))
+            host["update"] = placeholder
+            self._stash = (id(tasks), id(placeholder), placeholder, uniq,
+                           out["new_slabs"], merge.name, out["rep_arrays"],
+                           replicas)
+        return host
+
+    # -- phase 4 ⊙ (owner shards already applied; host copy catches up) ------
+    def apply_writes(self, tasks, store, updates, merge: MergeOp, cost) -> None:
+        if updates is None:
+            return
+        stash, updates = self._take_stash(tasks, updates, merge)
+        if stash is None:
+            self._flush_if_deferred(store)
+            execution.apply_writes(tasks, store, updates, merge, cost)
+            return
+        _, _, _, uniq, new_slabs, _, rep_arrays, replicas = stash
+        if uniq.size == 0:
+            return
+        cost.work(store.home[uniq], 1.0)
+        # the owners already ⊙-applied to their slabs; the authoritative
+        # host copy catches up with one read of exactly the written rows
+        mesh = self.mesh(store.P)
+        rows = self._sx.gather_slab_rows(store, mesh, new_slabs, uniq)
+        self.host_syncs += 1
+        store.write_rows(uniq, rows.astype(store.values.dtype, copy=False))
+        self._sx._pin_slabs(store, mesh, self._np_dtype, new_slabs)
+        if rep_arrays is not None and replicas is not None:
+            self._sx._pin_replicas(store, replicas, mesh, self._np_dtype,
+                                   rep_arrays)
+
+
 def make_backend(spec) -> NumpyBackend:
     """Coerce a user-facing `backend=` spec into a backend instance.
 
     None/"torch" → a `TorchBackend` on the CUDA card (float32; raises
-    without one); "numpy" → the shared float64 oracle; an existing backend
-    instance passes through (shared device caches across sessions, or a
-    ``TorchBackend(device="cpu")``).
+    without one); "torch_spmd" → a `TorchSpmdBackend` on the card (one mesh
+    shard per machine: the stacked mesh in one process, or one rank a
+    machine inside an initialized `torch.distributed` process group);
+    "numpy" → the shared float64 oracle; an existing backend instance passes
+    through (shared device caches across sessions, or
+    ``TorchBackend(device="cpu")`` / ``TorchSpmdBackend(device="cpu")``).
     """
     if spec == "numpy":
         return _NUMPY

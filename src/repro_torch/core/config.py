@@ -38,8 +38,13 @@ class SessionConfig:
                     engine instance (shares its forest/backend caches).
     backend         numeric execution backend: None/"torch" — the PyTorch
                     pipeline on the CUDA card (raises without one);
-                    "numpy" — the float64 oracle; or a backend instance
-                    (e.g. ``TorchBackend(device="cpu")``) to share device
+                    "torch_spmd" — the mesh-sharded pipeline on the card,
+                    one shard a machine (the stacked mesh in one process;
+                    one rank a machine inside an initialized
+                    `torch.distributed` process group, whose world size
+                    must be P); "numpy" — the float64 oracle; or a backend
+                    instance (e.g. ``TorchBackend(device="cpu")``,
+                    ``TorchSpmdBackend(device="cpu")``) to share device
                     caches or pick the device.
     replication     the adaptive hot-chunk subsystem
                     (`core/replication.py`): True / kwargs dict /

@@ -16,18 +16,19 @@ bookkeeping is kept, deprecated, for callers of the old interface.
 
 Tensors live on the CUDA card unless the caller passes CPU tensors (or
 ``device="cpu"`` to `cache_from_replicator`); the Phase-1 counts of
-`embed_skew_aware` run the histogram kernel on the card.
+`embed_skew_aware` run the histogram kernel on the card, summed over a
+`core.shardexec` mesh when one is passed.
 """
 from __future__ import annotations
 
 import warnings
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .replication import decayed_election
-from .torchexec import contention_counts
+from .torchexec import detect_contention
 
 _DEPRECATION = (
     "the standalone EmbedCache bookkeeping ({fn}) is deprecated: use "
@@ -99,29 +100,36 @@ def cache_from_replicator(table, replicator, *, device=None) -> EmbedCache:
 
 
 def embed_skew_aware(table: torch.Tensor, ids: torch.Tensor,
-                     cache: EmbedCache, axis_name: Optional[str] = None
+                     cache: EmbedCache, mesh=None
                      ) -> Tuple[torch.Tensor, EmbedCache, torch.Tensor]:
     """Exact embedding lookup with hot-row caching.
 
     Returns (embeddings (*ids.shape, d), updated cache (histogram
     accumulated), hit_rate). Cache hits read the replicated `hot_rows`,
-    misses gather from `table`. `axis_name` names a device axis to sum the
-    histogram over; only None (one device) is ported."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "embed_skew_aware(axis_name=...) sums the histogram across "
-            "devices, which waits for the multi-device slice of the port; "
-            "pass axis_name=None")
-    flat = ids.reshape(-1)
-    counts = cache.counts + contention_counts(
-        flat.to(torch.int32).contiguous(), cache.counts.shape[0])
-    idx = flat.long()
-    slot = cache.lookup[idx].long()  # (T,) cache slot or -1
+    misses gather from `table`. Results are exact either way — the cache
+    only changes where the bytes come from.
+
+    `mesh` (a `core.shardexec` mesh; the JAX package's `axis_name`): `ids`
+    is (S, ...) — the local shards' ids in its rows — and the histogram is
+    summed over the mesh (`detect_contention`), so the cache's counts are
+    the global demand; the hit rate is per shard, (S,). `table` and the
+    cache are replicated."""
+    d = table.shape[1]
+    if mesh is None:
+        counts = detect_contention(ids, cache.counts.shape[0])
+        per_shard = ids.reshape(1, -1)
+    else:
+        counts = detect_contention(ids, cache.counts.shape[0], mesh)[0]
+        per_shard = ids.reshape(ids.shape[0], -1)
+    idx = per_shard.long()
+    slot = cache.lookup[idx].long()  # cache slot or -1
     hit = slot >= 0
     out = table[idx]
     if cache.hot_rows.shape[0]:
-        out = torch.where(hit[:, None], cache.hot_rows[slot.clamp(min=0)],
+        out = torch.where(hit[..., None], cache.hot_rows[slot.clamp(min=0)],
                           out)
-    hit_rate = hit.to(torch.float32).mean()
-    out = out.reshape(*ids.shape, table.shape[1])
-    return out, cache._replace(counts=counts), hit_rate
+    hit_rate = hit.to(torch.float32).mean(-1)
+    if mesh is None:
+        hit_rate = hit_rate[0]
+    out = out.reshape(*ids.shape, d)
+    return out, cache._replace(counts=cache.counts + counts), hit_rate

@@ -51,7 +51,10 @@ framework may now apply: on the torch backend, `Orchestrator.run_plan`
 opens a plan scope in which write-backs stay device-resident (the host store
 copy is refreshed lazily — always *before* any user callback runs, and once
 at plan exit). Eager PyTorch runs every batch size with the same kernels,
-so nothing is padded to static shapes.
+so nothing is padded to static shapes. The mesh-sharded backend
+(``backend="torch_spmd"``) runs plans too: its owner shards apply each
+stage's write-backs and the host copy catches up every stage, so its plan
+scope never defers.
 """
 from __future__ import annotations
 

@@ -40,8 +40,9 @@ class Orchestrator:
 
     `backend=` selects the numeric execution backend threaded into the
     engine: None/"torch" — the PyTorch pipeline with the CUDA kernels, on
-    the card (the default; raises without one); "numpy" — the float64
-    reference oracle. Also accepts a backend instance, to share device
+    the card (the default; raises without one); "torch_spmd" — the same
+    kernels over a mesh of one shard a machine (`core/shardexec.py`);
+    "numpy" — the float64 reference oracle. Also accepts a backend instance, to share device
     caches across sessions or to run on the CPU
     (``TorchBackend(device="cpu")``). Cost reports are bit-identical across
     backends.
@@ -102,6 +103,11 @@ class Orchestrator:
             and self.elastic.stealer is not None \
             and "stealer" in inspect.signature(
                 self.engine.run_stage).parameters
+        # a backend that maps machines onto mesh shards (torch_spmd) must
+        # fail at construction, not mid-run, when the mesh cannot fit
+        check = getattr(self.backend, "validate_machines", None)
+        if check is not None:
+            check(store.P)
         self._report = SessionReport(store.P)
 
     # ------------------------------------------------------------------

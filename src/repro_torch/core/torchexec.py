@@ -1,6 +1,5 @@
 """Device side of the four phases, on torch tensors (the counterpart of the
-JAX package's `core/jaxexec.py`, limited to what one single-device stage
-needs).
+JAX package's `core/jaxexec.py`).
 
 `core/backend.py`'s `TorchBackend` drives the simulator's numeric pass
 through these: the Phase-1 contention histogram (`kernels.histogram`), the
@@ -8,7 +7,11 @@ Phase-3 gather + lambda, the Phase-4 merge-able segment-combine
 (`kernels.segment_combine`, every merge including the ordered "write"), the
 ragged fused stage (`kernels.stage_fused`), the ⊙-apply onto the
 device-resident store copy, and the DistEdgeMap's per-destination combines
-(`combine_dense`, `sorted_segment_sum`).
+(`combine_dense`, `sorted_segment_sum`). The mesh-sharded stage
+(`core/shardexec.py`) and the SPMD MoE dispatch (`core/spmd.py`) share
+`detect_contention` (the histogram plus a sum over the mesh) and the
+capacity-bounded bucket routing (`bucket_routing`, `scatter_to_buckets`,
+`gather_from_buckets`), which take an optional leading shard dimension.
 
 PyTorch runs eagerly, so nothing here pads to static shapes: writer lists
 hold exactly the writers and `num_segments` is the real segment count. A
@@ -21,6 +24,9 @@ Kernel builds, launches and wrapper checks are never inside it, and a
 device error (out of memory, a kernel fault) passes through it.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -69,6 +75,34 @@ def contention_counts(ids: torch.Tensor, num_bins: int,
     return count_ids(ids.reshape(-1), num_bins, weights=weights)
 
 
+def detect_contention(item_ids: torch.Tensor, num_items: int, mesh=None,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Global reference count per data item (§3.1), the one Phase-1
+    primitive of every realization. With `mesh` None: the histogram of all
+    of `item_ids`, (num_items,). With a mesh (`core.shardexec`): `item_ids`
+    is (S, ...) — shard s's ids in row s — and the result (S, num_items)
+    holds in every row the counts summed over the mesh: one histogram
+    launch over all S shards (shard s's ids offset by s·num_items, ids
+    outside [0, num_items) dropped first), then `mesh.psum`."""
+    if mesh is None:
+        return contention_counts(
+            item_ids.reshape(-1).to(torch.int32).contiguous(), num_items,
+            weights)
+    S = item_ids.shape[0]
+    if S * num_items >= 2**31:
+        raise ValueError(f"{S} shards x {num_items} items exceed the "
+                         "histogram's int32 bins")
+    ids = item_ids.reshape(S, -1)
+    off = torch.arange(S, dtype=torch.int32, device=ids.device)[:, None] \
+        * num_items
+    inside = (ids >= 0) & (ids < num_items)
+    flat = torch.where(inside, ids.to(torch.int32) + off,
+                       torch.full_like(off, -1)).reshape(-1)
+    w = None if weights is None else weights.reshape(-1).contiguous()
+    counts = contention_counts(flat.contiguous(), S * num_items, w)
+    return mesh.psum(counts.view(S, num_items))
+
+
 def select_hot(counts: torch.Tensor, num_hot: int, min_count=1):
     """Top-`num_hot` items by demand, thresholded. Returns (hot_ids (H,),
     rank lookup (E,) with -1 = cold, valid (H,)). Ties break to the lowest
@@ -92,6 +126,114 @@ def stable_argsort(keys: torch.Tensor) -> torch.Tensor:
     """Stable argsort — the same permutation as numpy's stable argsort
     (stability pins the order of equal keys, so the two agree exactly)."""
     return torch.sort(keys, stable=True).indices
+
+
+def sort_by_group(ids: torch.Tensor, num_groups: int):
+    """Stable sort of assignments by group id along the last dimension;
+    returns (order, int32 group sizes (..., num_groups)). An id equal to
+    `num_groups` is the sentinel group: it sorts last and is not counted."""
+    order = torch.sort(ids, dim=-1, stable=True).indices
+    sizes = _bincount_last(ids, num_groups + 1)[..., :num_groups]
+    return order, sizes
+
+
+def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
+    """The inverse of a permutation along the last dimension."""
+    n = order.shape[-1]
+    ar = torch.arange(n, dtype=order.dtype, device=order.device)
+    return torch.empty_like(order).scatter_(-1, order, ar.expand_as(order))
+
+
+def _bincount_last(ids: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """int32 counts of `ids` in [0, num_bins) along the last dimension:
+    bucket sizes of the routing, not a Phase-1 histogram."""
+    ok = (ids >= 0) & (ids < num_bins)
+    out = torch.zeros(ids.shape[:-1] + (num_bins + 1,), dtype=torch.int32,
+                      device=ids.device)
+    idx = torch.where(ok, ids, torch.full_like(ids, num_bins)).long()
+    out.scatter_add_(-1, idx, ok.to(torch.int32))
+    return out[..., :num_bins]
+
+
+# ---------------------------------------------------------------------------
+# capacity-bounded bucket routing (the all-to-all send buffers)
+# ---------------------------------------------------------------------------
+class Routing(NamedTuple):
+    """Per assignment, in sorted order (all (..., n)): the sort `order`,
+    the destination bucket `dest` (num_buckets for inactive ones), the
+    position `pos` in the bucket, and `keep` (active and under capacity)."""
+
+    order: torch.Tensor
+    dest: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+
+
+def bucket_routing(dest: torch.Tensor, num_buckets: int, capacity: int,
+                   active: torch.Tensor) -> Routing:
+    """Stable-sort assignments by destination bucket along the last
+    dimension and give each its slot; slots at or beyond `capacity` are
+    dropped (push-side overflow). Leading dimensions are independent
+    batches (the shards of a stacked mesh)."""
+    key = torch.where(active, dest, torch.full_like(dest, num_buckets))
+    key_sorted, order = torch.sort(key, dim=-1, stable=True)
+    counts = _bincount_last(key_sorted, num_buckets + 1)
+    starts = torch.cumsum(counts, dim=-1, dtype=torch.int32) - counts
+    n = dest.shape[-1]
+    pos = torch.arange(n, dtype=torch.int32, device=dest.device) \
+        - starts.gather(-1, key_sorted.long())
+    keep = (key_sorted < num_buckets) & (pos < capacity)
+    return Routing(order=order, dest=key_sorted, pos=pos, keep=keep)
+
+
+def _bucket_index(routing: Routing, num_buckets: int, capacity: int):
+    """Flat index of each sorted assignment's slot in a
+    (batch..., num_buckets, capacity) buffer (clamped where not kept)."""
+    batch = routing.dest.shape[:-1]
+    base = torch.arange(math.prod(batch), device=routing.dest.device).reshape(
+        batch + (1,)) * (num_buckets * capacity)
+    slot = routing.dest.clamp(max=num_buckets - 1).long() * capacity \
+        + routing.pos.clamp(0, capacity - 1).long()
+    return (base + slot).reshape(-1)
+
+
+def scatter_to_buckets(rows: torch.Tensor, routing: Routing,
+                       num_buckets: int, capacity: int, fill=0):
+    """(..., n, *d) rows -> (..., num_buckets, capacity, *d) send buffer;
+    slots nobody fills hold `fill`."""
+    batch = routing.order.shape[:-1]
+    nd = len(batch)
+    d_shape = rows.shape[nd + 1:]
+    src = torch.take_along_dim(
+        rows, routing.order.reshape(routing.order.shape + (1,) * len(d_shape)),
+        dim=nd)
+    keep = routing.keep.reshape(-1)
+    buf = torch.full((num_buckets * capacity * math.prod(batch),) + d_shape,
+                     fill, dtype=rows.dtype, device=rows.device)
+    idx = _bucket_index(routing, num_buckets, capacity)[keep]
+    buf[idx] = src.reshape((-1,) + d_shape)[keep]
+    return buf.view(batch + (num_buckets, capacity) + d_shape)
+
+
+def gather_from_buckets(buf: torch.Tensor, routing: Routing,
+                        num_assign: int) -> torch.Tensor:
+    """Inverse of `scatter_to_buckets`: (..., B, cap, *d) -> (..., n, *d)
+    in original assignment order (dropped slots read back as zeros)."""
+    batch = routing.order.shape[:-1]
+    nd = len(batch)
+    nbk, cap = buf.shape[nd], buf.shape[nd + 1]
+    d_shape = buf.shape[nd + 2:]
+    if routing.order.shape[-1] != num_assign:
+        raise ValueError(f"routing has {routing.order.shape[-1]} "
+                         f"assignments, not {num_assign}")
+    got = buf.reshape((-1,) + d_shape).index_select(
+        0, _bucket_index(routing, nbk, cap))
+    got = got.masked_fill_(~routing.keep.reshape((-1,) + (1,) * len(d_shape)),
+                           0).view(routing.order.shape + d_shape)
+    inv = inverse_permutation(routing.order)
+    return torch.take_along_dim(
+        got, inv.reshape(inv.shape + (1,) * len(d_shape)), dim=nd)
+
 
 
 # ---------------------------------------------------------------------------

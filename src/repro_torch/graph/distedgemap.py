@@ -119,6 +119,9 @@ def dist_edge_map(
     sess = session if session is not None else session_for(og)
     if backend is not None:
         bk = make_backend(backend)
+        check = getattr(bk, "validate_machines", None)
+        if check is not None:
+            check(og.P)
     elif session is not None:
         bk = session.backend
     else:

@@ -112,8 +112,10 @@ class GraphSession:
 
     `backend=` selects the numeric execution backend for the per-round
     edge-value combine: None/"torch" — the PyTorch pipeline on the CUDA
-    card (the default; raises without one), "numpy" — the float64 oracle,
-    or a backend instance (``TorchBackend(device="cpu")`` for the CPU);
+    card (the default; raises without one), "torch_spmd" (its combines run
+    as the torch backend's; the mesh must fit P), "numpy" — the float64
+    oracle, or a backend instance (``TorchBackend(device="cpu")`` for the
+    CPU);
     cost reports are bit-identical either way. `kernel_backend=` exists for
     the JAX package's spelling only: the port has the one route "auto", and
     any other value raises.
@@ -182,6 +184,9 @@ class GraphSession:
         self.replicator = make_replicator(self.replication, og.vertex_home,
                                           og.P, VALUE_WORDS)
         self.backend = make_backend(self.backend)
+        check = getattr(self.backend, "validate_machines", None)
+        if check is not None:
+            check(og.P)
         self._report = SessionReport(og.P)
         self.stats: List = []
 

@@ -116,7 +116,8 @@ class DistributedHashTable:
 
         `backend=` selects the numeric execution backend: None/"torch" — the
         PyTorch pipeline on the CUDA card (the default; raises without
-        one), "numpy" — the float64 oracle, or a backend instance
+        one), "torch_spmd" — the mesh-sharded pipeline on the card (one
+        shard a machine), "numpy" — the float64 oracle, or a backend instance
         (``TorchBackend(device="cpu")`` for the CPU); sessions are cached
         per backend, and a torch session keeps the table's values on the
         device across batches. `kernel_backend=` exists for the JAX

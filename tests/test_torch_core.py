@@ -225,4 +225,5 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.graph.session", "repro_torch.kvstore.hashtable",
             "repro_torch.kvstore.ycsb", "repro_torch.serve.batching",
             "repro_torch.serve.frontend", "repro_torch.serve.futures",
-            "repro_torch.serve.stats"} <= walked
+            "repro_torch.serve.stats", "repro_torch.core.shardexec",
+            "repro_torch.core.spmd"} <= walked

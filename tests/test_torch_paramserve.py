@@ -599,11 +599,6 @@ def test_entry_points_default_to_cuda():
     _, port = _routers(2)
     _, table = _tables(2)
     x, ti, g = port.zipf_routing(4, seed=0)
-    with pytest.warns(DeprecationWarning):
-        cache = init_cache(torch.zeros((4, 2)), 1)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        embed_skew_aware(torch.zeros((4, 2)), torch.zeros(3, dtype=torch.int64),
-                         cache, axis_name="x")
     if torch.cuda.is_available():  # pragma: no cover - needs the card
         return
     for call in (lambda: port.naive_dispatch(x, ti, g, gemm="torch"),

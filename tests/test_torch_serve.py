@@ -940,7 +940,11 @@ def test_sync_mode_stages_nothing(monkeypatch):
     calls = []
     monkeypatch.setattr(be, "prefetch",
                         lambda tasks, store: calls.append(tasks.n))
-    fe = ht.serve(backend=be, mode="sync", config={"max_batch": 8})
+    # a pinned window, as the other sync tests: on the default 50 µs-2 ms
+    # window a stall of the submitting thread fires an extra deadline batch
+    fe = ht.serve(backend=be, mode="sync",
+                  config={"max_batch": 8, "min_window": 1.0,
+                          "max_window": 1.0})
     keys, is_read, operand = _ycsb_requests(40, 256, 4)
     futs = _submit_kv(fe, keys, is_read, operand)
     fe.close()
