@@ -204,6 +204,21 @@ Phases, each of which raises (non-zero exit) on any failed check:
    and 2.0, replication on and off): charged and measured work_ratio and
    its gate. Launches by stage: K1 once a sharded stage plus the cost
    model's calls, K2 twice a writing stage, K4 twice a grouped SwiGLU.
+13. Language-model serving (`repro_torch.models`, `launch.serve`):
+   zamba2-1.2b and tinyllama-1.1b from `repro_torch.configs` at full width
+   and depth in bf16, random weights from a seed: `generate` of 64 tokens
+   greedily after a 4,096-token prompt, batch 8. Launches exact (zamba2:
+   38 scans and 7 bf16 attention calls a prefill, 7 bf16 decode calls a
+   step; tinyllama: 22 and 22); prefill ms, decode ms a step, tokens/s,
+   peak memory, each kernel's ms inside a prefill and a step, the
+   device's idle share of decode steps, a step's byte bound. Cache
+   consistency: a 3,968-token prefill and 128 teacher-forced steps against
+   a 4,096-token prefill, within LM_CONSISTENCY of max|logits|, with every
+   kernel call of that prefill and of the first step held against its
+   plain version (a miss re-calls both, for C2). Each config at n_layers=2
+   in float32 on the card against float64 on the CPU (logits and caches
+   within LM_F32_REL of max|ref|), and `mamba_ssd`'s final state at
+   (8, 4096, 64, 64) against the plain version.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -211,7 +226,7 @@ name and power limit.
 
 A diagnostic of the open fault C2 (ROADMAP), not in the default run:
 ``--c2-repeats N`` runs phase 5's bf16 prefill_mha stage N times after
-phase 4 and reads every share of its gate, then runs phases 5-12 as
+phase 4 and reads every share of its gate, then runs phases 5-13 as
 always.
 """
 from __future__ import annotations
@@ -1399,10 +1414,8 @@ def moe_gemm_timing(dev, t: dict, launches: int) -> dict:
 # own XLA attention and chunked SSD), driven through their own entry points
 # (`repro_torch.kernels.attention`, `decode_attention`, `mamba_ssd`) at the
 # widths of the configs that use them, read from `repro_torch.configs`. The
-# sequence lengths and batches are the JAX package's shape table
-# (src/repro/launch/specs.py:27-29).
-SPEC_SHAPES = {"prefill_32k": (32_768, 32), "decode_32k": (32_768, 128),
-               "long_500k": (524_288, 1)}
+# sequence lengths and batches are the port's shape table
+# (`repro_torch.launch.specs.SHAPES`, the JAX package's).
 ATTN_DTYPES = ("float32", "bfloat16")  # the configs' compute dtype: bf16
 U32 = 2.0 ** -24     # float32 unit roundoff
 BF16_ROUND = 2.0 ** -8  # relative rounding of a bf16 output (8-bit mantissa)
@@ -1427,13 +1440,14 @@ MATH_SCORE_BYTES = 20e9  # the library's math backend only below this
 def attention_ssm_stages() -> list:
     """The path's five stages, widths from the ported configs."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.specs import SHAPES
 
     z, t, c = (get_config(a) for a in ("zamba2-1.2b", "tinyllama-1.1b",
                                        "command-r-35b"))
     s = z.ssm
-    seq, _ = SPEC_SHAPES["prefill_32k"]
-    long_T, long_B = SPEC_SHAPES["long_500k"]
-    dec_T, dec_B = SPEC_SHAPES["decode_32k"]
+    seq = SHAPES["prefill_32k"]["seq"]
+    long_T, long_B = SHAPES["long_500k"]["seq"], SHAPES["long_500k"]["batch"]
+    dec_T, dec_B = SHAPES["decode_32k"]["seq"], SHAPES["decode_32k"]["batch"]
     return [
         dict(tag="ssd", kernel="mamba_scan", B=2, S=seq,
              nh=s.expand * z.d_model // s.head_dim, hd=s.head_dim,
@@ -2234,7 +2248,8 @@ def timing_phase(dev, K, stages, init, launches, ps: dict,
 # ---------------------------------------------------------------------------
 # phase 7: how busy the card is during a stage
 # ---------------------------------------------------------------------------
-_OWN_KERNELS = ("hist_", "seg_combine", "write_gather", "fused_reduce")
+_OWN_KERNELS = ("hist_", "seg_combine", "write_gather", "fused_reduce",
+                "fa_sm90", "fa_tf32", "fd_", "ssd_")
 
 
 def device_busy(name: str, run) -> dict:
@@ -4734,6 +4749,572 @@ def spmd_path(device: str, K: int, stages, init, ps: dict, *,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the language-model serving path
+# ---------------------------------------------------------------------------
+# Two configs of the repo at full width and depth, in bf16 with random
+# weights from a seeded generator, served through `repro_torch.launch.serve.
+# generate`: zamba2-1.2b (38 Mamba2 layers through B7 at prefill, one shared
+# attention block applied 7 times through B5 / B6) and tinyllama-1.1b (22
+# GQA layers through B5 / B6).
+LM_ARCHS = ("zamba2-1.2b", "tinyllama-1.1b")
+LM_BATCH = 8
+LM_PROMPT = 4096
+LM_GEN = 64
+LM_SEED = 41
+LM_SPLIT = 3968  # check 2: prefill this many (31 chunks), decode the rest
+LM_TIMED_STEPS = 32  # decode steps timed one by one (the median is kept)
+LM_BUSY_STEPS = 4  # decode steps under torch.profiler
+# Check 2's gate, as a share of max|logits|, set before the first chip run:
+# the logits are bf16 products (one rounding: 2^-8 of |logit|), and every
+# layer rounds its output to bf16 in both paths, at values whose float32
+# sums differ in order (a 4,096-row GEMM against an 8-row one, B5 against
+# B6, the chunked scan against the recurrence). On the CPU, with the plain
+# versions, bf16 models of 12 layers at width 512 (zamba2's and
+# tinyllama's patterns, 256-token prefill + 128 decode steps) landed at
+# 0.0105 and 0.0108 of max|logits| (`Model` in bf16, this check's
+# arithmetic); depth 22-45 adds √(45/12) ≈ 1.9x as independent roundings
+# would, so about 0.02. The gate is 0.05 (six bf16 ulps of the largest
+# logit). The logits alone cannot see a cache fault: random weights spread
+# attention over thousands of keys, so one key misplaced or one rotation
+# off moves them by about as much as the bf16 roundings do, and a lost SSM
+# state has decayed within the 128 steps. So check 2 also holds the caches
+# to the same gate: the split prefill's against `forward`'s states on its
+# tokens (a state not stored), and the k/v after the steps against the
+# long prefill's (a slot or a rotation wrong). Each fault of LM_FAULTS is
+# planted and must miss.
+LM_CONSISTENCY = 0.05
+# planted faults (check 2): k/v written one slot early (the new slot left
+# empty), one Mamba layer's prefill state zeroed, decode rotated one
+# position too far
+LM_FAULTS = ("slot", "state", "rope")
+# check 3: full width at n_layers=2 in float32 on the card against float64
+# on the CPU (plain versions), every logit and cache tensor within
+# LM_F32_REL·max|ref|. On the CPU the float32 model lands within 8e-6 of
+# max|ref| (k caches: float32 rotary angles at positions up to 264), so
+# 1e-4 holds the card's float32 paths (full-float32 GEMMs, 3xTF32 B5 and
+# B7, SIMT float32 B6) with a margin of 12x.
+LM_F32 = dict(n_layers=2, batch=2, prompt=256, steps=8)
+LM_F32_REL = 1e-4
+# check 4: the final state of `mamba_ssd` at zamba2's prefill shape
+LM_STATE = dict(kernel="mamba_scan", B=LM_BATCH, S=LM_PROMPT, nh=64, hd=64,
+                ds=64, chunk=128)
+_LM_ENTRIES = {"attention": "flash_attention", "decode_attention":
+               "flash_decode", "mamba_ssd": "mamba_scan"}
+
+
+def lm_launches(cfg, prefills: int = 1, steps: int = 0) -> dict:
+    """Launches of `prefills` prefills and `steps` decode steps of a model:
+    one attention kernel a layer (zamba2: a shared-block application) at
+    prefill, one decode kernel a layer a step, one scan a Mamba layer at
+    prefill; the bf16 kernels in bf16, the float32 ones in float32. The
+    Mamba decode step is plain torch."""
+    dt = cfg.compute_dtype
+    n_attn = (-(-cfg.n_layers // cfg.shared_attn_every)
+              if cfg.pattern == "zamba2" else cfg.n_layers)
+    kw = {launched_kernel("flash_attention", dt): prefills * n_attn,
+          launched_kernel("flash_decode", dt): steps * n_attn}
+    if cfg.pattern == "zamba2":
+        kw["mamba_scan"] = prefills * cfg.n_layers
+    return _launch(**kw)
+
+
+class _KernelHook:
+    """Route the model stack's three kernel entry points (it calls them
+    through the `repro_torch.kernels` module) through `wrap(entry, fn)`
+    inside a `with` block; the wrapped calls still launch and count."""
+
+    def __init__(self, wrap):
+        self.wrap = wrap
+
+    def __enter__(self):
+        from repro_torch import kernels
+
+        self.saved = {n: getattr(kernels, n) for n in _LM_ENTRIES}
+        for n, fn in self.saved.items():
+            setattr(kernels, n, self.wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch import kernels
+
+        for n, fn in self.saved.items():
+            setattr(kernels, n, fn)
+        return False
+
+
+def _event_times(store: dict):
+    """A hook that brackets each kernel call with CUDA events into
+    store[entry] (device time between them: the call's kernels, and any
+    wait for the host's launch)."""
+    import torch
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            store.setdefault(name, []).append((s, e))
+            return out
+        return call
+    return wrap
+
+
+def _slot_fault(name, fn):
+    """A hook that plants the "slot" fault: before each decode call, the
+    k/v just written at slot length-1 move to slot length-2 and the new
+    slot is left zero, as if the cache were written one slot early."""
+    def call(*a, **kw):
+        if name == "decode_attention":
+            n = kw["length"]
+            for c in a[1:3]:
+                c[:, n - 2] = c[:, n - 1]
+                c[:, n - 1] = 0
+        return fn(*a, **kw)
+    return call
+
+
+def _ssd_check(inputs, chunk: int, y, h, name: str) -> tuple:
+    """A scan's output y and final state h against the plain version on
+    the same inputs (float64 for float32 inputs, float32 for bf16, plus the
+    output's bf16 rounding), within phase 5's SSD gate: (SSD_REL +
+    8·u32·max|l|)·Σ|terms| + 1e-6, Σ|terms| the plain version on |x|,
+    |B|, |C|."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
+
+    x, dt, A, Bc, Cc = inputs
+    up = (lambda t: t.double()) if x.dtype == torch.float32 else \
+        (lambda t: t.float())
+    c = min(chunk, x.shape[1])
+    max_l = float((dt.double() * A.double()).reshape(
+        x.shape[0], -1, c, x.shape[2]).cumsum(2).abs().max().item())
+    rel = SSD_REL + 8 * U32 * max_l
+    want_y, want_h = ssd_scan_ref(up(x), dt, A, up(Bc), up(Cc), chunk=chunk,
+                                  return_state=True)
+    mag_y, mag_h = ssd_scan_ref(up(x.abs()), dt, A, up(Bc.abs()),
+                                up(Cc.abs()), chunk=chunk, return_state=True)
+    bf16 = BF16_ROUND if x.dtype == torch.bfloat16 else 0.0
+    out = []
+    for got, want, mag, what in ((y, want_y, mag_y, "y"),
+                                 (h, want_h, mag_h, "final state")):
+        allowed = rel * mag.double() + 1e-6 + bf16 * want.double().abs()
+        out.append(_within(got, want, allowed, f"{name}: {what}"))
+        del allowed
+    del want_y, want_h, mag_y, mag_h
+    torch.cuda.empty_cache()
+    return tuple(out)
+
+
+def _value_checks(rows: list):
+    """A hook that holds every kernel call against its plain version on the
+    same inputs, at phase 5's gates (attention and decode through
+    `check_against_plain`; the scan's y and final state through
+    `_ssd_check`). On a miss it calls the kernel and the plain version
+    again on the same inputs and says which one moved (as phase 5 does,
+    for the open fault C2), then raises."""
+    import torch
+
+    counts = {}
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            i = counts[name] = counts.get(name, 0) + 1
+            tag = f"{name} call {i}"
+            dtype = "bfloat16" if a[0].dtype == torch.bfloat16 else "float32"
+            if name == "mamba_ssd":
+                st = dict(kernel="mamba_scan", chunk=kw["chunk"])
+                inputs = a
+            elif name == "attention":
+                st = dict(kernel="flash_attention",
+                          causal=kw.get("causal", True))
+                inputs = a
+            else:
+                st = dict(kernel="flash_decode")
+                inputs = (*a, kw["length"])
+            try:
+                if name == "mamba_ssd":
+                    (e, share), (e_h, share_h) = _ssd_check(
+                        inputs, kw["chunk"], out[0], out[1], tag)
+                    e, share = max(e, e_h), max(share, share_h)
+                else:
+                    e, share = check_against_plain(st, inputs, out, dtype,
+                                                   tag)
+            except AssertionError as exc:
+                again = fn(*a, **kw)
+                up = (lambda t: t.double()) if dtype == "float32" else \
+                    (lambda t: t.float())
+                plain = [_plain_call(st, inputs, up) for _ in range(2)]
+                first = out[0] if name == "mamba_ssd" else out
+                again = again[0] if name == "mamba_ssd" else again
+                plain = [p[0] if isinstance(p, tuple) else p for p in plain]
+                raise AssertionError(
+                    f"{exc}; a second kernel call is "
+                    f"{'' if torch.equal(again, first) else 'not '}"
+                    "identical to the first, two plain calls are "
+                    f"{'' if torch.equal(*plain) else 'not '}identical"
+                ) from exc
+            rows.append(dict(call=tag, entry=name,
+                             shape=[tuple(t.shape) for t in a],
+                             length=kw.get("length"), dtype=dtype,
+                             max_abs_err=e, share_of_tolerance=share))
+            return out
+        return call
+    return wrap
+
+
+def _lm_step_bytes(model, batch: int, length: int) -> int:
+    """Bytes a decode step must move at a cache of `length` positions: the
+    weights once (of an untied embedding only the batch's rows), the valid
+    k/v of every attention layer read, the SSM and conv states read and
+    written, the float32 logits written."""
+    cfg = model.cfg
+    e = model.embed.element_size()
+    w = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        w -= model.embed.numel() * e - batch * cfg.d_model * e
+    n_attn = (model.n_apps if cfg.pattern == "zamba2" else cfg.n_layers)
+    kv = n_attn * 2 * batch * length * cfg.n_kv_heads * cfg.head_dim * e
+    states = 0
+    if cfg.pattern == "zamba2":
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        states = cfg.n_layers * batch * 2 * (
+            (d_in // s.head_dim) * s.head_dim * s.d_state * 4
+            + (s.d_conv - 1) * (d_in + 2 * s.d_state) * e)
+    return w + kv + states + batch * cfg.vocab_size * 4
+
+
+def _cache_leaves(c) -> list:
+    """(name, stacked tensor) of a model's caches."""
+    if isinstance(c, dict):
+        return [("mamba.conv", c["mamba"].conv),
+                ("mamba.ssm", c["mamba"].ssm), ("attn.k", c["attn"][0]),
+                ("attn.v", c["attn"][1])]
+    return [("attn.k", c[0]), ("attn.v", c[1])]
+
+
+def _kv_prefix(name: str, t, n: int):
+    """A cache tensor, its k/v buffers cut to their first n positions."""
+    return t[:, :, :n] if name.endswith((".k", ".v")) else t
+
+
+def _share(got, want) -> float:
+    """max|got - want| as a share of max|want|."""
+    want = want.float()
+    return float(((got.float() - want).abs().max()
+                  / want.abs().max()).item())
+
+
+def lm_consistency(model, prompts, refs, fault=None) -> dict:
+    """Check 2's readings, each a share of its reference's max|·|: the
+    caches of an LM_SPLIT-token prefill (into buffers of generate's length)
+    against `forward`'s states on those tokens ("prefill_caches"; every
+    tensor), then the rest of `prompts` decoded teacher-forced: the last
+    step's logits against an LM_PROMPT-token prefill's last logits
+    ("logits"), and the k/v caches after the steps against that prefill's
+    ("decode_caches"). `refs` = (forward's states on the first LM_SPLIT
+    tokens, the prefill's logits, its caches). `fault` plants one of
+    LM_FAULTS."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import Model
+
+    split_states, want_logits, want_caches = refs
+    _, caches = model.prefill(tokens=prompts[:, :LM_SPLIT],
+                              max_len=LM_PROMPT + LM_GEN)
+    if fault == "state":  # the middle Mamba layer's prefill state lost
+        caches["mamba"].ssm[model.cfg.n_layers // 2].zero_()
+    out = {"prefill_caches": max(
+        _share(_kv_prefix(n, got, LM_SPLIT), want)
+        for (n, got), (_, want) in zip(_cache_leaves(caches),
+                                       _cache_leaves(split_states)))}
+    if fault == "rope":
+        model._default_positions = (
+            lambda b, s, offset=0:
+            Model._default_positions(model, b, s, offset + 1))
+    try:
+        with (_KernelHook(_slot_fault) if fault == "slot"
+              else contextlib.nullcontext()):
+            for i in range(LM_SPLIT, LM_PROMPT):
+                step, caches = model.decode_step(
+                    caches, tokens=prompts[:, i:i + 1], cache_pos=i)
+    finally:
+        model.__dict__.pop("_default_positions", None)
+    if not bool(torch.isfinite(step).all()):
+        raise AssertionError(f"{model.cfg.name}: non-finite decode logits")
+    out["logits"] = _share(step, want_logits)
+    out["decode_caches"] = max(
+        _share(got, want) for (n, got), (_, want) in zip(
+            _cache_leaves(caches), _cache_leaves(want_caches))
+        if n.endswith((".k", ".v")))
+    return out
+
+
+def lm_serve(dev, cfg) -> dict:
+    """One config through the serving path, batch LM_BATCH. (1) `generate`
+    of LM_GEN tokens greedily after an LM_PROMPT-token prefill — the main
+    path: its launches must be `lm_launches(cfg, 1, LM_GEN)` exactly. Then:
+    prefill ms, decode ms a step (median of LM_TIMED_STEPS), each kernel's
+    ms inside a prefill and a step (CUDA events), the idle share of
+    LM_BUSY_STEPS steps (torch.profiler), the step's byte bound. (2)
+    `generate` again with every kernel call held against its plain version
+    (its prefill and all its decode steps, at the main path's shapes). (3)
+    Cache consistency: every step of `_teacher_forced` against `forward`'s
+    logits at its position, within LM_CONSISTENCY of max|logits|; then
+    each of LM_FAULTS that the pattern has, planted, must miss that gate."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model
+
+    batch, prompt, gen = LM_BATCH, LM_PROMPT, LM_GEN
+    model = Model(cfg, device=dev, seed=LM_SEED)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=g,
+                            device=dev, dtype=torch.int32)
+    row = dict(arch=cfg.name, batch=batch, prompt=prompt, gen=gen,
+               params=model.param_count(), dtype=cfg.compute_dtype)
+
+    # (1) the main path, counted
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    seqs = generate(model, prompts, gen)
+    torch.cuda.synchronize(dev)
+    row["generate_s"] = time.perf_counter() - t0
+    ran = kernels.launches()
+    want = lm_launches(cfg, 1, gen)
+    row["launches"] = {k: v for k, v in ran.items() if v}
+    if ran != want:
+        raise AssertionError(f"{cfg.name}: generate launched {ran}, "
+                             f"expected {want}")
+    if seqs.shape != (batch, prompt + gen) or not torch.equal(
+            seqs[:, :prompt], prompts) or int(seqs.min()) < 0 or \
+            int(seqs.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: malformed generation "
+                             f"{tuple(seqs.shape)}")
+    row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    row["tokens_per_s"] = batch * gen / row["generate_s"]
+
+    # timings on the card's clock: a prefill, then decode steps one by one
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(tokens=prompts, max_len=prompt + gen)
+    torch.cuda.synchronize(dev)
+    row["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    if logits.shape != (batch, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name}: malformed prefill logits")
+    step_ms = []
+    for i in range(LM_TIMED_STEPS):
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        t0 = time.perf_counter()
+        logits, caches = model.decode_step(caches, tokens=tok,
+                                           cache_pos=prompt + i)
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    row["decode_step_ms"] = float(np.median(step_ms))
+    row["decode_step_ms_all"] = step_ms
+    row["decode_tokens_per_s"] = batch / row["decode_step_ms"] * 1e3
+    pos = prompt + LM_TIMED_STEPS
+    pre, stp = {}, {}
+    with _KernelHook(_event_times(pre)):
+        _, c2 = model.prefill(tokens=prompts, max_len=prompt + gen)
+    with _KernelHook(_event_times(stp)):
+        model.decode_step(c2, tokens=seqs[:, prompt:prompt + 1],
+                          cache_pos=prompt)
+    torch.cuda.synchronize(dev)
+    del c2
+    row["kernel_ms"] = {
+        f"{launched_kernel(_LM_ENTRIES[n], cfg.compute_dtype)} in a "
+        f"{ph}": sum(s.elapsed_time(e) for s, e in v)
+        for ph, times in (("prefill", pre), ("step", stp))
+        for n, v in times.items()}
+
+    def steps():
+        nonlocal logits, caches
+        for j in range(LM_BUSY_STEPS):
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            logits, caches = model.decode_step(
+                caches, tokens=tok, cache_pos=pos + j)
+    row["decode_busy"] = device_busy(f"{cfg.name} decode", steps)
+    length = prompt + (gen + 1) // 2  # the mean cache length of a step
+    row["step_bytes"] = _lm_step_bytes(model, batch, length)
+    row["step_bound_ms"] = row["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    del caches, logits
+
+    # (2) the main path again, every kernel call against its plain version
+    checks = []
+    with _KernelHook(_value_checks(checks)):
+        generate(model, prompts, gen)
+    row["kernel_checks"] = checks
+
+    # (3) cache consistency, then the planted faults
+    _, split_states, _ = model.forward(tokens=prompts[:, :LM_SPLIT])
+    refs = (split_states,) + model.prefill(tokens=prompts,
+                                           max_len=prompt + gen)
+    got = lm_consistency(model, prompts, refs)
+    row["consistency"] = dict(split=LM_SPLIT, steps=prompt - LM_SPLIT,
+                              gate=LM_CONSISTENCY, **got)
+    if not max(got.values()) <= LM_CONSISTENCY:
+        raise AssertionError(
+            f"{cfg.name}: a {LM_SPLIT}-token prefill and "
+            f"{prompt - LM_SPLIT} teacher-forced steps against a "
+            f"{prompt}-token prefill read {got} of max|·| (gate "
+            f"{LM_CONSISTENCY})")
+    faults = {}
+    for f in LM_FAULTS:
+        if f == "state" and cfg.pattern != "zamba2":
+            continue
+        faults[f] = r = lm_consistency(model, prompts, refs, f)
+        if not max(r.values()) > LM_CONSISTENCY:
+            raise AssertionError(
+                f"{cfg.name}: the planted {f!r} fault reads {r} of max|·|, "
+                f"inside the gate {LM_CONSISTENCY}: check 2 cannot see it")
+    row["faults"] = faults
+    del model, refs, split_states
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_f32_check(dev, arch: str) -> dict:
+    """Check 3: `arch` at full width with LM_F32["n_layers"] layers in
+    float32 on the card against the same weights in float64 on the CPU
+    (the plain versions): a prefill and decode steps, every logit and
+    every cache tensor within LM_F32_REL of its max|ref|. The float32
+    kernels launch (3xTF32 B5 and B7, SIMT B6), as `lm_launches` counts."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    n_layers, batch, prompt, steps = (LM_F32[k] for k in (
+        "n_layers", "batch", "prompt", "steps"))
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              param_dtype="float32", compute_dtype="float32")
+    model = Model(cfg, device=dev, seed=LM_SEED)
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+    ref.cfg = dataclasses.replace(cfg, param_dtype="float64",
+                                  compute_dtype="float64")
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
+                         generator=torch.Generator().manual_seed(LM_SEED),
+                         dtype=torch.int32)
+
+    def run(m, t):
+        logits, caches = m.prefill(tokens=t[:, :prompt],
+                                   max_len=prompt + steps)
+        out = [logits]
+        for i in range(steps):
+            logits, caches = m.decode_step(
+                caches, tokens=t[:, prompt + i:prompt + i + 1],
+                cache_pos=prompt + i)
+            out.append(logits)
+        return torch.cat(out, dim=1), caches
+
+    kernels.reset_launches()
+    got, got_c = run(model, toks.to(dev))
+    torch.cuda.synchronize(dev)
+    ran = kernels.launches()
+    want_launch = lm_launches(cfg, 1, steps)
+    if ran != want_launch:
+        raise AssertionError(f"{arch} float32: launched {ran}, expected "
+                             f"{want_launch}")
+    want, want_c = run(ref, toks)
+    shares = {}
+    for name, a, b in [("logits", got, want)] + [
+            (n, a, b) for (n, a), (_, b) in zip(_cache_leaves(got_c),
+                                                _cache_leaves(want_c))]:
+        b = b.double()
+        top = float(b.abs().max().item())
+        err, share = _within(a.cpu(), b, torch.full_like(
+            b, LM_F32_REL * top), f"{arch} float32 {name}")
+        shares[name] = dict(max_abs_err=err, share=share, max_abs_ref=top)
+    del model, ref, got_c, want_c
+    torch.cuda.empty_cache()
+    return dict(arch=arch, n_layers=n_layers, batch=batch, prompt=prompt,
+                steps=steps, launches={k: v for k, v in ran.items() if v},
+                shares=shares)
+
+
+def lm_final_state(dev, st: dict = LM_STATE) -> dict:
+    """Check 4: `mamba_ssd(return_state=True)` at zamba2's prefill shape in
+    float32 (the model's route) against the plain version: y and the final
+    state."""
+    from repro_torch.kernels import mamba_ssd
+
+    inputs = stage_inputs(st, "float32", dev, SEED + 300)
+    y, h = mamba_ssd(*inputs, chunk=st["chunk"], return_state=True)
+    (e_y, s_y), (e_h, s_h) = _ssd_check(inputs, st["chunk"], y, h,
+                                        "final state check")
+    return dict(shape=_stage_shape(st, "float32"), y_err=e_y, y_share=s_y,
+                state_err=e_h, state_share=s_h)
+
+
+def lm_path(dev) -> dict:
+    """Phase 13: `lm_serve` on each of LM_ARCHS (full width and depth,
+    bf16), check 3 on each, check 4."""
+    from repro_torch.configs import get_config
+
+    rows = []
+    for a in LM_ARCHS:
+        r = lm_serve(dev, get_config(a))
+        rows.append(r)
+        log(f"  {r['arch']} (bf16, {r['params']:,} parameters): batch "
+            f"{r['batch']}, prompt {r['prompt']}, generate {r['gen']} in "
+            f"{r['generate_s']:.3f} s ({r['tokens_per_s']:.1f} tokens/s); "
+            f"launches {r['launches']}; prefill {r['prefill_ms']:.2f} ms, "
+            f"decode step {r['decode_step_ms']:.3f} ms (median; "
+            f"{r['decode_tokens_per_s']:.1f} tokens/s), byte bound "
+            f"{r['step_bound_ms']:.3f} ms ({r['step_bytes'] / 1e9:.3f} GB); "
+            f"peak {r['peak_bytes'] / 1e9:.3f} GB; kernels "
+            f"{ {k: round(v, 4) for k, v in r['kernel_ms'].items()} } ms; "
+            f"decode idle {r['decode_busy']['idle_share']:.4f}")
+        worst = {}
+        for k in r["kernel_checks"]:
+            n, s = k["entry"], k["share_of_tolerance"]
+            worst[n] = (worst.get(n, (0, 0))[0] + 1,
+                        max(worst.get(n, (0, 0))[1], s))
+        lengths = [k["length"] for k in r["kernel_checks"] if k["length"]]
+        log(f"  {r['arch']}: generate's kernel calls against their plain "
+            f"versions (calls, worst share of the gate): "
+            f"{ {n: (c, round(s, 4)) for n, (c, s) in worst.items()} }; "
+            f"decode lengths {min(lengths)}-{max(lengths)}")
+        c, keys = r["consistency"], ("prefill_caches", "logits",
+                                     "decode_caches")
+        log(f"  {r['arch']}: cache consistency ({c['split']} + "
+            f"{c['steps']} teacher-forced steps vs a {r['prompt']}-token "
+            f"prefill), shares of max|·| (gate {c['gate']}): "
+            f"{ {k: round(c[k], 6) for k in keys} }; planted faults read "
+            + "; ".join(f"{f} { {k: round(v[k], 6) for k in keys} }"
+                        for f, v in r["faults"].items()))
+    f32 = []
+    for a in LM_ARCHS:
+        f = lm_f32_check(dev, a)
+        f32.append(f)
+        log(f"  {a} float32, {f['n_layers']} layers, prompt {f['prompt']} + "
+            f"{f['steps']} steps vs float64 on the CPU: launches "
+            f"{f['launches']}; shares of {LM_F32_REL}·max|ref| "
+            f"{ {k: round(v['share'], 4) for k, v in f['shares'].items()} }")
+    state = lm_final_state(dev)
+    log(f"  final state of mamba_ssd at {state['shape']}: y "
+        f"{state['y_share']:.4g}, state {state['state_share']:.4g} of the "
+        "SSD gate")
+    return dict(serve=rows, float32=f32, final_state=state)
+
+
+# ---------------------------------------------------------------------------
 # C2: bf16 prefill_mha once beyond its gate (a diagnostic, not in the default
 # run: `--c2-repeats N`)
 # ---------------------------------------------------------------------------
@@ -4841,7 +5422,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _lib
 
     card = gpu_name_and_power()
-    log(f"[1/12] environment: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/13] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -4854,11 +5435,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/12] kernel parity against the plain PyTorch versions")
+    log("[2/13] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/12] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    log("[3/13] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -4866,7 +5447,7 @@ def main(argv=None) -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/12] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    log("[4/13] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -4885,7 +5466,7 @@ def main(argv=None) -> int:
         f"naive {ps_summary['gate_naive']}")
 
     c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
-    log("[5/12] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    log("[5/13] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -4898,7 +5479,7 @@ def main(argv=None) -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    log("[6/12] kernel times at the paths' shapes")
+    log("[6/13] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -4916,10 +5497,10 @@ def main(argv=None) -> int:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[7/12] device busy share of a stage (torch.profiler)")
+    log("[7/13] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    log("[8/12] engines and plans: stages (a)-(c) under engine='pull', "
+    log("[8/13] engines and plans: stages (a)-(c) under engine='pull', "
         "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
         "bfs_stages through run_plan and the run_stage loop")
     kernels.reset_launches()
@@ -4929,7 +5510,7 @@ def main(argv=None) -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    log(f"[9/12] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    log(f"[9/13] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -4941,7 +5522,7 @@ def main(argv=None) -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
-    log("[10/12] KV store and serve tier: DistributedHashTable(800,000, "
+    log("[10/13] KV store and serve tier: DistributedHashTable(800,000, "
         "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
         "streamed in sync and thread mode, and the MoE / embedding front "
         "doors at granite-moe-3b-a800m's widths")
@@ -4950,7 +5531,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("serving path", kernels.launches(), serve_expected)
 
-    log("[11/12] elasticity at the main path's size: recovery (restart with "
+    log("[11/13] elasticity at the main path's size: recovery (restart with "
         "durable snapshots, shrink), work stealing, bench_elastic's "
         "migration arms over 800,000 keys, a mid-plan kill in run_chain and "
         "the serve tier's elastic counters, backend='torch' vs numpy")
@@ -4959,7 +5540,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("elastic path", kernels.launches(), el_expected)
 
-    log("[12/12] multi-device execution: backend='torch_spmd' on the "
+    log("[12/13] multi-device execution: backend='torch_spmd' on the "
         "stacked mesh (one shard a machine) — phase 3's stages at P=16, the "
         "chaos scenario, the MoE dispatch at granite's widths (ep 8), "
         "embed_skew_aware on 8 shards, the group mesh of 4 gloo ranks, "
@@ -4969,6 +5550,29 @@ def main(argv=None) -> int:
                                                  ps_data)
     torch.cuda.synchronize()
     _check_path_launches("sharded path", kernels.launches(), sp_expected)
+
+    log(f"[13/13] language-model serving: {', '.join(LM_ARCHS)} at full "
+        f"width and depth in bf16 (random weights), batch {LM_BATCH}, a "
+        f"{LM_PROMPT}-token prompt, {LM_GEN} tokens generated greedily; "
+        "cache consistency, float32 against float64, the scan's final "
+        "state")
+    t0 = time.perf_counter()
+    lm = lm_path(dev)
+    lm["wall_s"] = time.perf_counter() - t0
+    log(f"  phase 13 took {lm['wall_s']:.1f} s")
+    for r in rows:  # the model path's launches, times and worst errors
+        n = sum(s["launches"].get(r["name"], 0) for s in lm["serve"])
+        if not n:
+            continue
+        r["launches_model_path"] = n
+        r["model_path_ms"] = {s["arch"]: {
+            k: v for k, v in s["kernel_ms"].items()
+            if k.startswith(r["name"] + " ")} for s in lm["serve"]}
+        entry = next(e for e, fam in _LM_ENTRIES.items()
+                     if r["name"] == launched_kernel(fam, "bfloat16"))
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            k["max_abs_err"] for s in lm["serve"] for k in s["kernel_checks"]
+            if k["call"].startswith(entry + " ")])
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4980,7 +5584,7 @@ def main(argv=None) -> int:
          "engines": engine_rows, "plans": plan_rows, "graph": graph_rows,
          "serve": {"stages": serve_rows, **serve_summary},
          "elastic": {"stages": el_rows, **el_summary},
-         "spmd": {"stages": sp_rows, **sp_summary}, "c2": c2},
+         "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm, "c2": c2},
         indent=1, default=str))
 
     log(gpu_name_and_power())

@@ -34,7 +34,9 @@
 // (ii)  ssd_state_pass: per (b, head), in chunk order, in parallel over the
 //       hd·ds elements (4 a thread), h_k = exp(l_end,k)·h_{k−1} + s_k in
 //       float32, overwriting s_k with h_{k−1}, the state entering chunk k.
-//       Loads run eight chunks ahead of the dependent multiply-adds.
+//       Loads run eight chunks ahead of the dependent multiply-adds. The
+//       state after the last chunk (what a model's decode starts from)
+//       goes to `final_state` when the caller asks for it.
 // (iii) ssd_outputs: in parallel over (b, chunk, heads), C·Bᵀ once per
 //       block, shared by its heads; per head M = tril(C·Bᵀ ∘ exp(l_t − l_s)
 //       ∘ dt_s), then y = M·x + exp(l_t)·C·h_{k−1}ᵀ. C·Bᵀ and M are kept
@@ -494,7 +496,7 @@ ssd_states(const T* __restrict__ x, const float* __restrict__ dt,
 template <int kVec>
 __global__ void __launch_bounds__(kStateThreads)
 ssd_state_pass(float* __restrict__ states, const float* __restrict__ l,
-               int nh, int NC, int hdds) {
+               float* __restrict__ final_state, int nh, int NC, int hdds) {
   using V = std::conditional_t<kVec == 4, float4, float>;
   const int e = (blockIdx.x * kStateThreads + threadIdx.x) * kVec;
   if (e >= hdds) return;
@@ -535,6 +537,10 @@ ssd_state_pass(float* __restrict__ states, const float* __restrict__ l,
         }
       }
     }
+  }
+  if (final_state != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) final_state[bh * hdds + e + i] = h[i];
   }
 }
 
@@ -862,7 +868,8 @@ bool aligned16(const void* p) {
 template <typename T, bool kAsync>
 cudaError_t run(const T* x, const float* dt, const float* A, const T* Bc,
                 const T* Cc, int B, int S, int nh, int hd, int ds, int chunk,
-                float* states, float* l, T* y, cudaStream_t stream) {
+                float* states, float* l, float* final_state, T* y,
+                cudaStream_t stream) {
   const int NC = (S + chunk - 1) / chunk;
   const int groups = (nh + 31) / 32;  // a block takes up to 32 heads
   const int hpb = (nh + groups - 1) / groups;
@@ -882,11 +889,13 @@ cudaError_t run(const T* x, const float* dt, const float* A, const T* Bc,
   if (hdds % 4 == 0 && aligned16(states)) {
     ssd_state_pass<4><<<dim3((hdds / 4 + kStateThreads - 1) / kStateThreads,
                              nh, B),
-                        kStateThreads, 0, stream>>>(states, l, nh, NC, hdds);
+                        kStateThreads, 0, stream>>>(states, l, final_state,
+                                                    nh, NC, hdds);
   } else {
     ssd_state_pass<1><<<dim3((hdds + kStateThreads - 1) / kStateThreads, nh,
                              B),
-                        kStateThreads, 0, stream>>>(states, l, nh, NC, hdds);
+                        kStateThreads, 0, stream>>>(states, l, final_state,
+                                                    nh, NC, hdds);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -908,7 +917,7 @@ template <typename T>
 cudaError_t route(const void* x, const float* dt, const float* A,
                   const void* Bc, const void* Cc, int B, int S, int nh,
                   int hd, int ds, int chunk, float* states, float* l,
-                  void* y, cudaStream_t stream) {
+                  float* final_state, void* y, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* bt = static_cast<const T*>(Bc);
   const T* ct = static_cast<const T*>(Cc);
@@ -917,9 +926,9 @@ cudaError_t route(const void* x, const float* dt, const float* A,
   const bool async = hd % per_chunk == 0 && ds % 4 == 0 && aligned16(x) &&
                      aligned16(states) && aligned16(l) && aligned16(y);
   return async ? run<T, true>(xt, dt, A, bt, ct, B, S, nh, hd, ds, chunk,
-                              states, l, yt, stream)
+                              states, l, final_state, yt, stream)
                : run<T, false>(xt, dt, A, bt, ct, B, S, nh, hd, ds, chunk,
-                               states, l, yt, stream);
+                               states, l, final_state, yt, stream);
 }
 
 }  // namespace
@@ -928,13 +937,15 @@ cudaError_t route(const void* x, const float* dt, const float* A,
 // bfloat16 (is_bf16 = 1); dt: (B, S, nh) and A: (nh,) float32; all
 // contiguous; 1 <= hd, ds <= 64; 1 <= chunk <= 128; B, nh <= 65535.
 // states: (B, nh, ceil(S / chunk), hd, ds) and l: (B, nh, ceil(S /
-// chunk), 128) float32 scratch. y: (B, S, nh, hd) in x's type, fully
-// written.
+// chunk), 128) float32 scratch. final_state: null, or (B, nh, hd, ds)
+// float32, fully written with the state after the last step. y: (B, S,
+// nh, hd) in x's type, fully written.
 extern "C" int tdorch_ssd_scan(int device, const void* x, const float* dt,
                                const float* A, const void* Bc,
                                const void* Cc, int B, int S, int nh, int hd,
                                int ds, int chunk, int is_bf16, float* states,
-                               float* l, void* y, cudaStream_t stream) {
+                               float* l, float* final_state, void* y,
+                               cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || S == 0 || nh == 0 || hd == 0) return 0;
@@ -942,8 +953,8 @@ extern "C" int tdorch_ssd_scan(int device, const void* x, const float* dt,
       B > 65535 || nh > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   err = is_bf16 ? route<bf16>(x, dt, A, Bc, Cc, B, S, nh, hd, ds, chunk,
-                              states, l, y, stream)
+                              states, l, final_state, y, stream)
                 : route<float>(x, dt, A, Bc, Cc, B, S, nh, hd, ds, chunk,
-                               states, l, y, stream);
+                               states, l, final_state, y, stream);
   return static_cast<int>(err);
 }

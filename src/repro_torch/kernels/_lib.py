@@ -145,7 +145,7 @@ def load() -> ctypes.CDLL:
                                      i32, i32, i32, i32, i32, i32, f32, ptr,
                                      ptr, ptr, ptr],
         "tdorch_ssd_scan": [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                            i32, i32, i32, ptr, ptr, ptr, ptr],
+                            i32, i32, i32, ptr, ptr, ptr, ptr, ptr],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

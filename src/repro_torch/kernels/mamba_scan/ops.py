@@ -23,9 +23,12 @@ def kernel_chunk(chunk: int) -> int:
 
 def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
               Bc: torch.Tensor, Cc: torch.Tensor, *,
-              chunk: int = 128) -> torch.Tensor:
+              chunk: int = 128, return_state: bool = False):
     """x: (B, S, nh, hd); dt: (B, S, nh); A: (nh,); Bc/Cc: (B, S, ds) ->
     y: (B, S, nh, hd) in x's dtype: the SSD scan without the D·x term.
+    With `return_state`, (y, h): h (B, nh, hd, ds) float32 (float64 for a
+    float64 plain run), the state after the last step, which seeds the
+    recurrent decode.
     min(chunk, S) must divide S. On the card x, Bc, Cc must be contiguous
     float32 or bfloat16 of one dtype, dt and A contiguous float32, and
     hd, ds <= 64. The kernels keep each chunk's state in a float32
@@ -33,7 +36,8 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     chunks' cumulative log-decays l (B, nh, S / chunk, 128)."""
     B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
     if not _lib.on_cuda(x):
-        return ssd_scan_ref(x, dt, A, Bc, Cc, chunk=chunk)
+        return ssd_scan_ref(x, dt, A, Bc, Cc, chunk=chunk,
+                            return_state=return_state)
     dev = x.device
     _lib.require(x, "x", (torch.float32, torch.bfloat16), 4, dev)
     _lib.require(Bc, "Bc", (x.dtype,), 3, dev)
@@ -47,8 +51,10 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"shape B={B}, S={S}, nh={nh} is beyond the "
                          "kernel's grid")
     y = torch.empty_like(x)
+    final = (torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=dev)
+             if return_state else None)
     if y.numel() == 0:
-        return y
+        return (y, final) if return_state else y
     kc = kernel_chunk(c)
     nc = -(-S // kc)
     states = torch.empty((B, nh, nc, hd, ds), dtype=torch.float32,
@@ -58,7 +64,7 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         dev.index or 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bc.data_ptr(), Cc.data_ptr(), B, S, nh, hd, ds, kc,
         int(x.dtype == torch.bfloat16), states.data_ptr(), l.data_ptr(),
-        y.data_ptr(), _lib.stream(x))
+        _lib.ptr(final), y.data_ptr(), _lib.stream(x))
     _lib.check(rc, "mamba_scan")
     _lib.count("mamba_scan")
-    return y
+    return (y, final) if return_state else y

@@ -38,14 +38,18 @@ def ssd_shapes(x, dt, A, Bc, Cc, chunk: int):
     return B, S, nh, hd, Bc.shape[2], c
 
 
-def ssd_scan_ref(x, dt, A, Bc, Cc, *, chunk: int = 128):
+def ssd_scan_ref(x, dt, A, Bc, Cc, *, chunk: int = 128,
+                 return_state: bool = False):
     """x: (B, S, nh, hd); dt: (B, S, nh); A: (nh,); Bc/Cc: (B, S, ds) ->
     y: (B, S, nh, hd) in x's dtype, computed in float32 (float64 for
-    float64 x)."""
+    float64 x). With `return_state`, (y, h): h (B, nh, hd, ds) the state
+    after the last step, in the compute type."""
     B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
-    if S == 0:
-        return torch.empty_like(x)
     ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if S == 0:
+        y = torch.empty_like(x)
+        return (y, torch.zeros((B, nh, hd, ds), dtype=ct, device=x.device)) \
+            if return_state else y
     NC = S // c
     # (B, NC, nh, c, .) with the heads ahead of the chunk's steps
     xc = x.to(ct).reshape(B, NC, c, nh, hd).permute(0, 1, 3, 2, 4)
@@ -71,4 +75,5 @@ def ssd_scan_ref(x, dt, A, Bc, Cc, *, chunk: int = 128):
         y[:, n] += torch.exp(l[:, n])[..., None] * torch.matmul(
             Ccc[:, n, None], h.transpose(-1, -2))
         h = a_chunk[:, n, :, None, None] * h + Sk[:, n]
-    return y.permute(0, 1, 3, 2, 4).reshape(B, S, nh, hd).to(x.dtype)
+    y = y.permute(0, 1, 3, 2, 4).reshape(B, S, nh, hd).to(x.dtype)
+    return (y, h) if return_state else y

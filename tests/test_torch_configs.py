@@ -33,9 +33,12 @@ def test_config_matches_jax(arch, getter):
 
 
 def test_models_exports_only_the_config_classes():
+    """The config classes, and since the model stack was ported `Model`:
+    the JAX package's `repro.models` exports."""
     assert sorted(n for n in dir(models) if not n.startswith("_")
-                  and n[0].isupper()) == ["MoEConfig", "ModelConfig",
-                                          "SSMConfig", "XLSTMConfig"]
+                  and n[0].isupper()) == ["MoEConfig", "Model",
+                                          "ModelConfig", "SSMConfig",
+                                          "XLSTMConfig"]
 
 
 def test_widths_the_attention_and_ssm_path_reads():
