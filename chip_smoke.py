@@ -10,7 +10,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    csrc/` with nvcc (sm_90a), and the registers, shared memory and spills
    of the attention, scan, grouped GEMM, segment-combine and fused-read
    kernels (the 3xTF32 float32 ones, the SIMT float32 ones and the bf16
-   tensor-core ones).
+   tensor-core ones, `gg_bf16` among them).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -24,7 +24,10 @@ Phases, each of which raises (non-zero exit) on any failed check:
    w = 1 ... 1536 in float32 and float64, with a task of arity 1,000 and
    rows not 16-byte aligned), the grouped GEMM (the MOE geometries of
    tests/test_kernels.py, empty groups, rows beyond the groups' sum, the
-   parameter-server path's two projections), and attention, decode
+   parameter-server path's two projections; in bf16 the same cases and
+   granite's decode-step projections, K or N not a multiple of 8, strided
+   weight views at and off 16 bytes, within `gemm_check`'s bf16 gate),
+   and attention, decode
    attention and the SSD scan (see phase 5; bf16 attention and decode take
    the tensor-core kernels `flash_attention_sm90` and `flash_decode_sm90`,
    float32 attention the 3xTF32 kernel `flash_attention_tf32`, float32
@@ -91,7 +94,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
 6. Kernel times at the paths' shapes (CUDA events, median of several
    runs) beside the plain version, the one PyTorch call that computes the
    same function (`torch.bincount`, `index_add_`, `embedding_bag`,
-   `torch._grouped_mm` where it takes float32,
+   `torch._grouped_mm` where it takes float32, and in bf16 for the bf16
+   grouped GEMM at granite-moe-3b-a800m's prefill and decode shapes (row
+   4b, `GG_BF16_SHAPES`),
    `F.scaled_dot_product_attention`; none for the SSD scan), and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 67
    TFLOP/s in float32 FMAs, 495/3 TFLOP/s for the float32 kernels that
@@ -121,7 +126,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the card and `run_plan` on numpy: equal session reports
    (`assert_session_parity`), values within the reckoned tolerance (BFS
    exact), at most one host sync a round under the plan, the walls of both.
-9. TDO-GP: Erdős-Rényi (2^19 vertices, average degree 16) and star (2^19)
+9. TDO-GP: Erdős-Rényi (2^17 vertices, average degree 16) and star (2^17)
    graphs and bench_graph's Barabási-Albert graph (30,000, attach 8),
    ingested at P=16 on the card and on the numpy oracle (every layout
    array and the ingest bill equal), then BFS, SSSP, CC, PageRank (10
@@ -205,20 +210,27 @@ Phases, each of which raises (non-zero exit) on any failed check:
    its gate. Launches by stage: K1 once a sharded stage plus the cost
    model's calls, K2 twice a writing stage, K4 twice a grouped SwiGLU.
 13. Language-model serving (`repro_torch.models`, `launch.serve`):
-   zamba2-1.2b and tinyllama-1.1b from `repro_torch.configs` at full width
-   and depth in bf16, random weights from a seed: `generate` of 64 tokens
-   greedily after a 4,096-token prompt, batch 8. Launches exact (zamba2:
-   38 scans and 7 bf16 attention calls a prefill, 7 bf16 decode calls a
-   step; tinyllama: 22 and 22); prefill ms, decode ms a step, tokens/s,
-   peak memory, each kernel's ms inside a prefill and a step, the
-   device's idle share of decode steps, a step's byte bound. Cache
-   consistency: a 3,968-token prefill and 128 teacher-forced steps against
-   a 4,096-token prefill, within LM_CONSISTENCY of max|logits|, with every
-   kernel call of that prefill and of the first step held against its
-   plain version (a miss re-calls both, for C2). Each config at n_layers=2
-   in float32 on the card against float64 on the CPU (logits and caches
-   within LM_F32_REL of max|ref|), and `mamba_ssd`'s final state at
-   (8, 4096, 64, 64) against the plain version.
+   zamba2-1.2b, tinyllama-1.1b, granite-moe-3b-a800m and xlstm-350m from
+   `repro_torch.configs` at full width and depth in bf16, random weights
+   from a seed: `generate` of 64 tokens greedily after a 4,096-token
+   prompt, batch 8. Launches exact (`lm_launches`; zamba2: 38 scans and 7
+   bf16 attention calls a prefill, 7 bf16 decode calls a step; tinyllama:
+   22 and 22; granite: 32 and 32, and 32 histograms and 128 bf16 grouped
+   GEMMs a prefill and a step; xlstm: none); prefill ms, decode ms a step,
+   tokens/s, peak memory, each kernel's ms inside a prefill and a step,
+   the device's idle share of decode steps, a step's byte bound (granite:
+   the experts that step routed to). A second `generate` with every kernel
+   call held against its plain version (a miss of B5-B7 re-calls both,
+   for C2). Cache consistency: a 3,968-token prefill and 128
+   teacher-forced steps against a 4,096-token prefill (xlstm: 896 and 128
+   against 1,024, `LM_CHECK_PROMPT`; caches, last
+   logits, decode caches; xlstm's recurrent states on the reference's
+   stabilizer), within `lm_gate` of max|·| (granite also counts the decode
+   steps' expert choices that differ from the prefill's), and each of
+   `lm_faults` planted must miss it. Each config at n_layers=2 in float32
+   on the card against float64 on the CPU (logits and caches within
+   LM_F32_REL of max|ref|), and `mamba_ssd`'s final state at (8, 4096, 64,
+   64) against the plain version.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -278,7 +290,7 @@ def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "fd_split", "fd_sm90",
                                              "ssd_states", "ssd_state_pass",
                                              "ssd_outputs", "gg_tf32",
-                                             "seg_combine",
+                                             "gg_bf16", "seg_combine",
                                              "fused_reduce", "hist_shared",
                                              "hist_global")) -> dict:
     """Registers, shared memory and spills per instantiation of the named
@@ -392,17 +404,54 @@ def _gemm_case(geom, rng):
 def gemm_parity(dev, x, w, sizes, name: str) -> float:
     """grouped_gemm on the card against its plain version: |Δ| <=
     1e-5 * Σ_k |x_k w_k| + 1e-6 per element (float32 on both sides, sums
-    in another order)."""
+    in another order). bf16 x and w take `gemm_check`'s bf16 gate."""
     import torch
 
+    x, w, sizes = (torch.as_tensor(a).to(dev) for a in (x, w, sizes))
     from repro_torch.kernels.moe_gemm.ops import grouped_gemm
+
+    return gemm_check(x, w, sizes, grouped_gemm(x, w, sizes),
+                      f"moe_gemm {name}")[0]
+
+
+# The bf16 grouped GEMM (`gg_bf16`) against the plain version's float32
+# sums on the same bf16 operands, set before it first ran on a card: a
+# product of two bf16 values is exact in float32, so the two differ by the
+# order of their float32 sums and by the kernel's one rounding of y to bf16
+# (half an ulp: up to 2^-8·|y| for a y just above a power of 2, which
+# BF16_ROUND covers exactly; its first run on an H100 read 0.96-0.99 of the
+# gate, all of it that rounding at the bottom of a binade). The float32
+# term: the
+# kernel sums each 64-deep ring stage on the tensor core (which truncates
+# the sum it writes, ≤ 2^-23 of it a k16 step, 4 a stage) and adds the
+# stage's sums into the tile's in float32 (≤ 2^-24 an add, K/64 of them):
+# (4·2^-23 + K/64·2^-24)·Σ|x w| ≈ 1.9e-6·Σ|x w| at K = 1,536, the plain
+# version's float32 sums a few 1e-7: 1e-5·Σ|x w| + 1e-6, the float32
+# kernel's term, holds both with a margin of 5.
+GEMM_REL = 1e-5
+
+
+def gemm_check(x, w, sizes, got, name: str) -> tuple:
+    """(max |Δ|, share of the gate) of one grouped GEMM call on the card
+    against its plain version's float32 sums on the same inputs: within
+    GEMM_REL·Σ|x w| + 1e-6, plus BF16_ROUND·|ref| for bf16 operands
+    (Σ|x w| from the plain version on |x|, |w|)."""
+    import torch
+
     from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 
-    x, w, sizes = (torch.as_tensor(a).to(dev) for a in (x, w, sizes))
-    got = grouped_gemm(x, w, sizes)
-    want = grouped_gemm_ref(x, w, sizes)
-    mags = grouped_gemm_ref(x.abs(), w.abs(), sizes)
-    return _sum_bound_ok(got, want, mags, rel=1e-5, name=f"moe_gemm {name}")
+    f32 = torch.float32
+    want = grouped_gemm_ref(x.to(f32), w.to(f32), sizes).double()
+    mags = grouped_gemm_ref(x.abs().to(f32), w.abs().to(f32), sizes)
+    allowed = GEMM_REL * mags.double() + 1e-6
+    del mags
+    if x.dtype == torch.bfloat16:
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: bf16 operands gave {got.dtype}")
+        allowed += BF16_ROUND * want.abs()
+    out = _within(got, want, allowed, name)
+    del want, allowed
+    return out
 
 
 def _zipf_ids(rng, n: int, bins: int, gamma: float = 1.2) -> np.ndarray:
@@ -677,6 +726,8 @@ def parity_phase(dev) -> dict:
 
     # grouped GEMM: tests/test_kernels.py's MOE geometries, its empty-group
     # case, rows beyond the groups' sum, and the path's two shapes
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+
     rng = np.random.default_rng(SEED)
     E, d, f = GRANITE["E"], GRANITE["d"], GRANITE["f"]
     cases = [(f"MOE {geom}", *_gemm_case(geom, rng)) for geom in (
@@ -693,6 +744,37 @@ def parity_phase(dev) -> dict:
     log(f"  moe_gemm: {len(cases)} cases (the MOE geometries, empty groups, "
         "rows beyond the sum, the path's in- and out-projection); within "
         "1e-5*sum|x w| + 1e-6")
+    # the bf16 route: the same cases with x and w rounded to bf16, granite's
+    # decode-step shapes (64 and 80 rows over 40 experts), K and N not
+    # multiples of 8 (one-value loads), and strided weight views, 16-byte
+    # aligned and not
+    bf = [(n, torch.from_numpy(x).to(dev, torch.bfloat16),
+           torch.from_numpy(w).to(dev, torch.bfloat16), sz)
+          for n, x, w, sz in cases]
+    for geom in ((E, 64, d, 2 * f), (E, 80, f, d), (3, 300, 30, 50),
+                 (2, 200, 33, 7), (4, 4096, d, 2 * f)):
+        x, w, sz = _gemm_case(geom, rng)
+        bf.append((f"bf16 {geom}", torch.from_numpy(x).to(dev, torch.bfloat16),
+                   torch.from_numpy(w).to(dev, torch.bfloat16), sz))
+    G, M, K, N, F = 3, 40, 24, 16, 8
+    x, _, sz = _gemm_case((G, M, K, N), rng)
+    for offset in (0, 1):
+        rows = torch.from_numpy(rng.standard_normal(
+            (G, offset + K * N + N * F)).astype(np.float32) * 0.1).to(
+            dev, torch.bfloat16)
+        w_in = rows[:, offset:offset + K * N].view(G, K, N)
+        w_out = rows[:, offset + K * N:].view(G, N, F)
+        xb = torch.from_numpy(x).to(dev, torch.bfloat16)
+        bf.append((f"bf16 strided w_in, offset {offset}", xb, w_in, sz))
+        h = grouped_gemm_ref(xb, w_in.contiguous(), torch.from_numpy(sz))
+        bf.append((f"bf16 strided w_out, offset {offset}", h.to(dev),
+                   w_out, sz))
+    worst["moe_gemm_sm90"] = max(gemm_parity(dev, *c[1:], name=c[0])
+                                 for c in bf)
+    log(f"  moe_gemm_sm90: {len(bf)} bf16 cases (the float32 cases rounded, "
+        "granite's decode-step projections, K or N not a multiple of 8, "
+        "strided weight views at and off 16 bytes); within 2^-8*|ref| + "
+        "1e-5*sum|x w| + 1e-6 of the plain version's float32 sums")
     worst.update(attention_ssm_parity(dev))
     return worst
 
@@ -712,7 +794,7 @@ def scale_by_context(contexts, reduced):
 def _launch(**kw):
     """A stage's launches per kernel: those named, 0 for the rest."""
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
-            "moe_gemm": 0, "flash_attention_tf32": 0,
+            "moe_gemm": 0, "moe_gemm_sm90": 0, "flash_attention_tf32": 0,
             "flash_attention_sm90": 0,
             "flash_decode": 0, "flash_decode_sm90": 0, "mamba_scan": 0,
             **kw}
@@ -1407,6 +1489,79 @@ def moe_gemm_timing(dev, t: dict, launches: int) -> dict:
     return row
 
 
+# row 4b: the bf16 grouped GEMM at granite-moe-3b-a800m's serving shapes, batch
+# 8: a prefill of 4,096 tokens a row (32,768 tokens, top-8: 262,144
+# assignments) and a decode step (8 tokens: 64 assignments), each token's 8
+# experts drawn without replacement, as a router of random weights spreads
+# them; the in-projection (K = 1,536, N = 1,024) and the out-projection (K =
+# 512, N = 1,536)
+GG_BF16_SHAPES = (("prefill in-projection", 32_768, "in"),
+                  ("prefill out-projection", 32_768, "out"),
+                  ("decode in-projection", 8, "in"),
+                  ("decode out-projection", 8, "out"))
+
+
+def moe_gemm_bf16_timing(dev) -> dict:
+    """Row 4b: `gg_bf16` at GG_BF16_SHAPES, each against its plain version
+    (`gemm_check`), the plain version's time, `torch._grouped_mm` in bf16
+    (the same function, checked against the plain version at the same
+    gate) and the bound: bytes (x, the routed experts' weights and y once,
+    the sizes) at 3.35 TB/s or operations at 989 TFLOP/s. `launches` is
+    filled in from phase 13's granite run, the kernel's main path."""
+    import torch
+
+    from repro_torch.kernels.moe_gemm.ops import grouped_gemm
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+
+    E, d, f, k = GRANITE["E"], GRANITE["d"], GRANITE["f"], GRANITE["k"]
+    rng = np.random.default_rng(SEED + 4)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    w = {"in": (torch.randn((E, d, 2 * f), generator=g, device=dev)
+                * d ** -0.5).to(torch.bfloat16),
+         "out": (torch.randn((E, f, d), generator=g, device=dev)
+                 * f ** -0.5).to(torch.bfloat16)}
+    shapes = []
+    for label, tokens, proj in GG_BF16_SHAPES:
+        experts = np.argsort(rng.random((tokens, E)), axis=1)[:, :k]
+        sizes_np = np.bincount(experts.reshape(-1), minlength=E).astype(
+            np.int32)
+        wt = w[proj]
+        M, K, N = tokens * k, wt.shape[1], wt.shape[2]
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        sizes = torch.from_numpy(sizes_np).to(dev)
+        err, share = gemm_check(x, wt, sizes, grouped_gemm(x, wt, sizes),
+                                f"moe_gemm_sm90 {label}")
+        used = int((sizes_np > 0).sum())
+        nbytes = 2 * (M * K + used * K * N + M * N) + 4 * E
+        b_ms, b_by = bound(nbytes, 2 * M * K * N, BF16_OPS_PER_S)
+        offs = torch.from_numpy(np.cumsum(sizes_np).astype(np.int32)).to(dev)
+        library_ms, note = None, ""
+        try:
+            gemm_check(x, wt, sizes, torch._grouped_mm(x, wt, offs=offs),
+                       f"torch._grouped_mm {label}")
+            library_ms = time_ms(lambda: torch._grouped_mm(x, wt, offs=offs))
+        except (RuntimeError, TypeError, AttributeError,
+                AssertionError) as exc:
+            note = (f"torch._grouped_mm refuses or misses this call "
+                    f"({type(exc).__name__}: {str(exc).splitlines()[0]})")
+        shapes.append(dict(
+            shape=f"{label}: x ({M}, {K}) bf16 over {used} of {E} experts, "
+                  f"w ({E}, {K}, {N}) bf16",
+            max_abs_err=err, share_of_gate=share,
+            ms=time_ms(lambda: grouped_gemm(x, wt, sizes)),
+            plain_ms=time_ms(lambda: grouped_gemm_ref(x, wt, sizes)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            library_note=note))
+        del x
+    torch.cuda.empty_cache()
+    row = dict(name="moe_gemm_sm90", route="cuda",
+               source="src/repro_torch/csrc/moe_gemm.cu",
+               replaces="src/repro/kernels/moe_gemm/kernel.py:40",
+               launches=0, **shapes[0], shapes=shapes)
+    row["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the attention and SSM path
 # ---------------------------------------------------------------------------
@@ -1473,10 +1628,12 @@ def attention_ssm_stages() -> list:
 
 def launched_kernel(kernel: str, dtype: str) -> str:
     """The counter a stage of family `kernel` launches in `dtype`: bf16
-    attention and decode take the tensor-core kernels (`*_sm90`), float32
-    attention the 3xTF32 one (`flash_attention_tf32`), float32 decode the
-    SIMT one; the scan has one kernel for both."""
-    if kernel != "mamba_scan" and dtype == "bfloat16":
+    attention, decode and the grouped GEMM take their bf16 tensor-core
+    kernels (`*_sm90`), float32 attention the 3xTF32 one
+    (`flash_attention_tf32`), float32 decode the SIMT one, the float32 GEMM
+    `moe_gemm` (3xTF32); the scan and the histogram have one kernel."""
+    if kernel in ("flash_attention", "flash_decode", "moe_gemm") and \
+            dtype == "bfloat16":
         return f"{kernel}_sm90"
     if kernel == "flash_attention":
         return "flash_attention_tf32"
@@ -2249,7 +2406,7 @@ def timing_phase(dev, K, stages, init, launches, ps: dict,
 # phase 7: how busy the card is during a stage
 # ---------------------------------------------------------------------------
 _OWN_KERNELS = ("hist_", "seg_combine", "write_gather", "fused_reduce",
-                "fa_sm90", "fa_tf32", "fd_", "ssd_")
+                "fa_sm90", "fa_tf32", "fd_", "ssd_", "gg_")
 
 
 def device_busy(name: str, run) -> dict:
@@ -2675,12 +2832,15 @@ def plans_path(device: str = "cuda", n_pagerank: int = 50_000,
 # ---------------------------------------------------------------------------
 # phase 9: TDO-GP on the card
 # ---------------------------------------------------------------------------
-# Graph500's scale-20 problem cut to scale 19 (2^19 vertices: at 2^20 the
-# host's cost model and oracle combines take phase 9 past 6 minutes), at
+# Graph500's scale-20 problem cut to scale 17 (2^17 vertices: at 2^20 the
+# host's cost model and oracle combines take phase 9 past 6 minutes; at
+# 2^19, on an H100 at 700 W, the Erdős-Rényi graph's ingest and five
+# algorithms on both backends took 346 s of a 1,146 s run once phase 13
+# served four models, too near the 1,200 s limit), at
 # average degree 16 (Graph500: 32) and with Erdős-Rényi / star /
 # Barabási-Albert graphs standing in for its Kronecker generator; P = 16,
 # as benchmarks/bench_graph.py
-GRAPH_SCALE = 19
+GRAPH_SCALE = 17
 GRAPH_P = 16
 GRAPH_BA_N = 30_000  # bench_graph's full size
 INGEST_ARRAYS = ("vertex_home", "edge_machine", "out_indptr", "out_edges",
@@ -4751,17 +4911,28 @@ def spmd_path(device: str, K: int, stages, init, ps: dict, *,
 # ---------------------------------------------------------------------------
 # phase 13: the language-model serving path
 # ---------------------------------------------------------------------------
-# Two configs of the repo at full width and depth, in bf16 with random
+# Four configs of the repo at full width and depth, in bf16 with random
 # weights from a seeded generator, served through `repro_torch.launch.serve.
 # generate`: zamba2-1.2b (38 Mamba2 layers through B7 at prefill, one shared
-# attention block applied 7 times through B5 / B6) and tinyllama-1.1b (22
-# GQA layers through B5 / B6).
-LM_ARCHS = ("zamba2-1.2b", "tinyllama-1.1b")
+# attention block applied 7 times through B5 / B6), tinyllama-1.1b (22 GQA
+# layers through B5 / B6), granite-moe-3b-a800m (32 GQA layers through B5 /
+# B6, each with a TD-Orch MoE layer: B1 for Phase 1, four bf16 B4 calls for
+# the hot and cold SwiGLUs, at prefill and at every step) and xlstm-350m
+# (three units of seven mLSTM layers and one sLSTM layer, in torch ops: no
+# port kernel).
+LM_ARCHS = ("zamba2-1.2b", "tinyllama-1.1b", "granite-moe-3b-a800m",
+            "xlstm-350m")
 LM_BATCH = 8
 LM_PROMPT = 4096
 LM_GEN = 64
 LM_SEED = 41
-LM_SPLIT = 3968  # check 2: prefill this many (31 chunks), decode the rest
+# check 2 decodes the last LM_CHECK_STEPS positions of its prompt
+# teacher-forced after a prefill of the rest (3,968 = 31 chunks), at
+# generate's prompt, or at LM_CHECK_PROMPT's for a pattern whose prefills
+# are long: xlstm's sLSTM loop (host-bound: 5.2 s a 4,096-token prefill)
+# would take most of its check's time in the 7 prefills
+LM_CHECK_STEPS = 128
+LM_CHECK_PROMPT = {"xlstm": 1024}
 LM_TIMED_STEPS = 32  # decode steps timed one by one (the median is kept)
 LM_BUSY_STEPS = 4  # decode steps under torch.profiler
 # Check 2's gate, as a share of max|logits|, set before the first chip run:
@@ -4780,65 +4951,170 @@ LM_BUSY_STEPS = 4  # decode steps under torch.profiler
 # state has decayed within the 128 steps. So check 2 also holds the caches
 # to the same gate: the split prefill's against `forward`'s states on its
 # tokens (a state not stored), and the k/v after the steps against the
-# long prefill's (a slot or a rotation wrong). Each fault of LM_FAULTS is
+# long prefill's (a slot or a rotation wrong). Each fault of `lm_faults` is
 # planted and must miss.
 LM_CONSISTENCY = 0.05
-# planted faults (check 2): k/v written one slot early (the new slot left
-# empty), one Mamba layer's prefill state zeroed, decode rotated one
-# position too far
-LM_FAULTS = ("slot", "state", "rope")
+# The MoE and xLSTM patterns' gate, set from CPU runs of this check's
+# arithmetic (`Model` in bf16, plain versions, 256-token prefill + 128
+# teacher-forced steps, batch 2) before they first ran on a card. granite's
+# pattern at width 512 (40 experts of 256, top 8), 12 and 24 layers:
+# decode k/v 0.0670 and 0.0654 of max|·|, logits 0.0085 / 0.0168: a
+# top-8 choice at a near-tie flips between the 256-row prefill and the
+# 2-row step (177 of 24,576 and 546 of 49,152 decode assignments), and one
+# flip moves that token's MoE output by its gate's share (~0.1), so the
+# k/v of the next layer for that token by a share of order 0.05. xlstm's
+# pattern at width 512, 24 layers (three units of 7 + 1): decode states
+# (C, n rescaled to the reference's stabilizer m; conv tail; sLSTM c, n,
+# h) 0.0945, logits 0.0336: the recurrent states carry every bf16 rounding
+# of the inputs of 128 steps. Both above 0.05; the planted faults read
+# 0.61-7.4 there (granite slot 1.35; xlstm state 0.83, conv 7.39, carry
+# 0.61). The gate for these two patterns is 0.25: 2.6x the largest clean
+# reading, 2.4x under the weakest fault. The other patterns keep 0.05.
+LM_CONSISTENCY_BY_PATTERN = {"moe": 0.25, "xlstm": 0.25}
 # check 3: full width at n_layers=2 in float32 on the card against float64
 # on the CPU (plain versions), every logit and cache tensor within
 # LM_F32_REL·max|ref|. On the CPU the float32 model lands within 8e-6 of
 # max|ref| (k caches: float32 rotary angles at positions up to 264), so
-# 1e-4 holds the card's float32 paths (full-float32 GEMMs, 3xTF32 B5 and
-# B7, SIMT float32 B6) with a margin of 12x.
+# 1e-4 holds the card's float32 paths (full-float32 GEMMs, 3xTF32 B4, B5
+# and B7, SIMT float32 B6) with a margin of 12x. xlstm's two layers are one
+# unit (slstm_every 2).
 LM_F32 = dict(n_layers=2, batch=2, prompt=256, steps=8)
 LM_F32_REL = 1e-4
 # check 4: the final state of `mamba_ssd` at zamba2's prefill shape
 LM_STATE = dict(kernel="mamba_scan", B=LM_BATCH, S=LM_PROMPT, nh=64, hd=64,
                 ds=64, chunk=128)
-_LM_ENTRIES = {"attention": "flash_attention", "decode_attention":
-               "flash_decode", "mamba_ssd": "mamba_scan"}
+# the model path's kernel entry points, hooked where the path calls them:
+# entry -> (module, attribute, kernel family). The model stack calls B5-B7
+# through the `repro_torch.kernels` module; B4 and B1 are imported by name
+# into `core.spmd` and `core.torchexec`, so they are swapped there.
+_LM_ENTRIES = {
+    "attention": ("repro_torch.kernels", "attention", "flash_attention"),
+    "decode_attention": ("repro_torch.kernels", "decode_attention",
+                         "flash_decode"),
+    "mamba_ssd": ("repro_torch.kernels", "mamba_ssd", "mamba_scan"),
+    "grouped_gemm": ("repro_torch.core.spmd", "grouped_gemm", "moe_gemm"),
+    "count_ids": ("repro_torch.core.torchexec", "count_ids", "histogram"),
+}
+
+
+def lm_faults(cfg) -> tuple:
+    """The planted faults of check 2 that a pattern's caches have: "slot"
+    (k/v written one slot early), "rope" (decode rotated one position too
+    far), "state" (the middle Mamba layer's prefill SSM state, or the
+    middle mLSTM layer's prefill C, zeroed), "conv" (the mLSTM conv tail
+    left where the prefill put it), "carry" (every sLSTM step fed a zero
+    hidden state)."""
+    if cfg.pattern == "xlstm":
+        return ("state", "conv", "carry")
+    return ("slot", "state", "rope") if cfg.pattern == "zamba2" else (
+        "slot", "rope")
+
+
+def lm_gate(cfg) -> float:
+    return LM_CONSISTENCY_BY_PATTERN.get(cfg.pattern, LM_CONSISTENCY)
 
 
 def lm_launches(cfg, prefills: int = 1, steps: int = 0) -> dict:
     """Launches of `prefills` prefills and `steps` decode steps of a model:
     one attention kernel a layer (zamba2: a shared-block application) at
     prefill, one decode kernel a layer a step, one scan a Mamba layer at
-    prefill; the bf16 kernels in bf16, the float32 ones in float32. The
-    Mamba decode step is plain torch."""
+    prefill; for a MoE layer one histogram and four grouped GEMMs (the hot
+    and the cold SwiGLU) at prefill and at every step; none for xlstm. The
+    bf16 kernels in bf16, the float32 ones in float32. The Mamba decode
+    step and the xLSTM cells are plain torch."""
     dt = cfg.compute_dtype
-    n_attn = (-(-cfg.n_layers // cfg.shared_attn_every)
-              if cfg.pattern == "zamba2" else cfg.n_layers)
+    n_attn = {"zamba2": -(-cfg.n_layers // cfg.shared_attn_every),
+              "xlstm": 0}.get(cfg.pattern, cfg.n_layers)
     kw = {launched_kernel("flash_attention", dt): prefills * n_attn,
           launched_kernel("flash_decode", dt): steps * n_attn}
     if cfg.pattern == "zamba2":
         kw["mamba_scan"] = prefills * cfg.n_layers
+    if cfg.pattern == "moe":
+        calls = (prefills + steps) * cfg.n_layers
+        kw["histogram"] = calls
+        kw[launched_kernel("moe_gemm", dt)] = 4 * calls
     return _launch(**kw)
 
 
 class _KernelHook:
-    """Route the model stack's three kernel entry points (it calls them
-    through the `repro_torch.kernels` module) through `wrap(entry, fn)`
-    inside a `with` block; the wrapped calls still launch and count."""
+    """Route the model path's kernel entry points (`_LM_ENTRIES`) through
+    `wrap(entry, fn)` inside a `with` block; the wrapped calls still launch
+    and count."""
 
     def __init__(self, wrap):
         self.wrap = wrap
 
     def __enter__(self):
-        from repro_torch import kernels
+        import importlib
 
-        self.saved = {n: getattr(kernels, n) for n in _LM_ENTRIES}
-        for n, fn in self.saved.items():
-            setattr(kernels, n, self.wrap(n, fn))
+        self.saved = []
+        for name, (mod, attr, _) in _LM_ENTRIES.items():
+            m = importlib.import_module(mod)
+            fn = getattr(m, attr)
+            self.saved.append((m, attr, fn))
+            setattr(m, attr, self.wrap(name, fn))
         return self
 
     def __exit__(self, *exc):
-        from repro_torch import kernels
+        for m, attr, fn in self.saved:
+            setattr(m, attr, fn)
+        return False
 
-        for n, fn in self.saved.items():
-            setattr(kernels, n, fn)
+
+class _RouteLog:
+    """Record every MoE layer's expert choices (top_i, on the device) while
+    the `with` block runs: `repro_torch.models.moe._route` wrapped."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self.fn = [], moe._route
+
+        def route(*a, **kw):
+            out = self.fn(*a, **kw)
+            self.calls.append(out[0])
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self.fn
+        return False
+
+
+class _PatchBlocks:
+    """Swap functions of `repro_torch.models.blocks` (the xLSTM decode
+    cells) inside a `with` block: plants check 2's "conv" and "carry"
+    faults."""
+
+    def __init__(self, fault):
+        self.fault = fault
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import blocks
+
+        self.saved = (blocks.mlstm_decode, blocks.slstm_decode)
+        plain_m, plain_s = self.saved
+        if self.fault == "conv":
+            def frozen(params, cfg, x, state, tail):
+                out, state, _ = plain_m(params, cfg, x, state, tail)
+                return out, state, tail
+            blocks.mlstm_decode = frozen
+        elif self.fault == "carry":
+            def forgetful(params, cfg, x, st):
+                return plain_s(params, cfg, x,
+                               st._replace(h=torch.zeros_like(st.h)))
+            blocks.slstm_decode = forgetful
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+
+        blocks.mlstm_decode, blocks.slstm_decode = self.saved
         return False
 
 
@@ -4908,13 +5184,27 @@ def _ssd_check(inputs, chunk: int, y, h, name: str) -> tuple:
     return tuple(out)
 
 
+def _histogram_check(a, kw, out, name: str) -> tuple:
+    """A histogram call against the plain version on the same ids: exact."""
+    import torch
+
+    from repro_torch.kernels.histogram.ref import histogram_ref
+
+    want = histogram_ref(a[0], a[1], kw.get("weights"))
+    if not torch.equal(out, want):
+        raise AssertionError(f"{name}: differs from the plain version "
+                             f"({int((out != want).sum())} bins)")
+    return 0.0, 0.0
+
+
 def _value_checks(rows: list):
     """A hook that holds every kernel call against its plain version on the
     same inputs, at phase 5's gates (attention and decode through
     `check_against_plain`; the scan's y and final state through
-    `_ssd_check`). On a miss it calls the kernel and the plain version
-    again on the same inputs and says which one moved (as phase 5 does,
-    for the open fault C2), then raises."""
+    `_ssd_check`), the grouped GEMM at `gemm_check`'s and the histogram
+    exactly. On a miss of attention, decode or the scan it calls the
+    kernel and the plain version again on the same inputs and says which
+    one moved (as phase 5 does, for the open fault C2), then raises."""
     import torch
 
     counts = {}
@@ -4925,58 +5215,75 @@ def _value_checks(rows: list):
             i = counts[name] = counts.get(name, 0) + 1
             tag = f"{name} call {i}"
             dtype = "bfloat16" if a[0].dtype == torch.bfloat16 else "float32"
-            if name == "mamba_ssd":
-                st = dict(kernel="mamba_scan", chunk=kw["chunk"])
-                inputs = a
-            elif name == "attention":
-                st = dict(kernel="flash_attention",
-                          causal=kw.get("causal", True))
-                inputs = a
+            row = dict(call=tag, entry=name,
+                       shape=[tuple(t.shape) for t in a
+                              if isinstance(t, torch.Tensor)],
+                       length=kw.get("length"), dtype=str(a[0].dtype))
+            if name == "grouped_gemm":
+                e, share = gemm_check(*a, out, tag)
+            elif name == "count_ids":
+                e, share = _histogram_check(a, kw, out, tag)
             else:
-                st = dict(kernel="flash_decode")
-                inputs = (*a, kw["length"])
-            try:
-                if name == "mamba_ssd":
-                    (e, share), (e_h, share_h) = _ssd_check(
-                        inputs, kw["chunk"], out[0], out[1], tag)
-                    e, share = max(e, e_h), max(share, share_h)
-                else:
-                    e, share = check_against_plain(st, inputs, out, dtype,
-                                                   tag)
-            except AssertionError as exc:
-                again = fn(*a, **kw)
-                up = (lambda t: t.double()) if dtype == "float32" else \
-                    (lambda t: t.float())
-                plain = [_plain_call(st, inputs, up) for _ in range(2)]
-                first = out[0] if name == "mamba_ssd" else out
-                again = again[0] if name == "mamba_ssd" else again
-                plain = [p[0] if isinstance(p, tuple) else p for p in plain]
-                raise AssertionError(
-                    f"{exc}; a second kernel call is "
-                    f"{'' if torch.equal(again, first) else 'not '}"
-                    "identical to the first, two plain calls are "
-                    f"{'' if torch.equal(*plain) else 'not '}identical"
-                ) from exc
-            rows.append(dict(call=tag, entry=name,
-                             shape=[tuple(t.shape) for t in a],
-                             length=kw.get("length"), dtype=dtype,
-                             max_abs_err=e, share_of_tolerance=share))
+                e, share = _checked_call(name, fn, a, kw, out, dtype, tag)
+            rows.append(dict(row, max_abs_err=e, share_of_tolerance=share))
             return out
         return call
     return wrap
 
 
-def _lm_step_bytes(model, batch: int, length: int) -> int:
+def _checked_call(name, fn, a, kw, out, dtype, tag) -> tuple:
+    """`_value_checks` for attention, decode and the scan."""
+    import torch
+
+    if name == "mamba_ssd":
+        st = dict(kernel="mamba_scan", chunk=kw["chunk"])
+        inputs = a
+    elif name == "attention":
+        st = dict(kernel="flash_attention", causal=kw.get("causal", True))
+        inputs = a
+    else:
+        st = dict(kernel="flash_decode")
+        inputs = (*a, kw["length"])
+    try:
+        if name == "mamba_ssd":
+            (e, share), (e_h, share_h) = _ssd_check(
+                inputs, kw["chunk"], out[0], out[1], tag)
+            return max(e, e_h), max(share, share_h)
+        return check_against_plain(st, inputs, out, dtype, tag)
+    except AssertionError as exc:
+        again = fn(*a, **kw)
+        up = (lambda t: t.double()) if dtype == "float32" else \
+            (lambda t: t.float())
+        plain = [_plain_call(st, inputs, up) for _ in range(2)]
+        first = out[0] if name == "mamba_ssd" else out
+        again = again[0] if name == "mamba_ssd" else again
+        plain = [p[0] if isinstance(p, tuple) else p for p in plain]
+        raise AssertionError(
+            f"{exc}; a second kernel call is "
+            f"{'' if torch.equal(again, first) else 'not '}"
+            "identical to the first, two plain calls are "
+            f"{'' if torch.equal(*plain) else 'not '}identical"
+        ) from exc
+
+
+def _lm_step_bytes(model, batch: int, length: int, routed=None) -> int:
     """Bytes a decode step must move at a cache of `length` positions: the
-    weights once (of an untied embedding only the batch's rows), the valid
-    k/v of every attention layer read, the SSM and conv states read and
-    written, the float32 logits written."""
+    weights once (of an untied embedding only the batch's rows; of a MoE
+    layer's experts only those the step routed to, `routed` giving their
+    count a layer), the valid k/v of every attention layer read, the SSM,
+    LSTM and conv states read and written, the float32 logits written."""
     cfg = model.cfg
     e = model.embed.element_size()
     w = sum(p.numel() * p.element_size() for p in model.parameters())
     if not cfg.tie_embeddings:
         w -= model.embed.numel() * e - batch * cfg.d_model * e
-    n_attn = (model.n_apps if cfg.pattern == "zamba2" else cfg.n_layers)
+    if cfg.pattern == "moe":
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert * e
+        w -= cfg.n_layers * m.padded * per_expert
+        w += sum(routed) * per_expert
+    n_attn = {"zamba2": model.n_apps, "xlstm": 0}.get(cfg.pattern,
+                                                       cfg.n_layers)
     kv = n_attn * 2 * batch * length * cfg.n_kv_heads * cfg.head_dim * e
     states = 0
     if cfg.pattern == "zamba2":
@@ -4985,16 +5292,49 @@ def _lm_step_bytes(model, batch: int, length: int) -> int:
         states = cfg.n_layers * batch * 2 * (
             (d_in // s.head_dim) * s.head_dim * s.d_state * 4
             + (s.d_conv - 1) * (d_in + 2 * s.d_state) * e)
+    if cfg.pattern == "xlstm":
+        from repro_torch.models.xlstm import CONV_K, mlstm_dims
+
+        d_up, nh, hd = mlstm_dims(cfg)
+        n_m = model.units * (cfg.xlstm.slstm_every - 1)
+        states = 2 * batch * (
+            n_m * (nh * (hd * hd + hd + 1) * 4 + (CONV_K - 1) * d_up * e)
+            + model.units * 4 * cfg.d_model * 4)
     return w + kv + states + batch * cfg.vocab_size * 4
 
 
 def _cache_leaves(c) -> list:
     """(name, stacked tensor) of a model's caches."""
+    if isinstance(c, dict) and "mlstm" in c:
+        (ms, tail), sl = c["mlstm"], c["slstm"]
+        return [("mlstm.C", ms.C), ("mlstm.n", ms.n), ("mlstm.m", ms.m),
+                ("mlstm.conv", tail), ("slstm.c", sl.c), ("slstm.n", sl.n),
+                ("slstm.m", sl.m), ("slstm.h", sl.h)]
     if isinstance(c, dict):
         return [("mamba.conv", c["mamba"].conv),
                 ("mamba.ssm", c["mamba"].ssm), ("attn.k", c["attn"][0]),
                 ("attn.v", c["attn"][1])]
     return [("attn.k", c[0]), ("attn.v", c[1])]
+
+
+def _decode_pairs(got, want) -> list:
+    """Check 2's decode readings, (got, reference) pairs: the k/v caches;
+    for xlstm the recurrent states, the mLSTM's C and n and the sLSTM's c
+    and n put on the reference's stabilizer (m is the log of their scale:
+    the same state under another m reads the same), the conv tails, the
+    sLSTM's h."""
+    import torch
+
+    if not (isinstance(got, dict) and "mlstm" in got):
+        return [(g, w) for (n, g), (_, w) in zip(_cache_leaves(got),
+                                                 _cache_leaves(want))
+                if n.endswith((".k", ".v"))]
+    (ms, tail), (rs, rtail) = got["mlstm"], want["mlstm"]
+    sl, rl = got["slstm"], want["slstm"]
+    a, b = torch.exp(ms.m - rs.m), torch.exp(sl.m - rl.m)
+    return [(ms.C * a[..., None, None], rs.C), (ms.n * a[..., None], rs.n),
+            (tail, rtail), (sl.c * b, rl.c), (sl.n * b, rl.n),
+            (sl.h, rl.h)]
 
 
 def _kv_prefix(name: str, t, n: int):
@@ -5009,39 +5349,66 @@ def _share(got, want) -> float:
                   / want.abs().max()).item())
 
 
+def _flips(routes, ref, batch: int) -> tuple:
+    """(assignments of the decode steps' routes not in the reference
+    prefill's choices for the same token and layer, all the steps'
+    assignments). `routes`: every MoE layer's top_i of every step, in call
+    order (layer by layer, step by step); `ref`: each layer's top_i of the
+    long prefill at the decoded positions, (batch, steps, k)."""
+    import torch
+
+    L, flips, total = len(ref), 0, 0
+    for i, got in enumerate(routes):
+        want = ref[i % L][:, i // L]  # (batch, k)
+        hit = (got[:, :, None] == want[:, None, :]).any(-1)
+        flips += int((~hit).sum())
+        total += got.numel()
+    return flips, total
+
+
 def lm_consistency(model, prompts, refs, fault=None) -> dict:
     """Check 2's readings, each a share of its reference's max|·|: the
-    caches of an LM_SPLIT-token prefill (into buffers of generate's length)
-    against `forward`'s states on those tokens ("prefill_caches"; every
-    tensor), then the rest of `prompts` decoded teacher-forced: the last
-    step's logits against an LM_PROMPT-token prefill's last logits
-    ("logits"), and the k/v caches after the steps against that prefill's
-    ("decode_caches"). `refs` = (forward's states on the first LM_SPLIT
-    tokens, the prefill's logits, its caches). `fault` plants one of
-    LM_FAULTS."""
+    caches of a prefill of all but the last LM_CHECK_STEPS tokens of
+    `prompts` (into buffers LM_GEN longer than `prompts`) against
+    `forward`'s states on those tokens ("prefill_caches"; every tensor),
+    then the rest of `prompts` decoded teacher-forced: the last step's
+    logits against a prefill of all of `prompts`' last logits ("logits"),
+    and the decode caches after the steps (`_decode_pairs`) against that
+    prefill's ("decode_caches"). `refs` = (forward's states on the split
+    prefill's tokens, the whole prefill's logits, its caches, its MoE
+    layers' routes at the decoded positions). `fault` plants one of
+    `lm_faults`. For a MoE model the clean run also counts the decode
+    steps' expert choices that differ from the prefill's ("flips",
+    "assignments")."""
     import contextlib
 
     import torch
 
     from repro_torch.models import Model
 
-    split_states, want_logits, want_caches = refs
-    _, caches = model.prefill(tokens=prompts[:, :LM_SPLIT],
-                              max_len=LM_PROMPT + LM_GEN)
-    if fault == "state":  # the middle Mamba layer's prefill state lost
-        caches["mamba"].ssm[model.cfg.n_layers // 2].zero_()
+    split_states, want_logits, want_caches, ref_routes = refs
+    P = prompts.shape[1]
+    split = P - LM_CHECK_STEPS
+    _, caches = model.prefill(tokens=prompts[:, :split], max_len=P + LM_GEN)
+    if fault == "state":  # the middle Mamba / mLSTM layer's state lost
+        if model.cfg.pattern == "zamba2":
+            caches["mamba"].ssm[model.cfg.n_layers // 2].zero_()
+        else:
+            caches["mlstm"][0].C[model.units // 2].zero_()
     out = {"prefill_caches": max(
-        _share(_kv_prefix(n, got, LM_SPLIT), want)
+        _share(_kv_prefix(n, got, split), want)
         for (n, got), (_, want) in zip(_cache_leaves(caches),
                                        _cache_leaves(split_states)))}
     if fault == "rope":
         model._default_positions = (
             lambda b, s, offset=0:
             Model._default_positions(model, b, s, offset + 1))
+    hook = (_KernelHook(_slot_fault) if fault == "slot"
+            else _PatchBlocks(fault) if fault in ("conv", "carry")
+            else contextlib.nullcontext())
     try:
-        with (_KernelHook(_slot_fault) if fault == "slot"
-              else contextlib.nullcontext()):
-            for i in range(LM_SPLIT, LM_PROMPT):
+        with hook, _RouteLog() as routes:
+            for i in range(split, P):
                 step, caches = model.decode_step(
                     caches, tokens=prompts[:, i:i + 1], cache_pos=i)
     finally:
@@ -5049,11 +5416,12 @@ def lm_consistency(model, prompts, refs, fault=None) -> dict:
     if not bool(torch.isfinite(step).all()):
         raise AssertionError(f"{model.cfg.name}: non-finite decode logits")
     out["logits"] = _share(step, want_logits)
-    out["decode_caches"] = max(
-        _share(got, want) for (n, got), (_, want) in zip(
-            _cache_leaves(caches), _cache_leaves(want_caches))
-        if n.endswith((".k", ".v")))
-    return out
+    out["decode_caches"] = max(_share(g, w) for g, w in
+                               _decode_pairs(caches, want_caches))
+    if ref_routes and fault is None:
+        flips, total = _flips(routes.calls, ref_routes, prompts.shape[0])
+        return out, dict(flips=flips, assignments=total)
+    return out, None
 
 
 def lm_serve(dev, cfg) -> dict:
@@ -5062,12 +5430,12 @@ def lm_serve(dev, cfg) -> dict:
     path: its launches must be `lm_launches(cfg, 1, LM_GEN)` exactly. Then:
     prefill ms, decode ms a step (median of LM_TIMED_STEPS), each kernel's
     ms inside a prefill and a step (CUDA events), the idle share of
-    LM_BUSY_STEPS steps (torch.profiler), the step's byte bound. (2)
-    `generate` again with every kernel call held against its plain version
-    (its prefill and all its decode steps, at the main path's shapes). (3)
-    Cache consistency: every step of `_teacher_forced` against `forward`'s
-    logits at its position, within LM_CONSISTENCY of max|logits|; then
-    each of LM_FAULTS that the pattern has, planted, must miss that gate."""
+    LM_BUSY_STEPS steps (torch.profiler), the step's byte bound (a MoE
+    layer's experts: those that step routed to). (2) `generate` again with
+    every kernel call held against its plain version (its prefill and all
+    its decode steps, at the main path's shapes). (3) Cache consistency
+    (`lm_consistency`) within `lm_gate(cfg)`; then each of `lm_faults(cfg)`,
+    planted, must miss that gate."""
     import torch
 
     from repro_torch import kernels
@@ -5083,6 +5451,7 @@ def lm_serve(dev, cfg) -> dict:
                params=model.param_count(), dtype=cfg.compute_dtype)
 
     # (1) the main path, counted
+    part_s, t_part = {}, time.perf_counter()
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
@@ -5125,19 +5494,22 @@ def lm_serve(dev, cfg) -> dict:
     row["decode_step_ms_all"] = step_ms
     row["decode_tokens_per_s"] = batch / row["decode_step_ms"] * 1e3
     pos = prompt + LM_TIMED_STEPS
-    pre, stp = {}, {}
-    with _KernelHook(_event_times(pre)):
-        _, c2 = model.prefill(tokens=prompts, max_len=prompt + gen)
-    with _KernelHook(_event_times(stp)):
-        model.decode_step(c2, tokens=seqs[:, prompt:prompt + 1],
-                          cache_pos=prompt)
-    torch.cuda.synchronize(dev)
-    del c2
+    pre, stp, routed = {}, {}, []
+    if any(want.values()):  # xlstm launches no kernel: nothing to time
+        with _KernelHook(_event_times(pre)):
+            _, c2 = model.prefill(tokens=prompts, max_len=prompt + gen)
+        with _KernelHook(_event_times(stp)), _RouteLog() as step_routes:
+            model.decode_step(c2, tokens=seqs[:, prompt:prompt + 1],
+                              cache_pos=prompt)
+        torch.cuda.synchronize(dev)
+        del c2
+        routed = [int(t.unique().numel()) for t in step_routes.calls]
     row["kernel_ms"] = {
-        f"{launched_kernel(_LM_ENTRIES[n], cfg.compute_dtype)} in a "
+        f"{launched_kernel(_LM_ENTRIES[n][2], cfg.compute_dtype)} in a "
         f"{ph}": sum(s.elapsed_time(e) for s, e in v)
         for ph, times in (("prefill", pre), ("step", stp))
         for n, v in times.items()}
+    row["routed_experts"] = routed
 
     def steps():
         nonlocal logits, caches
@@ -5147,42 +5519,70 @@ def lm_serve(dev, cfg) -> dict:
                 caches, tokens=tok, cache_pos=pos + j)
     row["decode_busy"] = device_busy(f"{cfg.name} decode", steps)
     length = prompt + (gen + 1) // 2  # the mean cache length of a step
-    row["step_bytes"] = _lm_step_bytes(model, batch, length)
+    row["step_bytes"] = _lm_step_bytes(model, batch, length, routed)
     row["step_bound_ms"] = row["step_bytes"] / HBM_BYTES_PER_S * 1e3
     del caches, logits
+
+    part_s["main path and timings"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
 
     # (2) the main path again, every kernel call against its plain version
     checks = []
     with _KernelHook(_value_checks(checks)):
         generate(model, prompts, gen)
     row["kernel_checks"] = checks
+    part_s["kernel checks"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
 
     # (3) cache consistency, then the planted faults
-    _, split_states, _ = model.forward(tokens=prompts[:, :LM_SPLIT])
-    refs = (split_states,) + model.prefill(tokens=prompts,
-                                           max_len=prompt + gen)
-    got = lm_consistency(model, prompts, refs)
-    row["consistency"] = dict(split=LM_SPLIT, steps=prompt - LM_SPLIT,
-                              gate=LM_CONSISTENCY, **got)
-    if not max(got.values()) <= LM_CONSISTENCY:
+    P = LM_CHECK_PROMPT.get(cfg.pattern, prompt)
+    cp, split = prompts[:, :P], P - LM_CHECK_STEPS
+    _, split_states, _ = model.forward(tokens=cp[:, :split])
+    with _RouteLog() as ref_routes:
+        want_logits, want_caches = model.prefill(tokens=cp, max_len=P + gen)
+    ref = [t.view(batch, P, -1)[:, split:].clone()
+           for t in ref_routes.calls]
+    refs = (split_states, want_logits, want_caches, ref)
+    gate = lm_gate(cfg)
+    got, flips = lm_consistency(model, cp, refs)
+    row["consistency"] = dict(split=split, steps=LM_CHECK_STEPS,
+                              prompt=P, gate=gate, **got)
+    if flips is not None:
+        row["consistency"]["routing_flips"] = flips
+    if not max(got.values()) <= gate:
         raise AssertionError(
-            f"{cfg.name}: a {LM_SPLIT}-token prefill and "
-            f"{prompt - LM_SPLIT} teacher-forced steps against a "
-            f"{prompt}-token prefill read {got} of max|·| (gate "
-            f"{LM_CONSISTENCY})")
+            f"{cfg.name}: a {split}-token prefill and {LM_CHECK_STEPS} "
+            f"teacher-forced steps against a {P}-token prefill read {got} "
+            f"of max|·| (gate {gate})")
     faults = {}
-    for f in LM_FAULTS:
-        if f == "state" and cfg.pattern != "zamba2":
-            continue
-        faults[f] = r = lm_consistency(model, prompts, refs, f)
-        if not max(r.values()) > LM_CONSISTENCY:
+    for f in lm_faults(cfg):
+        faults[f] = r = lm_consistency(model, cp, refs, f)[0]
+        if not max(r.values()) > gate:
             raise AssertionError(
                 f"{cfg.name}: the planted {f!r} fault reads {r} of max|·|, "
-                f"inside the gate {LM_CONSISTENCY}: check 2 cannot see it")
+                f"inside the gate {gate}: check 2 cannot see it")
     row["faults"] = faults
-    del model, refs, split_states
+    part_s["consistency and faults"] = time.perf_counter() - t_part
+    row["part_s"] = part_s
+    del model, refs, split_states, want_caches
     torch.cuda.empty_cache()
     return row
+
+
+def lm_f32_config(arch: str, dtype: str):
+    """`arch` at full width with LM_F32["n_layers"] layers in `dtype`
+    (xlstm: one unit of an mLSTM and an sLSTM layer)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    kw = {}
+    if cfg.pattern == "xlstm":
+        kw["xlstm"] = dataclasses.replace(cfg.xlstm,
+                                          slstm_every=LM_F32["n_layers"])
+    return dataclasses.replace(cfg, n_layers=LM_F32["n_layers"],
+                               param_dtype=dtype, compute_dtype=dtype, **kw)
 
 
 def lm_f32_check(dev, arch: str) -> dict:
@@ -5190,20 +5590,19 @@ def lm_f32_check(dev, arch: str) -> dict:
     float32 on the card against the same weights in float64 on the CPU
     (the plain versions): a prefill and decode steps, every logit and
     every cache tensor within LM_F32_REL of its max|ref|. The float32
-    kernels launch (3xTF32 B5 and B7, SIMT B6), as `lm_launches` counts."""
+    kernels launch (3xTF32 B4, B5 and B7, SIMT B6, B1), as `lm_launches`
+    counts."""
     import copy
     import dataclasses
 
     import torch
 
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.models import Model
 
     n_layers, batch, prompt, steps = (LM_F32[k] for k in (
         "n_layers", "batch", "prompt", "steps"))
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
-                              param_dtype="float32", compute_dtype="float32")
+    cfg = lm_f32_config(arch, "float32")
     model = Model(cfg, device=dev, seed=LM_SEED)
     ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
     ref.cfg = dataclasses.replace(cfg, param_dtype="float64",
@@ -5269,7 +5668,9 @@ def lm_path(dev) -> dict:
 
     rows = []
     for a in LM_ARCHS:
+        t0 = time.perf_counter()
         r = lm_serve(dev, get_config(a))
+        r["wall_s"] = time.perf_counter() - t0
         rows.append(r)
         log(f"  {r['arch']} (bf16, {r['params']:,} parameters): batch "
             f"{r['batch']}, prompt {r['prompt']}, generate {r['gen']} in "
@@ -5280,7 +5681,14 @@ def lm_path(dev) -> dict:
             f"{r['step_bound_ms']:.3f} ms ({r['step_bytes'] / 1e9:.3f} GB); "
             f"peak {r['peak_bytes'] / 1e9:.3f} GB; kernels "
             f"{ {k: round(v, 4) for k, v in r['kernel_ms'].items()} } ms; "
-            f"decode idle {r['decode_busy']['idle_share']:.4f}")
+            f"decode busy {r['decode_busy']['device_busy_s'] * 1e3:.3f} ms "
+            f"of {r['decode_busy']['wall_s'] * 1e3:.3f} (idle "
+            f"{r['decode_busy']['idle_share']:.4f}); {r['wall_s']:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in r["part_s"].items())
+            + ")")
+        if r["routed_experts"]:
+            log(f"  {r['arch']}: experts routed a layer in the timed step "
+                f"{min(r['routed_experts'])}-{max(r['routed_experts'])}")
         worst = {}
         for k in r["kernel_checks"]:
             n, s = k["entry"], k["share_of_tolerance"]
@@ -5289,14 +5697,19 @@ def lm_path(dev) -> dict:
         lengths = [k["length"] for k in r["kernel_checks"] if k["length"]]
         log(f"  {r['arch']}: generate's kernel calls against their plain "
             f"versions (calls, worst share of the gate): "
-            f"{ {n: (c, round(s, 4)) for n, (c, s) in worst.items()} }; "
-            f"decode lengths {min(lengths)}-{max(lengths)}")
+            f"{ {n: (c, round(s, 4)) for n, (c, s) in worst.items()} }"
+            + (f"; decode lengths {min(lengths)}-{max(lengths)}"
+               if lengths else ""))
         c, keys = r["consistency"], ("prefill_caches", "logits",
                                      "decode_caches")
+        flips = c.get("routing_flips")
         log(f"  {r['arch']}: cache consistency ({c['split']} + "
-            f"{c['steps']} teacher-forced steps vs a {r['prompt']}-token "
+            f"{c['steps']} teacher-forced steps vs a {c['prompt']}-token "
             f"prefill), shares of max|·| (gate {c['gate']}): "
-            f"{ {k: round(c[k], 6) for k in keys} }; planted faults read "
+            f"{ {k: round(c[k], 6) for k in keys} }"
+            + (f"; {flips['flips']} of {flips['assignments']} decode "
+               "assignments routed apart from the prefill" if flips else "")
+            + "; planted faults read "
             + "; ".join(f"{f} { {k: round(v[k], 6) for k in keys} }"
                         for f, v in r["faults"].items()))
     f32 = []
@@ -5421,8 +5834,14 @@ def main(argv=None) -> int:
     from repro_torch import kernels
     from repro_torch.kernels import _lib
 
+    t_start, clock = time.perf_counter(), {}
+
+    def phase(msg: str) -> None:  # a phase's header, with the run's clock
+        clock[msg.split("]")[0] + "]"] = t = time.perf_counter() - t_start
+        log(f"{msg} [{t:.1f} s into the run]")
+
     card = gpu_name_and_power()
-    log(f"[1/13] environment: {card}; torch {torch.__version__}, CUDA "
+    phase(f"[1/13] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -5435,11 +5854,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[2/13] kernel parity against the plain PyTorch versions")
+    phase("[2/13] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    log("[3/13] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    phase("[3/13] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -5447,7 +5866,7 @@ def main(argv=None) -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    log("[4/13] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    phase("[4/13] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -5466,7 +5885,7 @@ def main(argv=None) -> int:
         f"naive {ps_summary['gate_naive']}")
 
     c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
-    log("[5/13] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    phase("[5/13] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -5479,7 +5898,7 @@ def main(argv=None) -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    log("[6/13] kernel times at the paths' shapes")
+    phase("[6/13] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -5492,15 +5911,25 @@ def main(argv=None) -> int:
             f"library {lib}, loop of matmuls {s['matmul_loop_ms']:.4f}, "
             f"bound {s['bound_ms']:.4f} by {s['bound_by']}; "
             f"{s['bound_fma_ms']:.4f} in FMAs) at {s['shape']}")
+    rows.append(moe_gemm_bf16_timing(dev))
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
+                                  parity_worst["moe_gemm_sm90"])
+    for s in rows[-1]["shapes"]:
+        lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
+               else f"null: {s['library_note']}")
+        log(f"  moe_gemm_sm90: {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
+            f"torch._grouped_mm {lib}, bound {s['bound_ms']:.4f} by "
+            f"{s['bound_by']}; {s['share_of_gate']:.4f} of the gate) at "
+            f"{s['shape']}")
     rows += attention_ssm_timing(dev, attn_launches, errors)
     for r in rows:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    log("[7/13] device busy share of a stage (torch.profiler)")
+    phase("[7/13] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    log("[8/13] engines and plans: stages (a)-(c) under engine='pull', "
+    phase("[8/13] engines and plans: stages (a)-(c) under engine='pull', "
         "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
         "bfs_stages through run_plan and the run_stage loop")
     kernels.reset_launches()
@@ -5510,7 +5939,7 @@ def main(argv=None) -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    log(f"[9/13] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    phase(f"[9/13] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -5522,7 +5951,7 @@ def main(argv=None) -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
-    log("[10/13] KV store and serve tier: DistributedHashTable(800,000, "
+    phase("[10/13] KV store and serve tier: DistributedHashTable(800,000, "
         "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
         "streamed in sync and thread mode, and the MoE / embedding front "
         "doors at granite-moe-3b-a800m's widths")
@@ -5531,7 +5960,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("serving path", kernels.launches(), serve_expected)
 
-    log("[11/13] elasticity at the main path's size: recovery (restart with "
+    phase("[11/13] elasticity at the main path's size: recovery (restart with "
         "durable snapshots, shrink), work stealing, bench_elastic's "
         "migration arms over 800,000 keys, a mid-plan kill in run_chain and "
         "the serve tier's elastic counters, backend='torch' vs numpy")
@@ -5540,7 +5969,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("elastic path", kernels.launches(), el_expected)
 
-    log("[12/13] multi-device execution: backend='torch_spmd' on the "
+    phase("[12/13] multi-device execution: backend='torch_spmd' on the "
         "stacked mesh (one shard a machine) — phase 3's stages at P=16, the "
         "chaos scenario, the MoE dispatch at granite's widths (ep 8), "
         "embed_skew_aware on 8 shards, the group mesh of 4 gloo ranks, "
@@ -5551,10 +5980,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("sharded path", kernels.launches(), sp_expected)
 
-    log(f"[13/13] language-model serving: {', '.join(LM_ARCHS)} at full "
+    phase(f"[13/13] language-model serving: {', '.join(LM_ARCHS)} at full "
         f"width and depth in bf16 (random weights), batch {LM_BATCH}, a "
         f"{LM_PROMPT}-token prompt, {LM_GEN} tokens generated greedily; "
-        "cache consistency, float32 against float64, the scan's final "
+        "every kernel call against its plain version, cache consistency "
+        "with planted faults, float32 against float64, the scan's final "
         "state")
     t0 = time.perf_counter()
     lm = lm_path(dev)
@@ -5568,11 +5998,17 @@ def main(argv=None) -> int:
         r["model_path_ms"] = {s["arch"]: {
             k: v for k, v in s["kernel_ms"].items()
             if k.startswith(r["name"] + " ")} for s in lm["serve"]}
-        entry = next(e for e, fam in _LM_ENTRIES.items()
+        entry = next(e for e, (_, _, fam) in _LM_ENTRIES.items()
                      if r["name"] == launched_kernel(fam, "bfloat16"))
         r["max_abs_err"] = max([r["max_abs_err"]] + [
             k["max_abs_err"] for s in lm["serve"] for k in s["kernel_checks"]
             if k["call"].startswith(entry + " ")])
+        if r["name"] == "moe_gemm_sm90":  # its main path is the model's
+            r["launches"] = n
+    missing = [r["name"] for r in rows if not r["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on their main path: "
+                             f"{missing}")
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5584,7 +6020,9 @@ def main(argv=None) -> int:
          "engines": engine_rows, "plans": plan_rows, "graph": graph_rows,
          "serve": {"stages": serve_rows, **serve_summary},
          "elastic": {"stages": el_rows, **el_summary},
-         "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm, "c2": c2},
+         "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm, "c2": c2,
+         "phase_start_s": clock,
+         "wall_s": time.perf_counter() - t_start},
         indent=1, default=str))
 
     log(gpu_name_and_power())

@@ -11,7 +11,9 @@
 // y[r] = x[r] @ w[g(r)] for the rows r of group g (rows sorted by group,
 // group g owning the next group_sizes[g] rows); rows at or beyond the
 // groups' sum are written as 0. Negative sizes count as 0, and rows past M
-// are cut. float32 operands, float32 accumulation. w may be a strided view
+// are cut. float32 operands, float32 accumulation (`gg_tf32`); or bf16
+// operands, float32 accumulation and bf16 output (`gg_bf16`, below), as the
+// Pallas kernel computes for bf16 operands. w may be a strided view
 // (dense rows of N, any group and row stride), so a caller can pass slices
 // of a wider weight row without copying them.
 //
@@ -66,7 +68,24 @@
 //   times the parameter server's gate of 1e-5. Each stage's 12 products go
 //   into sums of their own, which are added to the tile's sums in float32
 //   (rounded to nearest) after the stage.
+//
+// bf16 (`gg_bf16`, the models' route: granite-moe computes in bf16). x and
+// w are read as they are (no float32 copy of either), every product of
+// two bf16 values is exact in float32, and y is rounded to bf16 once from
+// the float32 sums. The same prologue, tile table and 64/128-row choice;
+// `mma.sync` m16n8k16 (bf16 in, float32 sums) over a `cp.async` ring of
+// kStages stages of 64 deep, A fragments by `ldmatrix` from the x tile and
+// B fragments by `ldmatrix.trans` from the N-major w tile (rows padded by
+// 16 bytes, so the eight rows of an 8x8 matrix hit distinct banks). 8
+// warps as 2 x 4 as above; a stage's 4 k16 products go into sums of their
+// own, added to the tile's sums in float32 after the stage (the tensor
+// core truncates the sum it writes). The wrapper chooses 16-byte copies
+// where x, w and their strides are 16-byte aligned, else one value a load
+// (synchronous stores into the ring). At granite's prefill (a 262,144-row
+// in-projection, K = 1,536, N = 1,024) it is the arithmetic that bounds:
+// 8.2e11 FLOP, 0.83 ms at 989 TFLOP/s; at decode the weights' bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -350,6 +369,235 @@ cudaError_t launch_tiles(const float* x, const float* w,
   return cudaGetLastError();
 }
 
+
+// ---- bf16 operands: gg_bf16 ---------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kBK16 = 64;          // depth of one ring stage (bf16 values)
+constexpr int kLdA16 = kBK16 + 8;  // x rows in shared memory: 144 bytes
+constexpr int kLdB16 = kBN + 8;    // w rows in shared memory: 272 bytes
+
+static_assert(kLdA16 * 2 % 128 == 16 && kLdB16 * 2 % 128 == 16,
+              "ldmatrix rows land 16 bytes apart mod 128: no conflicts");
+
+template <int BM>
+struct Tile16 {
+  static constexpr int kWM = BM / 2;
+  static constexpr int kStageElems = BM * kLdA16 + kBK16 * kLdB16;
+  // 143,360 bytes at 128 rows, 106,496 at 64
+  static constexpr int kSmem = kStages * kStageElems * 2;
+  static constexpr int kBlocksPerSM = BM == 64 ? 2 : 1;
+  static_assert(BM == 64 || BM == 128, "tiles of 64 or 128 rows");
+};
+
+// Copy stage k0 of the x rows [row0, row_end) and of w[g]'s columns
+// [n0, n0 + kBN) into shared memory. kVec = 8: 16-byte copies (x, w, K
+// and both strides 16-byte aligned); kVec = 1: one value a load, stored
+// synchronously. Values past the rows, K or N are stored as zeros.
+template <int BM, int kVec>
+__device__ __forceinline__ void load_stage16(
+    bf16* as, bf16* bs, const bf16* __restrict__ x,
+    const bf16* __restrict__ wg, long long w_row_stride, int row0,
+    int row_end, int n0, int k0, int K, int N) {
+  constexpr int kAChunks = BM * kBK16 / kVec / kThreads;
+  constexpr int kBChunks = kBK16 * kBN / kVec / kThreads;
+#pragma unroll
+  for (int l = 0; l < kAChunks; ++l) {
+    const int c = threadIdx.x + l * kThreads;
+    const int r = c / (kBK16 / kVec), kk = (c % (kBK16 / kVec)) * kVec;
+    const int row = row0 + r, k = k0 + kk;
+    const int n_in = row < row_end ? max(0, min(kVec, K - k)) : 0;
+    const bf16* src = n_in ? x + static_cast<long long>(row) * K + k : x;
+    if constexpr (kVec == 8)
+      sm90::cp_async16(as + r * kLdA16 + kk, src, 2 * n_in);
+    else
+      as[r * kLdA16 + kk] = n_in ? *src : __float2bfloat16_rn(0.f);
+  }
+#pragma unroll
+  for (int l = 0; l < kBChunks; ++l) {
+    const int c = threadIdx.x + l * kThreads;
+    const int kk = c / (kBN / kVec), nn = (c % (kBN / kVec)) * kVec;
+    const int k = k0 + kk, n = n0 + nn;
+    const int n_in = k < K ? max(0, min(kVec, N - n)) : 0;
+    const bf16* src = n_in ? wg + k * w_row_stride + n : wg;
+    if constexpr (kVec == 8)
+      sm90::cp_async16(bs + kk * kLdB16 + nn, src, 2 * n_in);
+    else
+      bs[kk * kLdB16 + nn] = n_in ? *src : __float2bfloat16_rn(0.f);
+  }
+}
+
+// One ring stage's products for the warp's first MT m16 row tiles and its
+// kWN columns (as / bs: the warp's rows of the x tile, its columns of the
+// w tile), into stage sums that are then added to acc. Per k16 step: A
+// fragments by ldmatrix (lanes 0-15 rows 0-15 at depth 0, lanes 16-31 at
+// depth 8), B fragments of two n8 tiles by one ldmatrix.trans (matrix
+// lane / 8: depth 8·(m & 1), columns 8·(m >> 1)).
+template <int WM, int MT>
+__device__ __forceinline__ void stage_products16(
+    const bf16* as, const bf16* bs, float (&acc)[WM / 16][kWN / 8][4]) {
+  const int lane = threadIdx.x % 32, mat = lane / 8;
+  float part[MT][kWN / 8][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kBK16 / 16; ++ks) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      sm90::ldmatrix_x4(a[i], sm90::smem_addr(
+          as + (16 * i + lane % 16) * kLdA16 + 16 * ks + 8 * (lane / 16)));
+#pragma unroll
+    for (int jj = 0; jj < kWN / 16; ++jj) {
+      uint32_t b[4];  // {depth 0-7, 8-15} of columns 0-7, then of 8-15
+      sm90::ldmatrix_x4_trans(b, sm90::smem_addr(
+          bs + (16 * ks + 8 * (mat & 1) + lane % 8) * kLdB16 + 16 * jj +
+          8 * (mat >> 1)));
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        sm90::mma_bf16(part[i][2 * jj], a[i], b[0], b[1]);
+        sm90::mma_bf16(part[i][2 * jj + 1], a[i], b[2], b[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+template <int WM, int MT = WM / 16>
+__device__ __forceinline__ void stage_products16_for(
+    int m_tiles, const bf16* as, const bf16* bs,
+    float (&acc)[WM / 16][kWN / 8][4]) {
+  if (m_tiles == MT)
+    stage_products16<WM, MT>(as, bs, acc);
+  else if constexpr (MT > 1)
+    stage_products16_for<WM, MT - 1>(m_tiles, as, bs, acc);
+}
+
+// One BM x kBN tile of y = x[rows] @ w[g] from bf16 operands, float32
+// sums, y rounded to bf16 once; block b is column tile b % n_col_tiles of
+// row tile b / n_col_tiles.
+template <int BM, int kVec>
+__global__ void __launch_bounds__(kThreads, Tile16<BM>::kBlocksPerSM)
+gg_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+        long long w_group_stride, long long w_row_stride,
+        const int4* __restrict__ plan, int K, int N, int n_col_tiles,
+        bf16* __restrict__ y) {
+  const int4 p = plan[blockIdx.x / n_col_tiles];
+  const int g = p.x, row0 = p.y, row_end = p.z;
+  if (g == -2) return;
+  const int n0 = (blockIdx.x % n_col_tiles) * kBN;
+  if (g == -1) {
+    for (int i = threadIdx.x; i < BM * kBN; i += kThreads) {
+      const int r = row0 + i / kBN, c = n0 + i % kBN;
+      if (r < row_end && c < N)
+        y[static_cast<long long>(r) * N + c] = __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
+  using C = Tile16<BM>;
+  constexpr int kWM = C::kWM, kStageElems = C::kStageElems;
+  extern __shared__ __align__(16) unsigned char smem16_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem16_raw);
+  const bf16* wg = w + g * w_group_stride;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m_tiles =
+      min(kWM / 16, max(0, (row_end - row0 - wm * kWM + 15) / 16));
+  float acc[kWM / 16][kWN / 8][4];
+#pragma unroll
+  for (int i = 0; i < kWM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int n_k = (K + kBK16 - 1) / kBK16;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_k)
+      load_stage16<BM, kVec>(smem + s * kStageElems,
+                             smem + s * kStageElems + BM * kLdA16, x, wg,
+                             w_row_stride, row0, row_end, n0, s * kBK16, K,
+                             N);
+    sm90::cp_async_commit();
+  }
+  for (int kt = 0; kt < n_k; ++kt) {
+    sm90::cp_async_wait<kStages - 2>();  // stage kt has landed
+    __syncthreads();  // ... for every thread, and stage kt - 1 is free
+    const int next = kt + kStages - 1;
+    if (next < n_k) {
+      bf16* st = smem + (next % kStages) * kStageElems;
+      load_stage16<BM, kVec>(st, st + BM * kLdA16, x, wg, w_row_stride,
+                             row0, row_end, n0, next * kBK16, K, N);
+    }
+    sm90::cp_async_commit();
+    const bf16* as = smem + (kt % kStages) * kStageElems + wm * kWM * kLdA16;
+    const bf16* bs = smem + (kt % kStages) * kStageElems + BM * kLdA16 +
+                     wn * kWN;
+    stage_products16_for<kWM>(m_tiles, as, bs, acc);
+  }
+  sm90::cp_async_wait<0>();
+
+  const bool pairs = N % 2 == 0;  // two columns a 4-byte store
+#pragma unroll
+  for (int i = 0; i < kWM / 16; ++i) {
+    if (i >= m_tiles) continue;
+#pragma unroll
+    for (int j = 0; j < kWN / 8; ++j) {
+      const int c = n0 + wn * kWN + 8 * j + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + wm * kWM + 16 * i + gr + 8 * h;
+        if (r >= row_end || c >= N) continue;
+        bf16* dst = y + static_cast<long long>(r) * N + c;
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) =
+              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else {
+          dst[0] = __float2bfloat16_rn(acc[i][j][2 * h]);
+          if (c + 1 < N) dst[1] = __float2bfloat16_rn(acc[i][j][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int BM, int kVec>
+cudaError_t launch_tiles16(const bf16* x, const bf16* w,
+                           long long w_group_stride, long long w_row_stride,
+                           const int4* plan, int K, int N, int num_tiles,
+                           bf16* y, cudaStream_t stream) {
+  constexpr int kSmem = Tile16<BM>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      gg_bf16<BM, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_col_tiles = (N + kBN - 1) / kBN;
+  const long long blocks = static_cast<long long>(num_tiles) * n_col_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  gg_bf16<BM, kVec><<<static_cast<unsigned>(blocks), kThreads, kSmem,
+                      stream>>>(x, w, w_group_stride, w_row_stride, plan, K,
+                                N, n_col_tiles, y);
+  return cudaGetLastError();
+}
+
+// The prologue: the tile table of `tile_rows`-row tiles into `plan`.
+cudaError_t plan_tiles(const int* sizes, int G, int M, int tile_rows,
+                       int num_tiles, int4* plan, cudaStream_t stream) {
+  gg_plan<<<1, kPlanThreads, 0, stream>>>(sizes, G, M, tile_rows, num_tiles,
+                                          plan);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x: (M, K) float32, rows sorted by group; w: (G, K, N) float32, element
@@ -371,9 +619,7 @@ extern "C" int tdorch_grouped_gemm(int device, const float* x, const float* w,
     return static_cast<int>(cudaErrorInvalidValue);
   if (M > 0 && N > 0 && num_tiles > 0) {
     int4* plan4 = reinterpret_cast<int4*>(plan);
-    gg_plan<<<1, kPlanThreads, 0, stream>>>(sizes, G, M, tile_rows,
-                                            num_tiles, plan4);
-    err = cudaGetLastError();
+    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     using Launch = cudaError_t (*)(const float*, const float*, long long,
                                    long long, const int4*, int, int, int,
@@ -383,6 +629,39 @@ extern "C" int tdorch_grouped_gemm(int device, const float* x, const float* w,
         : (vec16 ? &launch_tiles<128, 4> : &launch_tiles<128, 1>);
     err = launch(x, w, w_group_stride, w_row_stride, plan4, K, N, num_tiles,
                  y, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for bf16 x, w and y (`gg_bf16`): float32 sums, y rounded to
+// bf16 once. vec16: x, w, K and both strides allow 16-byte copies (8
+// values).
+extern "C" int tdorch_grouped_gemm_bf16(int device, const void* x,
+                                        const void* w,
+                                        long long w_group_stride,
+                                        long long w_row_stride,
+                                        const int* sizes, int M, int K,
+                                        int N, int G, int tile_rows,
+                                        int num_tiles, int vec16, int* plan,
+                                        void* y, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tile_rows != 64 && tile_rows != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M > 0 && N > 0 && num_tiles > 0) {
+    int4* plan4 = reinterpret_cast<int4*>(plan);
+    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    using Launch = cudaError_t (*)(const bf16*, const bf16*, long long,
+                                   long long, const int4*, int, int, int,
+                                   bf16*, cudaStream_t);
+    const Launch launch = tile_rows == 64
+        ? (vec16 ? &launch_tiles16<64, 8> : &launch_tiles16<64, 1>)
+        : (vec16 ? &launch_tiles16<128, 8> : &launch_tiles16<128, 1>);
+    err = launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                 w_group_stride, w_row_stride, plan4, K, N, num_tiles,
+                 static_cast<bf16*>(y), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,8 @@
-"""Grouped GEMM for MoE experts: `grouped_gemm` launches the CUDA kernel
-(`csrc/moe_gemm.cu`, float32 products in 3xTF32 on the tensor cores) for a
-CUDA tensor and runs the plain version (`ref.py`) for a CPU tensor.
+"""Grouped GEMM for MoE experts: `grouped_gemm` launches a CUDA kernel of
+`csrc/moe_gemm.cu` for a CUDA tensor — float32 operands to `gg_tf32`
+(3xTF32 on the tensor cores, counter "moe_gemm"), bf16 operands to
+`gg_bf16` (bf16 `mma.sync`, float32 sums, bf16 output; counter
+"moe_gemm_sm90") — and runs the plain version (`ref.py`) for a CPU tensor.
 
 Also home of `gathered_swiglu`, the gathered-weights form of the expert
 FFN that the parameter server's `MoERouter` stage lambda runs: each task
@@ -19,21 +21,28 @@ from .ref import grouped_gemm_ref
 _I32_MAX = 2**31 - 1
 
 
+# the kernel for each operand dtype: (C entry point, launch counter)
+_ROUTES = {torch.float32: ("tdorch_grouped_gemm", "moe_gemm"),
+           torch.bfloat16: ("tdorch_grouped_gemm_bf16", "moe_gemm_sm90")}
+
+
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
                  group_sizes: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) sorted by group; w: (G, K, N); group_sizes: (G,) -> (M, N).
-    Group g owns the next group_sizes[g] rows; rows at or beyond the
-    groups' sum give zeros, and empty groups are allowed. On the card x
-    must be contiguous float32, w float32 with dense rows (a strided view,
-    such as a slice of wider weight rows, is read in place) and group_sizes
-    contiguous int32, all on one device; the sizes stay there (no host
-    sync). The kernel's float32 accuracy (3xTF32) does not depend on
-    `torch.backends.cuda.matmul.allow_tf32`."""
+    """x: (M, K) sorted by group; w: (G, K, N); group_sizes: (G,) -> (M, N)
+    in x's dtype. Group g owns the next group_sizes[g] rows; rows at or
+    beyond the groups' sum give zeros, and empty groups are allowed. On
+    the card x must be contiguous float32 or bf16, w of x's dtype with
+    dense rows (a strided view, such as a slice of wider weight rows, is
+    read in place) and group_sizes contiguous int32, all on one device; the
+    sizes stay there (no host sync). float32 runs in 3xTF32, whatever
+    `torch.backends.cuda.matmul.allow_tf32` says; bf16 reads x and w as
+    they are and sums their exact products in float32, rounding y to bf16
+    once."""
     if not _lib.on_cuda(x):
         return grouped_gemm_ref(x, w, group_sizes)
     dev = x.device
-    _lib.require(x, "x", (torch.float32,), 2, dev)
-    _lib.require(w, "w", (torch.float32,), 3, dev, dense_rows=True)
+    _lib.require(x, "x", tuple(_ROUTES), 2, dev)
+    _lib.require(w, "w", (x.dtype,), 3, dev, dense_rows=True)
     _lib.require(group_sizes, "group_sizes", (torch.int32,), 1, dev)
     M, K = x.shape
     G, Kw, N = w.shape
@@ -48,16 +57,17 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     if max(M, K, N, num_tiles) > _I32_MAX:
         raise ValueError(f"shape (M={M}, K={K}, N={N}, G={G}) is beyond the "
                          "kernel's int32 operands")
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0 or N == 0:
         return out
+    entry, counter = _ROUTES[x.dtype]
     plan = torch.empty((num_tiles, 4), dtype=torch.int32, device=dev)
-    rc = _lib.load().tdorch_grouped_gemm(
+    rc = getattr(_lib.load(), entry)(
         dev.index or 0, x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
         group_sizes.data_ptr(), M, K, N, G, rows, num_tiles,
         int(copies16(x, w)), plan.data_ptr(), out.data_ptr(), _lib.stream(x))
-    _lib.check(rc, "moe_gemm")
-    _lib.count("moe_gemm")
+    _lib.check(rc, counter)
+    _lib.count(counter)
     return out
 
 
@@ -69,11 +79,13 @@ def tile_rows(M: int, G: int) -> int:
 
 def copies16(x: torch.Tensor, w: torch.Tensor) -> bool:
     """Whether the kernel may load x and w in 16-byte copies: both bases
-    16-byte aligned, and K and w's group and row strides multiples of 4
-    floats. Otherwise it loads them 4 bytes at a time."""
+    16-byte aligned, and K and w's group and row strides multiples of 16
+    bytes (4 float32 values, 8 bf16). Otherwise it loads them one value at
+    a time."""
+    v = 16 // x.element_size()
     return (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-            and x.shape[1] % 4 == 0 and w.stride(0) % 4 == 0
-            and w.stride(1) % 4 == 0)
+            and x.shape[1] % v == 0 and w.stride(0) % v == 0
+            and w.stride(1) % v == 0)
 
 
 def gathered_swiglu(x, w_in, w_out, gate):

@@ -4,10 +4,14 @@ batched prefill + decode loop.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --batch 4 --prompt-len 32 --gen 32 [--device cpu]
 
-It serves the reduced config with random weights, as the JAX launcher
-does, on the card unless `--device cpu`. The reduced configs' head dims (8,
-16) are below the attention kernels' (32, 64, 128), so on the card they
-raise the kernels' `ValueError`: there is no plain fallback there.
+It serves the reduced config of any token arch (the dense, parallel,
+moe, zamba2 and xlstm patterns: `--arch granite-moe-1b-a400m`, `--arch
+xlstm-350m`, ...) with random weights, as the JAX launcher does, on the
+card unless `--device cpu`. The reduced configs' head dims (8, 16) are
+below the attention kernels' (32, 64, 128), so on the card the attention
+patterns raise the kernels' `ValueError`: there is no plain fallback
+there. The chunked scans (zamba2, xlstm) take a prompt length that is a
+multiple of the chunk, or shorter than it.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ def generate(model: Model, prompts: torch.Tensor, gen: int,
              temperature: float = 0.0,
              generator: torch.Generator | None = None) -> torch.Tensor:
     """Greedy / temperature batched generation: one prefill of the prompts
-    (B, S), then `gen` decode steps. Returns (B, S + gen) tokens in the
+    (B, S), then `gen` decode steps, for every pattern (attention caches,
+    Mamba and LSTM states alike). Returns (B, S + gen) tokens in the
     prompts' dtype. Sampling draws from `generator` (one seeded 0 on the
     model's device when None)."""
     B, S = prompts.shape

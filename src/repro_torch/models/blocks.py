@@ -1,12 +1,14 @@
 """Per-layer block assemblies, the port of the JAX package's
-`models/blocks.py` for the dense, parallel and zamba2 patterns.
+`models/blocks.py`: dense, parallel, MoE (granite-moe), zamba2's Mamba and
+shared attention blocks, and xLSTM's mLSTM and sLSTM blocks.
 
 Every block function has the uniform signature
     block(params, cfg, x, positions, cache, *, decode, cache_pos)
       -> (x_out, new_cache, aux_loss_or_None)
 Attention caches are (k, v) pairs, written in place at decode; at prefill
-the block returns the layer's (k, v) (or its Mamba state) as the cache
-seed. The MoE and xLSTM blocks are not ported yet.
+the block returns the layer's (k, v) (or its Mamba / LSTM state) as the
+cache seed. The recurrent blocks return new state tensors at decode; the
+model copies them into its caches.
 """
 from __future__ import annotations
 
@@ -16,6 +18,9 @@ from .attention import attention_decode, attention_full, init_attention
 from .config import ModelConfig
 from .layers import MLP, mlp, rmsnorm
 from .mamba import init_mamba, mamba_chunked, mamba_decode
+from .moe import init_moe, moe_block
+from .xlstm import (init_mlstm, init_slstm, mlstm_chunked, mlstm_decode,
+                    slstm_decode, slstm_forward)
 
 
 def _ones(d: int, dtype, device) -> torch.nn.Parameter:
@@ -23,7 +28,7 @@ def _ones(d: int, dtype, device) -> torch.nn.Parameter:
 
 
 # ---------------------------------------------------------------------------
-# attention sub-step shared by dense/parallel blocks
+# attention sub-step shared by dense/parallel/moe blocks
 # ---------------------------------------------------------------------------
 def _attn(params, cfg, x, positions, cache, decode, cache_pos):
     if decode:
@@ -89,6 +94,33 @@ def parallel_block(params, cfg, x, positions, cache=None, *, decode=False,
 
 
 # ---------------------------------------------------------------------------
+# MoE (granite-moe): attention + TD-Orch-dispatched expert FFN
+# ---------------------------------------------------------------------------
+class MoEBlock(torch.nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__()
+        self.ln1 = _ones(cfg.d_model, dtype, device)
+        self.attn = init_attention(cfg, dtype, device, generator)
+        self.ln2 = _ones(cfg.d_model, dtype, device)
+        self.moe = init_moe(cfg, dtype, device, generator)
+
+
+def init_moe_block(cfg: ModelConfig, dtype, device, generator):
+    return MoEBlock(cfg, dtype, device, generator)
+
+
+def moe_layer_block(params, cfg, x, positions, cache=None, *, decode=False,
+                    cache_pos=None):
+    h, new_cache = _attn(params.attn, cfg,
+                         rmsnorm(x, params.ln1, cfg.norm_eps),
+                         positions, cache, decode, cache_pos)
+    x = x + h
+    y, aux = moe_block(params.moe, cfg,
+                       rmsnorm(x, params.ln2, cfg.norm_eps), decode=decode)
+    return x + y, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
 # zamba2 unit pieces: mamba layer + (external) shared attention block
 # ---------------------------------------------------------------------------
 class MambaBlock(torch.nn.Module):
@@ -113,16 +145,46 @@ def mamba_block(params, cfg, x, positions, cache=None, *, decode=False,
 
 
 # ---------------------------------------------------------------------------
-# MoE (granite-moe) and xLSTM: a later slice
+# xLSTM blocks
 # ---------------------------------------------------------------------------
-def _later(kind: str):
-    def block(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {kind} block is not ported yet: ROADMAP item A11b ports "
-            "the MoE and xLSTM patterns")
-    return block
+class MLSTMBlock(torch.nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__()
+        self.ln = _ones(cfg.d_model, dtype, device)
+        self.cell = init_mlstm(cfg, dtype, device, generator)
 
 
-init_moe_block = moe_layer_block = _later("MoE")
-init_mlstm_block = mlstm_block = _later("mLSTM")
-init_slstm_block = slstm_block = _later("sLSTM")
+def init_mlstm_block(cfg: ModelConfig, dtype, device, generator):
+    return MLSTMBlock(cfg, dtype, device, generator)
+
+
+def mlstm_block(params, cfg, x, positions, cache=None, *, decode=False,
+                cache_pos=None):
+    h = rmsnorm(x, params.ln, cfg.norm_eps)
+    if decode:
+        state, tail = cache
+        out, state, tail = mlstm_decode(params.cell, cfg, h, state, tail)
+        return x + out, (state, tail), None
+    out, (state, tail) = mlstm_chunked(params.cell, cfg, h)
+    return x + out, (state, tail), None
+
+
+class SLSTMBlock(torch.nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__()
+        self.ln = _ones(cfg.d_model, dtype, device)
+        self.cell = init_slstm(cfg, dtype, device, generator)
+
+
+def init_slstm_block(cfg: ModelConfig, dtype, device, generator):
+    return SLSTMBlock(cfg, dtype, device, generator)
+
+
+def slstm_block(params, cfg, x, positions, cache=None, *, decode=False,
+                cache_pos=None):
+    h = rmsnorm(x, params.ln, cfg.norm_eps)
+    if decode:
+        out, state = slstm_decode(params.cell, cfg, h, cache)
+    else:
+        out, state = slstm_forward(params.cell, cfg, h)
+    return x + out, state, None

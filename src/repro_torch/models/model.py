@@ -1,6 +1,7 @@
-"""The LM, the port of the JAX package's `models/model.py` for the dense,
-parallel and zamba2 patterns: init, forward, prefill, decode and the
-decode caches, with a Python loop over the layers (no scan).
+"""The LM, the port of the JAX package's `models/model.py` for its five
+patterns (dense, parallel, moe, zamba2, xlstm): init, forward, prefill,
+decode and the decode caches, with a Python loop over the layers (no
+scan).
 
 `Model(cfg, device=None)` builds its parameters on `device` (CUDA when
 None: it raises without a card; the tests pass "cpu") from a seeded
@@ -8,16 +9,21 @@ None: it raises without a card; the tests pass "cpu") from a seeded
 across (the layouts are the JAX package's, so it only renames).
 
 Caches keep the JAX package's structure and stacking: (k, v) of (L, B, T,
-KV, hd) for the dense and parallel patterns; for zamba2 {"mamba":
+KV, hd) for the dense, parallel and moe patterns; for zamba2 {"mamba":
 MambaState(conv (L, B, d_conv-1, C), ssm (L, B, nh, hd, ds) float32),
-"attn": (k, v) of (n_apps, B, T, KV, hd)}. `cache[i]` is a contiguous
-layer, as the decode kernel takes it. Where the JAX package returns updated
-copies, the port writes the caches in place: `prefill` fills buffers from
-`init_caches` layer by layer and `decode_step` writes slot `cache_pos`.
+"attn": (k, v) of (n_apps, B, T, KV, hd)}; for xlstm {"mlstm":
+(MLSTMState(C (U, M, B, H, hd, hd), n (U, M, B, H, hd), m (U, M, B, H)),
+conv tail (U, M, B, 3, d_up)), "slstm": SLSTMState(c, n, m, h each (U, B,
+d))} over U units of M = slstm_every - 1 mLSTM layers and one sLSTM layer,
+the states in float32. `cache[i]` is a contiguous layer, as the decode
+kernel takes it. Where the JAX package returns updated copies, the port
+writes the caches in place: `prefill` fills buffers from `init_caches`
+layer by layer and `decode_step` writes slot `cache_pos` (the recurrent
+states: the layer's new state).
 
 Serving only: the entry points run under `torch.no_grad()`. The kernels
 have no backward yet; the training half (`loss_fn`, the custom VJP) is
-ROADMAP item A11c, the MoE and xLSTM patterns A11b.
+ROADMAP item A11c.
 """
 from __future__ import annotations
 
@@ -30,14 +36,17 @@ from . import blocks as B
 from .config import ModelConfig
 from .layers import compute_float, embed, rmsnorm, truncated_normal
 from .mamba import MambaState, _dims
+from .xlstm import CONV_K, MLSTMState, SLSTMState, mlstm_dims
 
 _BLOCKS = {
     "dense": (B.init_dense_block, B.dense_block),
     "parallel": (B.init_parallel_block, B.parallel_block),
     "moe": (B.init_moe_block, B.moe_layer_block),
 }
-# the pytree entries of a JAX `Model.init` whose leaves stack the layers
-_STACKED = ("blocks", "mamba")
+# the pytree entries of a JAX `Model.init` whose leaves stack the layers:
+# each name with the number of stacked dimensions (xlstm's mLSTM layers
+# stack as (units, layers of a unit))
+_STACKED = {"blocks": 1, "mamba": 1, "slstm": 1, "mlstm": 2}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float64": torch.float64}
 
@@ -55,10 +64,8 @@ def resolve_device(device=None) -> torch.device:
 class Model(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
         super().__init__()
-        if cfg.pattern == "xlstm":
-            raise NotImplementedError("the xLSTM pattern is not ported yet: "
-                                      "ROADMAP item A11b")
-        if cfg.pattern not in _BLOCKS and cfg.pattern != "zamba2":
+        if cfg.pattern not in _BLOCKS and cfg.pattern not in ("zamba2",
+                                                              "xlstm"):
             raise ValueError(f"unknown pattern {cfg.pattern!r}")
         self.cfg = cfg
         dev = resolve_device(device)
@@ -74,6 +81,15 @@ class Model(torch.nn.Module):
             init_fn, _ = _BLOCKS[cfg.pattern]
             self.blocks = torch.nn.ModuleList(
                 init_fn(cfg, dtype, dev, g) for _ in range(cfg.n_layers))
+        elif cfg.pattern == "xlstm":
+            per_m = cfg.xlstm.slstm_every - 1
+            self.mlstm = torch.nn.ModuleList(
+                torch.nn.ModuleList(B.init_mlstm_block(cfg, dtype, dev, g)
+                                    for _ in range(per_m))
+                for _ in range(self.units))
+            self.slstm = torch.nn.ModuleList(
+                B.init_slstm_block(cfg, dtype, dev, g)
+                for _ in range(self.units))
         else:
             self.mamba = torch.nn.ModuleList(
                 B.init_mamba_block(cfg, dtype, dev, g)
@@ -101,6 +117,11 @@ class Model(torch.nn.Module):
         """zamba2: applications of the shared attention block."""
         return -(-self.cfg.n_layers // self.cfg.shared_attn_every)
 
+    @property
+    def units(self) -> int:
+        """xlstm: units of slstm_every - 1 mLSTM layers and one sLSTM."""
+        return self.cfg.n_layers // self.cfg.xlstm.slstm_every
+
     # ------------------------------------------------------------------
     def _default_positions(self, batch: int, seq: int, offset=0):
         pos = torch.arange(seq, dtype=torch.int32, device=self.device) \
@@ -112,21 +133,28 @@ class Model(torch.nn.Module):
 
     def _trunk(self, x, positions, caches=None, decode=False,
                cache_pos=None, seed=None):
-        """Run the layers. Returns (x, states): at decode `caches`, written
-        in place; with `seed` (buffers from `init_caches`) the prefill
-        states written into them; else the layers' states stacked as the
-        JAX package's forward returns them."""
+        """Run the layers. Returns (x, states, aux): at decode `caches`,
+        written in place; with `seed` (buffers from `init_caches`) the
+        prefill states written into them; else the layers' states stacked
+        as the JAX package's forward returns them. aux sums the MoE layers'
+        aux losses (0 for the other patterns), at decode too."""
         cfg, S = self.cfg, x.shape[1]
         store = caches if decode else seed
+        aux = torch.zeros((), dtype=compute_float(x.dtype), device=x.device)
+        if cfg.pattern == "xlstm":
+            x, states = self._xlstm_trunk(x, store, decode)
+            return x, states, aux
         kv = store if cfg.pattern in _BLOCKS or store is None \
             else store["attn"]
         ks, vs, convs, ssms = [], [], [], []
 
         def attn_layer(fn, p, i):
-            nonlocal x
+            nonlocal x, aux
             c = (kv[0][i], kv[1][i]) if decode else None
-            x, (k, v), _ = fn(p, cfg, x, positions, c, decode=decode,
+            x, (k, v), a = fn(p, cfg, x, positions, c, decode=decode,
                               cache_pos=cache_pos)
+            if a is not None:
+                aux = aux + a
             if decode:
                 return  # written in place
             if seed is not None:
@@ -141,7 +169,7 @@ class Model(torch.nn.Module):
             for i, p in enumerate(self.blocks):
                 attn_layer(block_fn, p, i)
             return x, (store if store is not None
-                       else (torch.stack(ks), torch.stack(vs)))
+                       else (torch.stack(ks), torch.stack(vs))), aux
 
         every, L = cfg.shared_attn_every, cfg.n_layers
         for a in range(self.n_apps):
@@ -158,15 +186,59 @@ class Model(torch.nn.Module):
                     convs.append(new.conv)
                     ssms.append(new.ssm)
         if store is not None:
-            return x, store
+            return x, store, aux
         return x, {"mamba": MambaState(conv=torch.stack(convs),
                                        ssm=torch.stack(ssms)),
-                   "attn": (torch.stack(ks), torch.stack(vs))}
+                   "attn": (torch.stack(ks), torch.stack(vs))}, aux
+
+    def _xlstm_trunk(self, x, store, decode):
+        """xlstm's units: slstm_every - 1 mLSTM layers, then one sLSTM
+        layer. `store` (the decode caches or the prefill's seed buffers)
+        takes each layer's new state in place; without it the states are
+        stacked as the JAX package's forward returns them."""
+        cfg = self.cfg
+        new_m, new_s = [], []
+        ms, tails = (None, None) if store is None else store["mlstm"]
+        for u in range(self.units):
+            unit = []
+            for j, p in enumerate(self.mlstm[u]):
+                c = (MLSTMState(ms.C[u, j], ms.n[u, j], ms.m[u, j]),
+                     tails[u, j]) if decode else None
+                x, (st, tl), _ = B.mlstm_block(p, cfg, x, None, c,
+                                               decode=decode)
+                if store is None:
+                    unit.append((st, tl))
+                    continue
+                for buf, t in zip((ms.C, ms.n, ms.m, tails), (*st, tl)):
+                    buf[u, j].copy_(t)
+            new_m.append(unit)
+            sc = SLSTMState(*(t[u] for t in store["slstm"])) if decode \
+                else None
+            x, st, _ = B.slstm_block(self.slstm[u], cfg, x, None, sc,
+                                     decode=decode)
+            if store is None:
+                new_s.append(st)
+                continue
+            for buf, t in zip(store["slstm"], st):
+                buf[u].copy_(t)
+        if store is not None:
+            return x, store
+
+        def stack_m(field):
+            return torch.stack([torch.stack([field(e) for e in unit])
+                                for unit in new_m])
+        return x, {
+            "mlstm": (MLSTMState(*(stack_m(lambda e, i=i: e[0][i])
+                                   for i in range(3))),
+                      stack_m(lambda e: e[1])),
+            "slstm": SLSTMState(*(torch.stack([st[i] for st in new_s])
+                                  for i in range(4))),
+        }
 
     def _hidden(self, tokens, embeds, positions, caches, decode, cache_pos,
                 seed=None):
         """Embedding (or `embeds`, the modality-frontend stub path), the
-        trunk and the final norm."""
+        trunk and the final norm: (x, states, aux)."""
         if decode and caches is None:
             raise ValueError("decode needs the caches (init_caches, or "
                              "prefill's)")
@@ -176,9 +248,9 @@ class Model(torch.nn.Module):
             off = cache_pos if decode and cache_pos is not None else 0
             positions = self._default_positions(x.shape[0], x.shape[1],
                                                 offset=off)
-        x, states = self._trunk(x, positions, caches, decode, cache_pos,
-                                seed)
-        return rmsnorm(x, self.final_norm, self.cfg.norm_eps), states
+        x, states, aux = self._trunk(x, positions, caches, decode,
+                                     cache_pos, seed)
+        return rmsnorm(x, self.final_norm, self.cfg.norm_eps), states, aux
 
     def _logits(self, x):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -192,17 +264,25 @@ class Model(torch.nn.Module):
                 decode=False, cache_pos=None):
         """Trunk + head: (logits, new_caches, aux). `embeds` (B, S, d)
         bypasses token embedding (qwen2-vl / musicgen); qwen2-vl's
-        positions are (3, B, S). aux is 0 (no MoE layer yet)."""
-        x, new_caches = self._hidden(tokens, embeds, positions, caches,
-                                     decode, cache_pos)
-        aux = torch.zeros((), device=x.device)
+        positions are (3, B, S). aux is the sum of the MoE layers' switch
+        aux losses (0 for the other patterns), as the JAX package's layer
+        stack sums them; at decode the port sums them too, where the JAX
+        package's scanned decode loop returns 0."""
+        x, new_caches, aux = self._hidden(tokens, embeds, positions, caches,
+                                          decode, cache_pos)
         return self._logits(x), new_caches, aux
 
     def init_caches(self, batch: int, max_len: int):
-        """Zeroed decode state in the compute dtype (SSM states in
-        float32, float64 for a float64 model)."""
+        """Zeroed decode state in the compute dtype (SSM and LSTM states
+        in float32, float64 for a float64 model). The xLSTM stabilizers m
+        start at 0 here, as the JAX package's `init_caches` has them (the
+        forward passes start them at −inf); a prefill overwrites them."""
         cfg, dt, dev, L = self.cfg, self.cdtype, self.device, \
             self.cfg.n_layers
+        ft = compute_float(dt)
+
+        def zeros(*shape, dtype=ft):
+            return torch.zeros(shape, dtype=dtype, device=dev)
 
         def attn_cache(n):
             shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -211,26 +291,35 @@ class Model(torch.nn.Module):
 
         if cfg.pattern in _BLOCKS:
             return attn_cache(L)
+        if cfg.pattern == "xlstm":
+            U, M, d = self.units, cfg.xlstm.slstm_every - 1, cfg.d_model
+            d_up, nh, hd = mlstm_dims(cfg)
+            return {
+                "mlstm": (MLSTMState(C=zeros(U, M, batch, nh, hd, hd),
+                                     n=zeros(U, M, batch, nh, hd),
+                                     m=zeros(U, M, batch, nh)),
+                          zeros(U, M, batch, CONV_K - 1, d_up, dtype=dt)),
+                "slstm": SLSTMState(*(zeros(U, batch, d) for _ in range(4))),
+            }
         s, _, nh, conv_ch = _dims(cfg)
         return {
             "mamba": MambaState(
                 conv=torch.zeros((L, batch, s.d_conv - 1, conv_ch),
                                  dtype=dt, device=dev),
-                ssm=torch.zeros((L, batch, nh, s.head_dim, s.d_state),
-                                dtype=compute_float(dt), device=dev)),
+                ssm=zeros(L, batch, nh, s.head_dim, s.d_state)),
             "attn": attn_cache(self.n_apps),
         }
 
     @torch.no_grad()
     def prefill(self, tokens=None, embeds=None, max_len=None):
         """Full-sequence forward seeding the decode caches: the attention
-        k/v go into `max_len` buffers, the Mamba layers' final states into
-        theirs, layer by layer. Returns (logits of the last position (B, 1,
-        V), caches): the head runs on that position only."""
+        k/v go into `max_len` buffers, the Mamba and LSTM layers' final
+        states into theirs, layer by layer. Returns (logits of the last
+        position (B, 1, V), caches): the head runs on that position only."""
         x = tokens if tokens is not None else embeds
         caches = self.init_caches(x.shape[0], max_len or x.shape[1])
-        h, _ = self._hidden(tokens, embeds, None, None, False, None,
-                            seed=caches)
+        h, _, _ = self._hidden(tokens, embeds, None, None, False, None,
+                               seed=caches)
         return self._logits(h[:, -1:]), caches
 
     @torch.no_grad()
@@ -265,21 +354,22 @@ def from_jax_params(cfg: ModelConfig, params: Dict,
                     device=None) -> Dict[str, torch.Tensor]:
     """The port's state dict (`Model.load_state_dict`) from the JAX
     package's `Model(cfg).init()` pytree given as numpy arrays (bf16 as
-    ml_dtypes arrays): the layers' stacked (L, ...) leaves are split into
-    one entry a layer, zamba2's `shared_attn` kept whole. Layouts are the
-    same in both packages. `device` as for `Model`."""
-    if cfg.pattern not in ("dense", "parallel", "zamba2"):
-        raise NotImplementedError(f"pattern {cfg.pattern!r} is not ported "
-                                  "yet: ROADMAP item A11b")
+    ml_dtypes arrays): the layers' stacked leaves are split into one entry
+    a layer — (L, ...) under "blocks", "mamba" and "slstm", (units, layers
+    of a unit, ...) under "mlstm" — and zamba2's `shared_attn` kept whole.
+    Layouts are the same in both packages. `device` as for `Model`."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, a in _leaves(params):
         top, _, rest = name.partition(".")
         t = _as_tensor(a).to(dev)
-        if top in _STACKED:
+        if _STACKED.get(top) == 1:
             for i in range(t.shape[0]):
                 out[f"{top}.{i}.{rest}"] = t[i]
+        elif _STACKED.get(top) == 2:
+            for i in range(t.shape[0]):
+                for j in range(t.shape[1]):
+                    out[f"{top}.{i}.{j}.{rest}"] = t[i, j]
         else:
             out[name] = t
     return out
-

@@ -16,10 +16,13 @@ also held to `chip_smoke.py`'s gate: within ATTN_REL·(1+|ref|) +
 (the output's own rounding plus the float32 gate). The 3xTF32 kernels
 (`flash_attention_tf32`, the grouped GEMM `moe_gemm`) are held to
 chip_smoke.py's float32 gates against the plain version in float64:
-ATTN_REL·(1+|ref|), and 1e-5·Σ|x w| + 1e-6 for the GEMM. The tensor-core
-SSD scan (three kernels behind the "mamba_scan" counter) is held to
-chip_smoke.py's scan gates: (SSD_REL + 8·u32·max|l|)·Σ|terms| + 1e-6
-against float64, plus 2^-8·|ref| in bf16 against float32.
+ATTN_REL·(1+|ref|), and 1e-5·Σ|x w| + 1e-6 for the GEMM. The bf16 grouped
+GEMM (`moe_gemm_sm90`) is held to chip_smoke.py's bf16 GEMM gate against
+the plain version's float32 sums on the same bf16 operands: 2^-8·|ref| +
+1e-5·Σ|x w| + 1e-6 (its one output rounding plus the float32 term). The
+tensor-core SSD scan (three kernels behind the "mamba_scan" counter) is
+held to chip_smoke.py's scan gates: (SSD_REL + 8·u32·max|l|)·Σ|terms| +
+1e-6 against float64, plus 2^-8·|ref| in bf16 against float32.
 
 The segment combine (B2) and the fused gather-reduce (B3) are held to
 their plain versions exactly (min, max, or, write, reads; NaN equal to
@@ -282,6 +285,113 @@ def test_grouped_gemm_kernel_reads_strided_weight_views(dev, offset):
     _gemm_gate(h, w_out, sizes)
 
 
+def _gemm_gate_bf16(x, w, sizes):
+    """bf16 grouped_gemm on the card within BF16_ROUND·|ref| + 1e-5·Σ|x w|
+    + 1e-6 of the plain version's float32 sums on the same bf16 operands
+    (chip_smoke.py's `gemm_parity` in bf16)."""
+    got = grouped_gemm(x, w, sizes)
+    want = grouped_gemm_ref(x.float(), w.float(), sizes).double()
+    mags = grouped_gemm_ref(x.abs().double(), w.abs().double(), sizes)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    err = (got.double() - want).abs()
+    allowed = BF16_ROUND * want.abs() + 1e-5 * mags + 1e-6
+    assert bool((err <= allowed).all()), float((err / allowed).max())
+    return got
+
+
+def _bf16(*ts):
+    return tuple(t.to(torch.bfloat16) for t in ts)
+
+
+@pytest.mark.parametrize("geom", [(4, 96, 32, 64), (1, 1, 64, 128),
+                                  (6, 150, 128, 256), (3, 17, 32, 64),
+                                  (40, 64, 1536, 1024), (40, 80, 512, 1536),
+                                  (4, 4096, 1536, 1024), (5, 57, 24, 40),
+                                  (3, 300, 30, 50), (2, 200, 33, 7),
+                                  (2, 300, 30, 50), (1, 700, 64, 96),
+                                  (4, 700, 1536, 1024)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_grouped_gemm_bf16_kernel(dev, geom):
+    """The bf16 route (`gg_bf16`): the MOE geometries, granite's in- and
+    out-projection at a decode step (64-row tiles) and at 4,096 rows
+    (128-row tiles), K = 1,536 (24 ring stages, the stage sums), K or N
+    not a multiple of 8 (K = 24, 30 and 33 take the one-value loads)."""
+    G, M = geom[:2]
+    x, w, sizes = _moe(np.random.default_rng(15), *geom, dev)
+    x, w = _bf16(x, w)
+    assert copies16(x, w) == (geom[2] % 8 == 0 and geom[3] % 8 == 0)
+    got = _gemm_gate_bf16(x, w, sizes)
+    assert got.shape == (geom[1], geom[3])
+    assert kernels.launches()["moe_gemm_sm90"] == 1
+    assert kernels.launches()["moe_gemm"] == 0
+
+
+@pytest.mark.parametrize("M", [100, 600], ids=["64-row", "128-row"])
+def test_grouped_gemm_bf16_kernel_partial_column_chunk(dev, M):
+    """N = 6 columns of rows 8 apart: a 16-byte load cut at N, the output
+    stored a value at a time where N is odd (N = 5)."""
+    rng = np.random.default_rng(16)
+    x, _, sizes = _moe(rng, 2, M, 40, 8, dev)
+    w = torch.from_numpy(_normal(rng, 2, 40, 8)).to(dev)
+    x, w = _bf16(x, w)
+    for n in (6, 5):
+        view = w[..., :n]
+        assert copies16(x, view) and not view.is_contiguous()
+        got = _gemm_gate_bf16(x, view, sizes)
+        assert torch.equal(got, grouped_gemm(x, view.contiguous(), sizes))
+
+
+def test_grouped_gemm_bf16_kernel_empty_groups_and_rows_beyond_the_sum(dev):
+    x = torch.ones((8, 32), device=dev, dtype=torch.bfloat16)
+    w = torch.ones((4, 32, 16), device=dev, dtype=torch.bfloat16)
+    got = _gemm_gate_bf16(x, w, torch.tensor([0, 8, 0, 0],
+                                             dtype=torch.int32, device=dev))
+    assert bool((got == 32).all())
+    rng = np.random.default_rng(17)
+    for geom in ((5, 57, 24, 40), (5, 300, 64, 128)):
+        x, w, _ = _moe(rng, *geom, dev)
+        x, w = _bf16(x, w)
+        sizes = torch.tensor([11, 0, 20, 9, 0], dtype=torch.int32,
+                             device=dev)
+        got = _gemm_gate_bf16(x, w, sizes)
+        assert not bool(got[40:].any())
+    assert kernels.launches()["moe_gemm_sm90"] == 3
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_grouped_gemm_bf16_kernel_reads_strided_weight_views(dev, offset):
+    """w_in and w_out as views of one wider bf16 row per expert; one
+    element in, the views are not 16-byte aligned and take the one-value
+    loads. Both give the stacks' results bit for bit."""
+    G, M, K, N, F = 3, 40, 24, 16, 8
+    rng = np.random.default_rng(18)
+    x, _, sizes = _moe(rng, G, M, K, N, dev)
+    rows = torch.from_numpy(_normal(rng, G, offset + K * N + N * F)).to(dev)
+    x, rows = _bf16(x, rows)
+    w_in = rows[:, offset:offset + K * N].view(G, K, N)
+    w_out = rows[:, offset + K * N:].view(G, N, F)
+    assert copies16(x, w_in) == (offset == 0)
+    h = _gemm_gate_bf16(x, w_in, sizes)
+    assert torch.equal(h, grouped_gemm(x, w_in.contiguous(), sizes))
+    y = _gemm_gate_bf16(h, w_out, sizes)
+    assert torch.equal(y, grouped_gemm(h, w_out.contiguous(), sizes))
+
+
+def test_grouped_gemm_bf16_kernel_copies_nothing_to_float32(dev):
+    """The bf16 route reads its operands in place: a call allocates its
+    output and its tile table, nothing the size of x or w in float32."""
+    x, w, sizes = _moe(np.random.default_rng(19), 40, 4096, 1536, 1024, dev)
+    x, w = _bf16(x, w)
+    grouped_gemm(x, w, sizes)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = grouped_gemm(x, w, sizes)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    assert extra <= out.numel() * 2 + (4096 // 64 + 41) * 16 + 4096
+
+
 def test_float32_kernels_ignore_allow_tf32(dev):
     """allow_tf32 switches no route: the 3xTF32 kernels give the same bits
     with it on and off."""
@@ -391,6 +501,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     bc = torch.zeros((1, 16, 8), device=dev)
     with pytest.raises(ValueError, match="at most"):
         mamba_ssd(x, dt, torch.zeros(1, device=dev), bc, bc)
+    # the grouped GEMM: float32 or bf16, w of x's dtype
+    xg = torch.zeros((8, 32), device=dev, dtype=torch.bfloat16)
+    wg = torch.zeros((2, 32, 16), device=dev, dtype=torch.bfloat16)
+    sg = torch.tensor([4, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        grouped_gemm(xg.half(), wg.half(), sg)
+    with pytest.raises(ValueError, match="dtype"):
+        grouped_gemm(xg, wg.float(), sg)
     assert kernels.launches() == {k: 0 for k in kernels.KERNELS}
 
 

@@ -8,12 +8,15 @@ hold the model stack against the JAX package). This file imports no JAX:
   version on the same inputs, at chip_smoke.py's scan gates ((SSD_REL +
   8·u32·max|l|)·Σ|terms| + 1e-6 against float64; plus 2^-8·|ref| in bf16
   against float32).
-- zamba2-1.2b and tinyllama-1.1b at full width with n_layers=2 in bf16: a
+- zamba2-1.2b, tinyllama-1.1b, granite-moe-3b-a800m and xlstm-350m at full
+  width with two layers (xlstm: one mLSTM and one sLSTM layer) in bf16: a
   prefill and decode steps launch exactly the kernels the layers call
   (zamba2: one scan a Mamba layer and one bf16 attention call a shared-block
-  application at prefill, one bf16 decode call an application a step), and
-  decode after a prefill reproduces a longer prefill's last logits within
-  chip_smoke.py's LM_CONSISTENCY (0.05 of max|logits|).
+  application at prefill, one bf16 decode call an application a step;
+  granite: also a histogram and four bf16 grouped GEMMs a layer, at prefill
+  and at each step; xlstm: none), and decode after a prefill reproduces a
+  longer prefill's last logits within chip_smoke.py's LM_CONSISTENCY (0.05
+  of max|logits|).
 - The same at n_layers=2 in float32 against float64 on the CPU: logits
   within chip_smoke.py's LM_F32_REL (1e-4) of max|ref|.
 - A reduced config (head dim 8) is refused by the attention kernel on the
@@ -91,26 +94,38 @@ def test_ssd_final_state_kernel(dev, geom, dtype):
         assert bool(((got.double() - want.double()).abs() <= allowed).all())
 
 
+ARCHS = ["zamba2-1.2b", "tinyllama-1.1b", "granite-moe-3b-a800m",
+         "xlstm-350m"]
+
+
 def _full_two_layers(arch, dtype):
-    return dataclasses.replace(get_config(arch), n_layers=2,
-                               param_dtype=dtype, compute_dtype=dtype)
+    cfg = get_config(arch)
+    kw = {}
+    if cfg.pattern == "xlstm":  # one unit: an mLSTM and an sLSTM layer
+        kw["xlstm"] = dataclasses.replace(cfg.xlstm, slstm_every=2)
+    return dataclasses.replace(cfg, n_layers=2, param_dtype=dtype,
+                               compute_dtype=dtype, **kw)
 
 
 def _launches_of(cfg, prefills, steps):
     bf16 = cfg.compute_dtype == "bfloat16"
     fa = "flash_attention_sm90" if bf16 else "flash_attention_tf32"
     fd = "flash_decode_sm90" if bf16 else "flash_decode"
-    n_attn = (-(-cfg.n_layers // cfg.shared_attn_every)
-              if cfg.pattern == "zamba2" else cfg.n_layers)
+    n_attn = {"zamba2": -(-cfg.n_layers // cfg.shared_attn_every),
+              "xlstm": 0}.get(cfg.pattern, cfg.n_layers)
     want = {k: 0 for k in kernels.KERNELS}
     want[fa] = prefills * n_attn
     want[fd] = steps * n_attn
     if cfg.pattern == "zamba2":
         want["mamba_scan"] = prefills * cfg.n_layers
+    if cfg.pattern == "moe":  # Phase 1, then hot and cold SwiGLUs
+        calls = (prefills + steps) * cfg.n_layers
+        want["histogram"] = calls
+        want["moe_gemm_sm90" if bf16 else "moe_gemm"] = 4 * calls
     return want
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_prefill_decode_on_card(dev, arch):
     cfg = _full_two_layers(arch, "bfloat16")
     model = Model(cfg, device=dev, seed=3)
@@ -132,7 +147,7 @@ def test_full_width_prefill_decode_on_card(dev, arch):
         LM_CONSISTENCY * float(top)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "tinyllama-1.1b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_float32_against_float64(dev, arch):
     cfg = _full_two_layers(arch, "float32")
     model = Model(cfg, device=dev, seed=5)

@@ -12,9 +12,11 @@ parameters carried by `from_jax_params`: `forward` logits and states,
 `prefill` logits and caches, and a `decode_step`'s logits and caches; and
 the port's own prefill/decode consistency (tests/test_archs_smoke.py's
 check), and chip_smoke.py's consistency readings (caches and logits), which
-each planted fault (a k/v slot, a lost SSM state, a rotation) must fail.
-On the CPU every kernel wrapper runs its plain version, and
-nothing launches.
+each planted fault (a k/v slot, a lost SSM or mLSTM state, a rotation, a
+conv tail not advanced, an sLSTM hidden state not carried) must fail. The
+same for the moe (granite-moe, `forward`'s aux loss too) and xlstm
+patterns, whose modules tests/test_torch_models_moe_xlstm.py holds. On the
+CPU every kernel wrapper runs its plain version, and nothing launches.
 
 Tolerances (float32 throughout): TOL = 1e-5 (atol and rtol) for one layer
 (sums of at most a few hundred products in another order: a few float32
@@ -45,6 +47,7 @@ from repro_torch.models import Model, from_jax_params
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import mamba as tmamba
+from repro_torch.models import blocks as tblocks
 from repro_torch.models.mamba import MambaState
 
 # one intra-op thread per test process: the suite runs in parallel workers
@@ -55,7 +58,8 @@ TOL = 1e-5
 LOGIT_TOL = 1e-4
 CONSISTENCY_TOL = 2e-3
 ARCHS = ["glm4-9b", "internlm2-20b", "tinyllama-1.1b", "command-r-35b",
-         "zamba2-1.2b", "qwen2-vl-72b", "musicgen-large"]
+         "zamba2-1.2b", "qwen2-vl-72b", "musicgen-large",
+         "granite-moe-1b-a400m", "granite-moe-3b-a800m", "xlstm-350m"]
 
 
 @pytest.fixture(autouse=True)
@@ -349,7 +353,11 @@ def test_from_jax_params_carries_every_leaf(arch):
     sd = m.state_dict()
     for name, a in _flat(params):
         top, _, rest = name.partition(".")
-        if top in ("blocks", "mamba"):
+        if top == "mlstm":  # (units, layers of a unit, ...)
+            got = torch.stack([torch.stack([sd[f"{top}.{i}.{j}.{rest}"]
+                                            for j in range(a.shape[1])])
+                               for i in range(a.shape[0])])
+        elif top in ("blocks", "mamba", "slstm"):
             got = torch.stack([sd[f"{top}.{i}.{rest}"]
                                for i in range(a.shape[0])])
         else:
@@ -366,11 +374,13 @@ def test_forward_matches_jax(arch):
         S = 16
         p = np.broadcast_to(np.arange(S, dtype=np.int32), (2, S))
         pos = np.stack([p, p // 4, p % 4]).astype(np.int32)
-    want, wstates, _ = jm.forward(params, **_jx(kw), positions=None
-                                  if pos is None else jnp.asarray(pos))
+    want, wstates, waux = jm.forward(params, **_jx(kw), positions=None
+                                     if pos is None else jnp.asarray(pos))
     got, states, aux = m.forward(**_pt(kw), positions=None
                                  if pos is None else _t(pos))
-    assert got.shape == (2, 16, m.cfg.vocab_size) and float(aux) == 0.0
+    assert got.shape == (2, 16, m.cfg.vocab_size)
+    assert (float(aux) > 0) == (m.cfg.pattern == "moe")
+    _close(aux, waux, LOGIT_TOL)
     _close(got, want, LOGIT_TOL, scale=True)
     _same_tree(states, wstates, LOGIT_TOL)
 
@@ -380,8 +390,9 @@ def test_prefill_and_decode_match_jax(arch):
     jm, params, m = _models(arch)
     kw = _inputs(m.cfg, S=16)
     last = {k: v[:, -1:] for k, v in kw.items()}
-    first = {k: v[:, :-1] for k, v in kw.items()} if m.cfg.pattern != \
-        "zamba2" else {k: v[:, :8] for k, v in kw.items()}
+    # the chunked scans take a multiple of the chunk (8)
+    first = {k: v[:, :-1] for k, v in kw.items()} if m.cfg.pattern not in \
+        ("zamba2", "xlstm") else {k: v[:, :8] for k, v in kw.items()}
     S = next(iter(first.values())).shape[1]
     want, wcaches = jm.prefill(params, **_jx(first), max_len=24)
     got, caches = m.prefill(**_pt(first), max_len=24)
@@ -415,8 +426,10 @@ def test_prefill_decode_consistency(arch):
 def _plant(m, fault, monkeypatch):
     """Plant one of chip_smoke.py's LM_FAULTS in the decode path: "slot"
     moves the k/v just written one slot early (the new slot left zero),
-    "rope" rotates decode one position too far. ("state" zeroes a prefill
-    state; the caller does that.)"""
+    "rope" rotates decode one position too far, "conv" leaves the mLSTM
+    conv tail where the prefill put it, "carry" feeds every sLSTM step a
+    zero hidden state. ("state" zeroes a prefill state; the caller does
+    that.)"""
     if fault == "slot":
         plain = kernels.decode_attention
 
@@ -431,13 +444,48 @@ def _plant(m, fault, monkeypatch):
             m, "_default_positions",
             lambda b, s, offset=0: Model._default_positions(m, b, s,
                                                             offset + 1))
+    elif fault == "conv":
+        plain_m = tblocks.mlstm_decode
+
+        def frozen(params, cfg, x, state, tail):
+            out, state, _ = plain_m(params, cfg, x, state, tail)
+            return out, state, tail
+        monkeypatch.setattr(tblocks, "mlstm_decode", frozen)
+    elif fault == "carry":
+        plain_s = tblocks.slstm_decode
+
+        def forgetful(params, cfg, x, st):
+            return plain_s(params, cfg, x, st._replace(
+                h=torch.zeros_like(st.h)))
+        monkeypatch.setattr(tblocks, "slstm_decode", forgetful)
 
 
 def _cache_leaves(c):
+    if isinstance(c, dict) and "mlstm" in c:
+        (ms, tail), sl = c["mlstm"], c["slstm"]
+        return [("C", ms.C), ("n", ms.n), ("m", ms.m), ("conv", tail),
+                ("c", sl.c), ("sn", sl.n), ("sm", sl.m), ("h", sl.h)]
     if isinstance(c, dict):
         return [("conv", c["mamba"].conv), ("ssm", c["mamba"].ssm),
                 ("k", c["attn"][0]), ("v", c["attn"][1])]
     return [("k", c[0]), ("v", c[1])]
+
+
+def _decode_pairs(got, want):
+    """check 2's decode readings: the k/v caches; for xlstm the recurrent
+    states, C / n and c / n put on the reference's stabilizer (m is the
+    log of their scale: the same state under another m reads the same)."""
+    if not (isinstance(got, dict) and "mlstm" in got):
+        return [(g, w) for (n, g), (_, w) in zip(_cache_leaves(got),
+                                                 _cache_leaves(want))
+                if n in ("k", "v")]
+    (ms, tail), (rs, rtail) = got["mlstm"], want["mlstm"]
+    sl, rl = got["slstm"], want["slstm"]
+    a = torch.exp(ms.m - rs.m)
+    b = torch.exp(sl.m - rl.m)
+    return [(ms.C * a[..., None, None], rs.C), (ms.n * a[..., None], rs.n),
+            (tail, rtail), (sl.c * b, rl.c), (sl.n * b, rl.n),
+            (sl.h, rl.h)]
 
 
 def _share(got, want):
@@ -448,34 +496,44 @@ def _consistency(m, kw, split, fault=None, monkeypatch=None):
     """chip_smoke.py's check 2 at a small size, as shares of max|ref|: a
     `split`-token prefill's caches against `forward`'s states on those
     tokens, then the rest decoded teacher-forced: the last logits against
-    a whole prefill's, and the k/v caches against that prefill's."""
+    a whole prefill's, and the decode caches (`_decode_pairs`) against that
+    prefill's."""
     S = next(iter(kw.values())).shape[1]
     head = {k: v[:, :split] for k, v in kw.items()}
     _, states, _ = m.forward(**head)
     want, want_caches = m.prefill(**kw, max_len=S + 4)
     _, caches = m.prefill(**head, max_len=S + 4)
     if fault == "state":
-        caches["mamba"].ssm[m.cfg.n_layers // 2].zero_()
+        if m.cfg.pattern == "zamba2":
+            caches["mamba"].ssm[m.cfg.n_layers // 2].zero_()
+        else:
+            caches["mlstm"][0].C[m.units // 2].zero_()
     out = {"prefill_caches": max(
         _share(got[:, :, :split] if n in "kv" else got, ref)
         for (n, got), (_, ref) in zip(_cache_leaves(caches),
                                       _cache_leaves(states)))}
-    if fault in ("slot", "rope"):
+    if fault in ("slot", "rope", "conv", "carry"):
         _plant(m, fault, monkeypatch)
     for i in range(split, S):
         step, caches = m.decode_step(
             caches, **{k: v[:, i:i + 1] for k, v in kw.items()},
             cache_pos=i)
     out["logits"] = _share(step, want)
-    out["decode_caches"] = max(
-        _share(got, ref) for (n, got), (_, ref) in zip(
-            _cache_leaves(caches), _cache_leaves(want_caches)) if n in "kv")
+    out["decode_caches"] = max(_share(g, w)
+                               for g, w in _decode_pairs(caches, want_caches))
     return out
 
 
-FAULT_CASES = [(a, f) for a in ARCHS for f in ("slot", "state", "rope")
-               if (f != "state" or get_reduced(a).pattern == "zamba2")
-               and (f != "rope" or get_reduced(a).rope_kind != "none")]
+def _faults(arch):
+    """The planted faults that an arch's caches have."""
+    cfg = get_reduced(arch)
+    if cfg.pattern == "xlstm":
+        return ("state", "conv", "carry")
+    return ("slot", "rope", "state") if cfg.pattern == "zamba2" else (
+        ("slot",) if cfg.rope_kind == "none" else ("slot", "rope"))
+
+
+FAULT_CASES = [(a, f) for a in ARCHS for f in _faults(a)]
 
 
 @pytest.mark.parametrize("arch,fault", FAULT_CASES)
@@ -483,20 +541,14 @@ def test_consistency_check_sees_planted_fault(arch, fault, monkeypatch):
     """chip_smoke.py's check 2 (prefill caches, last logits, decode
     caches) reads within CONSISTENCY_TOL of max|ref| on the port, and
     beyond it with each planted fault: k/v written one slot early, a
-    prefill state lost, decode rotated one position too far."""
+    prefill state lost, decode rotated one position too far, the mLSTM
+    conv tail not advanced, the sLSTM hidden state not carried."""
     _, _, m = _models(arch)
     kw = _pt(_inputs(m.cfg, S=8, seed=4))
     clean = _consistency(m, kw, 4)
     assert max(clean.values()) <= CONSISTENCY_TOL, clean
     got = _consistency(m, kw, 4, fault, monkeypatch)
     assert max(got.values()) > CONSISTENCY_TOL, got
-
-
-@pytest.mark.parametrize("pattern", ["moe", "xlstm"])
-def test_later_patterns_name_their_slice(pattern):
-    arch = {"moe": "granite-moe-1b-a400m", "xlstm": "xlstm-350m"}[pattern]
-    with pytest.raises(NotImplementedError, match="A11b"):
-        Model(get_reduced(arch), device="cpu")
 
 
 def test_port_models_import_neither_jax_nor_repro():
@@ -518,6 +570,7 @@ def test_port_models_import_neither_jax_nor_repro():
                          text=True, env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     assert {"repro_torch.models.layers", "repro_torch.models.attention",
-            "repro_torch.models.mamba", "repro_torch.models.blocks",
+            "repro_torch.models.mamba", "repro_torch.models.moe",
+            "repro_torch.models.xlstm", "repro_torch.models.blocks",
             "repro_torch.models.model", "repro_torch.launch.specs",
             "repro_torch.launch.serve"} <= set(out.stdout.split())

@@ -10,6 +10,13 @@ beyond the groups' sum. Tolerance atol = rtol = 2e-4, as
 `tests/test_kernels.py` holds the JAX kernel: float32 sums in different
 orders (and the Pallas kernel's block-k partial sums).
 
+In bf16 (the models' dtype) the plain version is held against both JAX
+paths on the same bf16 operands: all three sum exact products in float32
+and round y to bf16 once, so they differ by the order of the float32 sums
+and, where a sum sits near a rounding point, by one bf16 ulp (up to 2^-7
+of |y| at the bottom of a binade): BF16_GATE = 2^-7·|ref| + 1e-5·Σ|x w| +
+1e-6.
+
 `gathered_swiglu` is plain array code: the port's numpy and torch float64
 forms and the JAX package's (fed numpy arrays) agree to 1e-12.
 """
@@ -29,6 +36,7 @@ from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 torch.set_num_threads(1)
 
 TOL = 2e-4
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative, at its largest
 # (G, M, K, N): the MOE family of tests/test_kernels.py
 MOE_GEOMS = ((4, 96, 32, 64), (1, 1, 64, 128), (6, 150, 128, 256),
              (3, 17, 32, 64))
@@ -103,6 +111,71 @@ def test_grouped_gemm_rows_beyond_the_sum(backend):
     rows = slice(None) if backend == "ref" else slice(0, 40)
     np.testing.assert_allclose(got[rows], _jax(x, w, sizes, backend)[rows],
                                atol=TOL, rtol=TOL)
+
+
+def _bf16(a):
+    """float32 numpy -> (jnp bf16, torch bf16), the same bits (both round
+    to nearest even)."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    j = jnp.asarray(a, jnp.bfloat16)
+    assert np.array_equal(np.asarray(j, np.float32), t.float().numpy())
+    return j, t
+
+
+def _bf16_gate(got, want, x, w, sizes):
+    """got (torch bf16) against want (bf16) within BF16_GATE; Σ|x w| in
+    float64 from the bf16 values."""
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want, np.float64)
+    xa, wa = (torch.from_numpy(np.abs(a.float().numpy())).double()
+              for a in (x, w))
+    mags = grouped_gemm_ref(xa, wa, sizes).numpy()
+    allowed = BF16_ULP * np.abs(want) + 1e-5 * mags + 1e-6
+    err = np.abs(got.double().numpy() - want)
+    assert (err <= allowed).all(), float((err / allowed).max())
+
+
+# the MOE geometries through both JAX paths, and granite-moe-3b-a800m's two
+# projections at a decode step's size through `lax.ragged_dot` (the Pallas
+# kernel in interpret mode takes minutes there)
+BF16_CASES = [(g, b) for g in MOE_GEOMS for b in ("ref", "interpret")] + [
+    ((40, 64, 1536, 1024), "ref"), ((40, 80, 512, 1536), "ref")]
+
+
+@pytest.mark.parametrize("geom,backend", BF16_CASES,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else v)
+def test_grouped_gemm_bf16_matches_jax(geom, backend):
+    """bf16 in, bf16 out, within BF16_GATE of the JAX package's
+    `lax.ragged_dot` and of its Pallas kernel (interpret mode) on the same
+    bf16 operands."""
+    x, w, sizes = _case(geom)
+    (xj, xt), (wj, wt) = _bf16(x), _bf16(w)
+    st = torch.from_numpy(sizes)
+    got = grouped_gemm(xt, wt, st)
+    K, N = x.shape[1], w.shape[2]
+    want = jax_grouped_gemm(xj, wj, jnp.asarray(sizes), block_m=16,
+                            block_n=min(N, 128), block_k=min(K, 64),
+                            backend=backend)
+    assert want.dtype == jnp.bfloat16 and got.shape == want.shape
+    _bf16_gate(got, want, xt, wt, st)
+
+
+def test_grouped_gemm_plain_version_bf16_rounds_once():
+    """The plain version's bf16 semantics: float32 sums of the bf16
+    operands, rounded to bf16 once (not a bf16 sum), empty groups and rows
+    beyond the sum as 0."""
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(30, 256)).astype(np.float32)
+    w = rng.normal(size=(3, 256, 24)).astype(np.float32)
+    (_, xt), (_, wt) = _bf16(x), _bf16(w)
+    sizes = torch.tensor([12, 0, 10], dtype=torch.int32)
+    got = grouped_gemm_ref(xt, wt, sizes)
+    assert got.dtype == torch.bfloat16
+    xf, wf = xt.float(), wt.float()
+    want = torch.cat([xf[:12] @ wf[0], xf[12:22] @ wf[2]]).to(torch.bfloat16)
+    assert torch.equal(got[:22], want)
+    assert not got[22:].float().any()
 
 
 def test_grouped_gemm_plain_version_semantics():
@@ -197,3 +270,11 @@ def test_wrapper_chooses_tiles_and_copies_from_the_shape():
                         torch.zeros((3, 30, 16)))  # K = 30
     assert not copies16(x, torch.zeros((3, 24, 18))[:, :, :15])  # rows 18
     assert copies16(x, torch.zeros((3, 24, 16))[:, :, :15])  # rows 16
+    # bf16: 16 bytes are 8 values
+    xb, wb = x.to(torch.bfloat16), torch.zeros((3, 24, 16),
+                                               dtype=torch.bfloat16)
+    assert copies16(xb, wb)
+    assert not copies16(xb, torch.zeros((3, 24, 12),
+                                        dtype=torch.bfloat16))  # rows 12
+    assert not copies16(torch.zeros((40, 20), dtype=torch.bfloat16),
+                        torch.zeros((3, 20, 16), dtype=torch.bfloat16))

@@ -1,8 +1,8 @@
 """The port's serving launcher (`repro_torch.launch.serve`, `.specs`) held
 against the JAX package's `repro.launch`, in one process.
 
-`generate` on the reduced configs of the dense, parallel and zamba2
-patterns, with the JAX `Model.init` parameters carried by
+`generate` on the reduced configs of the dense, parallel, moe, zamba2 and
+xlstm patterns, with the JAX `Model.init` parameters carried by
 `from_jax_params`, must give the JAX `generate`'s greedy tokens, token for
 token, for 8 steps. A near-tie could flip a token between two correct
 implementations, so the test first asserts that at every step the top two
@@ -10,7 +10,7 @@ logits lie further apart than twice the logit tolerance of
 tests/test_torch_models.py (LOGIT_TOL·(1 + |top|) each). Temperature
 sampling draws from an explicit `torch.Generator`: the same seed gives the
 same tokens. `SHAPES` and `shape_applicable` equal the JAX package's;
-`main()` serves a reduced config on the CPU.
+`main()` serves a reduced config on the CPU (zamba2, granite-moe, xlstm).
 """
 import functools
 
@@ -36,7 +36,8 @@ torch.set_num_threads(1)
 LOGIT_TOL = 1e-4  # tests/test_torch_models.py's whole-model tolerance
 GEN = 8
 ARCHS = ["glm4-9b", "internlm2-20b", "tinyllama-1.1b", "command-r-35b",
-         "zamba2-1.2b", "qwen2-vl-72b", "musicgen-large"]
+         "zamba2-1.2b", "qwen2-vl-72b", "musicgen-large",
+         "granite-moe-1b-a400m", "granite-moe-3b-a800m", "xlstm-350m"]
 
 
 @pytest.fixture(autouse=True)
@@ -124,6 +125,14 @@ def test_main_serves_the_reduced_config_on_the_cpu(capsys):
     assert "generated 2×4 tokens" in out and "on cpu" in out
     with pytest.raises(SystemExit, match="embeddings"):
         serve.main(["--arch", "musicgen-large", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m"])
+def test_main_serves_the_moe_and_xlstm_patterns_on_the_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "16",
+                "--gen", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "generated 2×4 tokens" in out and "on cpu" in out
 
 
 def test_model_defaults_to_the_card():
