@@ -10,7 +10,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    csrc/` with nvcc (sm_90a), and the registers, shared memory and spills
    of the attention, scan, grouped GEMM, segment-combine and fused-read
    kernels (the 3xTF32 float32 ones, the SIMT float32 ones and the bf16
-   tensor-core ones, `gg_bf16` among them).
+   tensor-core ones, `gg_sm90` and `gg_bf16` among them).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -26,7 +26,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    tests/test_kernels.py, empty groups, rows beyond the groups' sum, the
    parameter-server path's two projections; in bf16 the same cases and
    granite's decode-step projections, K or N not a multiple of 8, strided
-   weight views at and off 16 bytes, within `gemm_check`'s bf16 gate),
+   weight views at and off 16 bytes and the edges of `gg_sm90`'s tile walk,
+   each on the kernel its operands route to — `gg_sm90` or `gg_bf16`,
+   counted — within `gemm_check`'s bf16 gate),
    and attention, decode
    attention and the SSD scan (see phase 5; bf16 attention and decode take
    the tensor-core kernels `flash_attention_sm90` and `flash_decode_sm90`,
@@ -95,8 +97,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    runs) beside the plain version, the one PyTorch call that computes the
    same function (`torch.bincount`, `index_add_`, `embedding_bag`,
    `torch._grouped_mm` where it takes float32, and in bf16 for the bf16
-   grouped GEMM at granite-moe-3b-a800m's prefill and decode shapes (row
-   4b, `GG_BF16_SHAPES`),
+   grouped GEMM `gg_sm90` at granite-moe-3b-a800m's prefill and decode
+   shapes (row 4b, `GG_BF16_SHAPES`, with the call's host and device time,
+   and `gg_bf16` on the same operands beside it),
    `F.scaled_dot_product_attention`; none for the SSD scan), and the least
    time the card could take (bytes over 3.35 TB/s, or operations over 67
    TFLOP/s in float32 FMAs, 495/3 TFLOP/s for the float32 kernels that
@@ -290,7 +293,8 @@ def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "fd_split", "fd_sm90",
                                              "ssd_states", "ssd_state_pass",
                                              "ssd_outputs", "gg_tf32",
-                                             "gg_bf16", "seg_combine",
+                                             "gg_sm90", "gg_bf16",
+                                             "seg_combine",
                                              "fused_reduce", "hist_shared",
                                              "hist_global")) -> dict:
     """Registers, shared memory and spills per instantiation of the named
@@ -744,10 +748,17 @@ def parity_phase(dev) -> dict:
     log(f"  moe_gemm: {len(cases)} cases (the MOE geometries, empty groups, "
         "rows beyond the sum, the path's in- and out-projection); within "
         "1e-5*sum|x w| + 1e-6")
-    # the bf16 route: the same cases with x and w rounded to bf16, granite's
+    # bf16: the same cases with x and w rounded to bf16, granite's
     # decode-step shapes (64 and 80 rows over 40 experts), K and N not
-    # multiples of 8 (one-value loads), and strided weight views, 16-byte
-    # aligned and not
+    # multiples of 8, strided weight views (16-byte aligned and not), and
+    # gg_sm90's tile walk: x boxes running into the next group, groups of
+    # one row, more tiles than the card keeps blocks, sizes all 0, a zero
+    # tail of three tiles, negative sizes summing past M. Each case on the
+    # kernel its operands route to (`moe_gemm.ops.route`): gg_sm90 where a
+    # TMA tensor map can describe them, else gg_bf16.
+    from repro_torch import kernels
+    from repro_torch.kernels.moe_gemm.ops import route
+
     bf = [(n, torch.from_numpy(x).to(dev, torch.bfloat16),
            torch.from_numpy(w).to(dev, torch.bfloat16), sz)
           for n, x, w, sz in cases]
@@ -769,12 +780,37 @@ def parity_phase(dev) -> dict:
         h = grouped_gemm_ref(xb, w_in.contiguous(), torch.from_numpy(sz))
         bf.append((f"bf16 strided w_out, offset {offset}", h.to(dev),
                    w_out, sz))
-    worst["moe_gemm_sm90"] = max(gemm_parity(dev, *c[1:], name=c[0])
-                                 for c in bf)
-    log(f"  moe_gemm_sm90: {len(bf)} bf16 cases (the float32 cases rounded, "
+    for name, geom, sz in (
+            ("straddle", (3, 300, 64, 128), [100, 60, 140]),
+            ("groups of 1", (6, 70, 128, 64), [1, 1, 0, 1, 66, 1]),
+            ("walk wraps, 64 rows", (E, 4000, 256, 1024), None),
+            ("walk wraps, 128 rows", (8, 65536, 64, 1024), None),
+            ("sizes all 0", (4, 200, 64, 128), [0, 0, 0, 0]),
+            ("zero tail of 3 tiles", (3, 400, 128, 64), [30, 0, 10]),
+            ("negative, past M", (4, 500, 64, 192), [-7, 300, 0, 400])):
+        x, w, drawn = _gemm_case(geom, rng)
+        bf.append((f"bf16 {name} {geom}",
+                   torch.from_numpy(x).to(dev, torch.bfloat16),
+                   torch.from_numpy(w).to(dev, torch.bfloat16),
+                   drawn if sz is None else np.array(sz, np.int32)))
+    before = kernels.launches()
+    by_route = {"moe_gemm_sm90": [], "moe_gemm_bf16": []}
+    for c in bf:
+        by_route[route(c[1], c[2])].append(gemm_parity(dev, *c[1:],
+                                                       name=c[0]))
+    ran = kernels.launches()
+    for k, errs in by_route.items():
+        if ran[k] - before[k] != len(errs):
+            raise AssertionError(f"{k}: {ran[k] - before[k]} launches for "
+                                 f"{len(errs)} bf16 cases routed to it")
+        worst[k] = max(errs)
+    log(f"  bf16 grouped GEMM: {len(bf)} cases (the float32 cases rounded, "
         "granite's decode-step projections, K or N not a multiple of 8, "
-        "strided weight views at and off 16 bytes); within 2^-8*|ref| + "
-        "1e-5*sum|x w| + 1e-6 of the plain version's float32 sums")
+        "strided weight views at and off 16 bytes, the tile walk's edges): "
+        f"{len(by_route['moe_gemm_sm90'])} on moe_gemm_sm90 (gg_sm90), "
+        f"{len(by_route['moe_gemm_bf16'])} on moe_gemm_bf16 (gg_bf16); "
+        "within 2^-8*|ref| + 1e-5*sum|x w| + 1e-6 of the plain version's "
+        "float32 sums")
     worst.update(attention_ssm_parity(dev))
     return worst
 
@@ -794,7 +830,8 @@ def scale_by_context(contexts, reduced):
 def _launch(**kw):
     """A stage's launches per kernel: those named, 0 for the rest."""
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
-            "moe_gemm": 0, "moe_gemm_sm90": 0, "flash_attention_tf32": 0,
+            "moe_gemm": 0, "moe_gemm_sm90": 0, "moe_gemm_bf16": 0,
+            "flash_attention_tf32": 0,
             "flash_attention_sm90": 0,
             "flash_decode": 0, "flash_decode_sm90": 0, "mamba_scan": 0,
             **kw}
@@ -1502,15 +1539,19 @@ GG_BF16_SHAPES = (("prefill in-projection", 32_768, "in"),
 
 
 def moe_gemm_bf16_timing(dev) -> dict:
-    """Row 4b: `gg_bf16` at GG_BF16_SHAPES, each against its plain version
-    (`gemm_check`), the plain version's time, `torch._grouped_mm` in bf16
-    (the same function, checked against the plain version at the same
-    gate) and the bound: bytes (x, the routed experts' weights and y once,
-    the sizes) at 3.35 TB/s or operations at 989 TFLOP/s. `launches` is
+    """Row 4b: `gg_sm90` at GG_BF16_SHAPES, each against its plain version
+    (`gemm_check`): the call's event time, its host time and its device
+    time alone (`_call_times`: the prologue `gg_plan` and `gg_sm90`; two
+    tensor maps are encoded a call), the plain version's time,
+    `torch._grouped_mm` in bf16 (the same function, checked against the
+    plain version at the same gate) and the bound: bytes (x, the routed
+    experts' weights and y once, the sizes) at 3.35 TB/s or operations at
+    989 TFLOP/s. Beside it (`bf16_route`, row 4c), `gg_bf16` on the same
+    operands, which it takes where TMA cannot describe them. `launches` is
     filled in from phase 13's granite run, the kernel's main path."""
     import torch
 
-    from repro_torch.kernels.moe_gemm.ops import grouped_gemm
+    from repro_torch.kernels.moe_gemm.ops import _launch, grouped_gemm, route
     from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 
     E, d, f, k = GRANITE["E"], GRANITE["d"], GRANITE["f"], GRANITE["k"]
@@ -1529,8 +1570,13 @@ def moe_gemm_bf16_timing(dev) -> dict:
         M, K, N = tokens * k, wt.shape[1], wt.shape[2]
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         sizes = torch.from_numpy(sizes_np).to(dev)
+        if route(x, wt) != "moe_gemm_sm90":
+            raise AssertionError(f"{label}: routed to {route(x, wt)}")
         err, share = gemm_check(x, wt, sizes, grouped_gemm(x, wt, sizes),
                                 f"moe_gemm_sm90 {label}")
+        old_err, old_share = gemm_check(
+            x, wt, sizes, _launch(x, wt, sizes, kernel="moe_gemm_bf16"),
+            f"moe_gemm_bf16 {label}")
         used = int((sizes_np > 0).sum())
         nbytes = 2 * (M * K + used * K * N + M * N) + 4 * E
         b_ms, b_by = bound(nbytes, 2 * M * K * N, BF16_OPS_PER_S)
@@ -1548,10 +1594,13 @@ def moe_gemm_bf16_timing(dev) -> dict:
             shape=f"{label}: x ({M}, {K}) bf16 over {used} of {E} experts, "
                   f"w ({E}, {K}, {N}) bf16",
             max_abs_err=err, share_of_gate=share,
-            ms=time_ms(lambda: grouped_gemm(x, wt, sizes)),
+            **_call_times(lambda: grouped_gemm(x, wt, sizes)),
             plain_ms=time_ms(lambda: grouped_gemm_ref(x, wt, sizes)),
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-            library_note=note))
+            library_note=note,
+            bf16_route=dict(ms=time_ms(lambda: _launch(
+                x, wt, sizes, kernel="moe_gemm_bf16")), max_abs_err=old_err,
+                share_of_gate=old_share)))
         del x
     torch.cuda.empty_cache()
     row = dict(name="moe_gemm_sm90", route="cuda",
@@ -5917,9 +5966,16 @@ def main(argv=None) -> int:
     for s in rows[-1]["shapes"]:
         lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
                else f"null: {s['library_note']}")
-        log(f"  moe_gemm_sm90: {s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, "
-            f"torch._grouped_mm {lib}, bound {s['bound_ms']:.4f} by "
-            f"{s['bound_by']}; {s['share_of_gate']:.4f} of the gate) at "
+        events = (", ".join(f"{k} {v:.4f}" for k, v in
+                            s["device_events"].items())
+                  or "CUDA events, the calls queued behind a spin")
+        log(f"  moe_gemm_sm90: call {s['ms']:.4f} ms (host "
+            f"{s['host_ms']:.4f}), device {s['device_ms']:.4f} ms "
+            f"({events}), plain {s['plain_ms']:.4f}, torch._grouped_mm "
+            f"{lib}, bound {s['bound_ms']:.4f} by {s['bound_by']}; "
+            f"{s['share_of_gate']:.4f} of the gate; moe_gemm_bf16 (gg_bf16) "
+            f"{s['bf16_route']['ms']:.4f} ms, "
+            f"{s['bf16_route']['share_of_gate']:.4f} of the gate; at "
             f"{s['shape']}")
     rows += attention_ssm_timing(dev, attn_launches, errors)
     for r in rows:

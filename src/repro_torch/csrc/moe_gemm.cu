@@ -12,10 +12,10 @@
 // group g owning the next group_sizes[g] rows); rows at or beyond the
 // groups' sum are written as 0. Negative sizes count as 0, and rows past M
 // are cut. float32 operands, float32 accumulation (`gg_tf32`); or bf16
-// operands, float32 accumulation and bf16 output (`gg_bf16`, below), as the
-// Pallas kernel computes for bf16 operands. w may be a strided view
-// (dense rows of N, any group and row stride), so a caller can pass slices
-// of a wider weight row without copying them.
+// operands, float32 accumulation and bf16 output (`gg_sm90` or `gg_bf16`,
+// below), as the Pallas kernel computes for bf16 operands. w may be a
+// strided view (dense rows of N, any group and row stride), so a caller
+// can pass slices of a wider weight row without copying them.
 //
 // What bounds it on this card: at decode sizes, memory. Each expert's
 // weight block (K x N) is read once per row tile of that expert, and a
@@ -69,22 +69,79 @@
 //   into sums of their own, which are added to the tile's sums in float32
 //   (rounded to nearest) after the stage.
 //
-// bf16 (`gg_bf16`, the models' route: granite-moe computes in bf16). x and
-// w are read as they are (no float32 copy of either), every product of
-// two bf16 values is exact in float32, and y is rounded to bf16 once from
-// the float32 sums. The same prologue, tile table and 64/128-row choice;
-// `mma.sync` m16n8k16 (bf16 in, float32 sums) over a `cp.async` ring of
-// kStages stages of 64 deep, A fragments by `ldmatrix` from the x tile and
-// B fragments by `ldmatrix.trans` from the N-major w tile (rows padded by
-// 16 bytes, so the eight rows of an 8x8 matrix hit distinct banks). 8
-// warps as 2 x 4 as above; a stage's 4 k16 products go into sums of their
-// own, added to the tile's sums in float32 after the stage (the tensor
-// core truncates the sum it writes). The wrapper chooses 16-byte copies
-// where x, w and their strides are 16-byte aligned, else one value a load
-// (synchronous stores into the ring). At granite's prefill (a 262,144-row
-// in-projection, K = 1,536, N = 1,024) it is the arithmetic that bounds:
-// 8.2e11 FLOP, 0.83 ms at 989 TFLOP/s; at decode the weights' bytes.
+// bf16 operands, two kernels (granite-moe computes in bf16). Both read x
+// and w as they are (no float32 copy of either), take every product of two
+// bf16 values exactly in float32, sum in float32 and round y to bf16 once;
+// both use the prologue, the tile table and the 64/128-row choice above.
+// The wrapper picks by the operands alone (`ops.route`): `gg_sm90` where a
+// TMA tensor map can describe them (x, w and w's strides 16-byte aligned,
+// K > 0, K and N multiples of 8), else `gg_bf16`.
+//
+// `gg_sm90` (Hopper's own path; counter "moe_gemm_sm90"). At granite's
+// prefill (a 262,144-row in-projection, K = 1,536, N = 1,024) the
+// arithmetic bounds it: 8.2e11 FLOP, 0.83 ms at 989 TFLOP/s; at a decode
+// step (64 rows over ~34 experts) the routed experts' weights, 0.032 ms of
+// bytes. Design:
+// - TMA tiles into a ring of 64-deep stages (6 of 32 KB at 128 rows, 8 of
+//   24 KB at 64) with a full and an empty mbarrier a stage: x as a 2-D map
+//   (K, M) in 128-byte swizzled rows, w as a 3-D map (N, K, G) with w's
+//   own strides (a strided view is read in place) in boxes of 64 x 64.
+//   Rows past M and columns past K or N read as zeros.
+// - One producer warpgroup (one thread issues the loads; `setmaxnreg` 40)
+//   and two consumer warpgroups (232 registers): `wgmma` m64nNk16, A (x)
+//   K-major and B (w, N contiguous) MN-major through the transpose bit,
+//   both from shared memory. A 128 x 128 tile gives each warpgroup 64 rows
+//   (m64n128); a 64 x 128 tile (decode) 64 columns each (m64n64).
+// - Stage sums: the tensor core truncates the float32 sum it writes, by
+//   up to 2^-23 of it a k16 step, so a sum carried through all 96 k16
+//   steps of K = 1,536 can miss gemm_check's 1e-5·Σ|x w| term (1.1e-5 on
+//   adversarial same-sign operands, tests/test_torch_moe_gemm_sm90.py). A
+//   sum stays on the tensor core for kSumDepth = 256 of k (its first
+//   `wgmma` with the scale of d at 0) and is then added into the tile's
+//   float32 sums, which keeps the emulated error under half that term.
+//   The second set of sums is why the tile is 128 x 128 (128 accumulators
+//   a consumer thread) and not 128 x 256. The warpgroups add half a sum
+//   apart, so one keeps the tensor cores busy while the other adds.
+// - Each stage is released once the next one's products are issued
+//   (`wgmma.wait_group 1`); no branch reads or waits on the `wgmma`
+//   registers (ptxas would serialize the products).
+// - A persistent walk: about one block an SM walks the (row tile, column
+//   tile) table with the column tiles of a row tile adjacent (they share
+//   the x tile in L2) and row tiles in group order (an expert's weights
+//   stay in L2); `gg_plan` writes the count of used tiles into entry 0, so
+//   the walk skips the -2 tail without reading it, and zero-tail tiles
+//   store zeros. The producer runs into the next tiles' loads while the
+//   consumers finish a tile, and a tile's stores (through shared memory,
+//   16 bytes a thread) run while the next tile's first sum is on the
+//   tensor cores. Rows of a row tile that belong to the next group are
+//   computed and not stored (no TMA store: a box cannot stop at the
+//   group's end).
+// - At 128-row tiles two blocks form a cluster over 256 columns and
+//   share the x tile through TMA multicast (each loads half, both
+//   receive it), which cuts a 128 x 128 tile's L2 traffic by a quarter.
+//   gg_sm90_variants.py on an H100 80GB HBM3 at 700 W: granite's prefill
+//   in-projection 1.46 ms with the pair, 1.59 without (the out-projection
+//   the same either way). A 2 x 2 cluster, w shared too, was tried and
+//   not kept: it was no faster.
+// - The column tile is 128 at every shape. At granite's decode shapes 64,
+//   128 and 256 columns (544, 272 and 136 tiles over 132 SMs) measured
+//   within 7% of each other (the same script), in no order of whole
+//   waves: where the weights' bytes bound, a short last wave costs little.
+// - `gg_sm90` is launched as a programmatic dependent of `gg_plan`: its
+//   blocks set up their barriers while the plan is written, then read the
+//   plan through L2 after `griddepcontrol.wait`.
+//
+// `gg_bf16` (any layout; counter "moe_gemm_bf16"): `mma.sync` m16n8k16
+// (bf16 in, float32 sums) over a `cp.async` ring of kStages stages of 64
+// deep, A fragments by `ldmatrix` from the x tile and B fragments by
+// `ldmatrix.trans` from the N-major w tile (rows padded by 16 bytes, so
+// the eight rows of an 8x8 matrix hit distinct banks). 8 warps as 2 x 4 as
+// above; a stage's 4 k16 products go into sums of their own, added to the
+// tile's sums in float32 after the stage. 16-byte copies where x, w and
+// their strides are 16-byte aligned, else one value a load (synchronous
+// stores into the ring).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -118,39 +175,59 @@ struct Tile {
   static_assert(BM == 64 || BM == 128, "tiles of 64 or 128 rows");
 };
 
-// Inclusive scan of one value per thread over the block (Hillis-Steele).
-// Leaves the block's total in buf[blockDim.x - 1]; the caller synchronizes
-// before `buf` is used again.
-__device__ long long block_inclusive_scan(long long v, long long* buf) {
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {
-    const long long add = threadIdx.x >= off ? buf[threadIdx.x - off] : 0;
-    __syncthreads();
-    buf[threadIdx.x] += add;
-    __syncthreads();
+// Inclusive scan of one value per thread over the block: shuffles within
+// each warp, then over the warps' totals. `total` gets the block's sum;
+// `buf` holds 32 values, and the caller synchronizes before it is used
+// again.
+__device__ long long block_inclusive_scan(long long v, long long* buf,
+                                          long long& total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long up = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += up;
   }
-  return buf[threadIdx.x];
+  if (lane == 31) buf[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    long long u = lane < n_warps ? buf[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long up = __shfl_up_sync(0xffffffffu, u, off);
+      if (lane >= off) u += up;
+    }
+    buf[lane] = u;
+  }
+  __syncthreads();
+  total = buf[n_warps - 1];
+  return warp > 0 ? v + buf[warp - 1] : v;
 }
 
 // plan[t] = (group, first row, end row, 0) for t in [0, num_tiles); group
-// -1 marks a tile of the zero tail, -2 a tile with no rows.
+// -1 marks a tile of the zero tail, -2 a tile with no rows. The -2 tiles
+// come last, and entry 0's 4th field is the count of the others (what
+// `gg_sm90`'s tile walk covers).
 __global__ void gg_plan(const int* __restrict__ sizes, int G, int M,
                         int tile_rows, int num_tiles,
                         int4* __restrict__ plan) {
-  __shared__ long long buf[kPlanThreads];
+  // the kernel that reads the plan may start its prologue now (a
+  // programmatic dependent launch; it waits for this grid's writes)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __shared__ long long buf[32];
   long long row_carry = 0, tile_carry = 0;  // the same in every thread
   for (int base = 0; base < G; base += kPlanThreads) {
     const int g = base + threadIdx.x;
     const long long s = g < G ? max(sizes[g], 0) : 0;
-    const long long rows_incl = row_carry + block_inclusive_scan(s, buf);
-    const long long rows_total = buf[kPlanThreads - 1];
+    long long rows_total, tiles_total;
+    const long long rows_incl =
+        row_carry + block_inclusive_scan(s, buf, rows_total);
     __syncthreads();
     const long long r0 = min(rows_incl - s, static_cast<long long>(M));
     const long long r1 = min(rows_incl, static_cast<long long>(M));
     const long long t = (r1 - r0 + tile_rows - 1) / tile_rows;
-    const long long tiles_incl = tile_carry + block_inclusive_scan(t, buf);
-    const long long tiles_total = buf[kPlanThreads - 1];
+    const long long tiles_incl =
+        tile_carry + block_inclusive_scan(t, buf, tiles_total);
     __syncthreads();
     for (long long j = 0; j < t; ++j) {
       const long long tile = tiles_incl - t + j;
@@ -174,6 +251,10 @@ __global__ void gg_plan(const int* __restrict__ sizes, int G, int M,
                                          static_cast<long long>(M))), 0)
         : make_int4(-2, 0, 0, 0);
   }
+  __syncthreads();  // every entry is written; entry 0 may be this block's
+  if (threadIdx.x == 0)
+    plan[0].w = static_cast<int>(
+        min(tile_carry + zero_tiles, static_cast<long long>(num_tiles)));
 }
 
 // Copy stage `kt` (depth k0 = kt * kBK) of the x rows [row0, row_end) and
@@ -590,6 +671,348 @@ cudaError_t launch_tiles16(const bf16* x, const bf16* w,
   return cudaGetLastError();
 }
 
+// ---- bf16 operands through TMA and wgmma: gg_sm90 ---------------------------
+// A ring stage is 64 deep: one 128-byte swizzled row of x a tile row, and
+// 64 rows of 128 bytes a 64-column block of w.
+constexpr int kDepth = 64;
+// Depth of a sum on the tensor core before it is added into the tile's
+// float32 sums (tests/test_torch_moe_gemm_sm90.py emulates it and holds it
+// to chip_smoke.py's gate): 4 ring stages.
+constexpr int kSumDepth = 256;
+constexpr int kFoldStages = kSumDepth / kDepth;
+constexpr int kSmThreads = 384;  // two consumer warpgroups and a producer
+constexpr int kSmemMax = 232448 - 512;  // an H100 block's, less the statics
+
+static_assert(kSumDepth % kDepth == 0 && kFoldStages % 2 == 0,
+              "whole ring stages, staggered by half a sum");
+
+// A block's BM x 128 tile: two consumer warpgroups of 64 rows each (BM =
+// 128), or of 64 columns each (BM = 64). At BM = 128 two blocks form a
+// cluster over a 128 x 256 tile of one group: each loads half of the x box
+// for both (TMA multicast), so the pair reads each x tile from L2 once.
+template <int BM>
+struct TileSm90 {
+  static_assert(BM == 64 || BM == 128, "64 or 128 rows");
+  static constexpr int kBN = 128;  // columns of a block's tile
+  static constexpr int kCluster = BM == 128 ? 2 : 1;
+  static constexpr int kWgN = BM == 128 ? kBN : kBN / 2;  // a warpgroup's
+  static constexpr int kXRows = BM / kCluster;  // rows of this block's x box
+  static constexpr int kABytes = BM * 128;      // x: BM rows of 64 values
+  static constexpr int kBBytes = kBN * 128;     // w: 64 x 64 boxes
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // the epilogue's staging: each warpgroup's 64 x kWgN tile in bf16
+  static constexpr int kStagingBytes = 2 * 64 * kWgN * 2;
+  static constexpr int kRing = kSmemMax - 1024 - kStagingBytes;
+  static constexpr int kStages =
+      kRing / kStageBytes < 8 ? kRing / kStageBytes : 8;
+  // 6 x 32 KB at 128 rows, 8 x 24 KB at 64
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + kStagingBytes;
+};
+
+// Named barrier 1 + wg: the 128 threads of consumer warpgroup wg.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// A consumer warp's release of ring stage `s`: one arrival on its empty
+// barrier in every block of the cluster, lane r on block r's.
+template <int kCluster>
+__device__ __forceinline__ void release(uint64_t* empty, int s, int lane) {
+  if constexpr (kCluster == 1) {
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  } else {
+    if (lane < kCluster) sm90::mbar_arrive_cluster(&empty[s], lane);
+  }
+}
+
+// A warpgroup's 64 x kWgN sums (wgmma's accumulator layout) rounded to
+// bf16 once into y at rows [row0, row0 + 64) below row_end and columns
+// [col0, col0 + kWgN) below N, through the warpgroup's staging (16-byte
+// chunks, swizzled by the row so neither pass conflicts on banks) into
+// 16-byte stores. Rows of the next group and columns past N are computed,
+// not stored.
+template <int kWgN>
+__device__ __forceinline__ void store_tile(const float (&acc)[kWgN / 2],
+                                           uint8_t* staging, int wg,
+                                           int row0, int row_end, int col0,
+                                           int N, bf16* __restrict__ y) {
+  constexpr int kChunks = kWgN / 8;
+  constexpr int kSwz = kChunks < 8 ? kChunks - 1 : 7;
+  const int tid = threadIdx.x % 128, wi = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  warpgroup_sync(wg);  // the last tile's stores have read the staging
+#pragma unroll
+  for (int j = 0; j < kWgN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * wi + g + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(
+          staging + r * kWgN * 2 + ((j ^ (r & kSwz)) << 4) + 4 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  warpgroup_sync(wg);
+#pragma unroll
+  for (int q = 0; q < kChunks / 2; ++q) {
+    const int i = tid + 128 * q;
+    const int r = i / kChunks, c = i % kChunks;
+    const int gr = row0 + r, gc = col0 + 8 * c;
+    if (gr < row_end && gc < N)  // N % 8 == 0: the chunk is inside
+      *reinterpret_cast<uint4*>(y + static_cast<long long>(gr) * N + gc) =
+          *reinterpret_cast<const uint4*>(staging + r * kWgN * 2 +
+                                          ((c ^ (r & kSwz)) << 4));
+  }
+}
+
+// One persistent block an SM (a cluster of two blocks at BM = 128) walks
+// the table of cluster tiles: tile t is column tile t % n_col_tiles (of
+// kCluster·128 columns) of row tile t / n_col_tiles (plan entry, BM rows),
+// t from the cluster's index in steps of the number of clusters, up to the
+// used row tiles (plan[0].w). Warps 0-7 are the consumer warpgroups,
+// warps 8-11 the producer (one thread of it issues the TMA loads and runs
+// ahead into the next tiles' loads).
+template <int BM>
+__global__ void __launch_bounds__(kSmThreads, 1)
+gg_sm90(const __grid_constant__ CUtensorMap x_map,
+        const __grid_constant__ CUtensorMap w_map, const int4* plan, int K,
+        int N, int n_col_tiles, bf16* __restrict__ y) {
+  using C = TileSm90<BM>;
+  constexpr int kStages = C::kStages, kWgN = C::kWgN;
+  constexpr int kCluster = C::kCluster;
+  extern __shared__ uint8_t smem_sm90_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_sm90_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* staging = ring + kStages * C::kStageBytes;
+  const int n_k = (K + kDepth - 1) / kDepth;
+  const int rank = blockIdx.x % kCluster;  // this block's column half
+  const int cluster = blockIdx.x / kCluster;
+  const int n_clusters = gridDim.x / kCluster;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      // one arrival a consumer warp of each block of the cluster: a stage
+      // is free when neither block still reads the x half this one wrote
+      sm90::mbar_init(&empty[s], 8 * kCluster);
+    }
+    sm90::mbar_fence_init();
+  }
+  if constexpr (kCluster > 1) sm90::cluster_sync();
+  else __syncthreads();
+  // everything above ran beside the prologue (`gg_plan`); the plan from
+  // here, read through L2 (`__ldcg`) from a pointer the compiler may not
+  // take for read-only: a load hoisted above the wait, or served from
+  // another call's lines, would walk a stale table
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int n_tiles = __ldcg(&plan[0].w) * n_col_tiles;
+
+  if (warp >= 8) {  // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int tile = cluster; tile < n_tiles; tile += n_clusters) {
+        const int4 p = __ldcg(&plan[tile / n_col_tiles]);
+        if (p.x < 0) continue;  // the zero tail loads nothing
+        const int n0 = ((tile % n_col_tiles) * kCluster + rank) * C::kBN;
+        for (int kt = 0; kt < n_k; ++kt) {
+          sm90::mbar_wait(&empty[s], phase ^ 1);
+          sm90::mbar_expect_tx(&full[s], C::kStageBytes);
+          uint8_t* st = ring + s * C::kStageBytes;
+          if constexpr (kCluster == 1)
+            sm90::tma_load_2d(st, &x_map, &full[s], kt * kDepth, p.y);
+          else
+            sm90::tma_load_2d_multicast(st + rank * C::kXRows * 128, &x_map,
+                                        &full[s], kt * kDepth,
+                                        p.y + rank * C::kXRows, 0x3);
+#pragma unroll
+          for (int j = 0; j < C::kBN / 64; ++j)
+            sm90::tma_load_3d(st + C::kABytes + j * 64 * 128, &w_map,
+                              &full[s], n0 + 64 * j, kt * kDepth, p.x);
+          if (++s == kStages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if constexpr (kCluster > 1) {
+        // the other block's consumers arrive on this block's barriers:
+        // stay until they have released every stage
+        for (int i = 0; i < kStages; ++i) {
+          sm90::mbar_wait(&empty[s], phase ^ 1);
+          if (++s == kStages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // ---- consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp / 4;
+    const int row_off = BM == 128 ? 64 * wg : 0;  // this warpgroup's part
+    const int col_off = BM == 128 ? 0 : kWgN * wg;
+    // the two warpgroups add their sums half a sum apart, so one of them
+    // keeps the tensor cores busy while the other waits and adds (or
+    // stores the last tile)
+    const int shift = wg * (kFoldStages / 2);
+    const uint32_t ring_base = sm90::smem_addr(ring);
+    uint8_t* stage_out = staging + wg * 64 * kWgN * 2;
+    float acc[kWgN / 2], part[kWgN / 2];
+#pragma unroll
+    for (int i = 0; i < kWgN / 2; ++i) part[i] = acc[i] = 0.f;
+    // the tile whose sums `acc` holds, stored while the next one's first
+    // sum runs on the tensor cores
+    int last_row0 = 0, last_end = 0, last_col0 = 0;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int tile = cluster; tile < n_tiles; tile += n_clusters) {
+      const int4 p = __ldcg(&plan[tile / n_col_tiles]);
+      // one sum at a time: its stages' products into `part` (the first
+      // with the scale of d at 0), each stage released once the next one's
+      // products are issued; then the sum added into `acc`. No branch
+      // reads or waits on the wgmma registers (ptxas would serialize the
+      // products); a zero-tail tile runs no sum.
+      const int k_end = p.x >= 0 ? n_k : 0;
+      for (int k0 = 0; k0 < k_end;) {
+        const int k1 = min(k_end, (k0 + shift) / kFoldStages * kFoldStages +
+                                      kFoldStages - shift);
+        int held = -1;  // a stage whose products may still be running
+        for (int kt = k0; kt < k1; ++kt) {
+          sm90::mbar_wait(&full[s], phase);
+          const uint32_t a_base =
+              ring_base + s * C::kStageBytes + row_off * 128;
+          // (a warpgroup's columns may start inside a 128-byte swizzled
+          // row, as 32 of a 64-column tile would: the swizzle is of the
+          // address)
+          const uint32_t b_base = ring_base + s * C::kStageBytes +
+                                  C::kABytes + (col_off / 64) * 64 * 128 +
+                                  (col_off % 64) * 2;
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kDepth / 16; ++ks) {
+            // x K-major: 32 bytes a k16 step, 8 rows 1024 bytes apart;
+            // w MN-major: 16 rows a k16 step, column blocks 8 KB apart
+            const uint64_t da =
+                sm90::descriptor(a_base + 32 * ks, 16, 1024, 1);
+            const uint64_t db =
+                sm90::descriptor(b_base + 16 * 128 * ks, 64 * 128, 1024, 1);
+            sm90::wgmma_ss_tb<kWgN>(part, da, db, ks > 0 || kt > k0);
+          }
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<1>();  // the previous stage's products are done
+          __syncwarp();
+          if (held >= 0) release<kCluster>(empty, held, lane);
+          held = s;
+          if (++s == kStages) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+        if (k0 == 0 && last_end > last_row0)
+          store_tile<kWgN>(acc, stage_out, wg, last_row0, last_end,
+                           last_col0, N, y);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(part);
+        __syncwarp();
+        release<kCluster>(empty, held, lane);
+        const bool fresh = k0 == 0;  // a tile's first sum replaces `acc`
+#pragma unroll
+        for (int i = 0; i < kWgN / 2; ++i)
+          acc[i] = part[i] + (fresh ? 0.f : acc[i]);
+        k0 = k1;
+      }
+      if (k_end == 0) {  // the zero tail: store the last tile, then zeros
+        if (last_end > last_row0)
+          store_tile<kWgN>(acc, stage_out, wg, last_row0, last_end,
+                           last_col0, N, y);
+#pragma unroll
+        for (int i = 0; i < kWgN / 2; ++i) acc[i] = 0.f;
+      }
+      last_row0 = p.y + row_off;
+      last_end = p.z;
+      last_col0 =
+          ((tile % n_col_tiles) * kCluster + rank) * C::kBN + col_off;
+    }
+    if (last_end > last_row0)
+      store_tile<kWgN>(acc, stage_out, wg, last_row0, last_end, last_col0, N,
+                       y);
+  }
+}
+
+template <int BM>
+cudaError_t launch_sm90(int device, const bf16* x, const bf16* w,
+                        long long w_group_stride, long long w_row_stride,
+                        const int4* plan, int M, int K, int N, int G,
+                        int num_tiles, bf16* y, cudaStream_t stream) {
+  using C = TileSm90<BM>;
+  constexpr auto kernel = gg_sm90<BM>;
+  // x as (K, M) in boxes of (64, BM / kCluster); w as (N, K, G) with its
+  // own strides in boxes of (64, 64, 1): a strided view is read in place
+  CUtensorMap x_map, w_map;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(M)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
+  const uint32_t x_box[2] = {kDepth, C::kXRows};
+  const uint64_t w_dims[3] = {static_cast<uint64_t>(N),
+                              static_cast<uint64_t>(K),
+                              static_cast<uint64_t>(G)};
+  const uint64_t w_strides[2] = {static_cast<uint64_t>(w_row_stride) * 2,
+                                 static_cast<uint64_t>(w_group_stride) * 2};
+  const uint32_t w_box[3] = {64, kDepth, 1};
+  cudaError_t err = sm90::make_map(&x_map, x, 2, x_dims, x_strides, x_box);
+  if (err == cudaSuccess)
+    err = sm90::make_map(&w_map, w, 3, w_dims, w_strides, w_box);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[2];
+  // launched as the prologue's programmatic dependent: it may start while
+  // `gg_plan` runs and waits for the plan (griddepcontrol.wait)
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = C::kCluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kSmThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = stream;
+  // once a device: the shared-memory opt-in and the blocks the card keeps
+  // resident (whole clusters)
+  static int resident[64] = {0};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (resident[device] == 0) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    if constexpr (C::kCluster == 1) {
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                   device);
+    } else {
+      cfg.gridDim = dim3(C::kCluster, 1, 1);
+      cfg.attrs = attr + 1;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    }
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    resident[device] = n * C::kCluster;
+  }
+  const int n_col_tiles =
+      (N + C::kCluster * C::kBN - 1) / (C::kCluster * C::kBN);
+  const long long blocks =
+      static_cast<long long>(num_tiles) * n_col_tiles * C::kCluster;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(static_cast<unsigned>(
+      blocks < resident[device] ? blocks : resident[device]), 1, 1);
+  cfg.attrs = attr;
+  cfg.numAttrs = C::kCluster > 1 ? 2 : 1;
+  return cudaLaunchKernelEx(&cfg, kernel, x_map, w_map, plan, K, N,
+                            n_col_tiles, y);
+}
+
 // The prologue: the tile table of `tile_rows`-row tiles into `plan`.
 cudaError_t plan_tiles(const int* sizes, int G, int M, int tile_rows,
                        int num_tiles, int4* plan, cudaStream_t stream) {
@@ -662,6 +1085,44 @@ extern "C" int tdorch_grouped_gemm_bf16(int device, const void* x,
     err = launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                  w_group_stride, w_row_stride, plan4, K, N, num_tiles,
                  static_cast<bf16*>(y), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for bf16 x, w and y through TMA and `wgmma` (`gg_sm90`): x, w,
+// and w's strides 16-byte aligned, K > 0 and K, N multiples of 8 (the
+// wrapper routes other operands to `gg_bf16`); tile_rows 64 or 128, as the
+// other two take.
+extern "C" int tdorch_grouped_gemm_sm90(int device, const void* x,
+                                        const void* w,
+                                        long long w_group_stride,
+                                        long long w_row_stride,
+                                        const int* sizes, int M, int K,
+                                        int N, int G, int tile_rows,
+                                        int num_tiles, int* plan, void* y,
+                                        cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || w_group_stride % 8 != 0 ||
+      w_row_stride % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Launch = cudaError_t (*)(int, const bf16*, const bf16*, long long,
+                                 long long, const int4*, int, int, int, int,
+                                 int, bf16*, cudaStream_t);
+  Launch launch = nullptr;
+  if (tile_rows == 128) launch = &launch_sm90<128>;
+  if (tile_rows == 64) launch = &launch_sm90<64>;
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (M > 0 && N > 0 && num_tiles > 0) {
+    int4* plan4 = reinterpret_cast<int4*>(plan);
+    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch(device, static_cast<const bf16*>(x),
+                 static_cast<const bf16*>(w), w_group_stride, w_row_stride,
+                 plan4, M, K, N, G, num_tiles, static_cast<bf16*>(y), stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

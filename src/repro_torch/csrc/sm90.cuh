@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (flash_attention_sm90.cu, flash_decode.cu, flash_attention_tf32.cu,
-// moe_gemm.cu): mbarriers, TMA tile loads and the host-side tensor maps
-// that describe them, `cp.async` copies, warp-level `ldmatrix` /
-// `mma.sync` (bf16 and TF32), the 3xTF32 split of a float32 value, and
-// the exponential in base 2.
+// moe_gemm.cu): mbarriers, TMA tile loads (multicast to a cluster too) and
+// the host-side tensor maps that describe them, cluster barriers and
+// remote arrivals, `cp.async` copies, warp-level `ldmatrix` /
+// `mma.sync` (bf16 and TF32), warpgroup-level `wgmma` (shared-memory
+// descriptors, fences, m64nNk16 bf16 products), the 3xTF32 split of a
+// float32 value, and the exponential in base 2.
 //
 // The tensor maps are encoded with `cuTensorMapEncodeTiled`, looked up
 // through the runtime (`cudaGetDriverEntryPoint`), so the library links
@@ -74,6 +76,32 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // ---- TMA ------------------------------------------------------------------
+// Load the box at coordinates (c0, c1) of a 2-D tensor map into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// The same for a 3-D tensor map, at (c0, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Load the box at coordinates (c0, c1, c2, c3) of a 4-D tensor map into
 // shared memory; completion is counted in bytes on `bar`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
@@ -88,6 +116,21 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `tma_load_2d`, written into the shared memory of every block of the
+// cluster in `mask` (bit r: the block of rank r), at this block's offsets
+// of `dst` and `bar`; each block's barrier counts the bytes it receives.
+__device__ __forceinline__ void tma_load_2d_multicast(
+    void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes.multicast::cluster"
+      " [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "h"(mask)
+      : "memory");
+}
+
 // The byte offset of 16-byte chunk `chunk` of row `row` in a tile whose
 // rows are `RowBytes` (64 or 128) long and swizzled as TMA's
 // CU_TENSOR_MAP_SWIZZLE_{64,128}B writes them: the chunk index is XORed
@@ -97,6 +140,28 @@ __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
   static_assert(RowBytes == 64 || RowBytes == 128, "64 or 128 B rows");
   const int x = RowBytes == 128 ? (row & 7) : ((row >> 1) & 3);
   return row * RowBytes + ((chunk ^ x) << 4);
+}
+
+// ---- thread block clusters ------------------------------------------------
+// Every thread of every block of the cluster arrives, then waits for all.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// One arrival on the barrier at `bar`'s offset in the shared memory of the
+// cluster's block of rank `cta` (this block's own too).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::
+          "r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
 }
 
 // ---- cp.async ------------------------------------------------------------
@@ -174,6 +239,184 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- warpgroup-level tensor-core operations (wgmma) -----------------------
+// A shared-memory matrix descriptor for `wgmma`: start address, leading
+// and stride byte offsets (16-byte units), swizzle layout (1 = 128 B,
+// 2 = 64 B). For a K-major operand of 128-byte swizzled rows the stride
+// offset is 8 rows (1024 B) and the start moves 32 B a k16 step; for an
+// MN-major one (read with the transpose bit) the leading offset is the
+// distance between 64-wide column blocks and the start moves 16 rows a
+// k16 step.
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo,
+                                               uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most `N` of the warpgroup's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+
+// Pins registers that an asynchronous wgmma writes or reads: no use is
+// moved across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma m64nNk16, f32 += bf16 · bf16 (d = a · b where `accumulate` is 0).
+// d: the warpgroup's 64 x N sums, N / 2 a thread: d[4j + e] at row 16·warp
+// + lane / 4 + 8·(e / 2), column 8j + 2·(lane % 4) + e % 2.
+// ss: A and B by descriptor, both K-major; ss_tb: A K-major, B MN-major
+// (the transpose bit); rs: A from registers, B MN-major.
+#define SM90_D32                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define SM90_D64                                                            \
+  SM90_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),             \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_R16                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define SM90_R32                                                            \
+  SM90_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+           "%28, %29, %30, %31"
+#define SM90_R64                                                            \
+  SM90_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+           "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
+           "%56, %57, %58, %59, %60, %61, %62, %63"
+
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_R64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_tb_n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" SM90_R16
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_tb_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_R32
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : SM90_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_tb_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_R64
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SM90_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "n32, n64 or n128");
+  if constexpr (N == 32) wgmma_ss_tb_n32(d, da, db, accumulate);
+  else if constexpr (N == 64) wgmma_ss_tb_n64(d, da, db, accumulate);
+  else wgmma_ss_tb_n128(d, da, db, accumulate);
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" SM90_R16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SM90_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SM90_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+#undef SM90_D32
+#undef SM90_D64
+#undef SM90_R16
+#undef SM90_R32
+#undef SM90_R64
+
 // ---- arithmetic -----------------------------------------------------------
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -247,28 +490,45 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A bf16 tensor of `rank` (2-4) dimensions as a tensor map: dims[0] is the
+// dense innermost dimension, strides[i] the byte stride of dimension i + 1
+// (each a multiple of 16 bytes), read in boxes of box[0 .. rank) swizzled
+// by box[0] · 2 bytes (64 or 128). Elements outside the tensor read as
+// zero. Needs a 16-byte aligned base.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
+                            const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (rank < 2 || rank > 4) return cudaErrorInvalidValue;
+  cuuint64_t d[4], st[3];
+  cuuint32_t b[4];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i + 1 < rank) st[i] = strides[i];
+  }
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
+      st, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // A bf16 tensor of shape (n3, n2, n1, n0), contiguous, as a 4-D tensor map
-// (n0, n1, n2, n3) read in boxes of (box0, box1, box2, 1), swizzled by
-// box0 · 2 bytes (64 or 128). Elements outside the tensor read as zero.
-// Needs a 16-byte aligned base.
+// (n0, n1, n2, n3) read in boxes of (box0, box1, box2, 1).
 inline cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t n0,
                             uint64_t n1, uint64_t n2, uint64_t n3, int box0,
                             int box1, int box2) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {n0, n1, n2, n3};
-  const cuuint64_t strides[3] = {n0 * 2, n0 * n1 * 2, n0 * n1 * n2 * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box0),
-                             static_cast<cuuint32_t>(box1),
-                             static_cast<cuuint32_t>(box2), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box0 * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                      : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const uint64_t dims[4] = {n0, n1, n2, n3};
+  const uint64_t strides[3] = {n0 * 2, n0 * n1 * 2, n0 * n1 * n2 * 2};
+  const uint32_t box[4] = {static_cast<uint32_t>(box0),
+                           static_cast<uint32_t>(box1),
+                           static_cast<uint32_t>(box2), 1};
+  return make_map(map, base, 4, dims, strides, box);
 }
 
 }  // namespace sm90

@@ -37,8 +37,9 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
-           "moe_gemm_sm90", "flash_attention_tf32", "flash_attention_sm90",
-           "flash_decode", "flash_decode_sm90", "mamba_scan")
+           "moe_gemm_sm90", "moe_gemm_bf16", "flash_attention_tf32",
+           "flash_attention_sm90", "flash_decode", "flash_decode_sm90",
+           "mamba_scan")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -137,6 +138,8 @@ def load() -> ctypes.CDLL:
                                 i32, i32, i32, i32, i32, ptr, ptr, ptr],
         "tdorch_grouped_gemm_bf16": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
                                      i32, i32, i32, i32, i32, ptr, ptr, ptr],
+        "tdorch_grouped_gemm_sm90": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
+                                     i32, i32, i32, i32, ptr, ptr, ptr],
         "tdorch_flash_attention_tf32": [i32, ptr, ptr, ptr, i32, i32, i32,
                                         i32, i32, i32, f32, i32, ptr, ptr],
         "tdorch_flash_attention_sm90": [i32, ptr, ptr, ptr, i32, i32, i32,

@@ -1,8 +1,11 @@
 """Grouped GEMM for MoE experts: `grouped_gemm` launches a CUDA kernel of
 `csrc/moe_gemm.cu` for a CUDA tensor — float32 operands to `gg_tf32`
-(3xTF32 on the tensor cores, counter "moe_gemm"), bf16 operands to
-`gg_bf16` (bf16 `mma.sync`, float32 sums, bf16 output; counter
-"moe_gemm_sm90") — and runs the plain version (`ref.py`) for a CPU tensor.
+(3xTF32 on the tensor cores, counter "moe_gemm"); bf16 operands to
+`gg_sm90` (TMA tiles, `wgmma`, a persistent tile walk; counter
+"moe_gemm_sm90") where TMA can describe them, else to `gg_bf16` (bf16
+`mma.sync` over a `cp.async` ring; counter "moe_gemm_bf16"), both with
+float32 sums and y rounded to bf16 once (`route`) — and runs the plain
+version (`ref.py`) for a CPU tensor.
 
 Also home of `gathered_swiglu`, the gathered-weights form of the expert
 FFN that the parameter server's `MoERouter` stage lambda runs: each task
@@ -21,9 +24,10 @@ from .ref import grouped_gemm_ref
 _I32_MAX = 2**31 - 1
 
 
-# the kernel for each operand dtype: (C entry point, launch counter)
-_ROUTES = {torch.float32: ("tdorch_grouped_gemm", "moe_gemm"),
-           torch.bfloat16: ("tdorch_grouped_gemm_bf16", "moe_gemm_sm90")}
+# the C entry point behind each launch counter
+_ENTRIES = {"moe_gemm": "tdorch_grouped_gemm",
+            "moe_gemm_sm90": "tdorch_grouped_gemm_sm90",
+            "moe_gemm_bf16": "tdorch_grouped_gemm_bf16"}
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
@@ -37,11 +41,20 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     sizes stay there (no host sync). float32 runs in 3xTF32, whatever
     `torch.backends.cuda.matmul.allow_tf32` says; bf16 reads x and w as
     they are and sums their exact products in float32, rounding y to bf16
-    once."""
+    once, on the kernel `route` names (no fallback: a refused launch
+    raises)."""
     if not _lib.on_cuda(x):
         return grouped_gemm_ref(x, w, group_sizes)
+    return _launch(x, w, group_sizes)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+            kernel: str | None = None) -> torch.Tensor:
+    """`grouped_gemm` on the card. `kernel` (a launch counter) overrides
+    `route`, for chip_smoke.py to time the kernel it does not choose; a
+    kernel that cannot take the operands refuses them and this raises."""
     dev = x.device
-    _lib.require(x, "x", tuple(_ROUTES), 2, dev)
+    _lib.require(x, "x", (torch.float32, torch.bfloat16), 2, dev)
     _lib.require(w, "w", (x.dtype,), 3, dev, dense_rows=True)
     _lib.require(group_sizes, "group_sizes", (torch.int32,), 1, dev)
     M, K = x.shape
@@ -51,6 +64,7 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     if group_sizes.shape[0] != G:
         raise ValueError(f"group_sizes has {group_sizes.shape[0]} entries "
                          f"for {G} groups")
+    counter = kernel or route(x, w)
     rows = tile_rows(M, G)
     # the worst case: every nonempty group adds one partly filled tile
     num_tiles = -(-M // rows) + G
@@ -60,15 +74,30 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
     if M == 0 or N == 0:
         return out
-    entry, counter = _ROUTES[x.dtype]
     plan = torch.empty((num_tiles, 4), dtype=torch.int32, device=dev)
-    rc = getattr(_lib.load(), entry)(
-        dev.index or 0, x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
-        group_sizes.data_ptr(), M, K, N, G, rows, num_tiles,
-        int(copies16(x, w)), plan.data_ptr(), out.data_ptr(), _lib.stream(x))
+    args = [dev.index or 0, x.data_ptr(), w.data_ptr(), w.stride(0),
+            w.stride(1), group_sizes.data_ptr(), M, K, N, G, rows, num_tiles]
+    if counter != "moe_gemm_sm90":  # the cp.async kernels' copy width
+        args.append(int(copies16(x, w)))
+    rc = getattr(_lib.load(), _ENTRIES[counter])(
+        *args, plan.data_ptr(), out.data_ptr(), _lib.stream(x))
     _lib.check(rc, counter)
     _lib.count(counter)
     return out
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The launch counter of the kernel a CUDA call takes: "moe_gemm"
+    (`gg_tf32`) for float32; for bf16 "moe_gemm_sm90" (`gg_sm90`) where a
+    TMA tensor map can describe x and w — both bases and w's strides
+    16-byte aligned, K > 0 and K and N multiples of 8 (`copies16`, and N)
+    — else "moe_gemm_bf16" (`gg_bf16`)."""
+    if x.dtype != torch.bfloat16:
+        return "moe_gemm"
+    K, N = x.shape[1], w.shape[2]
+    if K > 0 and N % 8 == 0 and copies16(x, w):
+        return "moe_gemm_sm90"
+    return "moe_gemm_bf16"
 
 
 def tile_rows(M: int, G: int) -> int:

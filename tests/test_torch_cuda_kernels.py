@@ -17,9 +17,12 @@ also held to `chip_smoke.py`'s gate: within ATTN_REL·(1+|ref|) +
 (`flash_attention_tf32`, the grouped GEMM `moe_gemm`) are held to
 chip_smoke.py's float32 gates against the plain version in float64:
 ATTN_REL·(1+|ref|), and 1e-5·Σ|x w| + 1e-6 for the GEMM. The bf16 grouped
-GEMM (`moe_gemm_sm90`) is held to chip_smoke.py's bf16 GEMM gate against
-the plain version's float32 sums on the same bf16 operands: 2^-8·|ref| +
-1e-5·Σ|x w| + 1e-6 (its one output rounding plus the float32 term). The
+GEMM is held to chip_smoke.py's bf16 GEMM gate against the plain
+version's float32 sums on the same bf16 operands: 2^-8·|ref| + 1e-5·Σ|x
+w| + 1e-6 (its one output rounding plus the float32 term), on both of its
+kernels: `moe_gemm_sm90` (TMA and `wgmma`, where a tensor map can describe
+the operands) and `moe_gemm_bf16` (`mma.sync`, any layout), each call's
+counter asserted by its route. The
 tensor-core SSD scan (three kernels behind the "mamba_scan" counter) is
 held to chip_smoke.py's scan gates: (SSD_REL + 8·u32·max|l|)·Σ|terms| +
 1e-6 against float64, plus 2^-8·|ref| in bf16 against float32.
@@ -53,6 +56,7 @@ from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 from repro_torch.kernels.histogram.ops import count_ids, device_limits, route
 from repro_torch.kernels.histogram.ref import histogram_ref
 from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
+from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ops import copies16, grouped_gemm, tile_rows
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 from repro_torch.kernels.segment_combine.ops import combine
@@ -285,11 +289,21 @@ def test_grouped_gemm_kernel_reads_strided_weight_views(dev, offset):
     _gemm_gate(h, w_out, sizes)
 
 
-def _gemm_gate_bf16(x, w, sizes):
+def _gemm_gate_bf16(x, w, sizes, kernel=None):
     """bf16 grouped_gemm on the card within BF16_ROUND·|ref| + 1e-5·Σ|x w|
     + 1e-6 of the plain version's float32 sums on the same bf16 operands
-    (chip_smoke.py's `gemm_parity` in bf16)."""
-    got = grouped_gemm(x, w, sizes)
+    (chip_smoke.py's `gemm_parity` in bf16). `kernel` (a launch counter)
+    takes that kernel in place of the route's; the call must count one
+    launch of it and none of the other."""
+    kernel = kernel or moe_ops.route(x, w)
+    before = kernels.launches()
+    got = (grouped_gemm(x, w, sizes) if kernel == moe_ops.route(x, w)
+           else moe_ops._launch(x, w, sizes, kernel=kernel))
+    after = kernels.launches()
+    if x.shape[0] and w.shape[2]:
+        assert after[kernel] == before[kernel] + 1
+    other = ({"moe_gemm_sm90", "moe_gemm_bf16"} - {kernel}).pop()
+    assert after[other] == before[other]
     want = grouped_gemm_ref(x.float(), w.float(), sizes).double()
     mags = grouped_gemm_ref(x.abs().double(), w.abs().double(), sizes)
     assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
@@ -303,6 +317,10 @@ def _bf16(*ts):
     return tuple(t.to(torch.bfloat16) for t in ts)
 
 
+def _sizes(sz, dev):
+    return torch.tensor(sz, dtype=torch.int32, device=dev)
+
+
 @pytest.mark.parametrize("geom", [(4, 96, 32, 64), (1, 1, 64, 128),
                                   (6, 150, 128, 256), (3, 17, 32, 64),
                                   (40, 64, 1536, 1024), (40, 80, 512, 1536),
@@ -312,57 +330,129 @@ def _bf16(*ts):
                                   (4, 700, 1536, 1024)],
                          ids=lambda g: "x".join(map(str, g)))
 def test_grouped_gemm_bf16_kernel(dev, geom):
-    """The bf16 route (`gg_bf16`): the MOE geometries, granite's in- and
+    """Both bf16 kernels: the MOE geometries, granite's in- and
     out-projection at a decode step (64-row tiles) and at 4,096 rows
-    (128-row tiles), K = 1,536 (24 ring stages, the stage sums), K or N
-    not a multiple of 8 (K = 24, 30 and 33 take the one-value loads)."""
-    G, M = geom[:2]
+    (128-row tiles, clusters of two blocks), K = 1,536 (24 ring stages,
+    six 256-deep sums), K or N not a multiple of 8. Aligned operands route
+    to `gg_sm90` and also run on `gg_bf16`; the rest (K = 30 and 33, N =
+    50 and 7) route to `gg_bf16`, and `gg_sm90` refuses them (a raise, no
+    fallback)."""
+    G, M, K, N = geom
     x, w, sizes = _moe(np.random.default_rng(15), *geom, dev)
     x, w = _bf16(x, w)
-    assert copies16(x, w) == (geom[2] % 8 == 0 and geom[3] % 8 == 0)
+    aligned = K % 8 == 0 and N % 8 == 0
+    assert copies16(x, w) == aligned
+    assert moe_ops.route(x, w) == ("moe_gemm_sm90" if aligned else "moe_gemm_bf16")
     got = _gemm_gate_bf16(x, w, sizes)
-    assert got.shape == (geom[1], geom[3])
-    assert kernels.launches()["moe_gemm_sm90"] == 1
+    assert got.shape == (M, N)
+    if aligned:
+        _gemm_gate_bf16(x, w, sizes, kernel="moe_gemm_bf16")
+    else:
+        with pytest.raises(RuntimeError, match="moe_gemm_sm90"):
+            moe_ops._launch(x, w, sizes, kernel="moe_gemm_sm90")
     assert kernels.launches()["moe_gemm"] == 0
 
 
 @pytest.mark.parametrize("M", [100, 600], ids=["64-row", "128-row"])
 def test_grouped_gemm_bf16_kernel_partial_column_chunk(dev, M):
-    """N = 6 columns of rows 8 apart: a 16-byte load cut at N, the output
-    stored a value at a time where N is odd (N = 5)."""
+    """N = 6 columns of rows 16 apart (`gg_bf16`: a 16-byte load cut at
+    N), the output stored a value at a time where N is odd (N = 5); N = 8
+    of the same rows takes `gg_sm90` (a 16-byte row of w for each k)."""
     rng = np.random.default_rng(16)
     x, _, sizes = _moe(rng, 2, M, 40, 8, dev)
-    w = torch.from_numpy(_normal(rng, 2, 40, 8)).to(dev)
+    w = torch.from_numpy(_normal(rng, 2, 40, 16)).to(dev)
     x, w = _bf16(x, w)
-    for n in (6, 5):
+    for n in (6, 5, 8):
         view = w[..., :n]
         assert copies16(x, view) and not view.is_contiguous()
         got = _gemm_gate_bf16(x, view, sizes)
         assert torch.equal(got, grouped_gemm(x, view.contiguous(), sizes))
+    assert moe_ops.route(x, w[..., :8]) == "moe_gemm_sm90"
+    assert kernels.launches()["moe_gemm_bf16"] == 4
+    assert kernels.launches()["moe_gemm_sm90"] == 2
 
 
 def test_grouped_gemm_bf16_kernel_empty_groups_and_rows_beyond_the_sum(dev):
     x = torch.ones((8, 32), device=dev, dtype=torch.bfloat16)
     w = torch.ones((4, 32, 16), device=dev, dtype=torch.bfloat16)
-    got = _gemm_gate_bf16(x, w, torch.tensor([0, 8, 0, 0],
-                                             dtype=torch.int32, device=dev))
+    got = _gemm_gate_bf16(x, w, _sizes([0, 8, 0, 0], dev))
     assert bool((got == 32).all())
     rng = np.random.default_rng(17)
     for geom in ((5, 57, 24, 40), (5, 300, 64, 128)):
         x, w, _ = _moe(rng, *geom, dev)
         x, w = _bf16(x, w)
-        sizes = torch.tensor([11, 0, 20, 9, 0], dtype=torch.int32,
-                             device=dev)
-        got = _gemm_gate_bf16(x, w, sizes)
-        assert not bool(got[40:].any())
+        sizes = _sizes([11, 0, 20, 9, 0], dev)
+        for kernel in ("moe_gemm_sm90", "moe_gemm_bf16"):
+            got = _gemm_gate_bf16(x, w, sizes, kernel)
+            assert not bool(got[40:].any())
     assert kernels.launches()["moe_gemm_sm90"] == 3
+    assert kernels.launches()["moe_gemm_bf16"] == 2
+
+
+@pytest.mark.parametrize("case", [
+    "straddle", "group of 1", "wrap", "zero rows", "all sizes zero",
+    "zero tail of tiles", "negative and past M"])
+def test_grouped_gemm_sm90_tile_walk(dev, case):
+    """`gg_sm90`'s tile table and persistent walk: row tiles whose x box
+    runs into the next group's rows (computed, not stored), groups of one
+    row, more tiles than the card keeps blocks (the walk wraps: 64-row and
+    128-row tiles), no rows at all, sizes all 0, a zero tail of three
+    128-row tiles, and negative sizes with a sum past M (a column tile past
+    N = 192 too). Both kernels within the gate of the plain version."""
+    rng = np.random.default_rng(21)
+    geom, sizes = {
+        "straddle": ((3, 300, 64, 128), [100, 60, 140]),
+        "group of 1": ((6, 70, 128, 64), [1, 1, 0, 1, 66, 1]),
+        "wrap": ((40, 4000, 256, 1024), None),
+        "zero rows": ((3, 0, 64, 64), [0, 0, 0]),
+        "all sizes zero": ((4, 200, 64, 128), [0, 0, 0, 0]),
+        "zero tail of tiles": ((3, 400, 128, 64), [30, 0, 10]),
+        "negative and past M": ((4, 500, 64, 192), [-7, 300, 0, 400]),
+    }[case]
+    x, w, drawn = _moe(rng, *geom, dev)
+    x, w = _bf16(x, w)
+    sizes = drawn if sizes is None else _sizes(sizes, dev)
+    got = _gemm_gate_bf16(x, w, sizes, "moe_gemm_sm90")
+    assert got.shape == (geom[1], geom[3])
+    if case == "wrap":  # 103 row tiles x 8 column tiles at 64 rows
+        big = _moe(rng, 8, 65536, 64, 1024, dev)
+        _gemm_gate_bf16(*_bf16(*big[:2]), big[2], "moe_gemm_sm90")
+    if case == "zero rows":
+        assert kernels.launches()["moe_gemm_sm90"] == 0
+        return
+    if case in ("all sizes zero", "zero tail of tiles"):
+        covered = int(sizes.clamp(min=0).sum())
+        assert not bool(got[covered:].any())
+    _gemm_gate_bf16(x, w, sizes, "moe_gemm_bf16")
+
+
+def test_grouped_gemm_sm90_back_to_back_calls(dev):
+    """Calls queued back to back with no synchronization, alternating a
+    4-group, 16-row table and a 40-group, 20-row one (a granite decode
+    step's hot and cold SwiGLUs): each `gg_sm90` launch may start while its
+    prologue writes the plan, and must walk that plan, not the one the
+    last call left in the same memory. Every output within the gate."""
+    rng = np.random.default_rng(22)
+    hot = _moe(rng, 4, 16, 512, 1536, dev)
+    cold = _moe(rng, 40, 20, 1536, 1024, dev)
+    cases = [(*_bf16(x, w), sz) for x, w, sz in (hot, cold)]
+    outs = [grouped_gemm(*cases[i % 2]) for i in range(40)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        x, w, sz = cases[i % 2]
+        want = grouped_gemm_ref(x.float(), w.float(), sz).double()
+        mags = grouped_gemm_ref(x.abs().double(), w.abs().double(), sz)
+        allowed = BF16_ROUND * want.abs() + 1e-5 * mags + 1e-6
+        assert bool(((got.double() - want).abs() <= allowed).all()), i
+    assert kernels.launches()["moe_gemm_sm90"] == 40
 
 
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
 def test_grouped_gemm_bf16_kernel_reads_strided_weight_views(dev, offset):
-    """w_in and w_out as views of one wider bf16 row per expert; one
-    element in, the views are not 16-byte aligned and take the one-value
-    loads. Both give the stacks' results bit for bit."""
+    """w_in and w_out as views of one wider bf16 row per expert; aligned,
+    both route to `gg_sm90` (tensor maps with the views' strides); one
+    element in, the views are not 16-byte aligned and take `gg_bf16`'s
+    one-value loads. Both give the stacks' results bit for bit."""
     G, M, K, N, F = 3, 40, 24, 16, 8
     rng = np.random.default_rng(18)
     x, _, sizes = _moe(rng, G, M, K, N, dev)
@@ -371,10 +461,15 @@ def test_grouped_gemm_bf16_kernel_reads_strided_weight_views(dev, offset):
     w_in = rows[:, offset:offset + K * N].view(G, K, N)
     w_out = rows[:, offset + K * N:].view(G, N, F)
     assert copies16(x, w_in) == (offset == 0)
+    want = "moe_gemm_sm90" if offset == 0 else "moe_gemm_bf16"
+    assert moe_ops.route(x, w_in) == moe_ops.route(x, w_out) == want
     h = _gemm_gate_bf16(x, w_in, sizes)
-    assert torch.equal(h, grouped_gemm(x, w_in.contiguous(), sizes))
+    stack = moe_ops._launch(x, w_in.contiguous(), sizes, kernel=want)
+    assert torch.equal(h, stack)
     y = _gemm_gate_bf16(h, w_out, sizes)
-    assert torch.equal(y, grouped_gemm(h, w_out.contiguous(), sizes))
+    stack = moe_ops._launch(h, w_out.contiguous(), sizes, kernel=want)
+    assert torch.equal(y, stack)
+    assert kernels.launches()[want] == 4
 
 
 def test_grouped_gemm_bf16_kernel_copies_nothing_to_float32(dev):
@@ -382,6 +477,7 @@ def test_grouped_gemm_bf16_kernel_copies_nothing_to_float32(dev):
     output and its tile table, nothing the size of x or w in float32."""
     x, w, sizes = _moe(np.random.default_rng(19), 40, 4096, 1536, 1024, dev)
     x, w = _bf16(x, w)
+    assert moe_ops.route(x, w) == "moe_gemm_sm90"
     grouped_gemm(x, w, sizes)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
