@@ -10,7 +10,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    csrc/` with nvcc (sm_90a), and the registers, shared memory and spills
    of the attention, scan, grouped GEMM, segment-combine and fused-read
    kernels (the 3xTF32 float32 ones, the SIMT float32 ones and the bf16
-   tensor-core ones, `gg_sm90` and `gg_bf16` among them).
+   tensor-core ones, `gg_sm90` and `gg_bf16` among them, and B5's three
+   backward kernels `fa_bwd_pre`, `fa_bwd_dkdv`, `fa_bwd_dq`).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -33,7 +34,12 @@ Phases, each of which raises (non-zero exit) on any failed check:
    attention and the SSD scan (see phase 5; bf16 attention and decode take
    the tensor-core kernels `flash_attention_sm90` and `flash_decode_sm90`,
    float32 attention the 3xTF32 kernel `flash_attention_tf32`, float32
-   decode the SIMT one).
+   decode the SIMT one), and B5's backward (`flash_attention_bwd.cu`,
+   counters "flash_attention_bwd_bf16" / "_tf32") at hd 32 / 64 / 128, GQA
+   1 / 4 / 8, causal and not, S = 1,000 and 4,096 against
+   `attention_bwd_ref` on the same inputs (`bwd_check`'s gate), with one
+   dk tile zeroed caught, and at S = 4,096 with GQA 8 dk without one middle
+   query tile of one head, and without one query head, caught.
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -104,7 +110,11 @@ Phases, each of which raises (non-zero exit) on any failed check:
    time the card could take (bytes over 3.35 TB/s, or operations over 67
    TFLOP/s in float32 FMAs, 495/3 TFLOP/s for the float32 kernels that
    run 3xTF32 on the tensor cores (with the FMA bound beside it), or 989
-   TFLOP/s in bf16, whichever is larger). The segment combine is timed
+   TFLOP/s in bf16, whichever is larger). Row 5c: B5's backward at
+   tinyllama-1.1b's training shape (4, 4096, 32 heads, 4 KV heads, 64) and
+   phase 5's prefill_mha and prefill_gqa128, bf16 and float32: call and
+   device ms, the plain version, the library's backward (SDPA's, alone)
+   and a bound of 2.5 times the forward's operations. The segment combine is timed
    at the writer combines of stages (a) add (`index_add_`), (c) min
    (`index_reduce_(..., "amin")`) and (b) write (no one call). The
    histogram (at stage (b)'s root call, the parameter-server lookup's, a
@@ -234,6 +244,20 @@ Phases, each of which raises (non-zero exit) on any failed check:
    on the card against float64 on the CPU (logits and caches within
    LM_F32_REL of max|ref|), and `mamba_ssd`'s final state at (8, 4096, 64,
    64) against the plain version.
+14. Training (`repro_torch.runtime.Trainer`, `Model.loss_fn`, B5's
+   backward): tinyllama-1.1b at full width and depth in bf16 (random
+   weights from a seed), `SyntheticLMStream` of batch 4 x 4,096 tokens,
+   int8 gradient compression, AdamW with a 2-step warmup, 5 steps: once
+   uninterrupted (step ms, tokens/s, peak memory; B5's forward and
+   backward ms inside a step by CUDA events) and once with a checkpoint
+   every 3 steps in a temporary directory and a failure at step 4 (restored
+   and continued). Every loss and grad norm finite, the first within 1.0 of
+   ln 32,000, the run with the failure's every logged loss and grad norm
+   bit-identical to the uninterrupted run's at its step, launches exact
+   (one B5 forward and one backward a layer a step run, the plain versions
+   never called). The float32 twin (2 layers at full width): `loss_fn`'s
+   loss and every parameter's gradient on the card against float64 on the
+   CPU (TRAIN_F32_LOSS, TRAIN_F32_REL).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -290,6 +314,8 @@ def gpu_name_and_power() -> str:
 
 
 def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
+                                             "fa_bwd_pre", "fa_bwd_dkdv",
+                                             "fa_bwd_dq",
                                              "fd_split", "fd_sm90",
                                              "ssd_states", "ssd_state_pass",
                                              "ssd_outputs", "gg_tf32",
@@ -812,6 +838,7 @@ def parity_phase(dev) -> dict:
         "within 2^-8*|ref| + 1e-5*sum|x w| + 1e-6 of the plain version's "
         "float32 sums")
     worst.update(attention_ssm_parity(dev))
+    worst.update(attention_bwd_parity(dev))
     return worst
 
 
@@ -832,7 +859,8 @@ def _launch(**kw):
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
             "moe_gemm": 0, "moe_gemm_sm90": 0, "moe_gemm_bf16": 0,
             "flash_attention_tf32": 0,
-            "flash_attention_sm90": 0,
+            "flash_attention_sm90": 0, "flash_attention_bwd_tf32": 0,
+            "flash_attention_bwd_bf16": 0,
             "flash_decode": 0, "flash_decode_sm90": 0, "mamba_scan": 0,
             **kw}
 
@@ -2116,6 +2144,356 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# B5's backward (csrc/flash_attention_bwd.cu): parity (phase 2) and times
+# (phase 6, row 5c)
+# ---------------------------------------------------------------------------
+# The backward against `attention_bwd_ref` on the same q, k, v, out, lse and
+# dout: each of dq, dk, dv within a·|ref| + b·Σ|terms|, Σ|terms| the plain
+# version's magnitudes (|dS|·|k|, |dS|ᵀ·|q| and Pᵀ·|dO|). bf16 against
+# float32: 2^-8·|ref| + 2^-7·Σ|terms| with |dS| taken as P ⊙ (|dP| + |D|)
+# (`terms="values"`): dP and D sum exact bf16 products in float32, so the
+# errors are each output's rounding (bf16's unit roundoff, 2^-8 of |ref|),
+# P and dS rounded to bf16 once (2^-8 of each term), and the kernel's and
+# the plain version's float32 sums of up to 2^15 terms in other orders
+# (2^-9 of Σ|terms| each). The gate is 0.20 / 0.64 / 0.80 of the median
+# |ref| of dq / dk / dv at (1, 4096, 8, 1, 64, causal) on N(0, 1) inputs;
+# `bwd_bulk_faults` shows dk without one middle query tile of one head,
+# and without one of the 8 query heads, missing it there.
+# tests/test_torch_flash_bwd.py holds the bf16 arithmetic, emulated,
+# against JAX's `_flash_bwd_rule` at this gate and shows planted faults
+# missing it. float32 against float64: 2e-5·(|ref| + Σ|terms|) with |dS|
+# taken as P ⊙ (|dO|·|v|ᵀ + Σ|dO ⊙ O|) (`terms="products"`): 3xTF32
+# products (~2^-19 of each term, dP's own included), the scores' error
+# through exp, float32 sums a step.
+ATTN_BWD_REL = 2e-5
+ATTN_BWD_BF16 = (BF16_ROUND, 2 * BF16_ROUND)  # (on |ref|, on Σ|terms|)
+BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+# the JAX package's flash backward: the rule of its custom VJP `_flash_xla`
+BWD_REPLACES = "src/repro/models/attention.py:137"
+# (B, S, H, KV, hd, causal): hd 32 / 64 / 128, GQA 1 / 4 / 8, causal and
+# not, S = 1,000 (ragged tiles) and 4,096
+BWD_PARITY = [(2, 1000, 8, 8, 32, True), (2, 1000, 8, 8, 32, False),
+              (2, 1000, 16, 4, 64, True), (2, 1000, 16, 4, 64, False),
+              (2, 1000, 8, 1, 128, True), (2, 1000, 8, 1, 128, False),
+              (1, 4096, 8, 1, 64, True), (1, 4096, 4, 4, 128, False),
+              (1, 4096, 8, 2, 32, True)]
+
+
+def bwd_counter(dtype: str) -> str:
+    """The launch counter of B5's backward in `dtype`."""
+    return ("flash_attention_bwd_bf16" if dtype == "bfloat16"
+            else "flash_attention_bwd_tf32")
+
+
+def bwd_inputs(dev, B, S, H, KV, hd, causal, dtype: str, seed: int,
+               kernel_forward: bool = False) -> tuple:
+    """(q, k, v, out, lse, dout): q, k, v, dout in `dtype` made on the
+    device from the seed; out (in dtype) and lse (float32) from the plain
+    forward (float32 on bf16 values, float64 on float32 ones), or from the
+    forward kernel with `kernel_forward` (what training hands the
+    backward)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, dout = (torch.randn((B, S, H, hd), generator=g, device=dev).to(dt)
+               for _ in range(2))
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    if kernel_forward:
+        out, lse = ops._forward(q, k, v, causal, True)
+    else:
+        up = (lambda t: t.float()) if dtype == "bfloat16" else \
+            (lambda t: t.double())
+        out, lse = attention_ref(up(q), up(k), up(v), causal=causal,
+                                 return_lse=True)
+    return q, k, v, out.to(dt), lse.float(), dout
+
+
+def bwd_gate(inputs: tuple, causal: bool) -> tuple:
+    """(want, allowed) for (dq, dk, dv): `attention_bwd_ref` on the same
+    inputs (float32 for bf16, float64 for float32) and each element's gate,
+    ATTN_BWD_BF16 on terms="values" or ATTN_BWD_REL on terms="products"."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    if inputs[0].dtype == torch.bfloat16:
+        (rel, rel_terms), terms, up = ATTN_BWD_BF16, "values", torch.float32
+    else:
+        rel = rel_terms = ATTN_BWD_REL
+        terms, up = "products", torch.float64
+    want, mags = attention_bwd_ref(*(t.to(up) for t in inputs),
+                                   causal=causal, terms=terms)
+    allowed = tuple(rel * w.double().abs() + rel_terms * m.double()
+                    for w, m in zip(want, mags))
+    return want, allowed
+
+
+def bwd_check(got, inputs: tuple, causal: bool, name: str,
+              gate: tuple | None = None) -> tuple:
+    """(max |Δ|, share of the gate) of (dq, dk, dv) against `bwd_gate`'s
+    (`gate` where given); raises past it."""
+    want, allowed = gate or bwd_gate(inputs, causal)
+    out = [_within(g, w, a, f"{name} {n}")
+           for n, g, w, a in zip(("dq", "dk", "dv"), got, want, allowed)]
+    return max(e for e, _ in out), max(s for _, s in out)
+
+
+# a bulk fault at phase 2's GQA-8 case at S = 4,096: one middle query tile
+# (query head 3, rows 2,048-2,111) or one query head (7) left out of dk;
+# each missing part is `attention_bwd_ref` with dout zeroed outside it
+# (the backward is linear in dout)
+BWD_BULK_CASE = (1, 4096, 8, 1, 64, True)
+BWD_BULK_TILE = (3, 2048, 2112)
+BWD_BULK_HEAD = 7
+
+
+def bwd_bulk_faults(dev, dtype: str, seed: int) -> dict:
+    """At BWD_BULK_CASE: the kernel's output within the gate, and dk without
+    one middle query tile of one head, and without one query head, each
+    beyond it (raises otherwise). dv without that tile is read, not gated.
+    Returns each fault's share of the gate (max |Δ| / allowed) and the
+    gate's median over the median |ref| of dq, dk, dv."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    inputs = bwd_inputs(dev, *BWD_BULK_CASE, dtype, seed)
+    got = ops._backward(*inputs, True)
+    gate = bwd_gate(inputs, True)
+    want, allowed = gate
+    bwd_check(got, inputs, True, f"bulk-fault case {dtype}", gate)
+    q, k, v, out, lse, dout = inputs
+    up = want[0].dtype
+
+    def part(h: int, r0: int, r1: int) -> tuple:  # (dk, dv) of those rows
+        dm = torch.zeros_like(dout)
+        dm[:, r0:r1, h] = dout[:, r0:r1, h]
+        return attention_bwd_ref(*(t.to(up) for t in (q, k, v, out, lse,
+                                                      dm)), causal=True)[1:]
+
+    def share(i: int, bad) -> float:
+        bad = bad.to(got[i].dtype).double()
+        return float(((bad - want[i].double()).abs() / allowed[i]).max())
+    tile_dk, tile_dv = part(*BWD_BULK_TILE)
+    head_dk, _ = part(BWD_BULK_HEAD, 0, BWD_BULK_CASE[1])
+    faults = {"dk without a query tile": share(1, got[1].to(up) - tile_dk),
+              "dk without a query head": share(1, got[1].to(up) - head_dk),
+              "dv without a query tile": share(2, got[2].to(up) - tile_dv)}
+    for tag in ("dk without a query tile", "dk without a query head"):
+        if faults[tag] <= 1.0:
+            raise AssertionError(f"the backward's gate ({dtype}) does not "
+                                 f"see {tag}: {faults[tag]:.4g} of it")
+    typical = {n: float(a.median() / w.double().abs().median())
+               for n, w, a in zip(("dq", "dk", "dv"), want, allowed)}
+    return {"faults": faults, "gate_over_median_ref": typical}
+
+
+def attention_bwd_parity(dev) -> dict:
+    """Phase 2's backward cases (BWD_PARITY, bf16 and float32): each call
+    launches its kernel once and lands within `bwd_check`'s gate; one dk
+    tile zeroed must miss it. Returns the worst max |Δ| per counter."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+
+    worst = {bwd_counter(d): 0.0 for d in ATTN_DTYPES}
+    shares = {k: (0.0, None) for k in worst}
+    seed = SEED + 500
+    for geom in BWD_PARITY:
+        causal = geom[-1]
+        for dtype in ATTN_DTYPES:
+            seed += 1
+            inputs = bwd_inputs(dev, *geom, dtype, seed)
+            before = kernels.launches()
+            got = ops._backward(*inputs, causal)
+            torch.cuda.synchronize()
+            name = bwd_counter(dtype)
+            ran = {k: v - before[k] for k, v in kernels.launches().items()
+                   if v != before[k]}
+            if ran != {name: 1}:
+                raise AssertionError(f"attention backward {geom} {dtype}: "
+                                     f"launched {ran}")
+            e, share = bwd_check(got, inputs, causal,
+                                 f"attention backward {geom} {dtype}")
+            worst[name] = max(worst[name], e)
+            shares[name] = max(shares[name], (share, geom))
+            del inputs, got
+    for dtype in ATTN_DTYPES:  # the planted fault: one dk tile zeroed
+        inputs = bwd_inputs(dev, 1, 1000, 8, 2, 64, True, dtype, seed + 1)
+        dq, dk, dv = ops._backward(*inputs, True)
+        dk[:, 64:128] = 0
+        try:
+            bwd_check((dq, dk, dv), inputs, True, "planted fault")
+        except AssertionError:
+            continue
+        raise AssertionError(f"the backward's gate ({dtype}) does not see "
+                             "a zeroed dk tile")
+    bulk = {d: bwd_bulk_faults(dev, d, seed + 2) for d in ATTN_DTYPES}
+    torch.cuda.empty_cache()
+    log(f"  attention backward: {len(BWD_PARITY)} cases a dtype (hd 32 / 64 "
+        "/ 128, GQA 1 / 4 / 8, causal and not, S = 1,000 and 4,096) on "
+        "flash_attention_bwd_bf16 and _tf32, dq / dk / dv within "
+        "2^-8·|ref| + 2^-7·Σ|terms| (bf16 against float32, |dS| as "
+        f"P ⊙ (|dP| + |D|)) and {ATTN_BWD_REL}·(|ref| + Σ|terms|) (float32 "
+        "against float64, |dS| as P ⊙ (|dO|·|v|ᵀ + Σ|dO ⊙ O|)); worst "
+        "shares of the gate (case) "
+        f"{({k: (round(v, 4), c) for k, (v, c) in shares.items()})}; a "
+        "zeroed dk tile misses the gate in both dtypes")
+    for dtype, b in bulk.items():
+        typical = {k: round(v, 4) for k, v in
+                   b["gate_over_median_ref"].items()}
+        log(f"  bulk faults at {BWD_BULK_CASE} {dtype}, shares of the gate "
+            f"(dk ones must pass 1): "
+            f"{({k: round(v, 4) for k, v in b['faults'].items()})}; the "
+            f"gate's median over the median |ref| (dq, dk, dv) {typical}")
+    return worst
+
+
+def bwd_timing_shapes() -> list:
+    """Row 5c's shapes: tinyllama-1.1b's training step (phase 14), and
+    phase 5's prefill_mha and prefill_gqa128 stages."""
+    from repro_torch.configs import get_config
+
+    t = get_config("tinyllama-1.1b")
+    out = [dict(tag="train_tinyllama", B=TRAIN_BATCH, S=TRAIN_SEQ,
+                H=t.n_heads, KV=t.n_kv_heads, hd=t.head_dim,
+                source="tinyllama-1.1b training step (phase 14)")]
+    for st in attention_ssm_stages():
+        if st["tag"] in ("prefill_mha", "prefill_gqa128"):
+            out.append(dict(tag=st["tag"], B=st["B"], S=st["S"], H=st["H"],
+                            KV=st["KV"], hd=st["hd"], source=st["source"]))
+    return out
+
+
+def _bwd_work(st: dict, dtype: str) -> tuple:
+    """(bytes, operations, rate) of one causal backward: q, k, v, out, dout
+    and lse read once, dq, dk, dv written once; 2.5 times the forward's
+    operations (Sᵀ and dPᵀ again, dq, dk, dv over the causal half)."""
+    B, S, H, KV, hd = (st[k] for k in ("B", "S", "H", "KV", "hd"))
+    e = 2 if dtype == "bfloat16" else 4
+    nbytes = e * (4 * B * S * H * hd + 4 * B * S * KV * hd) + 4 * B * H * S
+    ops = 10 * hd * B * H * S * (S + 1) // 2
+    return nbytes, ops, (BF16_OPS_PER_S if dtype == "bfloat16"
+                         else FP32_TC_OPS_PER_S)
+
+
+def _bwd_library(q, k, v, dout):
+    """The backward alone of `F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)` in its (B, H, S, hd) layout, as a call, or (None,
+    note) where no backend takes the inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    if 4 * qt.shape[0] * qt.shape[1] * qt.shape[2] * kt.shape[2] \
+            <= MATH_SCORE_BYTES:
+        backends.append(SDPBackend.MATH)
+    note = ("the backward of F.scaled_dot_product_attention(is_causal=True, "
+            "enable_gqa=True), (B, H, S, hd) layout")
+    try:
+        with sdpa_kernel(backends):
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    except RuntimeError as exc:
+        return None, (f"{note}; refused: {type(exc).__name__}: "
+                      f"{str(exc).splitlines()[0][:160]}")
+    dt = dout.transpose(1, 2).contiguous()
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dt, retain_graph=True)
+    return call, note
+
+
+def attention_bwd_timing(dev, errors: dict) -> list:
+    """Row 5c: the backward's call ms (CUDA events) and device ms
+    (torch.profiler) at `bwd_timing_shapes()` in bf16 and float32, beside
+    its plain version on the same inputs, the library's backward (checked
+    against the plain version first) and the bound (`_bwd_work`; the FMA
+    bound beside a float32 row's). One row per counter; the training shape
+    is the headline. Launches are filled in by phase 14."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    by = {bwd_counter(d): [] for d in ATTN_DTYPES}
+    for i, st in enumerate(bwd_timing_shapes()):
+        for dtype in ATTN_DTYPES:
+            inputs = bwd_inputs(dev, st["B"], st["S"], st["H"], st["KV"],
+                                st["hd"], True, dtype, SEED + 600 + i,
+                                kernel_forward=True)
+
+            def call(inputs=inputs):
+                return ops._backward(*inputs, True)
+
+            def plain(inputs=inputs):
+                return attention_bwd_ref(*inputs, causal=True)
+            want = plain()  # the library's check, and the plain warm-up
+            nbytes, nops, rate = _bwd_work(st, dtype)
+            b_ms, b_by = bound(nbytes, nops, rate)
+            fma = ({"bound_fma_ms": bound(nbytes, nops)[0]}
+                   if rate == FP32_TC_OPS_PER_S else {})
+            row = dict(stage=st["tag"], dtype=dtype, config=st["source"],
+                       shape=(f"{st['tag']}: q/dout ({st['B']}, {st['S']}, "
+                              f"{st['H']}, {st['hd']}), k/v ({st['B']}, "
+                              f"{st['S']}, {st['KV']}, {st['hd']}) {dtype}, "
+                              "causal"),
+                       ms=time_auto(call),
+                       # one timed run: the plain version is no yardstick
+                       # of speed, and takes 1.4 s at prefill_mha
+                       plain_ms=time_ms(plain, reps=1, warmup=0),
+                       bound_ms=b_ms, bound_by=b_by, **fma, bytes=nbytes,
+                       operations=nops)
+            row["device_ms"], row["device_events"], row["device_source"] = \
+                device_ms(call, reps=3)
+            lib, note = _bwd_library(*inputs[:3], inputs[5])
+            row["library_ms"], row["library_note"] = None, note
+            if lib is not None:
+                try:
+                    got = lib()
+                    for g, w in zip(got, want):
+                        g = g.transpose(1, 2)
+                        _within(g, w, 3e-2 * (1 + w.double().abs()),
+                                f"library backward {st['tag']} {dtype}")
+                    del got
+                    row["library_ms"] = time_auto(lib)
+                except (RuntimeError, AssertionError) as exc:
+                    row["library_note"] += (
+                        f"; refused or off: {type(exc).__name__}: "
+                        f"{str(exc).splitlines()[0][:160]}")
+            by[bwd_counter(dtype)].append(row)
+            del inputs, lib, want
+            torch.cuda.empty_cache()
+    rows = []
+    for name, shapes in by.items():
+        rows.append(dict(name=name, route="cuda", source=BWD_SOURCE,
+                         replaces=BWD_REPLACES, launches=0,
+                         **shapes[0], max_abs_err=errors[name],
+                         shapes=shapes))
+        for s in shapes:
+            lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
+                   else f"null ({s['library_note']})")
+            fma = (f"; {s['bound_fma_ms']:.4f} in FMAs"
+                   if "bound_fma_ms" in s else "")
+            log(f"  {name}: call {s['ms']:.4f} ms, device "
+                f"{s['device_ms']:.4f} ms, plain {s['plain_ms']:.4f}, "
+                f"library {lib}, bound {s['bound_ms']:.4f} by "
+                f"{s['bound_by']}{fma} at {s['shape']}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
 def _writer_segments(tasks, all_rows: bool):
@@ -2237,10 +2615,15 @@ def device_ms(fn, reps: int = 20) -> tuple:
             time.sleep(PROFILE_PAD_S)
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        if events and len(events) % reps == 0:  # every call's, or none
+        counts = {}
+        for e in events:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        # every call's events or none: each name a multiple of reps (a
+        # total that is one, as 6 of 3 calls' 9, can still miss a call)
+        if counts and all(n % reps == 0 for n in counts.values()):
             break
         log(f"  the profiler saw {len(events)} device events over {reps} "
-            "calls; profiling again")
+            f"calls ({sorted(counts.values())} by name); profiling again")
     else:
         log("  the profiler missed the calls' device events three times; "
             "timing them queued behind a spin kernel")
@@ -5777,6 +6160,284 @@ def lm_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: training (`repro_torch.runtime.Trainer`, `Model.loss_fn`, B5's
+# backward)
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH = 4
+TRAIN_SEQ = 4096
+# 5 steps: with 6, a second save of the 15.4 GB checkpoint (~40 s on the
+# H100's host) put the whole run at 1,087 s of its 1,200; with 5 the one
+# save is at step 3, the failure's restore point
+TRAIN_STEPS = 5
+TRAIN_CKPT_EVERY = 3
+TRAIN_FAILURE = {4: [0]}  # node 0 dies with 4 steps done: back to step 3
+TRAIN_WARMUP = 2
+TRAIN_SEED = 43
+# random weights: the first loss within this of ln(vocab)
+TRAIN_FIRST_LOSS = 1.0
+# the float32 twin (two layers at full width) on the card against float64
+# on the CPU (the plain versions): the loss within TRAIN_F32_LOSS of |ref|,
+# every parameter's gradient within TRAIN_F32_REL of its max|ref|. Set
+# before the first chip run: full-float32 GEMMs and 3xTF32 attention
+# forward and backward (~2^-19 a product); on the CPU the port's float32
+# gradients landed within 3e-6 of each tensor's max against the JAX
+# package's (tests/test_torch_train_loss.py); 1e-4 is LM_F32_REL.
+TRAIN_F32 = dict(n_layers=2, batch=1, seq=256)
+TRAIN_F32_LOSS = 1e-5
+TRAIN_F32_REL = 1e-4
+
+
+class _AttnEvents:
+    """Bracket every B5 forward and backward launch
+    (`flash_attention.ops._forward` / `_backward`) with CUDA events inside a
+    `with` block, and count the plain versions' calls (none on the
+    card)."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels.flash_attention import ops
+
+        self.ops = ops
+        self.saved = (ops._forward, ops._backward, ops.attention_ref,
+                      ops.attention_bwd_ref)
+        self.events = {"forward": [], "backward": []}
+        self.plain = 0
+
+        def timed(kind, fn):
+            def call(*a, **kw):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = fn(*a, **kw)
+                e.record()
+                self.events[kind].append((s, e))
+                return out
+            return call
+
+        def counted(fn):
+            def call(*a, **kw):
+                self.plain += 1
+                return fn(*a, **kw)
+            return call
+        ops._forward = timed("forward", ops._forward)
+        ops._backward = timed("backward", ops._backward)
+        ops.attention_ref = counted(ops.attention_ref)
+        ops.attention_bwd_ref = counted(ops.attention_bwd_ref)
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops._forward, self.ops._backward, self.ops.attention_ref,
+         self.ops.attention_bwd_ref) = self.saved
+        return False
+
+    def ms(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {k: sum(s.elapsed_time(e) for s, e in v)
+                for k, v in self.events.items()}
+
+
+def _train_launches(cfg, steps: int, dtype: str) -> dict:
+    """One forward and one backward launch a layer a step."""
+    return _launch(**{launched_kernel("flash_attention", dtype):
+                      steps * cfg.n_layers,
+                      bwd_counter(dtype): steps * cfg.n_layers})
+
+
+def train_f32_check(dev) -> dict:
+    """tinyllama-1.1b at full width, TRAIN_F32["n_layers"] layers, in
+    float32 on the card: one `loss_fn` forward and backward (3xTF32 B5
+    forward and backward, one each a layer) against the same weights in
+    float64 on the CPU (the plain versions): the loss within TRAIN_F32_LOSS
+    of |ref|, each parameter's gradient within TRAIN_F32_REL of its
+    max|ref|."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models import Model
+
+    cfg = lm_f32_config(TRAIN_ARCH, "float32")
+    model = Model(cfg, device=dev, seed=TRAIN_SEED)
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+    ref.cfg = dataclasses.replace(cfg, param_dtype="float64",
+                                  compute_dtype="float64")
+    batch = SyntheticLMStream(vocab_size=cfg.vocab_size,
+                              batch_size=TRAIN_F32["batch"],
+                              seq_len=TRAIN_F32["seq"],
+                              seed=TRAIN_SEED).batch_at(0)
+
+    def grads(m, device):
+        loss, _ = m.loss_fn({k: torch.from_numpy(v).to(device)
+                             for k, v in batch.items()})
+        names = [n for n, _ in m.named_parameters()]
+        got = torch.autograd.grad(loss, [p for _, p in m.named_parameters()])
+        return loss.detach(), dict(zip(names, got))
+
+    kernels.reset_launches()
+    loss, got = grads(model, dev)
+    torch.cuda.synchronize(dev)
+    ran = kernels.launches()
+    want_launch = _train_launches(cfg, 1, "float32")
+    if ran != want_launch:
+        raise AssertionError(f"float32 twin: launched {ran}, expected "
+                             f"{want_launch}")
+    rloss, want = grads(ref, "cpu")
+    loss_err, loss_share = _within(loss.cpu(), rloss, TRAIN_F32_LOSS *
+                                   rloss.abs(), "float32 twin loss")
+    shares = {}
+    for n, w in want.items():
+        top = float(w.abs().max().item())
+        _, shares[n] = _within(got[n].cpu(), w, torch.full_like(
+            w, TRAIN_F32_REL * top), f"float32 twin gradient {n}")
+    del model, ref, got, want
+    torch.cuda.empty_cache()
+    return dict(n_layers=cfg.n_layers, batch=TRAIN_F32["batch"],
+                seq=TRAIN_F32["seq"], loss=float(rloss),
+                loss_share=loss_share,
+                grad_share_max=max(shares.values()),
+                grad_shares=shares,
+                launches={k: v for k, v in ran.items() if v})
+
+
+def train_path(dev) -> dict:
+    """Phase 14: `Trainer` takes TRAIN_STEPS steps of tinyllama-1.1b at full
+    width and depth in bf16 (random weights from TRAIN_SEED) on
+    `SyntheticLMStream(vocab, TRAIN_BATCH, TRAIN_SEQ)`, grad_accum 1, int8
+    gradient compression, `AdamWConfig(warmup_steps=TRAIN_WARMUP)`:
+    (1) uninterrupted (the control: step times, peak memory, launches,
+    B5's forward and backward ms inside one more step); (2) with a
+    checkpoint every TRAIN_CKPT_EVERY steps in a temporary directory and a
+    failure at step 4 (restored, continued): every logged loss and grad
+    norm bit-identical to the control's at its step, launches exact (one
+    forward and one backward a layer a step run, the plain versions never
+    called); (3) the float32 twin (`train_f32_check`)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_ARCH)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size,
+                               batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                               seed=TRAIN_SEED)
+    opt = AdamWConfig(warmup_steps=TRAIN_WARMUP)
+    row = dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               steps=TRAIN_STEPS, dtype=cfg.compute_dtype)
+
+    # (1) the control, uninterrupted, no checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        ctl = Trainer(cfg, opt, TrainerConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS + 1,
+            checkpoint_dir=tmp, log_every=1, compress_grads=True), stream,
+            device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _AttnEvents() as ev:
+            out = ctl.run(seed=TRAIN_SEED)
+        row["control_wall_s"] = time.perf_counter() - t0
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        ran = kernels.launches()
+        want = _train_launches(cfg, TRAIN_STEPS, cfg.compute_dtype)
+        if ran != want or ev.plain:
+            raise AssertionError(f"training launched {ran} and the plain "
+                                 f"versions {ev.plain} times, expected "
+                                 f"{want} and none")
+        row["params"] = ctl.model.param_count()
+        control = out["history"]
+        # B5 inside one more step, by CUDA events
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(TRAIN_STEPS).items()}
+        kernels.reset_launches()
+        with _AttnEvents() as ev:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            ctl.train_step(out["state"], batch)
+            torch.cuda.synchronize(dev)
+            row["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+        row["attention_ms"] = ev.ms()
+        row["attention_calls"] = {k: len(v) for k, v in ev.events.items()}
+        if kernels.launches() != _train_launches(cfg, 1, cfg.compute_dtype):
+            raise AssertionError(f"a step launched {kernels.launches()}")
+        del ctl, out, batch
+        torch.cuda.empty_cache()
+
+    # (2) checkpoints, a failure, the restore
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, opt, TrainerConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+            checkpoint_dir=tmp, log_every=1, compress_grads=True,
+            keep_checkpoints=1), stream,
+            failure_injector=FailureInjector(dict(TRAIN_FAILURE)),
+            device=dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _AttnEvents() as ev:
+            out = tr.run(seed=TRAIN_SEED)
+        row["recovery_wall_s"] = time.perf_counter() - t0
+        ran = kernels.launches()
+        fail_at = min(TRAIN_FAILURE)
+        steps_run = TRAIN_STEPS + fail_at - TRAIN_CKPT_EVERY * (
+            fail_at // TRAIN_CKPT_EVERY)
+        want = _train_launches(cfg, steps_run, cfg.compute_dtype)
+        if ran != want or ev.plain or out["recoveries"] != 1:
+            raise AssertionError(
+                f"the run with a failure launched {ran}, the plain versions "
+                f"{ev.plain} times, recovered {out['recoveries']} times; "
+                f"expected {want}, none, once")
+        row["launches"] = {k: v for k, v in ran.items() if v}
+        row["steps_run"] = steps_run
+        history = out["history"]
+        del tr, out
+        torch.cuda.empty_cache()
+
+    # gates
+    ln_v = math.log(cfg.vocab_size)
+    for h in control + history:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"step {h['step']}: loss {h['loss']}, grad "
+                                 f"norm {h['grad_norm']}")
+    if abs(control[0]["loss"] - ln_v) > TRAIN_FIRST_LOSS:
+        raise AssertionError(f"first loss {control[0]['loss']}, ln V = "
+                             f"{ln_v}")
+    by_step = {h["step"]: h for h in control}
+    steps = [h["step"] for h in history]
+    if steps != sorted(steps) or len(steps) != steps_run:
+        raise AssertionError(f"the run with a failure logged steps {steps}")
+    for h in history:
+        c = by_step[h["step"]]
+        if (h["loss"], h["grad_norm"]) != (c["loss"], c["grad_norm"]):
+            raise AssertionError(
+                f"step {h['step']} after the restore: loss {h['loss']}, grad "
+                f"norm {h['grad_norm']}; uninterrupted {c['loss']}, "
+                f"{c['grad_norm']}")
+    row["history"] = control
+    row["history_with_failure"] = history
+    step_s = [h["sec_per_step"] for h in control[1:]]
+    row["step_ms"] = float(np.median(step_s)) * 1e3
+    row["step_ms_all"] = [s * 1e3 for s in step_s]
+    row["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (row["step_ms"] / 1e3)
+
+    # (3) float32 twin against float64
+    row["float32"] = train_f32_check(dev)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # C2: bf16 prefill_mha once beyond its gate (a diagnostic, not in the default
 # run: `--c2-repeats N`)
 # ---------------------------------------------------------------------------
@@ -5856,6 +6517,33 @@ def _log_paramserve(rows, summary) -> None:
         f"rows, hit rate {summary['embed_hit_rate']:.4f}")
 
 
+def _log_train(t: dict, card: str) -> None:
+    f = t["float32"]
+    log(f"  {t['arch']} ({t['dtype']}, {t['params']:,} parameters), batch "
+        f"{t['batch']} x {t['seq']} on {card}: step {t['step_ms']:.2f} ms "
+        f"(median of steps 2-{t['steps']}; "
+        f"{[round(x, 2) for x in t['step_ms_all']]}), "
+        f"{t['tokens_per_s']:.0f} tokens/s; peak "
+        f"{t['peak_bytes'] / 1e9:.3f} GB; inside a step ({t['timed_step_ms']:.2f}"
+        f" ms) B5 forward {t['attention_ms']['forward']:.3f} ms and backward "
+        f"{t['attention_ms']['backward']:.3f} ms over "
+        f"{t['attention_calls']['forward']} + "
+        f"{t['attention_calls']['backward']} calls (3 backward kernels a "
+        "call)")
+    log(f"  loss history {[round(h['loss'], 6) for h in t['history']]}; "
+        f"grad norms {[round(h['grad_norm'], 6) for h in t['history']]}; "
+        f"with the failure: steps {[h['step'] for h in t['history_with_failure']]}"
+        f", every loss and grad norm bit-identical to the uninterrupted "
+        f"run's; launches {t['launches']} over {t['steps_run']} steps run; "
+        f"walls {t['control_wall_s']:.1f} s (uninterrupted) and "
+        f"{t['recovery_wall_s']:.1f} s (checkpoints, failure, restore)")
+    log(f"  float32 twin ({f['n_layers']} layers, {f['batch']} x {f['seq']}) "
+        f"vs float64 on the CPU: launches {f['launches']}; loss "
+        f"{f['loss']:.6f} at {f['loss_share']:.4f} of {TRAIN_F32_LOSS}·|ref|"
+        f", gradients at most {f['grad_share_max']:.4f} of "
+        f"{TRAIN_F32_REL}·max|ref|; phase 14 took {t['wall_s']:.1f} s")
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU "
@@ -5890,7 +6578,7 @@ def main(argv=None) -> int:
         log(f"{msg} [{t:.1f} s into the run]")
 
     card = gpu_name_and_power()
-    phase(f"[1/13] environment: {card}; torch {torch.__version__}, CUDA "
+    phase(f"[1/14] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -5903,11 +6591,11 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("[2/13] kernel parity against the plain PyTorch versions")
+    phase("[2/14] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     torch.cuda.synchronize()
 
-    phase("[3/13] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    phase("[3/14] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -5915,7 +6603,7 @@ def main(argv=None) -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    phase("[4/13] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    phase("[4/14] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -5934,7 +6622,7 @@ def main(argv=None) -> int:
         f"naive {ps_summary['gate_naive']}")
 
     c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
-    phase("[5/13] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    phase("[5/14] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -5947,7 +6635,7 @@ def main(argv=None) -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    phase("[6/13] kernel times at the paths' shapes")
+    phase("[6/14] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -5978,14 +6666,16 @@ def main(argv=None) -> int:
             f"{s['bf16_route']['share_of_gate']:.4f} of the gate; at "
             f"{s['shape']}")
     rows += attention_ssm_timing(dev, attn_launches, errors)
+    log("  row 5c: B5's backward")
+    rows += attention_bwd_timing(dev, parity_worst)
     for r in rows:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    phase("[7/13] device busy share of a stage (torch.profiler)")
+    phase("[7/14] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    phase("[8/13] engines and plans: stages (a)-(c) under engine='pull', "
+    phase("[8/14] engines and plans: stages (a)-(c) under engine='pull', "
         "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
         "bfs_stages through run_plan and the run_stage loop")
     kernels.reset_launches()
@@ -5995,7 +6685,7 @@ def main(argv=None) -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    phase(f"[9/13] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    phase(f"[9/14] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -6007,7 +6697,7 @@ def main(argv=None) -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
-    phase("[10/13] KV store and serve tier: DistributedHashTable(800,000, "
+    phase("[10/14] KV store and serve tier: DistributedHashTable(800,000, "
         "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
         "streamed in sync and thread mode, and the MoE / embedding front "
         "doors at granite-moe-3b-a800m's widths")
@@ -6016,7 +6706,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("serving path", kernels.launches(), serve_expected)
 
-    phase("[11/13] elasticity at the main path's size: recovery (restart with "
+    phase("[11/14] elasticity at the main path's size: recovery (restart with "
         "durable snapshots, shrink), work stealing, bench_elastic's "
         "migration arms over 800,000 keys, a mid-plan kill in run_chain and "
         "the serve tier's elastic counters, backend='torch' vs numpy")
@@ -6025,7 +6715,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("elastic path", kernels.launches(), el_expected)
 
-    phase("[12/13] multi-device execution: backend='torch_spmd' on the "
+    phase("[12/14] multi-device execution: backend='torch_spmd' on the "
         "stacked mesh (one shard a machine) — phase 3's stages at P=16, the "
         "chaos scenario, the MoE dispatch at granite's widths (ep 8), "
         "embed_skew_aware on 8 shards, the group mesh of 4 gloo ranks, "
@@ -6036,7 +6726,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("sharded path", kernels.launches(), sp_expected)
 
-    phase(f"[13/13] language-model serving: {', '.join(LM_ARCHS)} at full "
+    phase(f"[13/14] language-model serving: {', '.join(LM_ARCHS)} at full "
         f"width and depth in bf16 (random weights), batch {LM_BATCH}, a "
         f"{LM_PROMPT}-token prompt, {LM_GEN} tokens generated greedily; "
         "every kernel call against its plain version, cache consistency "
@@ -6061,6 +6751,20 @@ def main(argv=None) -> int:
             if k["call"].startswith(entry + " ")])
         if r["name"] == "moe_gemm_sm90":  # its main path is the model's
             r["launches"] = n
+    phase(f"[14/14] training: {TRAIN_ARCH} at full width and depth in bf16 "
+          f"(random weights), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+          f"{TRAIN_STEPS} steps of Trainer with int8 gradient compression, a "
+          f"checkpoint every {TRAIN_CKPT_EVERY} steps and a failure at step "
+          f"{min(TRAIN_FAILURE)}; the float32 twin against float64")
+    t0 = time.perf_counter()
+    train = train_path(dev)
+    train["wall_s"] = time.perf_counter() - t0
+    _log_train(train, card)
+    for r in rows:  # B5's backward: its launches on the training path
+        if r["name"] == bwd_counter("bfloat16"):
+            r["launches"] = train["launches"][r["name"]]
+        elif r["name"] == bwd_counter("float32"):
+            r["launches"] = train["float32"]["launches"][r["name"]]
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their main path: "
@@ -6076,7 +6780,8 @@ def main(argv=None) -> int:
          "engines": engine_rows, "plans": plan_rows, "graph": graph_rows,
          "serve": {"stages": serve_rows, **serve_summary},
          "elastic": {"stages": el_rows, **el_summary},
-         "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm, "c2": c2,
+         "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm,
+         "train": train, "c2": c2,
          "phase_start_s": clock,
          "wall_s": time.perf_counter() - t_start},
         indent=1, default=str))

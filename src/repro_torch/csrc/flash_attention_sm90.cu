@@ -52,6 +52,10 @@
 //   loaded, only the diagonal tile is masked, and the tiles with most work
 //   (the last query tiles) are launched first. Keys past T score -inf
 //   (weight exactly 0); query rows past S are not stored.
+// - For the backward (flash_attention_bwd.cu) the epilogue can also write
+//   each row's log-sum-exp, m·ln 2 + ln l, from the maxima and sums the
+//   softmax already holds: one thread of a quad, two floats, no register
+//   held through the loop.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,6 +79,7 @@ using sm90::wgmma_ss_n128;
 using sm90::wgmma_wait_all;
 
 constexpr float kMasked = -2.0e38f;  // score of a key after the query
+constexpr float kLn2 = 0.6931471805599453f;  // the maxima are in base 2
 constexpr int kBQ = 128;             // query rows a block
 constexpr int kConsumers = 256;      // two warpgroups of 64 query rows
 constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
@@ -223,8 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 fa_sm90(const __grid_constant__ CUtensorMap q_map,
         const __grid_constant__ CUtensorMap k_map,
         const __grid_constant__ CUtensorMap v_map,
-        __nv_bfloat16* __restrict__ o, int S, int Tn, int H, int G,
-        float scale_log2, int causal) {
+        __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+        int Tn, int H, int G, float scale_log2, int causal) {
   using C = Tile<HD>;
   constexpr int kBK = C::kBK, kStages = C::kStages, kRB = C::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -353,6 +358,11 @@ fa_sm90(const __grid_constant__ CUtensorMap q_map,
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (lse != nullptr && t == 0) {  // the backward's row log-sum-exp
+      float* lb = lse + (static_cast<long long>(b) * H + h) * S;
+      if (r0 < S) lb[r0] = sm.m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
+      if (r1 < S) lb[r1] = sm.m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
+    }
     const long long row_stride = static_cast<long long>(H) * HD;
     __nv_bfloat16* ob = o + static_cast<long long>(b) * S * row_stride +
                         static_cast<long long>(h) * HD + 2 * t;
@@ -371,8 +381,8 @@ fa_sm90(const __grid_constant__ CUtensorMap q_map,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Tn, int H, int KV, float scale_log2,
-                   int causal, cudaStream_t stream) {
+                   float* lse, int B, int S, int Tn, int H, int KV,
+                   float scale_log2, int causal, cudaStream_t stream) {
   using C = Tile<HD>;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err =
@@ -388,7 +398,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   fa_sm90<HD><<<grid, kThreads, C::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), S, Tn, H,
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, S, Tn, H,
       H / KV, scale_log2, causal);
   return cudaGetLastError();
 }
@@ -397,12 +407,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, S, H, HD); k, v: (B, T, KV, HD) with H = KV * G; all bfloat16,
 // contiguous and 16-byte aligned; HD 32, 64 or 128. o: (B, S, H, HD)
-// bfloat16, fully written. causal needs S == T (the wrapper checks).
+// bfloat16, fully written. lse: null, or (B, H, S) float32 that takes each
+// row's log-sum-exp of its scaled scores (what the backward needs; serving
+// passes null). causal needs S == T (the wrapper checks).
 extern "C" int tdorch_flash_attention_sm90(int device, const void* q,
                                            const void* k, const void* v,
                                            int B, int S, int Tn, int H,
                                            int KV, int HD, float scale,
-                                           int causal, void* o,
+                                           int causal, void* o, float* lse,
                                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -410,16 +422,16 @@ extern "C" int tdorch_flash_attention_sm90(int device, const void* q,
   const float scale_log2 = scale * 1.4426950408889634f;
   switch (HD) {
     case 32:
-      err = launch<32>(q, k, v, o, B, S, Tn, H, KV, scale_log2, causal,
-                       stream);
+      err = launch<32>(q, k, v, o, lse, B, S, Tn, H, KV, scale_log2,
+                        causal, stream);
       break;
     case 64:
-      err = launch<64>(q, k, v, o, B, S, Tn, H, KV, scale_log2, causal,
-                       stream);
+      err = launch<64>(q, k, v, o, lse, B, S, Tn, H, KV, scale_log2,
+                        causal, stream);
       break;
     case 128:
-      err = launch<128>(q, k, v, o, B, S, Tn, H, KV, scale_log2, causal,
-                        stream);
+      err = launch<128>(q, k, v, o, lse, B, S, Tn, H, KV, scale_log2,
+                        causal, stream);
       break;
     default:
       err = cudaErrorInvalidValue;

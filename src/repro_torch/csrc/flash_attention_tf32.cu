@@ -59,6 +59,8 @@
 //   reach past a warp's first row are masked, and the tiles with most work
 //   (the last query tiles) are launched first. Keys past T score -inf
 //   (weight exactly 0); query rows past S are not stored.
+// - For the backward (flash_attention_bwd.cu) the epilogue can also write
+//   each row's log-sum-exp, m·ln 2 + ln l (one thread of a quad).
 
 #include <cuda_runtime.h>
 
@@ -69,6 +71,7 @@
 namespace {
 
 constexpr float kMasked = -2.0e38f;  // score of a key after the query
+constexpr float kLn2 = 0.6931471805599453f;  // the maxima are in base 2
 constexpr int kBQ = 128;             // query rows a block
 constexpr int kThreads = 256;        // 8 warps of 16 query rows
 constexpr int kStages = 3;
@@ -105,8 +108,9 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_tf32(const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, float* __restrict__ o, int S, int Tn,
-        int H, int KV, int G, float scale_log2, int causal) {
+        const float* __restrict__ v, float* __restrict__ o,
+        float* __restrict__ lse, int S, int Tn, int H, int KV, int G,
+        float scale_log2, int causal) {
   using C = Tile<HD>;
   constexpr int kBK = C::kBK, kLdQ = C::kLdQ, kLdV = C::kLdV;
   constexpr int kNT = kBK / 8;  // key n-tiles of S, k-steps of P·V
@@ -272,6 +276,11 @@ fa_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && t == 0) {  // the backward's row log-sum-exp
+    float* lb = lse + (static_cast<long long>(b) * H + h) * S;
+    if (r0 < S) lb[r0] = m0 * kLn2 + logf(fmaxf(l0, 1e-30f));
+    if (r1 < S) lb[r1] = m1 * kLn2 + logf(fmaxf(l1, 1e-30f));
+  }
   float* ob = o + static_cast<long long>(b) * S * q_row +
               static_cast<long long>(h) * HD + 2 * t;
 #pragma unroll
@@ -287,15 +296,15 @@ fa_tf32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int S, int Tn, int H, int KV, float scale_log2,
-                   int causal, cudaStream_t stream) {
+                   float* lse, int B, int S, int Tn, int H, int KV,
+                   float scale_log2, int causal, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fa_tf32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Tile<HD>::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   fa_tf32<HD><<<grid, kThreads, Tile<HD>::kSmem, stream>>>(
-      q, k, v, o, S, Tn, H, KV, H / KV, scale_log2, causal);
+      q, k, v, o, lse, S, Tn, H, KV, H / KV, scale_log2, causal);
   return cudaGetLastError();
 }
 
@@ -303,12 +312,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 
 // q: (B, S, H, HD); k, v: (B, T, KV, HD) with H = KV * G; all float32,
 // contiguous and 16-byte aligned; HD 32, 64 or 128. o: (B, S, H, HD)
-// float32, fully written. causal needs S == T (the wrapper checks).
+// float32, fully written. lse: null, or (B, H, S) float32 that takes each
+// row's log-sum-exp of its scaled scores (what the backward needs; serving
+// passes null). causal needs S == T (the wrapper checks).
 extern "C" int tdorch_flash_attention_tf32(int device, const void* q,
                                            const void* k, const void* v,
                                            int B, int S, int Tn, int H,
                                            int KV, int HD, float scale,
-                                           int causal, void* o,
+                                           int causal, void* o, float* lse,
                                            cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -320,16 +331,16 @@ extern "C" int tdorch_flash_attention_tf32(int device, const void* q,
   auto* of = static_cast<float*>(o);
   switch (HD) {
     case 32:
-      err = launch<32>(qf, kf, vf, of, B, S, Tn, H, KV, scale_log2, causal,
-                       stream);
+      err = launch<32>(qf, kf, vf, of, lse, B, S, Tn, H, KV, scale_log2,
+                        causal, stream);
       break;
     case 64:
-      err = launch<64>(qf, kf, vf, of, B, S, Tn, H, KV, scale_log2, causal,
-                       stream);
+      err = launch<64>(qf, kf, vf, of, lse, B, S, Tn, H, KV, scale_log2,
+                        causal, stream);
       break;
     case 128:
-      err = launch<128>(qf, kf, vf, of, B, S, Tn, H, KV, scale_log2, causal,
-                        stream);
+      err = launch<128>(qf, kf, vf, of, lse, B, S, Tn, H, KV, scale_log2,
+                        causal, stream);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -30,7 +30,8 @@ CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
            "stage_fused.cu", "moe_gemm.cu", "flash_attention_tf32.cu",
-           "flash_attention_sm90.cu", "flash_decode.cu", "mamba_scan.cu")
+           "flash_attention_sm90.cu", "flash_attention_bwd.cu",
+           "flash_decode.cu", "mamba_scan.cu")
 HEADERS = ("sm90.cuh",)  # included by the sources; part of the build's key
 LIBRARY = "libtdorch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,7 +39,8 @@ FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
            "moe_gemm_sm90", "moe_gemm_bf16", "flash_attention_tf32",
-           "flash_attention_sm90", "flash_decode", "flash_decode_sm90",
+           "flash_attention_sm90", "flash_attention_bwd_tf32",
+           "flash_attention_bwd_bf16", "flash_decode", "flash_decode_sm90",
            "mamba_scan")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -141,9 +143,19 @@ def load() -> ctypes.CDLL:
         "tdorch_grouped_gemm_sm90": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
                                      i32, i32, i32, i32, ptr, ptr, ptr],
         "tdorch_flash_attention_tf32": [i32, ptr, ptr, ptr, i32, i32, i32,
-                                        i32, i32, i32, f32, i32, ptr, ptr],
+                                        i32, i32, i32, f32, i32, ptr, ptr,
+                                        ptr],
         "tdorch_flash_attention_sm90": [i32, ptr, ptr, ptr, i32, i32, i32,
-                                        i32, i32, i32, f32, i32, ptr, ptr],
+                                        i32, i32, i32, f32, i32, ptr, ptr,
+                                        ptr],
+        "tdorch_flash_attention_bwd_tf32": [i32, ptr, ptr, ptr, ptr, ptr,
+                                            ptr, i32, i32, i32, i32, i32,
+                                            i32, f32, i32, ptr, ptr, ptr,
+                                            ptr, ptr],
+        "tdorch_flash_attention_bwd_bf16": [i32, ptr, ptr, ptr, ptr, ptr,
+                                            ptr, i32, i32, i32, i32, i32,
+                                            i32, f32, i32, ptr, ptr, ptr,
+                                            ptr, ptr],
         "tdorch_flash_decode": [i32, ptr, ptr, ptr, ptr, i64, i32, i32, i32,
                                 i32, i32, i32, i32, f32, ptr, ptr, ptr, ptr],
         "tdorch_flash_decode_sm90": [i32, ptr, ptr, ptr, ptr, i64, i32, i32,

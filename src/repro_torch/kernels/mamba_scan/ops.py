@@ -33,11 +33,18 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     float32 or bfloat16 of one dtype, dt and A contiguous float32, and
     hd, ds <= 64. The kernels keep each chunk's state in a float32
     scratch of (B, nh, S / chunk, hd, ds), allocated here with one of the
-    chunks' cumulative log-decays l (B, nh, S / chunk, 128)."""
+    chunks' cumulative log-decays l (B, nh, S / chunk, 128). On the card
+    it has no backward yet: an input that requires grad under grad mode
+    raises `NotImplementedError` (ROADMAP A11e)."""
     B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
     if not _lib.on_cuda(x):
         return ssd_scan_ref(x, dt, A, Bc, Cc, chunk=chunk,
                             return_state=return_state)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bc, Cc)):
+        raise NotImplementedError(
+            "mamba_ssd has no backward kernel on the card yet (ROADMAP "
+            "item A11e); the plain version trains on the CPU")
     dev = x.device
     _lib.require(x, "x", (torch.float32, torch.bfloat16), 4, dev)
     _lib.require(Bc, "Bc", (x.dtype,), 3, dev)

@@ -42,9 +42,14 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
     `torch.backends.cuda.matmul.allow_tf32` says; bf16 reads x and w as
     they are and sums their exact products in float32, rounding y to bf16
     once, on the kernel `route` names (no fallback: a refused launch
-    raises)."""
+    raises). On the card it has no backward yet: x or w requiring grad
+    under grad mode raises `NotImplementedError` (ROADMAP A11d)."""
     if not _lib.on_cuda(x):
         return grouped_gemm_ref(x, w, group_sizes)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "grouped_gemm has no backward kernel on the card yet (ROADMAP "
+            "item A11d); the plain version trains on the CPU")
     return _launch(x, w, group_sizes)
 
 

@@ -6,8 +6,12 @@ positions, a chunked online-softmax scan from there), both the causal GQA
 function its Pallas kernel `flash_attention` computes. The port calls that
 kernel's Hopper port for every length (`repro_torch.kernels.attention`,
 B5), and for decode the port of `flash_decode` (`decode_attention`, B6)
-over the cache prefix. On the CPU both run their plain versions. The JAX
-package's custom VJP belongs to the training slice.
+over the cache prefix. On the CPU both run their plain versions. Under
+autograd `kernels.attention` is a `torch.autograd.Function` whose backward
+launches B5's backward kernels (the counterpart of the JAX package's custom
+VJP `_flash_xla`, which its `attention_full` takes from 4,096 positions),
+so the gradient flows through `attention_full` at every length;
+`attention_decode` is never trained.
 """
 from __future__ import annotations
 
@@ -66,8 +70,8 @@ def _project_qkv(params: Attention, cfg: ModelConfig, x, positions):
 
 
 def attention_full(params: Attention, cfg: ModelConfig, x, positions):
-    """Causal self-attention over the whole sequence (prefill). Returns
-    (out, (k, v)) so prefill can seed the decode cache."""
+    """Causal self-attention over the whole sequence (train / prefill).
+    Returns (out, (k, v)) so prefill can seed the decode cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = kernels.attention(q, k, v, causal=True)

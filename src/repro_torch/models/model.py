@@ -21,9 +21,14 @@ writes the caches in place: `prefill` fills buffers from `init_caches`
 layer by layer and `decode_step` writes slot `cache_pos` (the recurrent
 states: the layer's new state).
 
-Serving only: the entry points run under `torch.no_grad()`. The kernels
-have no backward yet; the training half (`loss_fn`, the custom VJP) is
-ROADMAP item A11c.
+`forward`, `prefill` and `decode_step` serve: they run under
+`torch.no_grad()`, and attention then launches the forward kernel alone.
+`loss_fn` trains: next-token cross-entropy (plus the MoE aux loss) under
+autograd, every attention's gradient from B5's backward kernels on the
+card (`kernels.attention` is a `torch.autograd.Function`). On the card the
+Mamba scan (B7) and the grouped GEMM (B4) have no backward kernel yet and
+raise under grad (ROADMAP A11e, A11d); on the CPU all five patterns train
+through the plain versions.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks as B
 from .config import ModelConfig
@@ -111,6 +117,13 @@ class Model(torch.nn.Module):
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def decayed(self) -> Dict[str, bool]:
+        """{parameter name: whether AdamW decays it}: the JAX package's
+        rule (ndim >= 2) on its leaves, which stack the layers (`_STACKED`
+        dims more than the port's tensor a layer)."""
+        return {n: p.ndim + _STACKED.get(n.partition(".")[0], 0) >= 2
+                for n, p in self.named_parameters()}
 
     @property
     def n_apps(self) -> int:
@@ -271,6 +284,59 @@ class Model(torch.nn.Module):
         x, new_caches, aux = self._hidden(tokens, embeds, positions, caches,
                                           decode, cache_pos)
         return self._logits(x), new_caches, aux
+
+    # logits chunking kicks in when S·V reaches this (≈0.5G float32
+    # elements): the full (B, S, V) logits are never materialized
+    LOSS_CHUNK_THRESHOLD = 2 ** 29
+    LOSS_CHUNK = 512
+
+    def loss_fn(self, batch):
+        """Next-token cross-entropy from float32 logits (+ the MoE aux
+        loss times its weight), under autograd: (loss, {"nll", "aux"}).
+        batch: "targets" (B, S) and "tokens" (B, S) or "embeds" (B, S, d),
+        optionally "mask" (B, S) weighting each position. Where S·V >=
+        LOSS_CHUNK_THRESHOLD, S % LOSS_CHUNK == 0 and there is no mask, the
+        head and the cross-entropy run LOSS_CHUNK positions at a time, each
+        chunk's logits recomputed in the backward (`torch.utils.
+        checkpoint`, the JAX package's `jax.checkpoint` over `lax.scan`),
+        so the full (B, S, V) logits never exist."""
+        cfg = self.cfg
+        targets = batch["targets"].long()
+        Bsz, S = targets.shape
+        mask = batch.get("mask")
+        chunked = (S * cfg.vocab_size >= self.LOSS_CHUNK_THRESHOLD
+                   and S % self.LOSS_CHUNK == 0 and mask is None)
+        hidden, _, aux = self._hidden(batch.get("tokens"),
+                                      batch.get("embeds"), None, None,
+                                      False, None)
+        if not chunked:
+            nll = self._nll(hidden, targets)
+            if mask is None:
+                loss = nll.mean()
+            else:
+                mask = mask.to(nll.dtype)
+                loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        else:
+            C = self.LOSS_CHUNK
+            total = torch.zeros((), dtype=torch.float32,
+                                device=hidden.device)
+            for c in range(0, S, C):
+                total = total + checkpoint(
+                    self._chunk_nll, hidden[:, c:c + C], targets[:, c:c + C],
+                    use_reentrant=False)
+            loss = total / (Bsz * S)
+        w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+        return loss + w * aux, {"nll": loss, "aux": aux}
+
+    def _nll(self, hidden, targets):
+        """Per-position −log p(target) from float32 logits."""
+        logits = self._logits(hidden)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, targets[..., None], dim=-1)
+        return logz - gold[..., 0]
+
+    def _chunk_nll(self, hidden, targets):
+        return self._nll(hidden, targets).sum()
 
     def init_caches(self, batch: int, max_len: int):
         """Zeroed decode state in the compute dtype (SSM and LSTM states

@@ -44,6 +44,21 @@ uniform and Zipf ids, weighted and not, ids out of range on both sides.
 A small `StagePlan` runs through `Orchestrator.run_plan` on the card: its
 write-backs stay on the device until the plan exits (one counted host sync
 in all), and every engine runs there when no device is named.
+
+The attention backward (`csrc/flash_attention_bwd.cu`, counters
+"flash_attention_bwd_bf16" / "_tf32") is held to chip_smoke.py's gate
+against `attention_bwd_ref` on the same q, k, v, out, lse and dout: each
+of dq, dk, dv within 2^-8·|ref| + 2^-7·Σ|terms| in bf16 against float32
+(the outputs' rounding; P and dS rounded to bf16 once; float32 sums in
+other orders), Σ|terms| the plain version's magnitudes with |dS| as
+P ⊙ (|dP| + |D|) (`terms="values"`), and ATTN_BWD_REL·(|ref| + Σ|terms|)
+= 2e-5 in float32 against float64 (3xTF32), |dS| as
+P ⊙ (|dO|·|v|ᵀ + Σ|dO ⊙ O|) (`terms="products"`); the
+forward's log-sum-exp output
+against the plain one, with the output unchanged by it; `attention` under
+autograd on the card (one forward and one backward launch), and with grad
+off (no lse: the serving launch). `mamba_ssd` and `grouped_gemm` raise
+under grad on the card (no backward kernel yet, ROADMAP A11e / A11d).
 """
 import numpy as np
 import pytest
@@ -51,7 +66,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import attention, decode_attention, mamba_ssd
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
 from repro_torch.kernels.flash_decode.ref import decode_attention_ref
 from repro_torch.kernels.histogram.ops import count_ids, device_limits, route
 from repro_torch.kernels.histogram.ref import histogram_ref
@@ -81,6 +98,7 @@ TOL = {"attention": 2e-5, "scan": 1e-3, "bf16": 3e-2}
 ATTN_REL = 2e-5
 BF16_ROUND = 2.0 ** -8
 SSD_REL = 1e-5
+ATTN_BWD_REL = 2e-5
 U32 = 2.0 ** -24
 MERGES = ["add", "min", "max", "or", "write"]
 
@@ -961,3 +979,134 @@ def test_engines_run_on_the_card_by_default(dev, engine):
     sess.run_stage(tb, _inc, "add")
     assert kernels.launches()["segment_combine"] == 1
     np.testing.assert_array_equal(store.values[:1024], 2.0)
+
+
+# ---- B5's backward (flash_attention_bwd.cu) and the forward's lse --------
+BWD_GEOMS = [(S, S, H, KV, hd, causal)
+             for (S, H, KV, hd) in [(128, 4, 4, 64), (256, 8, 2, 64),
+                                    (128, 4, 1, 128), (64, 2, 2, 32),
+                                    (100, 4, 2, 64), (300, 8, 1, 128),
+                                    (200, 16, 2, 32)]
+             for causal in (True, False)] + [
+    (48, 80, 4, 2, 32, False), (200, 129, 4, 1, 64, False),
+    (130, 384, 8, 2, 128, False)]
+
+
+def _bwd_case(dev, S, T, H, KV, hd, causal, dtype, seed):
+    """q, k, v, dout of `dtype` and the forward's out (in dtype) and lse
+    (float32) from the plain version on the same values."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
+    q, dout = (torch.from_numpy(_normal(rng, 2, S, H, hd)).to(dev, dt)
+               for _ in range(2))
+    k, v = (torch.from_numpy(_normal(rng, 2, T, KV, hd)).to(dev, dt)
+            for _ in range(2))
+    out, lse = attention_ref(q.double(), k.double(), v.double(),
+                             causal=causal, return_lse=True)
+    return q, k, v, out.to(dt), lse.float(), dout
+
+
+def _bwd_gate(got, q, k, v, out, lse, dout, causal) -> float:
+    """(dq, dk, dv) within chip_smoke.py's gate of `attention_bwd_ref` on
+    the same values (float32 for bf16, float64 for float32); returns the
+    worst share of the gate."""
+    bf16 = q.dtype == torch.bfloat16
+    up = (lambda t: t.float()) if bf16 else (lambda t: t.double())
+    rel, rel_terms, terms = (BF16_ROUND, 2 * BF16_ROUND, "values") if bf16 \
+        else (ATTN_BWD_REL, ATTN_BWD_REL, "products")
+    want, mags = attention_bwd_ref(up(q), up(k), up(v), up(out), up(lse),
+                                   up(dout), causal=causal, terms=terms)
+    worst = 0.0
+    for name, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+        assert g.dtype == q.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = (g.double() - w.double()).abs()
+        allowed = rel * w.double().abs() + rel_terms * m.double()
+        share = float((err / allowed.clamp(min=1e-300)).max())
+        assert bool((err <= allowed).all()), (name, share)
+        worst = max(worst, share)
+    return worst
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("S,T,H,KV,hd,causal", BWD_GEOMS)
+def test_attention_bwd_kernel_gate(dev, S, T, H, KV, hd, causal, dtype):
+    """The three backward kernels at hd 32 / 64 / 128, GQA 1 / 2 / 4 / 8,
+    causal and not, ragged S, non-causal S != T, at the gate."""
+    case = _bwd_case(dev, S, T, H, KV, hd, causal, dtype, 11)
+    got = fa_ops._backward(*case, causal)
+    torch.cuda.synchronize()
+    _bwd_gate(got, *case, causal)
+    name = f"flash_attention_bwd_{'bf16' if dtype == 'bfloat16' else 'tf32'}"
+    assert kernels.launches()[name] == 1
+    assert sum(kernels.launches().values()) == 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_bwd_gate_sees_a_zeroed_dk_tile(dev, dtype):
+    case = _bwd_case(dev, 256, 256, 8, 2, 64, True, dtype, 12)
+    dq, dk, dv = fa_ops._backward(*case, True)
+    dk = dk.clone()
+    dk[:, 64:128] = 0
+    with pytest.raises(AssertionError):
+        _bwd_gate((dq, dk, dv), *case, True)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_forward_lse(dev, dtype, causal):
+    """The forward's optional lse against the plain one; the output is
+    the same bits with and without it."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(_normal(rng, 2, 300, 8, 64)).to(dev, dt)
+    k, v = (torch.from_numpy(_normal(rng, 2, 300, 2, 64)).to(dev, dt)
+            for _ in range(2))
+    out, lse = fa_ops._forward(q, k, v, causal, True)
+    plain = fa_ops._forward(q, k, v, causal, False)
+    assert plain[1] is None and torch.equal(out, plain[0])
+    _, want = attention_ref(q.double(), k.double(), v.double(),
+                            causal=causal, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 8, 300)
+    # float32 scores of |s| <= ~40: a few float32 ulps of the largest
+    torch.testing.assert_close(lse.double(), want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_autograd_launches_the_backward(dev, dtype):
+    dt = getattr(torch, dtype)
+    case = _bwd_case(dev, 256, 256, 8, 2, 64, True, dtype, 14)
+    q, k, v, _, _, dout = case
+    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))
+    out = attention(q, k, v, causal=True)
+    fwd = "flash_attention_sm90" if dt == torch.bfloat16 else \
+        "flash_attention_tf32"
+    bwd = f"flash_attention_bwd_{'bf16' if dt == torch.bfloat16 else 'tf32'}"
+    assert kernels.launches()[fwd] == 1 and kernels.launches()[bwd] == 0
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert kernels.launches()[bwd] == 1
+    o2, lse = fa_ops._forward(q.detach(), k.detach(), v.detach(), True, True)
+    assert torch.equal(out.detach(), o2)
+    _bwd_gate(grads, q.detach(), k.detach(), v.detach(), o2, lse, dout, True)
+    with torch.no_grad():  # serving: the launch without an lse
+        attention(q, k, v, causal=True)
+    assert kernels.launches()[fwd] == 3 and kernels.launches()[bwd] == 1
+
+
+def test_scan_and_grouped_gemm_refuse_grad_on_the_card(dev):
+    x = torch.zeros((1, 16, 2, 16), device=dev, requires_grad=True)
+    dt = torch.full((1, 16, 2), 0.1, device=dev)
+    bc = torch.zeros((1, 16, 8), device=dev)
+    with pytest.raises(NotImplementedError, match="A11e"):
+        mamba_ssd(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=16)
+    xg = torch.zeros((8, 32), device=dev, dtype=torch.bfloat16)
+    wg = torch.zeros((2, 32, 16), device=dev, dtype=torch.bfloat16,
+                     requires_grad=True)
+    sg = torch.tensor([4, 4], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="A11d"):
+        grouped_gemm(xg, wg, sg)
+    with torch.no_grad():  # serving launches as before
+        mamba_ssd(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=16)
+        grouped_gemm(xg, wg, sg)
+    assert kernels.launches()["mamba_scan"] == 1
+    assert kernels.launches()["moe_gemm_sm90"] == 1

@@ -21,6 +21,14 @@ hold the model stack against the JAX package). This file imports no JAX:
   within chip_smoke.py's LM_F32_REL (1e-4) of max|ref|.
 - A reduced config (head dim 8) is refused by the attention kernel on the
   card with its `ValueError`: no plain fallback.
+- Training: tinyllama-1.1b's float32 two-layer twin, one `loss_fn`
+  forward and backward on the card (one 3xTF32 B5 forward and backward a
+  layer) against float64 on the CPU: the loss within 1e-5 of |ref| and
+  every parameter's gradient within chip_smoke.py's TRAIN_F32_REL (1e-4)
+  of its max|ref|; the bf16 model's `loss_fn` launches the bf16 kernels
+  (one forward and one backward a layer) and the zamba2 and granite
+  patterns raise under grad (no backward kernel for the scan and the
+  grouped GEMM yet).
 """
 import copy
 import dataclasses
@@ -182,3 +190,57 @@ def test_reduced_head_dim_is_refused_on_card(dev):
     toks = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="head_dim 8"):
         model.prefill(tokens=toks)
+
+
+def _loss_and_grads(m, batch, device):
+    loss, _ = m.loss_fn({k: torch.from_numpy(v).to(device)
+                         for k, v in batch.items()})
+    names = [n for n, _ in m.named_parameters()]
+    return loss.detach(), dict(zip(names, torch.autograd.grad(
+        loss, [p for _, p in m.named_parameters()])))
+
+
+def _tokens(cfg, B, S, seed=5):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def test_tinyllama_twin_loss_fn_step_against_float64(dev):
+    cfg = _full_two_layers("tinyllama-1.1b", "float32")
+    model = Model(cfg, device=dev, seed=5)
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+    ref.cfg = dataclasses.replace(cfg, param_dtype="float64",
+                                  compute_dtype="float64")
+    batch = _tokens(cfg, 1, 256)
+    loss, got = _loss_and_grads(model, batch, dev)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(flash_attention_tf32=2, flash_attention_bwd_tf32=2)
+    assert kernels.launches() == want
+    rloss, rgrads = _loss_and_grads(ref, batch, "cpu")
+    assert abs(float(loss) - float(rloss)) <= 1e-5 * abs(float(rloss))
+    for n, w in rgrads.items():
+        err = float((got[n].cpu().double() - w).abs().max())
+        assert err <= LM_F32_REL * float(w.abs().max()), n
+
+
+def test_bf16_loss_fn_launches_the_bf16_backward(dev):
+    cfg = _full_two_layers("tinyllama-1.1b", "bfloat16")
+    model = Model(cfg, device=dev, seed=6)
+    loss, grads = _loss_and_grads(model, _tokens(cfg, 2, 512), dev)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update(flash_attention_sm90=2, flash_attention_bwd_bf16=2)
+    assert kernels.launches() == want
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "granite-moe-3b-a800m"])
+def test_scan_and_moe_patterns_refuse_grad_on_card(dev, arch):
+    cfg = _full_two_layers(arch, "bfloat16")
+    model = Model(cfg, device=dev, seed=7)
+    with pytest.raises(NotImplementedError, match="A11[de]"):
+        model.loss_fn({k: torch.from_numpy(v).to(dev)
+                       for k, v in _tokens(cfg, 1, 256).items()})

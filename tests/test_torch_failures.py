@@ -18,9 +18,14 @@ def both(scenario):
 
 
 def test_runtime_exports_only_the_three_monitors():
-    assert sorted(runtime.__all__) == ["FailureInjector", "HeartbeatMonitor",
-                                       "StragglerDetector"]
-    assert runtime.FailureInjector is port.FailureInjector
+    """The package exports the JAX package's runtime names: the three
+    monitors (this module's), gradient compression and the lazily
+    imported trainer."""
+    import repro.runtime
+
+    assert sorted(runtime.__all__) == sorted(repro.runtime.__all__)
+    for name in ("FailureInjector", "HeartbeatMonitor", "StragglerDetector"):
+        assert getattr(runtime, name) is getattr(port, name)
 
 
 # ---------------------------------------------------------------------------
