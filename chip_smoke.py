@@ -10,8 +10,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    csrc/` with nvcc (sm_90a), and the registers, shared memory and spills
    of the attention, scan, grouped GEMM, segment-combine and fused-read
    kernels (the 3xTF32 float32 ones, the SIMT float32 ones and the bf16
-   tensor-core ones, `gg_sm90` and `gg_bf16` among them, and B5's three
-   backward kernels `fa_bwd_pre`, `fa_bwd_dkdv`, `fa_bwd_dq`).
+   tensor-core ones, `gg_sm90` and `gg_bf16` among them, and B5's
+   backward kernels: bf16 `fa_bwd_pre_sm90`, `fa_bwd_dkdv_sm90`,
+   `fa_bwd_dq_sm90`, float32 `fa_bwd_pre`, `fa_bwd_dkdv`, `fa_bwd_dq`).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -34,12 +35,14 @@ Phases, each of which raises (non-zero exit) on any failed check:
    attention and the SSD scan (see phase 5; bf16 attention and decode take
    the tensor-core kernels `flash_attention_sm90` and `flash_decode_sm90`,
    float32 attention the 3xTF32 kernel `flash_attention_tf32`, float32
-   decode the SIMT one), and B5's backward (`flash_attention_bwd.cu`,
+   decode the SIMT one), and B5's backward (bf16
+   `flash_attention_bwd_sm90.cu`, float32 `flash_attention_bwd.cu`;
    counters "flash_attention_bwd_bf16" / "_tf32") at hd 32 / 64 / 128, GQA
    1 / 4 / 8, causal and not, S = 1,000 and 4,096 against
    `attention_bwd_ref` on the same inputs (`bwd_check`'s gate), with one
    dk tile zeroed caught, and at S = 4,096 with GQA 8 dk without one middle
-   query tile of one head, and without one query head, caught.
+   query tile of one head, and without one query head, caught; two bf16
+   calls at the training shape give the same bits.
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -113,8 +116,10 @@ Phases, each of which raises (non-zero exit) on any failed check:
    TFLOP/s in bf16, whichever is larger). Row 5c: B5's backward at
    tinyllama-1.1b's training shape (4, 4096, 32 heads, 4 KV heads, 64) and
    phase 5's prefill_mha and prefill_gqa128, bf16 and float32: call and
-   device ms, the plain version, the library's backward (SDPA's, alone)
-   and a bound of 2.5 times the forward's operations. The segment combine is timed
+   device ms (split into the pre, dk/dv and dq kernels), the plain
+   version, the library's backward (SDPA's, alone), a bound of 2.5 times
+   the forward's operations, and dq, dk, dv held to phase 2's gate at
+   each shape. The segment combine is timed
    at the writer combines of stages (a) add (`index_add_`), (c) min
    (`index_reduce_(..., "amin")`) and (b) write (no one call). The
    histogram (at stage (b)'s root call, the parameter-server lookup's, a
@@ -2144,8 +2149,9 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
-# B5's backward (csrc/flash_attention_bwd.cu): parity (phase 2) and times
-# (phase 6, row 5c)
+# B5's backward (csrc/flash_attention_bwd_sm90.cu for bf16,
+# csrc/flash_attention_bwd.cu for float32): parity (phase 2), and times and
+# the gate at row 5c's shapes (phase 6)
 # ---------------------------------------------------------------------------
 # The backward against `attention_bwd_ref` on the same q, k, v, out, lse and
 # dout: each of dq, dk, dv within a·|ref| + b·Σ|terms|, Σ|terms| the plain
@@ -2167,7 +2173,10 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
 # through exp, float32 sums a step.
 ATTN_BWD_REL = 2e-5
 ATTN_BWD_BF16 = (BF16_ROUND, 2 * BF16_ROUND)  # (on |ref|, on Σ|terms|)
-BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+BWD_SOURCES = {"bfloat16": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+               "float32": "src/repro_torch/csrc/flash_attention_bwd.cu"}
+# each kernel of a backward call, by a part of its device event's name
+BWD_PARTS = {"pre": "fa_bwd_pre", "dkdv": "fa_bwd_dkdv", "dq": "fa_bwd_dq"}
 # the JAX package's flash backward: the rule of its custom VJP `_flash_xla`
 BWD_REPLACES = "src/repro/models/attention.py:137"
 # (B, S, H, KV, hd, causal): hd 32 / 64 / 128, GQA 1 / 4 / 8, causal and
@@ -2183,6 +2192,20 @@ def bwd_counter(dtype: str) -> str:
     """The launch counter of B5's backward in `dtype`."""
     return ("flash_attention_bwd_bf16" if dtype == "bfloat16"
             else "flash_attention_bwd_tf32")
+
+
+def bwd_split(events: dict, source: str):
+    """A backward call's device ms by kernel (`BWD_PARTS`) from
+    `device_ms`'s events by name; the rest (fills, allocations) as
+    "other". None where `device_ms` fell back to CUDA events
+    (`source` not "profiler"): those have no events by name."""
+    if source != "profiler":
+        return None
+    out = {k: 0.0 for k in (*BWD_PARTS, "other")}
+    for name, ms in events.items():
+        part = next((k for k, v in BWD_PARTS.items() if v in name), "other")
+        out[part] += ms
+    return out
 
 
 def bwd_inputs(dev, B, S, H, KV, hd, causal, dtype: str, seed: int,
@@ -2336,6 +2359,18 @@ def attention_bwd_parity(dev) -> dict:
         raise AssertionError(f"the backward's gate ({dtype}) does not see "
                              "a zeroed dk tile")
     bulk = {d: bwd_bulk_faults(dev, d, seed + 2) for d in ATTN_DTYPES}
+    # the training step's restore gate (phase 14) needs the same bits from
+    # the same inputs: two bf16 calls at the training shape
+    st = bwd_timing_shapes()[0]
+    inputs = bwd_inputs(dev, st["B"], st["S"], st["H"], st["KV"], st["hd"],
+                        True, "bfloat16", seed + 3, kernel_forward=True)
+    first = ops._backward(*inputs, True)
+    again = ops._backward(*inputs, True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"attention backward at {st['tag']}: two bf16 "
+                             "calls on the same inputs differ")
+    del inputs, first, again
     torch.cuda.empty_cache()
     log(f"  attention backward: {len(BWD_PARITY)} cases a dtype (hd 32 / 64 "
         "/ 128, GQA 1 / 4 / 8, causal and not, S = 1,000 and 4,096) on "
@@ -2345,7 +2380,8 @@ def attention_bwd_parity(dev) -> dict:
         "against float64, |dS| as P ⊙ (|dO|·|v|ᵀ + Σ|dO ⊙ O|)); worst "
         "shares of the gate (case) "
         f"{({k: (round(v, 4), c) for k, (v, c) in shares.items()})}; a "
-        "zeroed dk tile misses the gate in both dtypes")
+        "zeroed dk tile misses the gate in both dtypes; two bf16 calls at "
+        f"{st['tag']} give the same bits")
     for dtype, b in bulk.items():
         typical = {k: round(v, 4) for k, v in
                    b["gate_over_median_ref"].items()}
@@ -2457,6 +2493,11 @@ def attention_bwd_timing(dev, errors: dict) -> list:
                        operations=nops)
             row["device_ms"], row["device_events"], row["device_source"] = \
                 device_ms(call, reps=3)
+            row["device_split"] = bwd_split(row["device_events"],
+                                            row["device_source"])
+            # the kernel's own outputs at this shape, at phase 2's gate
+            row["max_abs_err"], row["share_of_gate"] = bwd_check(
+                call(), inputs, True, f"row 5c {st['tag']} {dtype}")
             lib, note = _bwd_library(*inputs[:3], inputs[5])
             row["library_ms"], row["library_note"] = None, note
             if lib is not None:
@@ -2476,20 +2517,28 @@ def attention_bwd_timing(dev, errors: dict) -> list:
             del inputs, lib, want
             torch.cuda.empty_cache()
     rows = []
-    for name, shapes in by.items():
-        rows.append(dict(name=name, route="cuda", source=BWD_SOURCE,
+    for dtype in ATTN_DTYPES:
+        name = bwd_counter(dtype)
+        shapes = by[name]
+        worst = max([errors[name]] + [s["max_abs_err"] for s in shapes])
+        rows.append(dict(name=name, route="cuda", source=BWD_SOURCES[dtype],
                          replaces=BWD_REPLACES, launches=0,
-                         **shapes[0], max_abs_err=errors[name],
+                         **{**shapes[0], "max_abs_err": worst},
                          shapes=shapes))
         for s in shapes:
             lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
                    else f"null ({s['library_note']})")
             fma = (f"; {s['bound_fma_ms']:.4f} in FMAs"
                    if "bound_fma_ms" in s else "")
+            split = ("split not measured" if s["device_split"] is None
+                     else ", ".join(f"{k} {v:.4f}"
+                                    for k, v in s["device_split"].items()))
             log(f"  {name}: call {s['ms']:.4f} ms, device "
-                f"{s['device_ms']:.4f} ms, plain {s['plain_ms']:.4f}, "
-                f"library {lib}, bound {s['bound_ms']:.4f} by "
-                f"{s['bound_by']}{fma} at {s['shape']}")
+                f"{s['device_ms']:.4f} ms ({split}), plain "
+                f"{s['plain_ms']:.4f}, library {lib}, bound "
+                f"{s['bound_ms']:.4f} by {s['bound_by']}{fma}; max |Δ| "
+                f"{s['max_abs_err']:.4g}, {s['share_of_gate']:.4f} of the "
+                f"gate; at {s['shape']}")
     return rows
 
 

@@ -6,9 +6,9 @@ prefill and decode projections, batch 8).
     python3 gg_sm90_variants.py
 
 Each variant is a copy of `src/repro_torch/csrc/moe_gemm.cu` with one
-constant changed, built by nvcc (sm_90a, one process a variant, all started
-together) into a library of its own under a temporary directory, and called
-through its C entry `tdorch_grouped_gemm_sm90` on the same operands:
+constant changed, built by `kernel_variants.build` into a library of its own
+under a temporary directory, and called through its C entry
+`tdorch_grouped_gemm_sm90` on the same operands:
 
   shipped        the source as it is
   no_cluster     128-row tiles without the two-block cluster (each block
@@ -28,15 +28,15 @@ from __future__ import annotations
 
 import ctypes
 import json
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 import numpy as np
 
+from kernel_variants import build
+
 ROOT = Path(__file__).resolve().parent
-CSRC = ROOT / "src" / "repro_torch" / "csrc"
 
 # variant -> (text of moe_gemm.cu, its replacement)
 VARIANTS = {
@@ -50,45 +50,6 @@ VARIANTS = {
     "sum_128": ("constexpr int kSumDepth = 256;",
                 "constexpr int kSumDepth = 128;"),
 }
-
-
-def build(tmp: Path) -> dict:
-    """One library a variant: the patched moe_gemm.cu, with errors.cu for
-    the error strings."""
-    from repro_torch.kernels import _lib
-
-    nvcc = _lib._nvcc()
-    source = (CSRC / "moe_gemm.cu").read_text()
-    procs = {}
-    for name, patch in VARIANTS.items():
-        src = source
-        if patch is not None:
-            if patch[0] not in src:
-                raise RuntimeError(f"{name}: {patch[0]!r} not in moe_gemm.cu")
-            src = src.replace(patch[0], patch[1])
-        d = tmp / name
-        d.mkdir()
-        (d / "moe_gemm.cu").write_text(src)
-        for f in ("sm90.cuh", "errors.cu"):
-            (d / f).write_text((CSRC / f).read_text())
-        procs[name] = subprocess.Popen(
-            [nvcc, *_lib.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             "-shared", str(d / "moe_gemm.cu"), str(d / "errors.cu"), "-o",
-             str(d / "lib.so")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
-        lib = ctypes.CDLL(str(tmp / name / "lib.so"))
-        fn = lib.tdorch_grouped_gemm_sm90
-        fn.argtypes = [i32, ptr, ptr, i64, i64, ptr, i32, i32, i32, i32,
-                       i32, i32, ptr, ptr, ptr]
-        fn.restype = i32
-        libs[name] = fn
-    return libs
 
 
 def main() -> int:
@@ -116,8 +77,12 @@ def main() -> int:
          "out": (torch.randn((E, f, d), generator=g, device=dev)
                  * f ** -0.5).to(torch.bfloat16)}
     rows_out = []
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp))
+        libs, _ = build(Path(tmp), "moe_gemm.cu", VARIANTS,
+                        "tdorch_grouped_gemm_sm90",
+                        [i32, ptr, ptr, i64, i64, ptr, i32, i32, i32, i32,
+                         i32, i32, ptr, ptr, ptr])
         for label, tokens, proj in GG_BF16_SHAPES:
             experts = np.argsort(rng.random((tokens, E)), axis=1)[:, :k]
             sizes_np = np.bincount(experts.reshape(-1), minlength=E).astype(

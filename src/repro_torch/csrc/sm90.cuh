@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_attention_sm90.cu, flash_decode.cu, flash_attention_tf32.cu,
-// moe_gemm.cu): mbarriers, TMA tile loads (multicast to a cluster too) and
-// the host-side tensor maps that describe them, cluster barriers and
-// remote arrivals, `cp.async` copies, warp-level `ldmatrix` /
-// `mma.sync` (bf16 and TF32), warpgroup-level `wgmma` (shared-memory
-// descriptors, fences, m64nNk16 bf16 products), the 3xTF32 split of a
-// float32 value, and the exponential in base 2.
+// (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, flash_decode.cu,
+// flash_attention_tf32.cu, flash_attention_bwd.cu, moe_gemm.cu):
+// mbarriers, TMA tile loads (multicast to a cluster too) and the host-side
+// tensor maps that describe them, cluster barriers and remote arrivals,
+// `cp.async` copies, warp-level `ldmatrix` / `mma.sync` (bf16 and TF32),
+// warpgroup-level `wgmma` (shared-memory descriptors, fences, m64nNk16
+// bf16 products), the 3xTF32 split of a float32 value, and the
+// exponential in base 2.
 //
 // The tensor maps are encoded with `cuTensorMapEncodeTiled`, looked up
 // through the runtime (`cudaGetDriverEntryPoint`), so the library links
@@ -322,6 +323,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : SM90_D64
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_R32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  static_assert(N == 64 || N == 128, "n64 or n128");
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
+  else wgmma_ss_n128(d, da, db, accumulate);
 }
 
 __device__ __forceinline__ void wgmma_ss_tb_n32(float (&d)[16], uint64_t da,

@@ -31,7 +31,7 @@ BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
            "stage_fused.cu", "moe_gemm.cu", "flash_attention_tf32.cu",
            "flash_attention_sm90.cu", "flash_attention_bwd.cu",
-           "flash_decode.cu", "mamba_scan.cu")
+           "flash_attention_bwd_sm90.cu", "flash_decode.cu", "mamba_scan.cu")
 HEADERS = ("sm90.cuh",)  # included by the sources; part of the build's key
 LIBRARY = "libtdorch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")

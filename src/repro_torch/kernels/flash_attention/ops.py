@@ -6,10 +6,13 @@ and runs the plain version (`ref.py`) for a CPU tensor.
 Under autograd (grad mode on and an input that requires grad) `attention`
 is a `torch.autograd.Function`: the forward also writes each row's
 log-sum-exp and keeps it with q, k, v and the output, and the backward
-launches `csrc/flash_attention_bwd.cu` (counted as
-"flash_attention_bwd_bf16" / "flash_attention_bwd_tf32"), or runs
-`attention_bwd_ref` on the CPU. Otherwise (serving) the forward asks for
-no log-sum-exp and keeps nothing."""
+launches three kernels — for bfloat16 `fa_bwd_pre_sm90`, `fa_bwd_dkdv_sm90`
+and `fa_bwd_dq_sm90` of `csrc/flash_attention_bwd_sm90.cu` (wgmma + TMA,
+counted once as "flash_attention_bwd_bf16"), for float32 `fa_bwd_pre`,
+`fa_bwd_dkdv` and `fa_bwd_dq` of `csrc/flash_attention_bwd.cu` (3xTF32,
+"flash_attention_bwd_tf32") — or runs `attention_bwd_ref` on the CPU.
+Otherwise (serving) the forward asks for no log-sum-exp and keeps
+nothing."""
 from __future__ import annotations
 
 import torch
@@ -85,8 +88,9 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
 
 
 def _backward(q, k, v, out, lse, dout, causal: bool):
-    """(dq, dk, dv): the three backward kernels on the card (one count),
-    `attention_bwd_ref` on the CPU."""
+    """(dq, dk, dv): the three backward kernels on the card (one count:
+    `flash_attention_bwd_sm90.cu` for bfloat16, `flash_attention_bwd.cu`
+    for float32), `attention_bwd_ref` on the CPU."""
     B, S, H, hd, T, KV, G = attention_shapes(q, k, v, causal)
     if not _lib.on_cuda(q):
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)

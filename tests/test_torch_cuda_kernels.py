@@ -45,8 +45,9 @@ A small `StagePlan` runs through `Orchestrator.run_plan` on the card: its
 write-backs stay on the device until the plan exits (one counted host sync
 in all), and every engine runs there when no device is named.
 
-The attention backward (`csrc/flash_attention_bwd.cu`, counters
-"flash_attention_bwd_bf16" / "_tf32") is held to chip_smoke.py's gate
+The attention backward (bf16 `csrc/flash_attention_bwd_sm90.cu`, float32
+`csrc/flash_attention_bwd.cu`; counters "flash_attention_bwd_bf16" /
+"_tf32") is held to chip_smoke.py's gate
 against `attention_bwd_ref` on the same q, k, v, out, lse and dout: each
 of dq, dk, dv within 2^-8·|ref| + 2^-7·Σ|terms| in bf16 against float32
 (the outputs' rounding; P and dS rounded to bf16 once; float32 sums in
@@ -981,7 +982,7 @@ def test_engines_run_on_the_card_by_default(dev, engine):
     np.testing.assert_array_equal(store.values[:1024], 2.0)
 
 
-# ---- B5's backward (flash_attention_bwd.cu) and the forward's lse --------
+# ---- B5's backward (flash_attention_bwd{_sm90,}.cu), the forward's lse ---
 BWD_GEOMS = [(S, S, H, KV, hd, causal)
              for (S, H, KV, hd) in [(128, 4, 4, 64), (256, 8, 2, 64),
                                     (128, 4, 1, 128), (64, 2, 2, 32),
@@ -989,7 +990,15 @@ BWD_GEOMS = [(S, S, H, KV, hd, causal)
                                     (200, 16, 2, 32)]
              for causal in (True, False)] + [
     (48, 80, 4, 2, 32, False), (200, 129, 4, 1, 64, False),
-    (130, 384, 8, 2, 128, False)]
+    (130, 384, 8, 2, 128, False)] + [
+    # chip_smoke.py's phase-2 geometries (BWD_PARITY), at batch 2
+    (S, S, H, KV, hd, causal)
+    for (S, H, KV, hd, causal) in [
+        (1000, 8, 8, 32, True), (1000, 8, 8, 32, False),
+        (1000, 16, 4, 64, True), (1000, 16, 4, 64, False),
+        (1000, 8, 1, 128, True), (1000, 8, 1, 128, False),
+        (4096, 8, 1, 64, True), (4096, 4, 4, 128, False),
+        (4096, 8, 2, 32, True)]]
 
 
 def _bwd_case(dev, S, T, H, KV, hd, causal, dtype, seed):
@@ -1032,7 +1041,8 @@ def _bwd_gate(got, q, k, v, out, lse, dout, causal) -> float:
 @pytest.mark.parametrize("S,T,H,KV,hd,causal", BWD_GEOMS)
 def test_attention_bwd_kernel_gate(dev, S, T, H, KV, hd, causal, dtype):
     """The three backward kernels at hd 32 / 64 / 128, GQA 1 / 2 / 4 / 8,
-    causal and not, ragged S, non-causal S != T, at the gate."""
+    causal and not, ragged S, non-causal S != T, S up to 4,096 (phase 2's
+    geometries among them), at the gate."""
     case = _bwd_case(dev, S, T, H, KV, hd, causal, dtype, 11)
     got = fa_ops._backward(*case, causal)
     torch.cuda.synchronize()
@@ -1040,6 +1050,24 @@ def test_attention_bwd_kernel_gate(dev, S, T, H, KV, hd, causal, dtype):
     name = f"flash_attention_bwd_{'bf16' if dtype == 'bfloat16' else 'tf32'}"
     assert kernels.launches()[name] == 1
     assert sum(kernels.launches().values()) == 1
+
+
+def test_attention_bwd_bf16_repeats_bit_for_bit(dev):
+    """Two bf16 calls on the same inputs at tinyllama-1.1b's training shape
+    (4, 4,096, 32 heads / 4 KV heads, 64) give the same bits: no atomics,
+    so a training run restored from a checkpoint retraces its losses."""
+    rng = np.random.default_rng(16)
+    q, dout = (torch.from_numpy(_normal(rng, 4, 4096, 32, 64)).to(
+        dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.from_numpy(_normal(rng, 4, 4096, 4, 64)).to(
+        dev, torch.bfloat16) for _ in range(2))
+    out, lse = fa_ops._forward(q, k, v, True, True)
+    first = fa_ops._backward(q, k, v, out, lse, dout, True)
+    again = fa_ops._backward(q, k, v, out, lse, dout, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert kernels.launches()["flash_attention_bwd_bf16"] == 2
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

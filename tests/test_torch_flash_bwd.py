@@ -16,9 +16,12 @@ tests/test_torch_cuda_kernels.py, which skip without a card).
   rule rounds hd^-0.5 to float32 even in float64 (`jnp.sqrt(hd).astype(
   float32)`), which moves its scores by up to 2^-24 of themselves (|s| up
   to ~10 here) where the port scales by the float64 hd^-0.5.
-- The bf16 kernel's arithmetic, emulated in torch (`_emulate_bwd_bf16`:
-  bf16 operands, P and dS rounded to bf16 once before their products,
-  float32 sums a key tile, outputs rounded to bf16), against JAX's
+- The bf16 kernels' arithmetic (`csrc/flash_attention_bwd_sm90.cu`),
+  emulated in torch (`_emulate_bwd_bf16`: bf16 operands, S and dP summed
+  as `wgmma` sums (a k16 step's exact products added and cut toward zero),
+  P and dS rounded to bf16 once before their products, dk, dv and dq
+  carried on the tensor core through each kernel's whole walk, outputs
+  rounded to bf16), against JAX's
   `_flash_bwd_rule` run in float32 on the same bf16 values (same out, m
   and l) at phase 2's bf16 gate, 2^-8·|ref| + 2^-7·Σ|terms| with |dS| as
   P ⊙ (|dP| + |D|) (`terms="values"`); each planted fault (a zeroed dk
@@ -30,6 +33,8 @@ tests/test_torch_cuda_kernels.py, which skip without a card).
   JAX's m + log l.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -156,24 +161,76 @@ def test_serving_keeps_nothing_for_a_backward():
 # ---------------------------------------------------------------------------
 # the bf16 kernel's arithmetic against JAX's rule
 # ---------------------------------------------------------------------------
-KEY_TILE = 64
+SOURCE = (Path(__file__).resolve().parent.parent / "src" / "repro_torch"
+          / "csrc" / "flash_attention_bwd_sm90.cu")
+
+
+def _constant(name: str) -> tuple:
+    """A `constexpr int` of the bf16 backward's source: (its value at hd 32
+    and 64, at hd 128), from `N` or `HD <= 64 ? N : M`."""
+    m = re.search(rf"constexpr int {name} =(?: HD <= 64 \?)? (\d+)"
+                  rf"(?: : (\d+))?;", SOURCE.read_text())
+    assert m, f"{name} not found in {SOURCE.name}"
+    return int(m.group(1)), int(m.group(2) or m.group(1))
+
+
+K_STEP = 16                     # rows (or keys) a wgmma k16 step adds
+KEY_BLOCK = _constant("kKeys")  # fa_bwd_dkdv_sm90: keys a block
+Q_STEP = _constant("kRows")     # fa_bwd_dkdv_sm90: query rows a step
+KEY_TILE = _constant("kKT")     # fa_bwd_dq_sm90: keys a step
 
 
 def _bf16(t):
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def _emulate_bwd_bf16(q, k, v, out, lse, dout, fault=None):
-    """flash_attention_bwd.cu's bf16 arithmetic on float32 tensors holding
-    bf16 values (causal, S == T): D = rowsum(dO ⊙ O) in float32; per key
-    tile of 64, P = exp(s − lse) and dS = P ⊙ (dO · vᵀ − D) in float32 from
-    exact products, P and dS rounded to bf16 once, dv += Pᵀ · dO, dk +=
-    dSᵀ · q, dq += dS · k in float32; dk and dq times hd^-0.5, all three
-    rounded to bf16. `fault` plants one error: "zero_tile" (dk of keys
-    64-127 zeroed), "no_D" (dS = P ⊙ dPᵀ), "diagonal" (a key's own row
-    masked), "dk_scale" (dk without hd^-0.5), "query_tile" (dk without
-    query head 3's rows S/2 to S/2 + 63), "query_head" (dk without the
-    last query head)."""
+def _trunc32(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero (the tensor core's sum)."""
+    f = v.to(torch.float32)
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tc_matmul(a, b):
+    """a (..., M, K) · b (..., K, N) as `wgmma` sums it: per k16 step the
+    16 exact products of bf16 values added to the float32 sum it carries,
+    cut toward zero."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for i in range(0, a.shape[-1], K_STEP):
+        acc = _trunc32(acc.double() + a[..., i:i + K_STEP].double()
+                       @ b[..., i:i + K_STEP, :].double())
+    return acc
+
+
+def _score_products(q, k, v, dout):
+    """S (scaled) and dP of the emulation, (B, H, S, T) each, as `wgmma`
+    sums them over hd: the part of `_emulate_bwd_bf16` no fault touches."""
+    G = q.shape[2] // k.shape[2]
+    qh, doh = (t.permute(0, 2, 1, 3) for t in (q, dout))
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+              for t in (k, v))
+    return (_tc_matmul(qh, kh.transpose(-1, -2)) * q.shape[3] ** -0.5,
+            _tc_matmul(doh, vh.transpose(-1, -2)))
+
+
+def _emulate_bwd_bf16(q, k, v, out, lse, dout, fault=None, products=None):
+    """flash_attention_bwd_sm90.cu's arithmetic on float32 tensors holding
+    bf16 values (causal, S == T): D = rowsum(dO ⊙ O) in float32; S and dP
+    as `wgmma` sums them over hd (`_tc_matmul`); P = exp(s − lse) and dS =
+    P ⊙ (dP − D) in float32, each rounded to bf16 once; dv += Pᵀ · dO and
+    dk += dSᵀ · q carried on the tensor core through the whole walk of
+    fa_bwd_dkdv_sm90 — the G query heads of a KV head in order, each head's
+    rows from its first query tile on, 16 rows a step — and dq += dS · k
+    through fa_bwd_dq_sm90's walk over the keys, 16 a step. Rows a walk
+    skips, or whose P is masked, add exact zeros (which leave a truncated
+    sum as it is), so the walks run over every row and key here; the tile
+    sizes (KEY_BLOCK, Q_STEP, KEY_TILE) set what is skipped, not the
+    order. dk and dq times hd^-0.5, then all three rounded to bf16.
+    `fault` plants one error: "zero_tile" (dk of keys 64-127 zeroed),
+    "no_D" (dS = P ⊙ dPᵀ), "diagonal" (a key's own row masked), "dk_scale"
+    (dk without hd^-0.5), "query_tile" (dk without query head 3's rows S/2
+    to S/2 + 63), "query_head" (dk without the last query head).
+    `products`: `_score_products` of the same inputs, where already known."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -184,31 +241,33 @@ def _emulate_bwd_bf16(q, k, v, out, lse, dout, fault=None):
     D = (doh * oh).sum(-1)  # (B, H, S)
     if fault == "no_D":
         D = torch.zeros_like(D)
-    dq = torch.zeros_like(qh)
-    dk = torch.zeros_like(kh)
-    dv = torch.zeros_like(vh)
     rows = torch.arange(S)
-    for t0 in range(0, S, KEY_TILE):
-        cols = torch.arange(t0, min(S, t0 + KEY_TILE))
-        kt, vt = kh[:, :, cols], vh[:, :, cols]
-        s = torch.matmul(qh, kt.transpose(-1, -2)) * scale
-        p = torch.exp(s - lse[..., None])
-        masked = cols[None, :] >= rows[:, None] if fault == "diagonal" \
-            else cols[None, :] > rows[:, None]
-        p = p.masked_fill(masked, 0.0)
-        ds = p * (torch.matmul(doh, vt.transpose(-1, -2)) - D[..., None])
-        pb, dsb = _bf16(p), _bf16(ds)
-        dsk = dsb.clone() if fault in ("query_tile", "query_head") else dsb
-        if fault == "query_tile":
-            dsk[:, 3, S // 2:S // 2 + 64] = 0
-        elif fault == "query_head":
-            dsk[:, H - 1] = 0
-        dv[:, :, cols] += torch.matmul(pb.transpose(-1, -2), doh)
-        dk[:, :, cols] += torch.matmul(dsk.transpose(-1, -2), qh)
-        dq += torch.matmul(dsb, kt)
-    dk = dk.reshape(B, KV, G, S, hd).sum(2) * (
-        1.0 if fault == "dk_scale" else scale)
-    dv = dv.reshape(B, KV, G, S, hd).sum(2)
+    s, dp = products or _score_products(q, k, v, dout)  # (B, H, S, T)
+    p = torch.exp(s - lse[..., None])
+    masked = rows[None, :] >= rows[:, None] if fault == "diagonal" \
+        else rows[None, :] > rows[:, None]
+    p = p.masked_fill(masked, 0.0)
+    ds = p * (dp - D[..., None])
+    pb, dsb = _bf16(p), _bf16(ds)
+    dsk = dsb.clone() if fault in ("query_tile", "query_head") else dsb
+    if fault == "query_tile":
+        dsk[:, 3, S // 2:S // 2 + 64] = 0
+    elif fault == "query_head":
+        dsk[:, H - 1] = 0
+    # dk, dv: (B, KV, T, hd) carried over the G heads, then the rows
+    pT = pb.reshape(B, KV, G, S, S).transpose(-1, -2)
+    dsT = dsk.reshape(B, KV, G, S, S).transpose(-1, -2)
+    q5, do5 = (t.reshape(B, KV, G, S, hd) for t in (qh, doh))
+    dk = torch.zeros((B, KV, S, hd))
+    dv = torch.zeros((B, KV, S, hd))
+    for g in range(G):
+        for r in range(0, S, K_STEP):
+            dv = _trunc32(dv.double() + pT[:, :, g, :, r:r + K_STEP].double()
+                          @ do5[:, :, g, r:r + K_STEP].double())
+            dk = _trunc32(dk.double() + dsT[:, :, g, :, r:r + K_STEP].double()
+                          @ q5[:, :, g, r:r + K_STEP].double())
+    dq = _tc_matmul(dsb, kh)  # the keys in order, 16 a step
+    dk = dk * (1.0 if fault == "dk_scale" else scale)
     if fault == "zero_tile":
         dk[:, :, 64:128] = 0
     return (_bf16(dq * scale).permute(0, 2, 1, 3),
@@ -238,17 +297,26 @@ def _bf16_case(B, S, H, KV, hd, seed):
     return inputs, (dq, np.asarray(want[1]), np.asarray(want[2]))
 
 
+def test_bf16_walk_tiles_are_whole_k16_steps():
+    """The emulation carries dk / dv over the rows and dq over the keys in
+    k16 steps, whatever the tiles: that holds while every tile the kernels
+    walk is whole k16 steps, and a key block is two warpgroups of 64."""
+    assert KEY_BLOCK == (2 * 64, 2 * 64)
+    assert all(n % K_STEP == 0 for n in Q_STEP + KEY_TILE)
+
+
 @pytest.mark.parametrize("geom", [(2, 256, 8, 2, 64), (1, 192, 4, 1, 128),
                                   (2, 128, 4, 4, 32), (1, 1024, 8, 1, 64)],
                          ids=lambda g: "x".join(map(str, g)))
 def test_bf16_emulation_within_the_card_gate_and_faults_miss_it(geom):
     inputs, want = _bf16_case(*geom, seed=3)
     _, mags = attention_bwd_ref(*inputs, causal=True, terms="values")
-    got = _emulate_bwd_bf16(*inputs)
+    products = _score_products(*inputs[:3], inputs[5])
+    got = _emulate_bwd_bf16(*inputs, products=products)
     share = _gate(got, want, mags, BF16_GATE)
     assert share > 0.05  # the bf16 roundings show
     for fault in ("zero_tile", "no_D", "diagonal", "dk_scale", "query_tile",
                   "query_head"):
         with pytest.raises(AssertionError):
-            _gate(_emulate_bwd_bf16(*inputs, fault=fault), want, mags,
-                  BF16_GATE)
+            _gate(_emulate_bwd_bf16(*inputs, fault=fault, products=products),
+                  want, mags, BF16_GATE)
