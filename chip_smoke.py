@@ -12,7 +12,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    kernels (the 3xTF32 float32 ones, the SIMT float32 ones and the bf16
    tensor-core ones, `gg_sm90` and `gg_bf16` among them, and B5's
    backward kernels: bf16 `fa_bwd_pre_sm90`, `fa_bwd_dkdv_sm90`,
-   `fa_bwd_dq_sm90`, float32 `fa_bwd_pre`, `fa_bwd_dkdv`, `fa_bwd_dq`).
+   `fa_bwd_dq_sm90`, float32 `fa_bwd_pre_tf32`, `fa_bwd_dkdv_tf32`,
+   `fa_bwd_dq_tf32`).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -36,13 +37,15 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the tensor-core kernels `flash_attention_sm90` and `flash_decode_sm90`,
    float32 attention the 3xTF32 kernel `flash_attention_tf32`, float32
    decode the SIMT one), and B5's backward (bf16
-   `flash_attention_bwd_sm90.cu`, float32 `flash_attention_bwd.cu`;
+   `flash_attention_bwd_sm90.cu`, float32
+   `flash_attention_bwd_tf32_sm90.cu`;
    counters "flash_attention_bwd_bf16" / "_tf32") at hd 32 / 64 / 128, GQA
    1 / 4 / 8, causal and not, S = 1,000 and 4,096 against
    `attention_bwd_ref` on the same inputs (`bwd_check`'s gate), with one
    dk tile zeroed caught, and at S = 4,096 with GQA 8 dk without one middle
-   query tile of one head, and without one query head, caught; two bf16
-   calls at the training shape give the same bits.
+   query tile of one head, and without one query head, caught; two calls
+   a dtype at the training shape and at prefill_gqa128 (hd 128) give the
+   same bits.
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -466,18 +469,57 @@ def gemm_parity(dev, x, w, sizes, name: str) -> float:
 GEMM_REL = 1e-5
 
 
-def gemm_check(x, w, sizes, got, name: str) -> tuple:
-    """(max |Δ|, share of the gate) of one grouped GEMM call on the card
-    against its plain version's float32 sums on the same inputs: within
-    GEMM_REL·Σ|x w| + 1e-6, plus BF16_ROUND·|ref| for bf16 operands
-    (Σ|x w| from the plain version on |x|, |w|)."""
+# the most bytes `_grouped_sums` pads a call's rows to (a decode step's:
+# 40 groups of at most 64 rows at K = 1,536 are 15.7 MB); past it, the
+# plain version's loop over the groups
+GEMM_CHECK_PAD = 1 << 30
+
+
+def _grouped_sums(x, w, sizes) -> tuple:
+    """(Σ x w, Σ |x| |w|) over each row's group in float32, (M, N) each,
+    rows past the groups 0: what `grouped_gemm_ref` gives on x, w and on
+    |x|, |w|. Where each group's rows, padded to the largest group's, fit
+    in GEMM_CHECK_PAD bytes, as one batched product over the groups (a few
+    launches, where the loop takes some a group: phase 13 checks 128 calls
+    a granite-moe decode step); else through `grouped_gemm_ref`."""
     import torch
 
     from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
 
-    f32 = torch.float32
-    want = grouped_gemm_ref(x.to(f32), w.to(f32), sizes).double()
-    mags = grouped_gemm_ref(x.abs().to(f32), w.abs().to(f32), sizes)
+    f32, dev = torch.float32, x.device
+    M, K = x.shape
+    G, _, N = w.shape
+    ends = sizes.to(dev, torch.int64).clamp(min=0).cumsum(0).clamp(max=M)
+    counts = ends.diff(prepend=ends.new_zeros(1))
+    most, rows = (int(v) for v in torch.stack(
+        [counts.max(), ends[-1]]).tolist()) if G else (0, 0)
+    if not G or G * most * max(K, N) * 4 > GEMM_CHECK_PAD:
+        return (grouped_gemm_ref(x.to(f32), w.to(f32), sizes),
+                grouped_gemm_ref(x.abs().to(f32), w.abs().to(f32), sizes))
+    gid = torch.repeat_interleave(torch.arange(G, device=dev), counts,
+                                  output_size=rows)
+    pos = torch.arange(rows, device=dev) - (ends - counts)[gid]
+    wf = w.to(f32)
+    out = []
+    for xs, ws in ((x[:rows].to(f32), wf), (x[:rows].abs().to(f32),
+                                             wf.abs())):
+        pad = torch.zeros((G, most, K), dtype=f32, device=dev)
+        pad[gid, pos] = xs
+        full = torch.zeros((M, N), dtype=f32, device=dev)
+        full[:rows] = torch.bmm(pad, ws)[gid, pos]
+        out.append(full)
+    return tuple(out)
+
+
+def gemm_check(x, w, sizes, got, name: str) -> tuple:
+    """(max |Δ|, share of the gate) of one grouped GEMM call on the card
+    against its plain version's float32 sums on the same inputs: within
+    GEMM_REL·Σ|x w| + 1e-6, plus BF16_ROUND·|ref| for bf16 operands
+    (Σ|x w| from the plain version on |x|, |w|; both by `_grouped_sums`)."""
+    import torch
+
+    want, mags = _grouped_sums(x, w, sizes)
+    want = want.double()
     allowed = GEMM_REL * mags.double() + 1e-6
     del mags
     if x.dtype == torch.bfloat16:
@@ -1819,8 +1861,10 @@ def check_against_plain(st: dict, inputs: tuple, got, dtype: str,
     if dtype == "bfloat16":
         allowed = allowed + BF16_ROUND * want.double().abs()
     out = _within(got, want, allowed, name)
+    big = want.numel() * want.element_size() > 1 << 28
     del want, allowed
-    torch.cuda.empty_cache()
+    if big:  # a prefill's float64 copies; a decode step's stay cached
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2150,7 +2194,8 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
 
 # ---------------------------------------------------------------------------
 # B5's backward (csrc/flash_attention_bwd_sm90.cu for bf16,
-# csrc/flash_attention_bwd.cu for float32): parity (phase 2), and times and
+# csrc/flash_attention_bwd_tf32_sm90.cu for float32): parity (phase 2), and
+# times and
 # the gate at row 5c's shapes (phase 6)
 # ---------------------------------------------------------------------------
 # The backward against `attention_bwd_ref` on the same q, k, v, out, lse and
@@ -2174,7 +2219,8 @@ def attention_ssm_timing(dev, launches: dict, errors: dict) -> list:
 ATTN_BWD_REL = 2e-5
 ATTN_BWD_BF16 = (BF16_ROUND, 2 * BF16_ROUND)  # (on |ref|, on Σ|terms|)
 BWD_SOURCES = {"bfloat16": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
-               "float32": "src/repro_torch/csrc/flash_attention_bwd.cu"}
+               "float32":
+               "src/repro_torch/csrc/flash_attention_bwd_tf32_sm90.cu"}
 # each kernel of a backward call, by a part of its device event's name
 BWD_PARTS = {"pre": "fa_bwd_pre", "dkdv": "fa_bwd_dkdv", "dq": "fa_bwd_dq"}
 # the JAX package's flash backward: the rule of its custom VJP `_flash_xla`
@@ -2360,18 +2406,24 @@ def attention_bwd_parity(dev) -> dict:
                              "a zeroed dk tile")
     bulk = {d: bwd_bulk_faults(dev, d, seed + 2) for d in ATTN_DTYPES}
     # the training step's restore gate (phase 14) needs the same bits from
-    # the same inputs: two bf16 calls at the training shape
-    st = bwd_timing_shapes()[0]
-    inputs = bwd_inputs(dev, st["B"], st["S"], st["H"], st["KV"], st["hd"],
-                        True, "bfloat16", seed + 3, kernel_forward=True)
-    first = ops._backward(*inputs, True)
-    again = ops._backward(*inputs, True)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        raise AssertionError(f"attention backward at {st['tag']}: two bf16 "
-                             "calls on the same inputs differ")
-    del inputs, first, again
-    torch.cuda.empty_cache()
+    # the same inputs: two calls a dtype at the training shape (hd 64) and
+    # at prefill_gqa128 (hd 128: the float32 kernels' 32-key tiles)
+    repeats = [st for st in bwd_timing_shapes()
+               if st["tag"] in ("train_tinyllama", "prefill_gqa128")]
+    for st in repeats:
+        for dtype in ATTN_DTYPES:
+            inputs = bwd_inputs(dev, st["B"], st["S"], st["H"], st["KV"],
+                                st["hd"], True, dtype, seed + 3,
+                                kernel_forward=True)
+            first = ops._backward(*inputs, True)
+            again = ops._backward(*inputs, True)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(
+                    f"attention backward at {st['tag']}: two {dtype} calls "
+                    "on the same inputs differ")
+            del inputs, first, again
+            torch.cuda.empty_cache()
     log(f"  attention backward: {len(BWD_PARITY)} cases a dtype (hd 32 / 64 "
         "/ 128, GQA 1 / 4 / 8, causal and not, S = 1,000 and 4,096) on "
         "flash_attention_bwd_bf16 and _tf32, dq / dk / dv within "
@@ -2380,8 +2432,9 @@ def attention_bwd_parity(dev) -> dict:
         "against float64, |dS| as P ⊙ (|dO|·|v|ᵀ + Σ|dO ⊙ O|)); worst "
         "shares of the gate (case) "
         f"{({k: (round(v, 4), c) for k, (v, c) in shares.items()})}; a "
-        "zeroed dk tile misses the gate in both dtypes; two bf16 calls at "
-        f"{st['tag']} give the same bits")
+        "zeroed dk tile misses the gate in both dtypes; two calls a dtype "
+        f"at {' and '.join(st['tag'] for st in repeats)} give the same "
+        "bits")
     for dtype, b in bulk.items():
         typical = {k: round(v, 4) for k, v in
                    b["gate_over_median_ref"].items()}
@@ -2646,8 +2699,11 @@ def device_ms(fn, reps: int = 20) -> tuple:
     the device events (kernels, fills, copies) that torch.profiler records
     over `reps` calls, over `reps`; that time by event name; and how it was
     taken. Beside `time_ms`, which also counts the host's work for the call
-    while the card waits. Where three profiler sessions record none of the
-    calls' device events, the time is `queued_device_ms`'s instead."""
+    while the card waits. Each session opens with one more call, whose
+    events are not counted: a session often drops the device events it
+    records first (a multi-kernel call's first kernels). Where three
+    sessions miss some of the `reps` calls' events, the time is
+    `queued_device_ms`'s instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2657,22 +2713,28 @@ def device_ms(fn, reps: int = 20) -> tuple:
     for _ in range(3):  # a session now and then records no device events
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            fn()
             time.sleep(PROFILE_PAD_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        counts = {}
-        for e in events:
-            counts[e.name] = counts.get(e.name, 0) + 1
-        # every call's events or none: each name a multiple of reps (a
-        # total that is one, as 6 of 3 calls' 9, can still miss a call)
-        if counts and all(n % reps == 0 for n in counts.values()):
+        by = {}
+        for e in sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start):
+            by.setdefault(e.name, []).append(e)
+        # a name a call launches k times: k·reps events of the counted
+        # calls, and up to k of the first; keep the last k·reps (a total
+        # that fits, as 6 of 3 calls' 9, can still miss a call)
+        kept = {n: v[-(len(v) // reps) * reps:] for n, v in by.items()
+                if len(v) >= reps and len(v) % reps <= len(v) // reps}
+        if by and len(kept) == len(by):
+            events = [e for v in kept.values() for e in v]
             break
-        log(f"  the profiler saw {len(events)} device events over {reps} "
-            f"calls ({sorted(counts.values())} by name); profiling again")
+        log(f"  the profiler saw {sum(map(len, by.values()))} device events "
+            f"over {reps} calls and a first one "
+            f"({sorted(map(len, by.values()))} by name); profiling again")
     else:
         log("  the profiler missed the calls' device events three times; "
             "timing them queued behind a spin kernel")

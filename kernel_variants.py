@@ -3,8 +3,9 @@ into a library of its own, for the scripts that time a kernel's design
 variants side by side on one NVIDIA GPU (`gg_sm90_variants.py`,
 `flash_bwd_variants.py`).
 
-A variant is the source with one piece of text replaced (None: the source
-as it is). Every copy is compiled by nvcc for sm_90a with `-Xptxas=-v`, one
+A variant is the source with one piece of text replaced, or a list of
+such (old, new) pairs (None: the source as it is). Every copy is
+compiled by nvcc for sm_90a with `-Xptxas=-v`, one
 process a variant, all started together, beside `sm90.cuh` and `errors.cu`
 (the error strings). Needs the CUDA toolkit; imports nothing of JAX.
 """
@@ -29,10 +30,12 @@ def build(tmp: Path, source: str, variants: dict, entry: str,
     procs = {}
     for name, patch in variants.items():
         src = text
-        if patch is not None:
-            if patch[0] not in src:
-                raise RuntimeError(f"{name}: {patch[0]!r} not in {source}")
-            src = src.replace(patch[0], patch[1])
+        pairs = [] if patch is None else (
+            patch if isinstance(patch, list) else [patch])
+        for old, new in pairs:
+            if old not in src:
+                raise RuntimeError(f"{name}: {old!r} not in {source}")
+            src = src.replace(old, new)
         d = tmp / name
         d.mkdir()
         (d / source).write_text(src)

@@ -52,10 +52,10 @@
 //   loaded, only the diagonal tile is masked, and the tiles with most work
 //   (the last query tiles) are launched first. Keys past T score -inf
 //   (weight exactly 0); query rows past S are not stored.
-// - For the backward (flash_attention_bwd.cu) the epilogue can also write
-//   each row's log-sum-exp, m·ln 2 + ln l, from the maxima and sums the
-//   softmax already holds: one thread of a quad, two floats, no register
-//   held through the loop.
+// - For the backward (flash_attention_bwd_sm90.cu) the epilogue can also
+//   write each row's log-sum-exp, m·ln 2 + ln l, from the maxima and sums
+//   the softmax already holds: one thread of a quad, two floats, no
+//   register held through the loop.
 
 #include <cuda.h>
 #include <cuda_bf16.h>

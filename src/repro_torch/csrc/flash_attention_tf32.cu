@@ -59,8 +59,9 @@
 //   reach past a warp's first row are masked, and the tiles with most work
 //   (the last query tiles) are launched first. Keys past T score -inf
 //   (weight exactly 0); query rows past S are not stored.
-// - For the backward (flash_attention_bwd.cu) the epilogue can also write
-//   each row's log-sum-exp, m·ln 2 + ln l (one thread of a quad).
+// - For the backward (flash_attention_bwd_tf32_sm90.cu) the epilogue can
+//   also write each row's log-sum-exp, m·ln 2 + ln l (one thread of a
+//   quad).
 
 #include <cuda_runtime.h>
 

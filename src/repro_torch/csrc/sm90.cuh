@@ -1,12 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, flash_decode.cu,
-// flash_attention_tf32.cu, flash_attention_bwd.cu, moe_gemm.cu):
-// mbarriers, TMA tile loads (multicast to a cluster too) and the host-side
-// tensor maps that describe them, cluster barriers and remote arrivals,
-// `cp.async` copies, warp-level `ldmatrix` / `mma.sync` (bf16 and TF32),
-// warpgroup-level `wgmma` (shared-memory descriptors, fences, m64nNk16
-// bf16 products), the 3xTF32 split of a float32 value, and the
-// exponential in base 2.
+// flash_attention_tf32.cu, flash_attention_bwd_tf32_sm90.cu, moe_gemm.cu):
+// mbarriers, named barriers, TMA tile loads (multicast to a cluster too)
+// and the host-side tensor maps that describe them (bf16 and float32),
+// cluster barriers and remote arrivals, `cp.async` copies, warp-level
+// `ldmatrix` / `mma.sync` (bf16 and TF32), warpgroup-level `wgmma`
+// (shared-memory descriptors, fences, m64nNk16 bf16 and m64nNk8 TF32
+// products), the 3xTF32 split of a float32 value, and the exponential in
+// base 2.
 //
 // The tensor maps are encoded with `cuTensorMapEncodeTiled`, looked up
 // through the runtime (`cudaGetDriverEntryPoint`), so the library links
@@ -67,6 +68,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) of `threads` threads, a
+// multiple of 32, every thread of each warp taking part: `bar_sync` arrives
+// and waits until all have arrived, `bar_arrive` arrives without waiting
+// (a producer's signal to threads that `bar_sync` on the same barrier).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Orders this thread's earlier shared-memory accesses (generic proxy)
@@ -430,6 +442,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_rs_n128(d, a, db);
 }
 
+// wgmma m64nNk8, f32 += tf32 · tf32, A from registers, B by descriptor
+// (K-major: TF32 has no transpose bit). The tensor core reads each float32
+// operand truncated to TF32 (its 13 low mantissa bits dropped) and
+// truncates the sum it writes. A fragments, as `mma_tf32`'s a warp (g =
+// lane / 4, t = lane % 4, rows 16·warp + ...): a = {(g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4)}; d as the bf16 products'. The caller zeroes
+// d before the first product (every product accumulates).
+__device__ __forceinline__ void wgmma_rs_tf32_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" SM90_R16
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" SM90_R32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SM90_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(N == 32 || N == 64, "n32 or n64");
+  if constexpr (N == 32) wgmma_rs_tf32_n32(d, a, db);
+  else wgmma_rs_tf32_n64(d, a, db);
+}
+
 #undef SM90_D32
 #undef SM90_D64
 #undef SM90_R16
@@ -509,14 +562,14 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` (2-4) dimensions as a tensor map: dims[0] is the
-// dense innermost dimension, strides[i] the byte stride of dimension i + 1
-// (each a multiple of 16 bytes), read in boxes of box[0 .. rank) swizzled
-// by box[0] · 2 bytes (64 or 128). Elements outside the tensor read as
-// zero. Needs a 16-byte aligned base.
+// A bf16 (or, with `f32`, float32) tensor of `rank` (2-4) dimensions as a
+// tensor map: dims[0] is the dense innermost dimension, strides[i] the byte
+// stride of dimension i + 1 (each a multiple of 16 bytes), read in boxes of
+// box[0 .. rank) swizzled by box[0]'s bytes (64 or 128). Elements outside
+// the tensor read as zero. Needs a 16-byte aligned base.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                             const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+                            const uint32_t* box, bool f32 = false) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if (rank < 2 || rank > 4) return cudaErrorInvalidValue;
@@ -529,25 +582,28 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
     if (i + 1 < rank) st[i] = strides[i];
   }
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d,
-      st, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      box[0] * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_64B,
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      rank, const_cast<void*>(base), d, st, b, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box[0] * (f32 ? 4 : 2) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A bf16 tensor of shape (n3, n2, n1, n0), contiguous, as a 4-D tensor map
-// (n0, n1, n2, n3) read in boxes of (box0, box1, box2, 1).
+// A bf16 (or float32) tensor of shape (n3, n2, n1, n0), contiguous, as a
+// 4-D tensor map (n0, n1, n2, n3) read in boxes of (box0, box1, box2, 1).
 inline cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t n0,
                             uint64_t n1, uint64_t n2, uint64_t n3, int box0,
-                            int box1, int box2) {
+                            int box1, int box2, bool f32 = false) {
+  const uint64_t e = f32 ? 4 : 2;
   const uint64_t dims[4] = {n0, n1, n2, n3};
-  const uint64_t strides[3] = {n0 * 2, n0 * n1 * 2, n0 * n1 * n2 * 2};
+  const uint64_t strides[3] = {n0 * e, n0 * n1 * e, n0 * n1 * n2 * e};
   const uint32_t box[4] = {static_cast<uint32_t>(box0),
                            static_cast<uint32_t>(box1),
                            static_cast<uint32_t>(box2), 1};
-  return make_map(map, base, 4, dims, strides, box);
+  return make_map(map, base, 4, dims, strides, box, f32);
 }
 
 }  // namespace sm90

@@ -30,7 +30,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
            "stage_fused.cu", "moe_gemm.cu", "flash_attention_tf32.cu",
-           "flash_attention_sm90.cu", "flash_attention_bwd.cu",
+           "flash_attention_sm90.cu", "flash_attention_bwd_tf32_sm90.cu",
            "flash_attention_bwd_sm90.cu", "flash_decode.cu", "mamba_scan.cu")
 HEADERS = ("sm90.cuh",)  # included by the sources; part of the build's key
 LIBRARY = "libtdorch_kernels.so"
@@ -148,10 +148,11 @@ def load() -> ctypes.CDLL:
         "tdorch_flash_attention_sm90": [i32, ptr, ptr, ptr, i32, i32, i32,
                                         i32, i32, i32, f32, i32, ptr, ptr,
                                         ptr],
+        # ..., D, k_lo, v_lo (scratch), dq, dk, dv, stream
         "tdorch_flash_attention_bwd_tf32": [i32, ptr, ptr, ptr, ptr, ptr,
                                             ptr, i32, i32, i32, i32, i32,
                                             i32, f32, i32, ptr, ptr, ptr,
-                                            ptr, ptr],
+                                            ptr, ptr, ptr, ptr],
         "tdorch_flash_attention_bwd_bf16": [i32, ptr, ptr, ptr, ptr, ptr,
                                             ptr, i32, i32, i32, i32, i32,
                                             i32, f32, i32, ptr, ptr, ptr,

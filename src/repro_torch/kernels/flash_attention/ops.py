@@ -8,8 +8,9 @@ is a `torch.autograd.Function`: the forward also writes each row's
 log-sum-exp and keeps it with q, k, v and the output, and the backward
 launches three kernels — for bfloat16 `fa_bwd_pre_sm90`, `fa_bwd_dkdv_sm90`
 and `fa_bwd_dq_sm90` of `csrc/flash_attention_bwd_sm90.cu` (wgmma + TMA,
-counted once as "flash_attention_bwd_bf16"), for float32 `fa_bwd_pre`,
-`fa_bwd_dkdv` and `fa_bwd_dq` of `csrc/flash_attention_bwd.cu` (3xTF32,
+counted once as "flash_attention_bwd_bf16"), for float32
+`fa_bwd_pre_tf32`, `fa_bwd_dkdv_tf32` and `fa_bwd_dq_tf32` of
+`csrc/flash_attention_bwd_tf32_sm90.cu` (3xTF32 on TF32 wgmma + TMA,
 "flash_attention_bwd_tf32") — or runs `attention_bwd_ref` on the CPU.
 Otherwise (serving) the forward asks for no log-sum-exp and keeps
 nothing."""
@@ -89,8 +90,10 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
 
 def _backward(q, k, v, out, lse, dout, causal: bool):
     """(dq, dk, dv): the three backward kernels on the card (one count:
-    `flash_attention_bwd_sm90.cu` for bfloat16, `flash_attention_bwd.cu`
-    for float32), `attention_bwd_ref` on the CPU."""
+    `flash_attention_bwd_sm90.cu` for bfloat16,
+    `flash_attention_bwd_tf32_sm90.cu` for float32, which also takes
+    scratch for k's and v's TF32 lo halves), `attention_bwd_ref` on the
+    CPU."""
     B, S, H, hd, T, KV, G = attention_shapes(q, k, v, causal)
     if not _lib.on_cuda(q):
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
@@ -105,13 +108,16 @@ def _backward(q, k, v, out, lse, dout, causal: bool):
         raise ValueError(f"lse must be {(B, H, S)}, got {tuple(lse.shape)}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     D = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    name = ("flash_attention_bwd_bf16" if q.dtype == torch.bfloat16
-            else "flash_attention_bwd_tf32")
+    bf16 = q.dtype == torch.bfloat16
+    name = "flash_attention_bwd_bf16" if bf16 else "flash_attention_bwd_tf32"
+    # float32: k - trunc_tf32(k) and v's, which TMA reads beside k and v
+    lo = () if bf16 else (torch.empty_like(k), torch.empty_like(v))
     rc = getattr(_lib.load(), f"tdorch_{name}")(
         dev.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), B, S, T, H, KV, hd,
-        hd ** -0.5, int(bool(causal)), D.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _lib.stream(q))
+        hd ** -0.5, int(bool(causal)), D.data_ptr(),
+        *(t.data_ptr() for t in lo), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _lib.stream(q))
     _lib.check(rc, name)
     _lib.count(name)
     return dq, dk, dv

@@ -46,7 +46,7 @@ write-backs stay on the device until the plan exits (one counted host sync
 in all), and every engine runs there when no device is named.
 
 The attention backward (bf16 `csrc/flash_attention_bwd_sm90.cu`, float32
-`csrc/flash_attention_bwd.cu`; counters "flash_attention_bwd_bf16" /
+`csrc/flash_attention_bwd_tf32_sm90.cu`; counters "flash_attention_bwd_bf16" /
 "_tf32") is held to chip_smoke.py's gate
 against `attention_bwd_ref` on the same q, k, v, out, lse and dout: each
 of dq, dk, dv within 2^-8·|ref| + 2^-7·Σ|terms| in bf16 against float32
@@ -991,6 +991,11 @@ BWD_GEOMS = [(S, S, H, KV, hd, causal)
              for causal in (True, False)] + [
     (48, 80, 4, 2, 32, False), (200, 129, 4, 1, 64, False),
     (130, 384, 8, 2, 128, False)] + [
+    # one past the float32 kernels' tiles (64 rows a step and 64 keys, 32
+    # keys at hd 128), GQA 8, non-causal S != T
+    (65, 65, 8, 1, 64, True), (65, 65, 4, 4, 32, False),
+    (33, 33, 8, 1, 128, True), (129, 129, 16, 2, 128, False),
+    (65, 33, 8, 1, 128, False), (97, 65, 8, 1, 32, False)] + [
     # chip_smoke.py's phase-2 geometries (BWD_PARITY), at batch 2
     (S, S, H, KV, hd, causal)
     for (S, H, KV, hd, causal) in [
@@ -1068,6 +1073,27 @@ def test_attention_bwd_bf16_repeats_bit_for_bit(dev):
     for a, b in zip(first, again):
         assert torch.equal(a, b)
     assert kernels.launches()["flash_attention_bwd_bf16"] == 2
+
+
+@pytest.mark.parametrize("B, S, H, KV, hd", [
+    (4, 4096, 32, 4, 64),    # tinyllama-1.1b's training shape
+    (1, 8192, 64, 8, 128),   # prefill_gqa128: hd 128, 32-key tiles
+    (2, 4096, 16, 2, 32)])   # hd 32: a ring of 4 stages
+def test_attention_bwd_float32_repeats_bit_for_bit(dev, B, S, H, KV, hd):
+    """Two float32 calls on the same inputs give the same bits, as the bf16
+    ones do, at each head dim's tiles and ring depth."""
+    rng = np.random.default_rng(17)
+    q, dout = (torch.from_numpy(_normal(rng, B, S, H, hd)).to(dev)
+               for _ in range(2))
+    k, v = (torch.from_numpy(_normal(rng, B, S, KV, hd)).to(dev)
+            for _ in range(2))
+    out, lse = fa_ops._forward(q, k, v, True, True)
+    first = fa_ops._backward(q, k, v, out, lse, dout, True)
+    again = fa_ops._backward(q, k, v, out, lse, dout, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert kernels.launches()["flash_attention_bwd_tf32"] == 2
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

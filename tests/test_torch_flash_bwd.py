@@ -28,6 +28,20 @@ tests/test_torch_cuda_kernels.py, which skip without a card).
   tile, D left out of dS, the diagonal masked, dk without its hd^-0.5, dk
   without one middle query tile of one head or without one query head)
   must miss that gate, at GQA 8 and S = 1,024 too.
+- The float32 kernels' arithmetic (`csrc/flash_attention_bwd_tf32_sm90.cu`),
+  emulated in torch (`_emulate_bwd_tf32`: every product 3xTF32 as TF32
+  `wgmma`s sum it — per k8 slice lo·hi, hi·lo and hi·hi, each added to the
+  float32 sum and cut toward zero, TF32 by `test_torch_tf32._tf32`'s bit
+  truncation; S and dP over hd; dk / dv a step of 64 rows and dq a key
+  tile into sums of their own, folded in float32, dq's tiles alternating
+  between two sums; the tile sizes read from the source), against JAX's
+  `_flash_bwd_rule` in float32 (`jax.vjp` of `_sdpa` without a mask where
+  not causal) at the float32 gate, 2e-5·(|ref| + Σ|terms|) with
+  terms="products", at hd 32 / 64 / 128, GQA 1 / 4 / 8, causal and not,
+  ragged S; the six planted faults (the diagonal one under `causal`) miss
+  it, and so do two controls: one TF32 rounding of each operand, and dk /
+  dv carried on the tensor core through a walk of 8 heads × 1,024 rows
+  with no float32 fold (same-sign dv terms).
 - `attention` keeps nothing for the backward where no input requires grad
   or grad mode is off (serving), and its plain forward's lse against
   JAX's m + log l.
@@ -48,6 +62,7 @@ from repro_torch import kernels
 from repro_torch.kernels import attention
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
+from test_torch_tf32 import _tf32
 
 # one intra-op thread per test process: the suite runs in parallel workers
 torch.set_num_threads(1)
@@ -320,3 +335,253 @@ def test_bf16_emulation_within_the_card_gate_and_faults_miss_it(geom):
         with pytest.raises(AssertionError):
             _gate(_emulate_bwd_bf16(*inputs, fault=fault, products=products),
                   want, mags, BF16_GATE)
+
+
+# ---------------------------------------------------------------------------
+# the float32 kernels' arithmetic against JAX's rule
+# ---------------------------------------------------------------------------
+TF32_SOURCE = SOURCE.with_name("flash_attention_bwd_tf32_sm90.cu")
+LOG2E = 1.4426950408889634
+TF32_K_STEP = 8  # rows, keys or hd a TF32 `wgmma` k8 slice adds
+
+
+def _tf32_constant(name: str) -> dict:
+    """A `constexpr int` of the float32 backward's source by head dim, from
+    `N` or `HD <= 64 ? N : M`."""
+    m = re.search(rf"constexpr int {name} =(?: HD <= 64 \?)? (\d+)"
+                  rf"(?: : (\d+))?;", TF32_SOURCE.read_text())
+    assert m, f"{name} not found in {TF32_SOURCE.name}"
+    small, large = int(m.group(1)), int(m.group(2) or m.group(1))
+    return {32: small, 64: small, 128: large}
+
+
+TF32_ROWS = _tf32_constant("kRows")  # fa_bwd_dkdv_tf32: query rows a step
+TF32_KEYS = _tf32_constant("kKeys")  # fa_bwd_dkdv_tf32: keys a block
+TF32_KT = _tf32_constant("kKT")      # fa_bwd_dq_tf32: keys a step
+
+
+def _cut(v: torch.Tensor) -> torch.Tensor:
+    """float64 cut toward zero to float32's 24 significant bits (the low 29
+    of its 52 mantissa bits cleared), kept in float64: `_trunc32` for
+    float32's normal range, in fewer operations."""
+    return (v.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+def _tc3(a, b, acc=None, split=True):
+    """acc + a (..., M, K) · b (..., K, N) as TF32 `wgmma`s sum it: per k8
+    slice the products lo·hi, hi·lo, then hi·hi (hi = the operand truncated
+    to TF32, lo = the rest truncated to TF32: what the tensor core reads of
+    each), each `wgmma`'s 8 exact products added to the float32 sum it
+    carries and cut toward zero; `split=False`: hi·hi alone (one TF32
+    rounding of each operand)."""
+    out = (torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
+           if acc is None else acc.double())
+    for i in range(0, a.shape[-1], TF32_K_STEP):
+        x, y = a[..., i:i + TF32_K_STEP], b[..., i:i + TF32_K_STEP, :]
+        xh, yh = _tf32(x), _tf32(y)
+        parts = ([(_tf32(x - xh), yh), (xh, _tf32(y - yh))] if split else [])
+        for u, w in parts + [(xh, yh)]:
+            out = _cut(out + u.double() @ w.double())
+    return out.float()
+
+
+def _steps(a, b, n: int, split: bool):
+    """The step sums of a (..., M, K) · b (..., K, N) over K in steps of n
+    (the last one padded with zeros), each `_tc3` from zero: (..., K / n,
+    M, N)."""
+    K = a.shape[-1]
+    pad = -K % n
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    m = (K + pad) // n
+    a = a.reshape(a.shape[:-1] + (m, n)).movedim(-2, -3)
+    b = b.reshape(b.shape[:-2] + (m, n, b.shape[-1]))
+    return _tc3(a, b, split=split)
+
+
+def _tf32_scores(q, k, v, dout, split=True):
+    """S = q·kᵀ (unscaled) and dP = dO·vᵀ, (B, H, S, T) each, as both
+    kernels sum them over hd (A = q or dO rows, B = k or v)."""
+    G = q.shape[2] // k.shape[2]
+    qh, doh = (t.permute(0, 2, 1, 3) for t in (q, dout))
+    kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+              for t in (k, v))
+    return (_tc3(qh, kh.transpose(-1, -2), split=split),
+            _tc3(doh, vh.transpose(-1, -2), split=split))
+
+
+def _emulate_bwd_tf32(q, k, v, out, lse, dout, causal=True, fault=None,
+                      split=True, fold=True, products=None):
+    """flash_attention_bwd_tf32_sm90.cu's arithmetic on float32 tensors: D
+    = rowsum(dO ⊙ O) in float32; S and dP as `_tf32_scores`; P = 2^(s·hd^
+    -0.5·log2 e − lse·log2 e) and dS = P ⊙ (dP − D) in float32; then
+    fa_bwd_dkdv_tf32's walk — the G query heads of a KV head in order, each
+    head's rows in steps of TF32_ROWS — adding each step's dvᵀ = dOᵀ·P and
+    dkᵀ = qᵀ·dS (`_tc3` from zero) to float32 running sums, and
+    fa_bwd_dq_tf32's walk over the keys in steps of TF32_KT doing the same
+    for dqᵀ = kᵀ·dSᵀ, the even and the odd steps into sums of their own (one
+    a warpgroup) added at the end; dk and dq times hd^-0.5. Rows and keys a walk skips,
+    or whose P is masked, add exact zeros (a truncated sum keeps its value,
+    and a step of zeros folds in nothing), so the walks run over every row
+    and key here. `fold=False` is the control: dk and dv carried on the
+    tensor core through the whole walk (`_tc3` from the running sums).
+    `fault` plants one error, as `_emulate_bwd_bf16`'s. `products`:
+    `_tf32_scores` of the same inputs, where already known."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    R, KT = TF32_ROWS[hd], TF32_KT[hd]
+    qh, doh, oh = (t.permute(0, 2, 1, 3) for t in (q, dout, out))
+    D = (doh * oh).sum(-1)  # (B, H, S)
+    if fault == "no_D":
+        D = torch.zeros_like(D)
+    s, dp = products or _tf32_scores(q, k, v, dout, split)
+    p = torch.exp2(s * (scale * LOG2E) - (lse * LOG2E)[..., None])
+    if causal:
+        rows, cols = torch.arange(S)[:, None], torch.arange(T)[None, :]
+        p = p.masked_fill(cols >= rows if fault == "diagonal"
+                          else cols > rows, 0.0)
+    ds = p * (dp - D[..., None])
+    dsk = ds.clone() if fault in ("query_tile", "query_head") else ds
+    if fault == "query_tile":
+        dsk[:, 3, S // 2:S // 2 + 64] = 0
+    elif fault == "query_head":
+        dsk[:, H - 1] = 0
+    # dvᵀ, dkᵀ (B, KV, hd, T): the G heads, then the rows, R a step
+    doT, qT = (t.reshape(B, KV, G, S, hd).transpose(-1, -2)
+               for t in (doh, qh))
+    p5, ds5 = p.reshape(B, KV, G, S, T), dsk.reshape(B, KV, G, S, T)
+    dvT = torch.zeros((B, KV, hd, T))
+    dkT = torch.zeros((B, KV, hd, T))
+    if fold:
+        sv, sk = _steps(doT, p5, R, split), _steps(qT, ds5, R, split)
+        for g in range(G):
+            for r in range(sv.shape[3]):
+                dvT = dvT + sv[:, :, g, r]
+                dkT = dkT + sk[:, :, g, r]
+    else:
+        for g in range(G):
+            for r in range(0, S, R):
+                dvT = _tc3(doT[:, :, g, :, r:r + R], p5[:, :, g, r:r + R],
+                           acc=dvT, split=split)
+                dkT = _tc3(qT[:, :, g, :, r:r + R], ds5[:, :, g, r:r + R],
+                           acc=dkT, split=split)
+    # dqᵀ (B, H, hd, S): the keys, KT a step
+    kT = k.permute(0, 2, 3, 1).repeat_interleave(G, dim=1)  # (B, H, hd, T)
+    sq = _steps(kT, ds.transpose(-1, -2), KT, split)
+    # the two warpgroups take the key tiles in turns, each with its own sum
+    run = [torch.zeros((B, H, hd, S)), torch.zeros((B, H, hd, S))]
+    for c in range(sq.shape[2]):
+        run[c % 2] = run[c % 2] + sq[:, :, c]
+    dqT = run[0] + run[1]
+    dk = dkT.permute(0, 3, 1, 2) * (1.0 if fault == "dk_scale" else scale)
+    if fault == "zero_tile":
+        dk[:, 64:128] = 0
+    return ((dqT * scale).permute(0, 3, 1, 2), dk, dvT.permute(0, 3, 1, 2))
+
+
+def _f32_case(B, S, H, KV, hd, causal, seed, positive_dout=False):
+    """Seeded float32 q, k, v, dout; the forward's out and lse from JAX
+    (the flash scan's out, m + log l under `causal`, else `_sdpa`'s out and
+    the scores' log-sum-exp), and JAX's backward on them in float32: the
+    rule `_flash_bwd_rule` under `causal`, `jax.vjp` of `_sdpa` without a
+    mask otherwise (the rule is causal only). `positive_dout`: |dout|, so
+    that dv's terms share their sign."""
+    q, k, v, dout = (a.astype(np.float32)
+                     for a in _case(B, S, H, KV, hd, seed))
+    if positive_dout:
+        dout = np.abs(dout)
+    G = H // KV
+    chunk = 8  # T % chunk == 0 for the rule's scan; ragged for the kernels
+    if causal:
+        q5 = jnp.asarray(q).reshape(B, S, KV, G, hd)
+        out5, m, l = jattn._flash_fwd_scan(q5, jnp.asarray(k),
+                                           jnp.asarray(v), 0.0, chunk)
+        do5 = jnp.asarray(dout).reshape(B, S, KV, G, hd)
+        want = jattn._flash_bwd_rule(
+            0.0, chunk, (q5, jnp.asarray(k), jnp.asarray(v), out5, m, l),
+            jnp.moveaxis(do5, 1, 3))
+        out = np.asarray(jnp.moveaxis(out5, 3, 1)).reshape(B, S, H, hd)
+        lse = np.asarray(m + jnp.log(jnp.maximum(l, 1e-30))).reshape(B, H, S)
+        want = [np.asarray(w) for w in want]
+        want[0] = want[0].reshape(B, S, H, hd)
+    else:
+        cfg = _jax_cfg(H, KV)
+        out, f = jax.vjp(lambda a, b, c: jattn._sdpa(a, b, c, cfg, None),
+                         *(jnp.asarray(a) for a in (q, k, v)))
+        want = [np.asarray(w) for w in f(jnp.asarray(dout))]
+        scores = jnp.einsum("bshd,bthd->bhst", jnp.asarray(q),
+                            jnp.repeat(jnp.asarray(k), G, axis=2))
+        lse = np.asarray(jax.nn.logsumexp(
+            scores / jnp.sqrt(hd).astype(jnp.float32), axis=-1))
+        out = np.asarray(out)
+    inputs = tuple(torch.from_numpy(np.array(a))
+                   for a in (q, k, v, out, lse, dout))
+    return inputs, tuple(want)
+
+
+def test_tf32_tiles_fit_the_wgmma_shapes():
+    """The emulation folds dk / dv every TF32_ROWS rows and dq every TF32_KT
+    keys, in k8 slices: that holds while S's rows are one m64, every tile
+    the kernels walk is whole 32-value (128-byte) column blocks of whole k8
+    slices, and the key tiles are the n32 / n64 widths of `wgmma_rs_tf32`."""
+    for hd in (32, 64, 128):
+        assert TF32_ROWS[hd] == 64
+        for n in (TF32_ROWS[hd], TF32_KEYS[hd], TF32_KT[hd]):
+            assert n % 32 == 0 and n % TF32_K_STEP == 0
+        assert TF32_KEYS[hd] in (32, 64) and TF32_KT[hd] in (32, 64)
+
+
+TF32_GEOMS = [(2, 200, 4, 4, 32, True), (1, 200, 8, 2, 32, False),
+              (1, 328, 8, 1, 64, True), (2, 136, 4, 1, 64, False),
+              (1, 264, 8, 8, 64, True), (1, 200, 8, 1, 128, True),
+              (1, 136, 4, 1, 128, False), (1, 512, 8, 1, 64, True)]
+
+
+@pytest.mark.parametrize("geom", TF32_GEOMS,
+                         ids=lambda g: "x".join(map(str, g[:5]))
+                         + ("_causal" if g[5] else "_full"))
+def test_tf32_emulation_within_the_float32_gate_and_faults_miss_it(geom):
+    causal = geom[5]
+    inputs, want = _f32_case(*geom, seed=5)
+    _, mags = attention_bwd_ref(*inputs, causal=causal, terms="products")
+    products = _tf32_scores(*inputs[:3], inputs[5])
+    got = _emulate_bwd_tf32(*inputs, causal=causal, products=products)
+    _gate(got, want, mags, ATTN_BWD_REL)
+    for fault in ("zero_tile", "no_D", "diagonal", "dk_scale", "query_tile",
+                  "query_head")[:None if causal else 2] + (
+                      () if causal else ("dk_scale", "query_tile",
+                                         "query_head")):
+        with pytest.raises(AssertionError):
+            _gate(_emulate_bwd_tf32(*inputs, causal=causal, fault=fault,
+                                    products=products),
+                  want, mags, ATTN_BWD_REL)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tf32_single_rounding_misses_the_float32_gate(hd):
+    """One TF32 rounding of each operand (hi·hi alone) lands past the gate
+    that 3xTF32 keeps."""
+    inputs, want = _f32_case(1, 256, 4, 1, hd, True, seed=6)
+    _, mags = attention_bwd_ref(*inputs, causal=True, terms="products")
+    _gate(_emulate_bwd_tf32(*inputs), want, mags, ATTN_BWD_REL)
+    with pytest.raises(AssertionError):
+        _gate(_emulate_bwd_tf32(*inputs, split=False), want, mags,
+              ATTN_BWD_REL)
+
+
+def test_tf32_sums_carried_through_the_walk_miss_the_float32_gate():
+    """The control for the float32 folds: dk and dv carried on the tensor
+    core over the whole walk (G = 8 heads of 1,024 rows, 3,072 truncated
+    sums a key), on same-sign dv terms (|dout|), land past the gate; the
+    kernels' folds (a float32 add every TF32_ROWS rows) stay within it."""
+    inputs, want = _f32_case(1, 1024, 8, 1, 64, True, seed=7,
+                             positive_dout=True)
+    _, mags = attention_bwd_ref(*inputs, causal=True, terms="products")
+    products = _tf32_scores(*inputs[:3], inputs[5])
+    _gate(_emulate_bwd_tf32(*inputs, products=products), want, mags,
+          ATTN_BWD_REL)
+    with pytest.raises(AssertionError):
+        _gate(_emulate_bwd_tf32(*inputs, products=products, fold=False),
+              want, mags, ATTN_BWD_REL)

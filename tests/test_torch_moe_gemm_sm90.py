@@ -313,3 +313,45 @@ def test_tile_rows_choice(M, G, rows):
     the two warpgroups 64 columns each), else 128 (128 x 128 blocks, two of
     them a cluster sharing x)."""
     assert tile_rows(M, G) == rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", ["batched", "loop"])
+def test_gemm_check_sums_match_the_plain_version(dtype, path, monkeypatch):
+    """chip_smoke.py's `_grouped_sums` (Σ x w and Σ |x| |w|, what
+    `gemm_check`'s gate is made of) against the plain `grouped_gemm_ref` on
+    x, w and on |x|, |w|, through its batched product over groups padded to
+    the largest and through the plain version it falls back to past
+    GEMM_CHECK_PAD: empty groups, negative sizes, groups past M, rows past
+    the groups; within GEMM_REL·Σ|x w| + 1e-6 (float32 sums in another
+    order)."""
+    import sys
+
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+
+    sys.path.insert(0, str(SOURCE.parents[3]))
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "GEMM_CHECK_PAD",
+                        1 << 30 if path == "batched" else 0)
+    rng = np.random.default_rng(29)
+    f32 = torch.float32
+    for G, M, K, N, sizes in [(5, 64, 48, 24, [10, 0, 30, 4, 20]),
+                              (4, 40, 16, 8, [-3, 12, 0, 50]),
+                              (6, 33, 8, 40, [0, 0, 5, 0, 7, 0]),
+                              (3, 0, 16, 16, [0, 0, 0]),
+                              (40, 64, 96, 64,
+                               list(np.bincount(rng.integers(0, 40, 64),
+                                                minlength=40)))]:
+        x = torch.from_numpy(rng.normal(size=(M, K))).to(getattr(torch,
+                                                                 dtype))
+        w = torch.from_numpy(rng.normal(size=(G, K, N))).to(x.dtype)
+        sz = torch.tensor(sizes, dtype=torch.int32)
+        got, mags = chip_smoke._grouped_sums(x, w, sz)
+        want = grouped_gemm_ref(x.to(f32), w.to(f32), sz)
+        want_mags = grouped_gemm_ref(x.abs().to(f32), w.abs().to(f32), sz)
+        assert got.shape == mags.shape == (M, N)
+        assert got.dtype == mags.dtype == f32
+        allowed = GEMM_REL * want_mags.double() + 1e-6
+        assert ((got.double() - want.double()).abs() <= allowed).all()
+        assert ((mags.double() - want_mags.double()).abs() <= allowed).all()
