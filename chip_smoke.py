@@ -13,7 +13,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    tensor-core ones, `gg_sm90` and `gg_bf16` among them, and B5's
    backward kernels: bf16 `fa_bwd_pre_sm90`, `fa_bwd_dkdv_sm90`,
    `fa_bwd_dq_sm90`, float32 `fa_bwd_pre_tf32`, `fa_bwd_dkdv_tf32`,
-   `fa_bwd_dq_tf32`).
+   `fa_bwd_dq_tf32`; B4's backward: the dx forms of `gg_tf32`, `gg_sm90`
+   and `gg_bf16`, and `gg_dw_tf32`, `gg_dw_bf16`).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -45,7 +46,15 @@ Phases, each of which raises (non-zero exit) on any failed check:
    dk tile zeroed caught, and at S = 4,096 with GQA 8 dk without one middle
    query tile of one head, and without one query head, caught; two calls
    a dtype at the training shape and at prefill_gqa128 (hd 128) give the
-   same bits.
+   same bits. B4's backward in bf16 and float32 (dx: "moe_gemm_dx_sm90",
+   "moe_gemm_dx_bf16", "moe_gemm_dx"; dw: "moe_gemm_dw_bf16",
+   "moe_gemm_dw") at granite-moe-1b-a400m's training shapes (131,072
+   Zipf-1.2 rows over 32 experts, the in- and out-projection), the hot
+   path's call with a 7/8 zero tail, 64-row tiles, strided w at and off
+   16 bytes, empty groups, negative sizes past M, K and N not multiples
+   of 8, against the plain version's float32 sums at `gemm_check`'s gate;
+   two calls at the granite shapes give the same bits; dw without 128 rows
+   of the largest group, and dx without the smallest group's rows, caught.
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -122,7 +131,12 @@ Phases, each of which raises (non-zero exit) on any failed check:
    device ms (split into the pre, dk/dv and dq kernels), the plain
    version, the library's backward (SDPA's, alone), a bound of 2.5 times
    the forward's operations, and dq, dk, dv held to phase 2's gate at
-   each shape. The segment combine is timed
+   each shape. Row 4d: B4's backward (dx, dw) at granite-moe-1b-a400m's
+   training shapes in bf16 and float32: call, host and device ms (CUDA
+   events around calls queued behind a spin kernel), the plain version
+   (dx and dw together), `torch._grouped_mm` for the same product, the
+   bound over the rows inside the groups, and in bf16 `gg_bf16`'s dx
+   beside `gg_sm90`'s. The segment combine is timed
    at the writer combines of stages (a) add (`index_add_`), (c) min
    (`index_reduce_(..., "amin")`) and (b) write (no one call). The
    histogram (at stage (b)'s root call, the parameter-server lookup's, a
@@ -134,7 +148,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
 7. Device busy share: stages (a)-(c) once more under torch.profiler, after a
    warm-up run; the device's busy time (kernels, copies, fills) against the
    stage's wall time.
-8. The other engines and multi-round plans, at phase 3's full setting:
+8. The other engines and multi-round plans, at half phase 3's setting
+   (ENGINES_TPM: 25,000 tasks a machine, 400,000 keys):
    stages (a)-(c) through `Orchestrator(engine=e)` for e in "pull", "push",
    "sort" and "auto" on the card and, on a copy of the store, on the numpy
    oracle: `phase_signature()`, `exec_site`, `refcount`, values within
@@ -147,7 +162,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    the card and `run_plan` on numpy: equal session reports
    (`assert_session_parity`), values within the reckoned tolerance (BFS
    exact), at most one host sync a round under the plan, the walls of both.
-9. TDO-GP: Erdős-Rényi (2^17 vertices, average degree 16) and star (2^17)
+9. TDO-GP: Erdős-Rényi (2^16 vertices, average degree 16) and star (2^16)
    graphs and bench_graph's Barabási-Albert graph (30,000, attach 8),
    ingested at P=16 on the card and on the numpy oracle (every layout
    array and the ingest bill equal), then BFS, SSSP, CC, PageRank (10
@@ -265,7 +280,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
    (one B5 forward and one backward a layer a step run, the plain versions
    never called). The float32 twin (2 layers at full width): `loss_fn`'s
    loss and every parameter's gradient on the card against float64 on the
-   CPU (TRAIN_F32_LOSS, TRAIN_F32_REL).
+   CPU (TRAIN_F32_LOSS, TRAIN_F32_REL). Then granite-moe-1b-a400m at full
+   width and depth in bf16, batch 2 x 4,096 (TRAIN_MOE_BATCH: 4 x 4,096
+   does not fit the card), 4 steps, compression on, no checkpoint: losses
+   finite, the first within 0.1% (TRAIN_MOE_FIRST_REL) of the same
+   weights' loss in float32 on the card, launches exact (a MoE layer a step: a histogram, four B4
+   forward and eight backward launches — dx and dw of each — and B5's
+   forward and backward; the plain versions never called), step ms,
+   tokens/s, peak memory, B4's and B5's forward and backward ms inside a
+   step; its float32 twin (2 layers, 1 x 256: 64-row tiles) against float64
+   on the CPU with the float64 routing pinned to the card's experts
+   (TRAIN_F32_LOSS, TRAIN_F32_REL; the tokens it would have routed
+   elsewhere counted).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -328,6 +354,7 @@ def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "ssd_states", "ssd_state_pass",
                                              "ssd_outputs", "gg_tf32",
                                              "gg_sm90", "gg_bf16",
+                                             "gg_dw_tf32", "gg_dw_bf16",
                                              "seg_combine",
                                              "fused_reduce", "hist_shared",
                                              "hist_global")) -> dict:
@@ -905,6 +932,8 @@ def _launch(**kw):
     """A stage's launches per kernel: those named, 0 for the rest."""
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
             "moe_gemm": 0, "moe_gemm_sm90": 0, "moe_gemm_bf16": 0,
+            "moe_gemm_dx": 0, "moe_gemm_dx_sm90": 0, "moe_gemm_dx_bf16": 0,
+            "moe_gemm_dw": 0, "moe_gemm_dw_bf16": 0,
             "flash_attention_tf32": 0,
             "flash_attention_sm90": 0, "flash_attention_bwd_tf32": 0,
             "flash_attention_bwd_bf16": 0,
@@ -1684,6 +1713,390 @@ def moe_gemm_bf16_timing(dev) -> dict:
                launches=0, **shapes[0], shapes=shapes)
     row["max_abs_err"] = max(s["max_abs_err"] for s in shapes)
     return row
+
+
+# ---------------------------------------------------------------------------
+# B4's backward (dx: the forward's kernels with w read transposed,
+# csrc/moe_gemm.cu; dw: csrc/moe_gemm_bwd.cu): parity (phase 2), and times
+# and the gate at row 4d's shapes (phase 6)
+# ---------------------------------------------------------------------------
+# granite-moe-1b-a400m (src/repro/configs/granite_moe_1b_a400m.py) at its
+# training shape, batch 4 x 4,096 tokens: 131,072 assignments (top 8) over
+# 32 experts, sizes drawn Zipf-GG_BWD_ZIPF; the in-projection (K = N =
+# 1,024) and the out-projection (K = 512, N = 1,024)
+GRANITE_1B = dict(E=32, d=1024, f=512, k=8, hot=4)
+GG_BWD_M = 131_072
+GG_BWD_ZIPF = 1.2
+# the JAX package differentiates `lax.ragged_dot` (its grouped SwiGLU)
+BWD_GEMM_REPLACES = "src/repro/core/spmd.py:70"
+BWD_GEMM_SOURCES = {"dx": "src/repro_torch/csrc/moe_gemm.cu",
+                    "dw": "src/repro_torch/csrc/moe_gemm_bwd.cu"}
+
+
+def dx_counter(dtype: str) -> str:
+    """The launch counter of B4's dx on aligned operands in `dtype`."""
+    return "moe_gemm_dx_sm90" if dtype == "bfloat16" else "moe_gemm_dx"
+
+
+def dw_counter(dtype: str) -> str:
+    return "moe_gemm_dw_bf16" if dtype == "bfloat16" else "moe_gemm_dw"
+
+
+def _sizes_zipf(rng, M: int, G: int, gamma: float = GG_BWD_ZIPF):
+    """Group sizes of M assignments over G experts, Zipf-skewed, the
+    experts' ranks shuffled."""
+    return np.bincount(_zipf_ids(rng, M, G, gamma), minlength=G).astype(
+        np.int32)
+
+
+def _grouped_wsums(x, dy, sizes, G: int) -> tuple:
+    """(Σ x_gᵀ dy_g, Σ |x_g|ᵀ |dy_g|) per group in float32, (G, K, N)
+    each: what `grouped_gemm_bwd_ref` gives for dw on (x, dy) and on
+    (|x|, |dy|); groups as the kernels take them (negative sizes as 0,
+    rows past M cut)."""
+    import torch
+
+    f32 = torch.float32
+    M, K = x.shape
+    N = dy.shape[1]
+    ends = sizes.to(torch.int64).clamp(min=0).cumsum(0).clamp(max=M)
+    bounds = [0] + ends.tolist()
+    want = torch.zeros((G, K, N), dtype=f32, device=x.device)
+    mags = torch.zeros_like(want)
+    for g in range(G):
+        r0, r1 = bounds[g], bounds[g + 1]
+        if r1 > r0:
+            xs, ds = x[r0:r1].to(f32), dy[r0:r1].to(f32)
+            want[g] = xs.T @ ds
+            mags[g] = xs.abs().T @ ds.abs()
+    return want, mags
+
+
+def _bwd_allowed(want, mags, dtype):
+    """gemm_check's gate: GEMM_REL·Σ|terms| + 1e-6, plus BF16_ROUND·|ref|
+    for a bf16 output."""
+    import torch
+
+    allowed = GEMM_REL * mags.double() + 1e-6
+    if dtype == torch.bfloat16:
+        allowed += BF16_ROUND * want.double().abs()
+    return allowed
+
+
+def dx_check(dy, w, sizes, got, name: str) -> tuple:
+    """(max |Δ|, share of the gate) of a dx call against the plain
+    version's float32 sums: `gemm_check` on dy and wᵀ."""
+    return gemm_check(dy, w.transpose(1, 2), sizes, got, name)
+
+
+def dw_check(x, dy, sizes, got, name: str, sums=None) -> tuple:
+    """(max |Δ|, share of the gate) of a dw call against the plain
+    version's float32 sums over each group's rows (`_grouped_wsums`)."""
+    want, mags = sums or _grouped_wsums(x, dy, sizes, got.shape[0])
+    if got.dtype != x.dtype:
+        raise AssertionError(f"{name}: {x.dtype} operands gave {got.dtype}")
+    return _within(got, want.double(), _bwd_allowed(want, mags, x.dtype),
+                   name)
+
+
+def _bwd_case(dev, G, M, K, N, sizes, dtype, seed, offset=None):
+    """x (M, K), dy (M, N) ~ N(0, 1) and w (G, K, N) ~ N(0, K^-1) in
+    `dtype` on the card (w a view into rows N + 8 wide, `offset` values
+    in, where given), sizes int32."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    dy = torch.randn((M, N), generator=g, device=dev).to(dtype)
+    if offset is None:
+        w = (torch.randn((G, K, N), generator=g, device=dev)
+             * K ** -0.5).to(dtype)
+    else:
+        rows = (torch.randn((G, K * (N + 8) + 8), generator=g, device=dev)
+                * K ** -0.5).to(dtype)
+        w = rows[:, offset:offset + K * (N + 8)].view(G, K, N + 8)[:, :, :N]
+    return x, dy, w, torch.as_tensor(np.asarray(sizes, np.int32),
+                                     device=dev)
+
+
+def bwd_gemm_cases(rng) -> list:
+    """Phase 2's cases for B4's backward: (name, G, M, K, N, sizes,
+    w offset or None)."""
+    E, d, f, H = (GRANITE_1B[k] for k in ("E", "d", "f", "hot"))
+    M = GG_BWD_M
+    uniform = np.bincount(rng.integers(0, E, M), minlength=E).astype(
+        np.int32)
+    return [
+        ("in-projection, Zipf", E, M, d, 2 * f, _sizes_zipf(rng, M, E), None),
+        ("out-projection, Zipf", E, M, f, d, _sizes_zipf(rng, M, E), None),
+        # the hot path's call: all M assignments gathered, the 4 hot
+        # experts' rows first (an eighth of M), the rest the zero tail
+        ("hot path, zero tail", H, M, d, 2 * f, uniform[:H], None),
+        # a float32-twin-sized step: 2,048 assignments, 64-row tiles
+        ("decode-sized tiles", E, 2048, d, 2 * f,
+         np.bincount(rng.integers(0, E, 2048), minlength=E), None),
+        ("strided w, aligned", 3, 300, 64, 128, [100, 60, 140], 0),
+        ("strided w, one value in", 3, 300, 64, 128, [100, 60, 140], 1),
+        ("empty groups", 4, 8, 32, 16, [0, 8, 0, 0], None),
+        ("rows beyond the sum", 5, 57, 24, 40, [11, 0, 20, 9, 0], None),
+        ("negative, past M", 4, 500, 64, 192, [-7, 300, 0, 400], None),
+        ("K and N not multiples of 8", 3, 300, 30, 50, [90, 0, 150], None),
+        ("sizes all 0", 4, 200, 64, 128, [0, 0, 0, 0], None),
+        ("no rows", 3, 0, 64, 128, [0, 0, 0], None),
+    ]
+
+
+def _dw_without(x, dy, dw, g: int, r0: int, r1: int):
+    """dw with rows [r0, r1) (of group g) left out of group g's sum."""
+    import torch
+
+    bad = dw.float().clone()
+    bad[g] -= x[r0:r1].float().T @ dy[r0:r1].float()
+    return bad.to(dw.dtype)
+
+
+def bwd_gemm_bulk_faults(x, dy, w, sizes, dx, dw, dtype) -> dict:
+    """At the in-projection case: dw of the largest group without one
+    128-row slice of its rows (the middle one), and dx without the rows
+    of its smallest nonempty group, each beyond the gate (raises
+    otherwise). Returns each fault's share of the gate and each gate's
+    median over the median |ref|."""
+    import torch
+
+    M = x.shape[0]
+    ends = sizes.to(torch.int64).clamp(min=0).cumsum(0).clamp(max=M)
+    counts = ends.diff(prepend=ends.new_zeros(1)).tolist()
+    starts = [e - c for e, c in zip(ends.tolist(), counts)]
+    big = int(np.argmax(counts))
+    mid = starts[big] + counts[big] // 2 - 64
+    small = min((c, g) for g, c in enumerate(counts) if c > 0)[1]
+    want_w, mags_w = _grouped_wsums(x, dy, sizes, w.shape[0])
+    allowed_w = _bwd_allowed(want_w, mags_w, dtype)
+    want_x, mags_x = _grouped_sums(dy, w.transpose(1, 2), sizes)
+    allowed_x = _bwd_allowed(want_x, mags_x, dtype)
+
+    def share(bad, want, allowed) -> float:
+        return float(((bad.double() - want.double()).abs() / allowed).max())
+    bad_x = dx.clone()
+    bad_x[starts[small]:starts[small] + counts[small]] = 0
+    faults = {
+        f"dw without rows {mid}-{mid + 127} of group {big} "
+        f"({counts[big]} rows)": share(
+            _dw_without(x, dy, dw, big, mid, mid + 128), want_w, allowed_w),
+        f"dx without group {small} ({counts[small]} rows)": share(
+            bad_x, want_x, allowed_x)}
+    for tag, v in faults.items():
+        if v <= 1.0:
+            raise AssertionError(f"B4 backward's gate ({dtype}) does not see "
+                                 f"{tag}: {v:.4g} of it")
+    nz = want_x.abs() > 0
+    typical = {"dx": float(allowed_x[nz].median()
+                           / want_x.double().abs()[nz].median()),
+               "dw": float(allowed_w.median()
+                           / want_w.double().abs().median())}
+    return {"faults": faults, "gate_over_median_ref": typical}
+
+
+def moe_gemm_bwd_parity(dev) -> dict:
+    """Phase 2 for B4's backward: `bwd_gemm_cases` in bf16 and float32,
+    each dx (`_launch_dx`, on the kernel `route_dx` names; none for no
+    rows) and dw (`_launch_dw`) launching its counter once and within the
+    gate; two calls at the granite shapes give the same bits; the planted
+    bulk faults miss the gate. Returns {"worst": max |Δ| per counter,
+    "shares": the worst share of the gate per counter and its case,
+    "bulk": the faults' shares per dtype}."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.moe_gemm import ops
+
+    rng = np.random.default_rng(SEED + 28)
+    cases = bwd_gemm_cases(rng)
+    worst, shares, bulk = {}, {}, {}
+    seed = SEED + 2800
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, G, M, K, N, sizes, offset in cases:
+            seed += 1
+            x, dy, w, sz = _bwd_case(dev, G, M, K, N, sizes, dtype, seed,
+                                     offset)
+            for part, call, check in (
+                    ("dx", lambda: ops._launch_dx(dy, w, sz),
+                     lambda got: dx_check(dy, w, sz, got, f"dx {name}")),
+                    ("dw", lambda: ops._launch_dw(x, dy, sz, w.shape),
+                     lambda got: dw_check(x, dy, sz, got, f"dw {name}"))):
+                counter = (ops.route_dx(dy, w) if part == "dx"
+                           else dw_counter(str(dtype).split(".")[1]))
+                before = kernels.launches()
+                got = call()
+                torch.cuda.synchronize()
+                ran = {k: v - before[k] for k, v in kernels.launches().items()
+                       if v != before[k]}
+                if ran != ({} if part == "dx" and M == 0 else {counter: 1}):
+                    raise AssertionError(f"B4 {part} {name} {dtype}: "
+                                         f"launched {ran}")
+                e, sh = check(got)
+                worst[counter] = max(worst.get(counter, 0.0), e)
+                shares[counter] = max(shares.get(counter, (0.0, "")),
+                                      (sh, name))
+                if M == GG_BWD_M and not torch.equal(got, call()):
+                    raise AssertionError(f"B4 {part} {name} {dtype}: two "
+                                         "calls on the same inputs differ")
+                if part == "dx":
+                    dx = got
+                else:
+                    dw = got
+            if name == "in-projection, Zipf":
+                bulk[str(dtype)] = bwd_gemm_bulk_faults(x, dy, w, sz, dx, dw,
+                                                        dtype)
+            del x, dy, w, dx, dw, got
+        torch.cuda.empty_cache()
+    log(f"  B4 backward: {len(cases)} cases a dtype (granite-moe-1b-a400m's "
+        f"in- and out-projection over {GG_BWD_M:,} Zipf-{GG_BWD_ZIPF} rows, "
+        "the hot path's call with a 7/8 zero tail, 64-row tiles, strided "
+        "w at and off 16 bytes, empty groups, rows beyond the sum, negative "
+        "sizes past M, K and N not multiples of 8, no rows): dx and dw "
+        "within 2^-8·|ref| (bf16) + 1e-5·Σ|terms| + 1e-6 of the plain "
+        "version's float32 sums; worst shares of the gate (case) "
+        f"{({k: (round(v, 4), c) for k, (v, c) in shares.items()})}; two "
+        "calls at the granite shapes give the same bits")
+    for dtype, b in bulk.items():
+        log(f"  B4 backward bulk faults ({dtype}), shares of the gate (each "
+            f"must pass 1): {({k: round(v, 4) for k, v in b['faults'].items()})}"
+            f"; the gate's median over the median |ref| "
+            f"{({k: round(v, 4) for k, v in b['gate_over_median_ref'].items()})}")
+    return {"worst": worst, "shares": shares, "bulk": bulk}
+
+
+# row 4d's shapes: the in-projection (the headline) and the out-projection
+GG_BWD_SHAPES = (("in-projection", "in"), ("out-projection", "out"))
+
+
+def _bwd_gemm_library(part: str, x, dy, w, offs):
+    """The one PyTorch call for dx (`torch._grouped_mm(dy, wᵀ)`) or dw
+    (`torch._grouped_mm(xᵀ, dy)`, groups along the reduction), or None."""
+    import torch
+
+    if part == "dx":
+        return lambda: torch._grouped_mm(dy, w.transpose(1, 2), offs=offs)
+    xt = x.t()
+    return lambda: torch._grouped_mm(xt, dy, offs=offs)
+
+
+def moe_gemm_bwd_timing(dev, errors: dict) -> list:
+    """Row 4d: dx and dw at granite-moe-1b-a400m's training shapes
+    (GG_BWD_M Zipf rows over 32 experts) in bf16 and float32: the call's
+    event time, host time and device time alone (`queued_device_ms`: at
+    these calls torch.profiler dropped some of the kernels' events in
+    every session, and `device_ms`'s retries cost ~15 s), the plain
+    version's time (`grouped_gemm_bwd_ref`, dx and dw together:
+    it computes both), `torch._grouped_mm` for the same product (checked
+    against the plain version at the gate first) and the bound: bytes
+    (dy, the routed experts' w and dx; x, dy and dw) at 3.35 TB/s or the
+    rows inside the groups' operations at 989 TFLOP/s (bf16) or 495/3
+    (3xTF32). Beside bf16 dx, `gg_bf16`'s dx on the same operands (the
+    unaligned route). One row per counter; launches are filled in by phase
+    14."""
+    import torch
+
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ref import grouped_gemm_bwd_ref
+
+    E, d, f = GRANITE_1B["E"], GRANITE_1B["d"], GRANITE_1B["f"]
+    rng = np.random.default_rng(SEED + 29)
+    by = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[1]
+        e = 2 if dtype == torch.bfloat16 else 4
+        rate = BF16_OPS_PER_S if e == 2 else FP32_TC_OPS_PER_S
+        for i, (label, proj) in enumerate(GG_BWD_SHAPES):
+            K, N = (d, 2 * f) if proj == "in" else (f, d)
+            sizes = _sizes_zipf(rng, GG_BWD_M, E)
+            x, dy, w, sz = _bwd_case(dev, E, GG_BWD_M, K, N, sizes, dtype,
+                                     SEED + 2900 + i)
+            M = GG_BWD_M
+            rows = int(sizes.sum())
+            used = int((sizes > 0).sum())
+            offs = torch.from_numpy(np.cumsum(sizes).astype(np.int32)).to(dev)
+            plain_ms = time_ms(lambda: grouped_gemm_bwd_ref(x, w, sz, dy),
+                               reps=1, warmup=1)
+            for part in ("dx", "dw"):
+                if part == "dx":
+                    def call():
+                        return ops._launch_dx(dy, w, sz)
+
+                    def check(got, tag):
+                        return dx_check(dy, w, sz, got, tag)
+                    nbytes = e * (rows * N + used * K * N + M * K) + 4 * E
+                else:
+                    sums = _grouped_wsums(x, dy, sz, E)
+
+                    def call():
+                        return ops._launch_dw(x, dy, sz, w.shape)
+
+                    def check(got, tag, sums=sums):
+                        return dw_check(x, dy, sz, got, tag, sums)
+                    nbytes = e * (rows * K + rows * N + E * K * N) + 4 * E
+                err, share = check(call(), f"row 4d {part} {label} {dt}")
+                b_ms, b_by = bound(nbytes, 2 * rows * K * N, rate)
+                lib = _bwd_gemm_library(part, x, dy, w, offs)
+                library_ms, note = None, ""
+                try:
+                    check(lib(), f"torch._grouped_mm {part} {label} {dt}")
+                    library_ms = time_ms(lib)
+                except (RuntimeError, TypeError, AttributeError,
+                        AssertionError) as exc:
+                    note = (f"torch._grouped_mm refuses or misses this call "
+                            f"({type(exc).__name__}: "
+                            f"{str(exc).splitlines()[0][:160]})")
+                shape = (f"{label}: x ({M}, {K}), dy ({M}, {N}) {dt}, "
+                         f"{rows} rows over {used} of {E} experts, w ({E}, "
+                         f"{K}, {N})")
+                row = dict(shape=shape, max_abs_err=err, share_of_gate=share,
+                           ms=time_ms(call, reps=20), host_ms=host_ms(call),
+                           device_ms=queued_device_ms(call),
+                           plain_ms=plain_ms,
+                           plain_note="grouped_gemm_bwd_ref: dx and dw",
+                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                           operations=2 * rows * K * N,
+                           library_ms=library_ms, library_note=note)
+                if rate == FP32_TC_OPS_PER_S:
+                    row["bound_fma_ms"] = bound(nbytes, 2 * rows * K * N)[0]
+                if part == "dx" and dtype == torch.bfloat16:
+                    old = ops._launch_dx(dy, w, sz, kernel="moe_gemm_dx_bf16")
+                    o_err, o_share = check(old, f"gg_bf16 dx {label}")
+                    row["bf16_route"] = dict(
+                        ms=time_ms(lambda: ops._launch_dx(
+                            dy, w, sz, kernel="moe_gemm_dx_bf16")),
+                        max_abs_err=o_err, share_of_gate=o_share)
+                    del old
+                counter = (dx_counter(dt) if part == "dx" else dw_counter(dt))
+                by.setdefault(counter, []).append(row)
+            del x, dy, w, sums
+            torch.cuda.empty_cache()
+    rows_out = []
+    for name, shapes in by.items():
+        worst = max([errors.get(name, 0.0)]
+                    + [s["max_abs_err"] for s in shapes])
+        part = "dx" if "_dx" in name else "dw"
+        rows_out.append(dict(name=name, route="cuda",
+                             source=BWD_GEMM_SOURCES[part],
+                             replaces=BWD_GEMM_REPLACES, launches=0,
+                             **{**shapes[0], "max_abs_err": worst},
+                             shapes=shapes))
+        for s in shapes:
+            lib = (f"{s['library_ms']:.4f}" if s["library_ms"] is not None
+                   else f"null ({s['library_note']})")
+            fma = (f"; {s['bound_fma_ms']:.4f} in FMAs"
+                   if "bound_fma_ms" in s else "")
+            old = (f"; gg_bf16's dx {s['bf16_route']['ms']:.4f} ms, "
+                   f"{s['bf16_route']['share_of_gate']:.4f} of the gate"
+                   if "bf16_route" in s else "")
+            log(f"  {name}: call {s['ms']:.4f} ms (host {s['host_ms']:.4f}),"
+                f" device {s['device_ms']:.4f} ms, plain (dx and "
+                f"dw) {s['plain_ms']:.4f}, torch._grouped_mm {lib}, bound "
+                f"{s['bound_ms']:.4f} by {s['bound_by']}{fma}; "
+                f"{s['share_of_gate']:.4f} of the gate{old}; at {s['shape']}")
+    return rows_out
 
 
 # ---------------------------------------------------------------------------
@@ -3031,6 +3444,12 @@ def busy_phase(K, stages, init) -> list:
 # phase 8: the other engines and multi-round plans
 # ---------------------------------------------------------------------------
 ENGINES = ("pull", "push", "sort", "auto")
+# tasks a machine of the engines' stages: half phase 3's (the keys scale
+# with them, so each stage's Phase-1 calls take the routes phase 3's take);
+# at phase 3's full 50,000 the engines took ~60 s of a ~1,000 s run, and
+# halving them pays, with phase 9's 2^16, for phase 14's granite-moe
+# training and B4's backward in phases 1, 2 and 6
+ENGINES_TPM = TASKS_PER_MACHINE // 2
 # launches of each kernel in stages (a)-(c) under each fixed engine: the
 # baselines never call Phase 1's histogram, every stage's writer combine is
 # one K2 and the ragged stage (c) one K3; TD-Orch's are phase 3's
@@ -3375,15 +3794,17 @@ def plans_path(device: str = "cuda", n_pagerank: int = 50_000,
 # ---------------------------------------------------------------------------
 # phase 9: TDO-GP on the card
 # ---------------------------------------------------------------------------
-# Graph500's scale-20 problem cut to scale 17 (2^17 vertices: at 2^20 the
+# Graph500's scale-20 problem cut to scale 16 (2^16 vertices: at 2^20 the
 # host's cost model and oracle combines take phase 9 past 6 minutes; at
 # 2^19, on an H100 at 700 W, the Erdős-Rényi graph's ingest and five
 # algorithms on both backends took 346 s of a 1,146 s run once phase 13
-# served four models, too near the 1,200 s limit), at
+# served four models, too near the 1,200 s limit; 2^17 took phase 9 88.5 s
+# of a 921.5 s run, and halving it pays for phase 14's granite-moe
+# training and B4's backward in phases 2 and 6), at
 # average degree 16 (Graph500: 32) and with Erdős-Rényi / star /
 # Barabási-Albert graphs standing in for its Kronecker generator; P = 16,
 # as benchmarks/bench_graph.py
-GRAPH_SCALE = 17
+GRAPH_SCALE = 16
 GRAPH_P = 16
 GRAPH_BA_N = 30_000  # bench_graph's full size
 INGEST_ARRAYS = ("vertex_home", "edge_machine", "out_indptr", "out_edges",
@@ -6299,20 +6720,23 @@ TRAIN_F32_LOSS = 1e-5
 TRAIN_F32_REL = 1e-4
 
 
-class _AttnEvents:
-    """Bracket every B5 forward and backward launch
-    (`flash_attention.ops._forward` / `_backward`) with CUDA events inside a
-    `with` block, and count the plain versions' calls (none on the
-    card)."""
+class _KernelEvents:
+    """Bracket a kernel family's launch functions (`timed`: {name in
+    `module`: "forward" or "backward"}) with CUDA events inside a `with`
+    block, and count its plain versions' calls (`plain`: names in
+    `module`; none on the card)."""
+
+    def __init__(self, module: str, timed: dict, plain: tuple):
+        self.module, self.timed, self.plain_names = module, timed, plain
 
     def __enter__(self):
+        import importlib
+
         import torch
 
-        from repro_torch.kernels.flash_attention import ops
-
-        self.ops = ops
-        self.saved = (ops._forward, ops._backward, ops.attention_ref,
-                      ops.attention_bwd_ref)
+        self.ops = importlib.import_module(self.module)
+        self.saved = {n: getattr(self.ops, n)
+                      for n in (*self.timed, *self.plain_names)}
         self.events = {"forward": [], "backward": []}
         self.plain = 0
 
@@ -6332,15 +6756,15 @@ class _AttnEvents:
                 self.plain += 1
                 return fn(*a, **kw)
             return call
-        ops._forward = timed("forward", ops._forward)
-        ops._backward = timed("backward", ops._backward)
-        ops.attention_ref = counted(ops.attention_ref)
-        ops.attention_bwd_ref = counted(ops.attention_bwd_ref)
+        for n, kind in self.timed.items():
+            setattr(self.ops, n, timed(kind, self.saved[n]))
+        for n in self.plain_names:
+            setattr(self.ops, n, counted(self.saved[n]))
         return self
 
     def __exit__(self, *exc):
-        (self.ops._forward, self.ops._backward, self.ops.attention_ref,
-         self.ops.attention_bwd_ref) = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, fn)
         return False
 
     def ms(self) -> dict:
@@ -6351,6 +6775,23 @@ class _AttnEvents:
                 for k, v in self.events.items()}
 
 
+def _AttnEvents() -> _KernelEvents:
+    """Every B5 forward and backward launch (`flash_attention.ops._forward`
+    / `_backward`) and its plain versions' calls."""
+    return _KernelEvents("repro_torch.kernels.flash_attention.ops",
+                         {"_forward": "forward", "_backward": "backward"},
+                         ("attention_ref", "attention_bwd_ref"))
+
+
+def _GemmEvents() -> _KernelEvents:
+    """Every B4 launch (`moe_gemm.ops._launch`, the forward; `_launch_dx`
+    and `_launch_dw`, the backward) and its plain versions' calls."""
+    return _KernelEvents("repro_torch.kernels.moe_gemm.ops",
+                         {"_launch": "forward", "_launch_dx": "backward",
+                          "_launch_dw": "backward"},
+                         ("grouped_gemm_ref", "grouped_gemm_bwd_ref"))
+
+
 def _train_launches(cfg, steps: int, dtype: str) -> dict:
     """One forward and one backward launch a layer a step."""
     return _launch(**{launched_kernel("flash_attention", dtype):
@@ -6358,13 +6799,43 @@ def _train_launches(cfg, steps: int, dtype: str) -> dict:
                       bwd_counter(dtype): steps * cfg.n_layers})
 
 
-def train_f32_check(dev) -> dict:
-    """tinyllama-1.1b at full width, TRAIN_F32["n_layers"] layers, in
-    float32 on the card: one `loss_fn` forward and backward (3xTF32 B5
-    forward and backward, one each a layer) against the same weights in
-    float64 on the CPU (the plain versions): the loss within TRAIN_F32_LOSS
-    of |ref|, each parameter's gradient within TRAIN_F32_REL of its
-    max|ref|."""
+def _pinned_route(params, cfg, x2d, top_i):
+    """`repro_torch.models.moe._route` with the experts given (T, k): a
+    reference run held to another run's routing. The gates and the switch
+    aux loss come from this run's own probabilities at those experts,
+    formed as `_route` forms them."""
+    import torch
+
+    from repro_torch.models.layers import compute_float
+
+    m = cfg.moe
+    ct = compute_float(x2d.dtype)
+    logits = x2d.to(ct) @ params.router.to(ct)
+    if m.padded != m.num_experts:
+        logits[:, m.num_experts:] = -1e30
+    probs = torch.softmax(logits, dim=-1)
+    top_i = top_i.to(probs.device, torch.int64)
+    top_p = torch.take_along_dim(probs, top_i, dim=-1)
+    gates = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
+    flat = top_i.reshape(-1)
+    f_e = torch.zeros(m.padded, dtype=ct, device=x2d.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=ct, device=x2d.device)) \
+        / top_i.numel()
+    aux = m.num_experts * (f_e * probs.mean(0)).sum()
+    return top_i.to(torch.int32), gates.to(x2d.dtype), aux
+
+
+def train_f32_check(dev, arch: str = TRAIN_ARCH) -> dict:
+    """`arch` at full width, TRAIN_F32["n_layers"] layers, in float32 on
+    the card: one `loss_fn` forward and backward (3xTF32 B5 forward and
+    backward, one each a layer; for the MoE pattern B1 and B4's forward,
+    dx and dw as `_moe_train_launches` counts them, at 1 x 256 tokens 64-row
+    tiles) against the same weights in float64 on the CPU (the plain
+    versions): the loss within TRAIN_F32_LOSS of |ref|, each parameter's
+    gradient within TRAIN_F32_REL of its max|ref|. A MoE model's float64
+    run takes the card's top-k experts (its gates and aux loss from its
+    own float64 probabilities at them); the tokens whose top-k set its own
+    routing would have changed are counted a layer."""
     import copy
     import dataclasses
 
@@ -6372,9 +6843,9 @@ def train_f32_check(dev) -> dict:
 
     from repro_torch import kernels
     from repro_torch.data import SyntheticLMStream
-    from repro_torch.models import Model
+    from repro_torch.models import Model, moe
 
-    cfg = lm_f32_config(TRAIN_ARCH, "float32")
+    cfg = lm_f32_config(arch, "float32")
     model = Model(cfg, device=dev, seed=TRAIN_SEED)
     ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
     ref.cfg = dataclasses.replace(cfg, param_dtype="float64",
@@ -6383,37 +6854,59 @@ def train_f32_check(dev) -> dict:
                               batch_size=TRAIN_F32["batch"],
                               seq_len=TRAIN_F32["seq"],
                               seed=TRAIN_SEED).batch_at(0)
+    route = moe._route
+    routes, flips = [], []
 
-    def grads(m, device):
-        loss, _ = m.loss_fn({k: torch.from_numpy(v).to(device)
-                             for k, v in batch.items()})
-        names = [n for n, _ in m.named_parameters()]
-        got = torch.autograd.grad(loss, [p for _, p in m.named_parameters()])
+    def recorded(params, c, x2d):
+        out = route(params, c, x2d)
+        routes.append(out[0].cpu())
+        return out
+
+    def pinned(params, c, x2d):
+        card = routes[len(flips)]
+        free = route(params, c, x2d)[0].sort(-1).values
+        flips.append(int((free != card.sort(-1).values).any(-1).sum()))
+        return _pinned_route(params, c, x2d, card)
+
+    def grads(m, device, hook):
+        moe._route = hook
+        try:
+            loss, _ = m.loss_fn({k: torch.from_numpy(v).to(device)
+                                 for k, v in batch.items()})
+            names = [n for n, _ in m.named_parameters()]
+            got = torch.autograd.grad(loss, [p for _, p in
+                                             m.named_parameters()])
+        finally:
+            moe._route = route
         return loss.detach(), dict(zip(names, got))
 
     kernels.reset_launches()
-    loss, got = grads(model, dev)
-    torch.cuda.synchronize(dev)
+    with _AttnEvents() as ev, _GemmEvents() as gev:
+        loss, got = grads(model, dev, recorded)
+        torch.cuda.synchronize(dev)
     ran = kernels.launches()
-    want_launch = _train_launches(cfg, 1, "float32")
-    if ran != want_launch:
-        raise AssertionError(f"float32 twin: launched {ran}, expected "
-                             f"{want_launch}")
-    rloss, want = grads(ref, "cpu")
+    want_launch = (_moe_train_launches if cfg.pattern == "moe"
+                   else _train_launches)(cfg, 1, "float32")
+    if ran != want_launch or ev.plain or gev.plain:
+        raise AssertionError(f"{arch} float32 twin: launched {ran} and the "
+                             f"plain versions {ev.plain + gev.plain} times, "
+                             f"expected {want_launch} and none")
+    rloss, want = grads(ref, "cpu", pinned)
     loss_err, loss_share = _within(loss.cpu(), rloss, TRAIN_F32_LOSS *
-                                   rloss.abs(), "float32 twin loss")
+                                   rloss.abs(), f"{arch} float32 twin loss")
     shares = {}
     for n, w in want.items():
         top = float(w.abs().max().item())
         _, shares[n] = _within(got[n].cpu(), w, torch.full_like(
-            w, TRAIN_F32_REL * top), f"float32 twin gradient {n}")
+            w, TRAIN_F32_REL * top), f"{arch} float32 twin gradient {n}")
     del model, ref, got, want
     torch.cuda.empty_cache()
     return dict(n_layers=cfg.n_layers, batch=TRAIN_F32["batch"],
                 seq=TRAIN_F32["seq"], loss=float(rloss),
                 loss_share=loss_share,
                 grad_share_max=max(shares.values()),
-                grad_shares=shares,
+                grad_shares=shares, routing_flips=flips,
+                tokens_per_layer=TRAIN_F32["batch"] * TRAIN_F32["seq"],
                 launches={k: v for k, v in ran.items() if v})
 
 
@@ -6548,6 +7041,147 @@ def train_path(dev) -> dict:
     return row
 
 
+# granite-moe-1b-a400m (src/repro/configs/granite_moe_1b_a400m.py) at full
+# width and depth: 24 layers, d_model 1,024, 16 heads (8 KV), 32 experts,
+# top 8, d_ff_expert 512, 4 hot experts. Batch 2 x 4,096, cut from
+# tinyllama's 4 x 4,096: a layer keeps 0.900 GB for its backward a 4,096
+# tokens (the hot path's 8 x 4,096 gathered rows, the cold path's 1.25 x
+# that of capacity buffers, each with its SwiGLU; `saved_tensors.py` on
+# the CPU), so with ~21 GB of parameters, gradients, moments and
+# residuals 4 x 4,096 reckons at ~111 GB and 2 x 4,096 at ~66 GB of the
+# card's 80
+TRAIN_MOE_ARCH = "granite-moe-1b-a400m"
+TRAIN_MOE_BATCH = 2
+TRAIN_MOE_SEQ = 4096
+TRAIN_MOE_STEPS = 4
+# the first loss against the same weights' loss in float32 on the card, in
+# place of tinyllama's ln V gate: the tied embedding (N(0, 1) rows, as the
+# JAX package draws them) puts a random model's logits at ~32 times a unit
+# normal, so its first loss (~293) is far above ln V. bf16 read 1.08e-4 to
+# 2.26e-4 of the float32 loss (NVIDIA H100 80GB HBM3, 700.00 W): the gate
+# leaves ~4x room over the worst
+TRAIN_MOE_FIRST_REL = 1e-3
+
+
+def _moe_train_launches(cfg, steps: int, dtype: str) -> dict:
+    """A MoE layer a step: B5's forward and backward, one histogram (the
+    dispatch's Phase 1), four B4 forward launches (the hot and the cold
+    SwiGLU) and eight backward ones (dx and dw of each)."""
+    n = steps * cfg.n_layers
+    return _launch(**{launched_kernel("flash_attention", dtype): n,
+                      bwd_counter(dtype): n, "histogram": n,
+                      launched_kernel("moe_gemm", dtype): 4 * n,
+                      dx_counter(dtype): 4 * n, dw_counter(dtype): 4 * n})
+
+
+def train_moe_path(dev) -> dict:
+    """Phase 14, granite part: `Trainer` takes TRAIN_MOE_STEPS steps of
+    granite-moe-1b-a400m at full width and depth in bf16 (random weights
+    from TRAIN_SEED) on `SyntheticLMStream(vocab, TRAIN_MOE_BATCH,
+    TRAIN_MOE_SEQ)`, int8 gradient compression, no checkpoint: every loss
+    finite, the first within TRAIN_MOE_FIRST_REL of the same weights' loss
+    in float32 on the card; launches exact (`_moe_train_launches`), the
+    plain versions never called; step times, peak memory, and B4's and
+    B5's forward and backward ms inside one more step (CUDA events); then
+    the float32 twin (`train_f32_check`)."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_MOE_ARCH)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size,
+                               batch_size=TRAIN_MOE_BATCH,
+                               seq_len=TRAIN_MOE_SEQ, seed=TRAIN_SEED)
+    row = dict(arch=TRAIN_MOE_ARCH, batch=TRAIN_MOE_BATCH,
+               seq=TRAIN_MOE_SEQ, steps=TRAIN_MOE_STEPS,
+               dtype=cfg.compute_dtype)
+    # the same weights in float32 (the float32 kernels), the first batch's
+    # loss under no_grad: what the bf16 run's first loss is held to
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    first = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(0).items()}
+    with torch.no_grad():
+        m32 = Model(cfg, device=dev, seed=TRAIN_SEED).to(torch.float32)
+        m32.cfg = f32
+        row["first_loss_float32"] = float(m32.loss_fn(first)[0])
+    del m32, first
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, AdamWConfig(warmup_steps=TRAIN_WARMUP),
+                     TrainerConfig(total_steps=TRAIN_MOE_STEPS,
+                                   checkpoint_every=TRAIN_MOE_STEPS + 1,
+                                   checkpoint_dir=tmp, log_every=1,
+                                   compress_grads=True),
+                     stream, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _AttnEvents() as ev, _GemmEvents() as gev:
+            out = tr.run(seed=TRAIN_SEED)
+        row["wall_s_steps"] = time.perf_counter() - t0
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        ran = kernels.launches()
+        want = _moe_train_launches(cfg, TRAIN_MOE_STEPS, cfg.compute_dtype)
+        if ran != want or ev.plain or gev.plain:
+            raise AssertionError(
+                f"granite training launched {ran} and the plain versions "
+                f"{ev.plain} + {gev.plain} times, expected {want} and none")
+        row["launches"] = {k: v for k, v in ran.items() if v}
+        row["params"] = tr.model.param_count()
+        history = out["history"]
+        # B4 and B5 inside one more step, by CUDA events
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(TRAIN_MOE_STEPS).items()}
+        kernels.reset_launches()
+        with _AttnEvents() as ev, _GemmEvents() as gev:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            tr.train_step(out["state"], batch)
+            torch.cuda.synchronize(dev)
+            row["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+        row["attention_ms"] = ev.ms()
+        row["gemm_ms"] = gev.ms()
+        row["gemm_calls"] = {k: len(v) for k, v in gev.events.items()}
+        if kernels.launches() != _moe_train_launches(cfg, 1,
+                                                     cfg.compute_dtype):
+            raise AssertionError(f"a granite step launched "
+                                 f"{kernels.launches()}")
+        del tr, out, batch
+        torch.cuda.empty_cache()
+
+    for h in history:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"granite step {h['step']}: loss "
+                                 f"{h['loss']}, grad norm {h['grad_norm']}")
+    ref = row["first_loss_float32"]
+    row["first_loss_share"] = abs(history[0]["loss"] - ref) / (
+        TRAIN_MOE_FIRST_REL * abs(ref))
+    if row["first_loss_share"] > 1:
+        raise AssertionError(f"granite first loss {history[0]['loss']}, the "
+                             f"same weights in float32 {ref}")
+    row["ln_vocab"] = math.log(cfg.vocab_size)
+    row["history"] = history
+    step_s = [h["sec_per_step"] for h in history[1:]]
+    row["step_ms"] = float(np.median(step_s)) * 1e3
+    row["step_ms_all"] = [v * 1e3 for v in step_s]
+    row["tokens_per_s"] = TRAIN_MOE_BATCH * TRAIN_MOE_SEQ / (
+        row["step_ms"] / 1e3)
+    row["float32"] = train_f32_check(dev, TRAIN_MOE_ARCH)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # C2: bf16 prefill_mha once beyond its gate (a diagnostic, not in the default
 # run: `--c2-repeats N`)
@@ -6655,6 +7289,36 @@ def _log_train(t: dict, card: str) -> None:
         f"{TRAIN_F32_REL}·max|ref|; phase 14 took {t['wall_s']:.1f} s")
 
 
+def _log_train_moe(t: dict, card: str) -> None:
+    f = t["float32"]
+    log(f"  {t['arch']} ({t['dtype']}, {t['params']:,} parameters), batch "
+        f"{t['batch']} x {t['seq']} on {card}: step {t['step_ms']:.2f} ms "
+        f"(median of steps 2-{t['steps']}; "
+        f"{[round(x, 2) for x in t['step_ms_all']]}), "
+        f"{t['tokens_per_s']:.0f} tokens/s; peak "
+        f"{t['peak_bytes'] / 1e9:.3f} GB; inside a step "
+        f"({t['timed_step_ms']:.2f} ms) B4 forward "
+        f"{t['gemm_ms']['forward']:.3f} ms and backward "
+        f"{t['gemm_ms']['backward']:.3f} ms over "
+        f"{t['gemm_calls']['forward']} + {t['gemm_calls']['backward']} "
+        f"calls, B5 forward {t['attention_ms']['forward']:.3f} and backward "
+        f"{t['attention_ms']['backward']:.3f} ms")
+    log(f"  loss history {[round(h['loss'], 6) for h in t['history']]} "
+        f"(ln V = {t['ln_vocab']:.4f}; the same weights in float32: "
+        f"{t['first_loss_float32']:.6f}, the first loss at "
+        f"{t['first_loss_share']:.4f} of {TRAIN_MOE_FIRST_REL}·|ref|); grad "
+        f"norms {[round(h['grad_norm'], 6) for h in t['history']]}; launches "
+        f"{t['launches']} over {t['steps']} steps; {t['wall_s_steps']:.1f} s "
+        "of steps")
+    log(f"  float32 twin ({f['n_layers']} layers, {f['batch']} x {f['seq']}) "
+        f"vs float64 on the CPU, routing pinned to the card's (the float64 "
+        f"routing would move {f['routing_flips']} of {f['tokens_per_layer']}"
+        f" tokens a layer): launches {f['launches']}; loss {f['loss']:.6f} "
+        f"at {f['loss_share']:.4f} of {TRAIN_F32_LOSS}·|ref|, gradients at "
+        f"most {f['grad_share_max']:.4f} of {TRAIN_F32_REL}·max|ref|; the "
+        f"granite part took {t['wall_s']:.1f} s")
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU "
@@ -6704,6 +7368,8 @@ def main(argv=None) -> int:
 
     phase("[2/14] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
+    bwd_gemm = moe_gemm_bwd_parity(dev)
+    parity_worst.update(bwd_gemm["worst"])
     torch.cuda.synchronize()
 
     phase("[3/14] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
@@ -6779,6 +7445,8 @@ def main(argv=None) -> int:
     rows += attention_ssm_timing(dev, attn_launches, errors)
     log("  row 5c: B5's backward")
     rows += attention_bwd_timing(dev, parity_worst)
+    log("  row 4d: B4's backward")
+    rows += moe_gemm_bwd_timing(dev, parity_worst)
     for r in rows:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
@@ -6786,11 +7454,12 @@ def main(argv=None) -> int:
     phase("[7/14] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    phase("[8/14] engines and plans: stages (a)-(c) under engine='pull', "
-        "'push', 'sort', 'auto'; bench_plan's pagerank_stages and "
-        "bfs_stages through run_plan and the run_stage loop")
+    phase(f"[8/14] engines and plans: stages (a)-(c) at {ENGINES_TPM:,} "
+          "tasks a machine under engine='pull', 'push', 'sort', 'auto'; "
+          "bench_plan's pagerank_stages and bfs_stages through run_plan "
+          "and the run_stage loop")
     kernels.reset_launches()
-    engine_rows, engine_expected = engines_path("cuda")
+    engine_rows, engine_expected = engines_path("cuda", ENGINES_TPM)
     plan_rows, plan_expected = plans_path("cuda")
     torch.cuda.synchronize()
     _check_path_launches("engines and plans path", kernels.launches(),
@@ -6866,16 +7535,26 @@ def main(argv=None) -> int:
           f"(random weights), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
           f"{TRAIN_STEPS} steps of Trainer with int8 gradient compression, a "
           f"checkpoint every {TRAIN_CKPT_EVERY} steps and a failure at step "
-          f"{min(TRAIN_FAILURE)}; the float32 twin against float64")
+          f"{min(TRAIN_FAILURE)}; {TRAIN_MOE_ARCH} at full width and depth "
+          f"in bf16, batch {TRAIN_MOE_BATCH} x {TRAIN_MOE_SEQ}, "
+          f"{TRAIN_MOE_STEPS} steps; each float32 twin against float64")
     t0 = time.perf_counter()
     train = train_path(dev)
     train["wall_s"] = time.perf_counter() - t0
     _log_train(train, card)
-    for r in rows:  # B5's backward: its launches on the training path
+    t0 = time.perf_counter()
+    train_moe = train_moe_path(dev)
+    train_moe["wall_s"] = time.perf_counter() - t0
+    _log_train_moe(train_moe, card)
+    for r in rows:  # B5's and B4's backward: launches on the training path
         if r["name"] == bwd_counter("bfloat16"):
             r["launches"] = train["launches"][r["name"]]
         elif r["name"] == bwd_counter("float32"):
             r["launches"] = train["float32"]["launches"][r["name"]]
+        elif r["name"] in (dx_counter("bfloat16"), dw_counter("bfloat16")):
+            r["launches"] = train_moe["launches"][r["name"]]
+        elif r["name"] in (dx_counter("float32"), dw_counter("float32")):
+            r["launches"] = train_moe["float32"]["launches"][r["name"]]
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their main path: "
@@ -6892,7 +7571,9 @@ def main(argv=None) -> int:
          "serve": {"stages": serve_rows, **serve_summary},
          "elastic": {"stages": el_rows, **el_summary},
          "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm,
-         "train": train, "c2": c2,
+         "train": train, "train_moe": train_moe,
+         "moe_gemm_bwd_parity": {k: bwd_gemm[k] for k in ("shares", "bulk")},
+         "c2": c2,
          "phase_start_s": clock,
          "wall_s": time.perf_counter() - t_start},
         indent=1, default=str))

@@ -197,28 +197,36 @@ def _bucket_index(routing: Routing, num_buckets: int, capacity: int):
     return (base + slot).reshape(-1)
 
 
+def _flat_rows(order: torch.Tensor) -> torch.Tensor:
+    """Flat row index (into the rows with every leading dimension folded)
+    of each entry of `order`, an index along the last dimension."""
+    batch, n = order.shape[:-1], order.shape[-1]
+    base = torch.arange(math.prod(batch), device=order.device).reshape(
+        batch + (1,)) * n
+    return (base + order.long()).reshape(-1)
+
+
 def scatter_to_buckets(rows: torch.Tensor, routing: Routing,
                        num_buckets: int, capacity: int, fill=0):
     """(..., n, *d) rows -> (..., num_buckets, capacity, *d) send buffer;
-    slots nobody fills hold `fill`."""
+    slots nobody fills hold `fill`. The kept rows are read by one flat
+    index (under autograd it keeps that index, not the rows)."""
     batch = routing.order.shape[:-1]
     nd = len(batch)
     d_shape = rows.shape[nd + 1:]
-    src = torch.take_along_dim(
-        rows, routing.order.reshape(routing.order.shape + (1,) * len(d_shape)),
-        dim=nd)
     keep = routing.keep.reshape(-1)
     buf = torch.full((num_buckets * capacity * math.prod(batch),) + d_shape,
                      fill, dtype=rows.dtype, device=rows.device)
     idx = _bucket_index(routing, num_buckets, capacity)[keep]
-    buf[idx] = src.reshape((-1,) + d_shape)[keep]
+    buf[idx] = rows.reshape((-1,) + d_shape)[_flat_rows(routing.order)[keep]]
     return buf.view(batch + (num_buckets, capacity) + d_shape)
 
 
 def gather_from_buckets(buf: torch.Tensor, routing: Routing,
                         num_assign: int) -> torch.Tensor:
     """Inverse of `scatter_to_buckets`: (..., B, cap, *d) -> (..., n, *d)
-    in original assignment order (dropped slots read back as zeros)."""
+    in original assignment order (dropped slots read back as zeros), by
+    one flat index."""
     batch = routing.order.shape[:-1]
     nd = len(batch)
     nbk, cap = buf.shape[nd], buf.shape[nd + 1]
@@ -226,14 +234,13 @@ def gather_from_buckets(buf: torch.Tensor, routing: Routing,
     if routing.order.shape[-1] != num_assign:
         raise ValueError(f"routing has {routing.order.shape[-1]} "
                          f"assignments, not {num_assign}")
-    got = buf.reshape((-1,) + d_shape).index_select(
-        0, _bucket_index(routing, nbk, cap))
-    got = got.masked_fill_(~routing.keep.reshape((-1,) + (1,) * len(d_shape)),
-                           0).view(routing.order.shape + d_shape)
-    inv = inverse_permutation(routing.order)
-    return torch.take_along_dim(
-        got, inv.reshape(inv.shape + (1,) * len(d_shape)), dim=nd)
-
+    # assignment j (original order) sits at sorted position inv[j]
+    at = _flat_rows(inverse_permutation(routing.order))
+    src = _bucket_index(routing, nbk, cap)[at]
+    keep = routing.keep.reshape(-1)[at]
+    got = buf.reshape((-1,) + d_shape).index_select(0, src)
+    got = got.masked_fill_(~keep.reshape((-1,) + (1,) * len(d_shape)), 0)
+    return got.view(routing.order.shape + d_shape)
 
 
 # ---------------------------------------------------------------------------

@@ -140,6 +140,19 @@
 // tile's sums in float32 after the stage. 16-byte copies where x, w and
 // their strides are 16-byte aligned, else one value a load (synchronous
 // stores into the ring).
+//
+// The backward's dx = dy · w[g]ᵀ (the JAX package differentiates
+// `lax.ragged_dot`; the port's `grouped_gemm` is a `torch.autograd.
+// Function`) is the same grouped GEMM over the same row-sorted groups,
+// prologue and tiles, with dy (M, N) for x and w read transposed in place
+// (template flag kWT; entry points `tdorch_grouped_gemm_dx*`): `gg_tf32`
+// copies w's rows of N into a w stage of output rows (padded as x's, so a
+// thread's two depth values are one float2 load); `gg_bf16` stores them the
+// same way and loads B fragments by a plain `ldmatrix`; `gg_sm90` takes
+// its w boxes at (depth, row) of the forward's own (N, K, G) tensor map,
+// so each output column is a 128-byte swizzled row, and reads B K-major
+// (the transpose bit off), as x. Rows past the groups' sum are stored as
+// zeros. dw = x_gᵀ · dy_g is csrc/moe_gemm_bwd.cu.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -163,15 +176,27 @@ constexpr int kPlanThreads = 1024;
 static_assert(kBN == 4 * kWN, "8 warps as 2 x 4");
 static_assert(kLdA % 32 == 8 && kLdB % 32 == 4, "conflict-free fragments");
 
+// Two blocks share an SM where both fit its shared memory (an H100's 228
+// KB, each block's 1 KB reserve and statics apart): `__launch_bounds__`
+// asks for no more, so a block that stands alone keeps 255 registers.
+constexpr int kSmemPerSM = 233472;
+constexpr int blocks_per_sm(int smem) {
+  return 2 * (smem + 1536) <= kSmemPerSM ? 2 : 1;
+}
+
 // A tile of BM rows (128, or 64 where groups are small): each warp takes
-// BM / 2 rows. At 64 rows two blocks share an SM.
-template <int BM>
+// BM / 2 rows. kWT (dx = dy · wᵀ): the w stage holds the tile's kBN output
+// columns as rows of kBK depth values (w read transposed), padded as x's
+// rows are.
+template <int BM, bool kWT = false>
 struct Tile {
   static constexpr int kWM = BM / 2;
-  static constexpr int kStageFloats = BM * kLdA + kBK * kLdB;
-  // 149,504 bytes at 128 rows, 108,544 at 64
+  static constexpr int kStageFloats =
+      BM * kLdA + (kWT ? kBN * kLdA : kBK * kLdB);
+  // 149,504 bytes at 128 rows, 108,544 at 64 (kWT: 163,840 and 122,880);
+  // two blocks an SM only at 64 rows without kWT
   static constexpr int kSmem = kStages * kStageFloats * 4;
-  static constexpr int kBlocksPerSM = BM == 64 ? 2 : 1;
+  static constexpr int kBlocksPerSM = blocks_per_sm(kSmem);
   static_assert(BM == 64 || BM == 128, "tiles of 64 or 128 rows");
 };
 
@@ -260,7 +285,9 @@ __global__ void gg_plan(const int* __restrict__ sizes, int G, int M,
 // Copy stage `kt` (depth k0 = kt * kBK) of the x rows [row0, row_end) and
 // of w[g]'s columns [n0, n0 + kBN) into shared memory. kVec = 4: 16-byte
 // copies (x, w and their strides 16-byte aligned); kVec = 1: 4-byte ones.
-template <int BM, int kVec>
+// kWT: the operand's element (k, n) is w[g]'s (n, k), at wg + n·stride + k,
+// and lands at bs[n][k] (rows of kLdA).
+template <int BM, int kVec, bool kWT = false>
 __device__ __forceinline__ void load_stage(
     float* as, float* bs, const float* __restrict__ x,
     const float* __restrict__ wg, long long w_row_stride, int row0,
@@ -279,24 +306,40 @@ __device__ __forceinline__ void load_stage(
     else
       sm90::cp_async4(as + r * kLdA + kk, src, 4 * n_in);
   }
+  if constexpr (kWT) {
 #pragma unroll
-  for (int l = 0; l < kBChunks; ++l) {
-    const int c = threadIdx.x + l * kThreads;
-    const int kk = c / (kBN / kVec), nn = (c % (kBN / kVec)) * kVec;
-    const int k = k0 + kk, n = n0 + nn;
-    const int n_in = k < K ? max(0, min(kVec, N - n)) : 0;
-    const float* src = n_in ? wg + k * w_row_stride + n : wg;
-    if constexpr (kVec == 4)
-      sm90::cp_async16(bs + kk * kLdB + nn, src, 4 * n_in);
-    else
-      sm90::cp_async4(bs + kk * kLdB + nn, src, 4 * n_in);
+    for (int l = 0; l < kBChunks; ++l) {
+      const int c = threadIdx.x + l * kThreads;
+      const int nn = c / (kBK / kVec), kk = (c % (kBK / kVec)) * kVec;
+      const int k = k0 + kk, n = n0 + nn;
+      const int n_in = n < N ? max(0, min(kVec, K - k)) : 0;
+      const float* src = n_in ? wg + n * w_row_stride + k : wg;
+      if constexpr (kVec == 4)
+        sm90::cp_async16(bs + nn * kLdA + kk, src, 4 * n_in);
+      else
+        sm90::cp_async4(bs + nn * kLdA + kk, src, 4 * n_in);
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < kBChunks; ++l) {
+      const int c = threadIdx.x + l * kThreads;
+      const int kk = c / (kBN / kVec), nn = (c % (kBN / kVec)) * kVec;
+      const int k = k0 + kk, n = n0 + nn;
+      const int n_in = k < K ? max(0, min(kVec, N - n)) : 0;
+      const float* src = n_in ? wg + k * w_row_stride + n : wg;
+      if constexpr (kVec == 4)
+        sm90::cp_async16(bs + kk * kLdB + nn, src, 4 * n_in);
+      else
+        sm90::cp_async4(bs + kk * kLdB + nn, src, 4 * n_in);
+    }
   }
 }
 
 // One ring stage's products for the warp's first MT m16 row tiles and
 // its kWN columns (as / bs: the warp's rows of the x tile, its columns of
-// the w tile), into stage sums that are then added to acc.
-template <int WM, int MT>
+// the w tile), into stage sums that are then added to acc. kWT: a b pair
+// (depth 2t, 2t + 1 of a column) sits side by side, read as a float2.
+template <int WM, int MT, bool kWT>
 __device__ __forceinline__ void stage_products(
     const float* as, const float* bs, float (&acc)[WM / 16][kWN / 8][4]) {
   const int gr = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
@@ -322,10 +365,17 @@ __device__ __forceinline__ void stage_products(
     }
 #pragma unroll
     for (int j = 0; j < kWN / 8; ++j) {
-      const float* bp = bs + (8 * ks + 2 * t) * kLdB + 8 * j + gr;
       uint32_t b_hi0, b_lo0, b_hi1, b_lo1;
-      sm90::split_tf32(bp[0], b_hi0, b_lo0);
-      sm90::split_tf32(bp[kLdB], b_hi1, b_lo1);
+      if constexpr (kWT) {
+        const float2 b = *reinterpret_cast<const float2*>(
+            bs + (8 * j + gr) * kLdA + 8 * ks + 2 * t);
+        sm90::split_tf32(b.x, b_hi0, b_lo0);
+        sm90::split_tf32(b.y, b_hi1, b_lo1);
+      } else {
+        const float* bp = bs + (8 * ks + 2 * t) * kLdB + 8 * j + gr;
+        sm90::split_tf32(bp[0], b_hi0, b_lo0);
+        sm90::split_tf32(bp[kLdB], b_hi1, b_lo1);
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
         sm90::mma_3xtf32(part[i][j], a_hi[i], a_lo[i], b_hi0, b_hi1, b_lo0,
@@ -342,20 +392,22 @@ __device__ __forceinline__ void stage_products(
 
 // stage_products for the warp's m_tiles row tiles (none for 0): one branch
 // a stage, none between the products.
-template <int WM, int MT = WM / 16>
+template <int WM, bool kWT, int MT = WM / 16>
 __device__ __forceinline__ void stage_products_for(
     int m_tiles, const float* as, const float* bs,
     float (&acc)[WM / 16][kWN / 8][4]) {
   if (m_tiles == MT)
-    stage_products<WM, MT>(as, bs, acc);
+    stage_products<WM, MT, kWT>(as, bs, acc);
   else if constexpr (MT > 1)
-    stage_products_for<WM, MT - 1>(m_tiles, as, bs, acc);
+    stage_products_for<WM, kWT, MT - 1>(m_tiles, as, bs, acc);
 }
 
-// One BM x kBN tile of y = x[rows] @ w[g] in 3xTF32; block b is column
-// tile b % n_col_tiles of row tile b / n_col_tiles.
-template <int BM, int kVec>
-__global__ void __launch_bounds__(kThreads, Tile<BM>::kBlocksPerSM)
+// One BM x kBN tile of y = x[rows] @ w[g] in 3xTF32 (kWT: of
+// y = x[rows] @ w[g]ᵀ, w read transposed in place: dx = dy · wᵀ, K the
+// depth N of w and N its rows K); block b is column tile b % n_col_tiles
+// of row tile b / n_col_tiles.
+template <int BM, int kVec, bool kWT>
+__global__ void __launch_bounds__(kThreads, Tile<BM, kWT>::kBlocksPerSM)
 gg_tf32(const float* __restrict__ x, const float* __restrict__ w,
         long long w_group_stride, long long w_row_stride,
         const int4* __restrict__ plan, int K, int N, int n_col_tiles,
@@ -371,7 +423,7 @@ gg_tf32(const float* __restrict__ x, const float* __restrict__ w,
     }
     return;
   }
-  using C = Tile<BM>;
+  using C = Tile<BM, kWT>;
   constexpr int kWM = C::kWM, kStageFloats = C::kStageFloats;
   extern __shared__ __align__(16) float smem[];
   const float* wg = w + g * w_group_stride;
@@ -393,7 +445,7 @@ gg_tf32(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_k)
-      load_stage<BM, kVec>(smem + s * kStageFloats,
+      load_stage<BM, kVec, kWT>(smem + s * kStageFloats,
                            smem + s * kStageFloats + BM * kLdA, x, wg,
                            w_row_stride, row0, row_end, n0, s * kBK, K, N);
     sm90::cp_async_commit();
@@ -404,14 +456,14 @@ gg_tf32(const float* __restrict__ x, const float* __restrict__ w,
     const int next = kt + kStages - 1;
     if (next < n_k) {
       float* st = smem + (next % kStages) * kStageFloats;
-      load_stage<BM, kVec>(st, st + BM * kLdA, x, wg, w_row_stride, row0,
-                           row_end, n0, next * kBK, K, N);
+      load_stage<BM, kVec, kWT>(st, st + BM * kLdA, x, wg, w_row_stride,
+                                row0, row_end, n0, next * kBK, K, N);
     }
     sm90::cp_async_commit();
     const float* as = smem + (kt % kStages) * kStageFloats + wm * kWM * kLdA;
     const float* bs = smem + (kt % kStages) * kStageFloats + BM * kLdA +
-                      wn * kWN;
-    stage_products_for<kWM>(m_tiles, as, bs, acc);
+                      wn * kWN * (kWT ? kLdA : 1);
+    stage_products_for<kWM, kWT>(m_tiles, as, bs, acc);
   }
   sm90::cp_async_wait<0>();
 
@@ -432,21 +484,22 @@ gg_tf32(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int BM, int kVec>
+template <int BM, int kVec, bool kWT>
 cudaError_t launch_tiles(const float* x, const float* w,
                          long long w_group_stride, long long w_row_stride,
                          const int4* plan, int K, int N, int num_tiles,
                          float* y, cudaStream_t stream) {
-  constexpr int kSmem = Tile<BM>::kSmem;
+  constexpr int kSmem = Tile<BM, kWT>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      gg_tf32<BM, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      gg_tf32<BM, kVec, kWT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (err != cudaSuccess) return err;
   const int n_col_tiles = (N + kBN - 1) / kBN;
   const long long blocks = static_cast<long long>(num_tiles) * n_col_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gg_tf32<BM, kVec><<<static_cast<unsigned>(blocks), kThreads, kSmem,
-                      stream>>>(x, w, w_group_stride, w_row_stride, plan, K,
-                                N, n_col_tiles, y);
+  gg_tf32<BM, kVec, kWT><<<static_cast<unsigned>(blocks), kThreads, kSmem,
+                           stream>>>(x, w, w_group_stride, w_row_stride,
+                                     plan, K, N, n_col_tiles, y);
   return cudaGetLastError();
 }
 
@@ -461,21 +514,26 @@ constexpr int kLdB16 = kBN + 8;    // w rows in shared memory: 272 bytes
 static_assert(kLdA16 * 2 % 128 == 16 && kLdB16 * 2 % 128 == 16,
               "ldmatrix rows land 16 bytes apart mod 128: no conflicts");
 
-template <int BM>
+template <int BM, bool kWT = false>
 struct Tile16 {
   static constexpr int kWM = BM / 2;
-  static constexpr int kStageElems = BM * kLdA16 + kBK16 * kLdB16;
-  // 143,360 bytes at 128 rows, 106,496 at 64
+  // kWT: the w stage as kBN rows of kBK16 depth values (w transposed)
+  static constexpr int kStageElems =
+      BM * kLdA16 + (kWT ? kBN * kLdA16 : kBK16 * kLdB16);
+  // 143,360 bytes at 128 rows, 106,496 at 64 (kWT: 147,456 and 110,592);
+  // two blocks an SM at 64 rows
   static constexpr int kSmem = kStages * kStageElems * 2;
-  static constexpr int kBlocksPerSM = BM == 64 ? 2 : 1;
+  static constexpr int kBlocksPerSM = blocks_per_sm(kSmem);
   static_assert(BM == 64 || BM == 128, "tiles of 64 or 128 rows");
 };
 
 // Copy stage k0 of the x rows [row0, row_end) and of w[g]'s columns
 // [n0, n0 + kBN) into shared memory. kVec = 8: 16-byte copies (x, w, K
 // and both strides 16-byte aligned); kVec = 1: one value a load, stored
-// synchronously. Values past the rows, K or N are stored as zeros.
-template <int BM, int kVec>
+// synchronously. Values past the rows, K or N are stored as zeros. kWT:
+// the operand's (k, n) is w[g]'s (n, k), stored at bs[n][k] (rows of
+// kLdA16).
+template <int BM, int kVec, bool kWT = false>
 __device__ __forceinline__ void load_stage16(
     bf16* as, bf16* bs, const bf16* __restrict__ x,
     const bf16* __restrict__ wg, long long w_row_stride, int row0,
@@ -494,17 +552,32 @@ __device__ __forceinline__ void load_stage16(
     else
       as[r * kLdA16 + kk] = n_in ? *src : __float2bfloat16_rn(0.f);
   }
+  if constexpr (kWT) {
 #pragma unroll
-  for (int l = 0; l < kBChunks; ++l) {
-    const int c = threadIdx.x + l * kThreads;
-    const int kk = c / (kBN / kVec), nn = (c % (kBN / kVec)) * kVec;
-    const int k = k0 + kk, n = n0 + nn;
-    const int n_in = k < K ? max(0, min(kVec, N - n)) : 0;
-    const bf16* src = n_in ? wg + k * w_row_stride + n : wg;
-    if constexpr (kVec == 8)
-      sm90::cp_async16(bs + kk * kLdB16 + nn, src, 2 * n_in);
-    else
-      bs[kk * kLdB16 + nn] = n_in ? *src : __float2bfloat16_rn(0.f);
+    for (int l = 0; l < kBChunks; ++l) {
+      const int c = threadIdx.x + l * kThreads;
+      const int nn = c / (kBK16 / kVec), kk = (c % (kBK16 / kVec)) * kVec;
+      const int k = k0 + kk, n = n0 + nn;
+      const int n_in = n < N ? max(0, min(kVec, K - k)) : 0;
+      const bf16* src = n_in ? wg + n * w_row_stride + k : wg;
+      if constexpr (kVec == 8)
+        sm90::cp_async16(bs + nn * kLdA16 + kk, src, 2 * n_in);
+      else
+        bs[nn * kLdA16 + kk] = n_in ? *src : __float2bfloat16_rn(0.f);
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < kBChunks; ++l) {
+      const int c = threadIdx.x + l * kThreads;
+      const int kk = c / (kBN / kVec), nn = (c % (kBN / kVec)) * kVec;
+      const int k = k0 + kk, n = n0 + nn;
+      const int n_in = k < K ? max(0, min(kVec, N - n)) : 0;
+      const bf16* src = n_in ? wg + k * w_row_stride + n : wg;
+      if constexpr (kVec == 8)
+        sm90::cp_async16(bs + kk * kLdB16 + nn, src, 2 * n_in);
+      else
+        bs[kk * kLdB16 + nn] = n_in ? *src : __float2bfloat16_rn(0.f);
+    }
   }
 }
 
@@ -513,8 +586,10 @@ __device__ __forceinline__ void load_stage16(
 // w tile), into stage sums that are then added to acc. Per k16 step: A
 // fragments by ldmatrix (lanes 0-15 rows 0-15 at depth 0, lanes 16-31 at
 // depth 8), B fragments of two n8 tiles by one ldmatrix.trans (matrix
-// lane / 8: depth 8·(m & 1), columns 8·(m >> 1)).
-template <int WM, int MT>
+// lane / 8: depth 8·(m & 1), columns 8·(m >> 1)); kWT: by one ldmatrix
+// from the transposed tile (the same matrices, rows 8·(m >> 1) + lane % 8
+// of it at depth 8·(m & 1)).
+template <int WM, int MT, bool kWT>
 __device__ __forceinline__ void stage_products16(
     const bf16* as, const bf16* bs, float (&acc)[WM / 16][kWN / 8][4]) {
   const int lane = threadIdx.x % 32, mat = lane / 8;
@@ -535,9 +610,14 @@ __device__ __forceinline__ void stage_products16(
 #pragma unroll
     for (int jj = 0; jj < kWN / 16; ++jj) {
       uint32_t b[4];  // {depth 0-7, 8-15} of columns 0-7, then of 8-15
-      sm90::ldmatrix_x4_trans(b, sm90::smem_addr(
-          bs + (16 * ks + 8 * (mat & 1) + lane % 8) * kLdB16 + 16 * jj +
-          8 * (mat >> 1)));
+      if constexpr (kWT)
+        sm90::ldmatrix_x4(b, sm90::smem_addr(
+            bs + (16 * jj + 8 * (mat >> 1) + lane % 8) * kLdA16 + 16 * ks +
+            8 * (mat & 1)));
+      else
+        sm90::ldmatrix_x4_trans(b, sm90::smem_addr(
+            bs + (16 * ks + 8 * (mat & 1) + lane % 8) * kLdB16 + 16 * jj +
+            8 * (mat >> 1)));
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         sm90::mma_bf16(part[i][2 * jj], a[i], b[0], b[1]);
@@ -553,21 +633,21 @@ __device__ __forceinline__ void stage_products16(
       for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
 }
 
-template <int WM, int MT = WM / 16>
+template <int WM, bool kWT, int MT = WM / 16>
 __device__ __forceinline__ void stage_products16_for(
     int m_tiles, const bf16* as, const bf16* bs,
     float (&acc)[WM / 16][kWN / 8][4]) {
   if (m_tiles == MT)
-    stage_products16<WM, MT>(as, bs, acc);
+    stage_products16<WM, MT, kWT>(as, bs, acc);
   else if constexpr (MT > 1)
-    stage_products16_for<WM, MT - 1>(m_tiles, as, bs, acc);
+    stage_products16_for<WM, kWT, MT - 1>(m_tiles, as, bs, acc);
 }
 
 // One BM x kBN tile of y = x[rows] @ w[g] from bf16 operands, float32
-// sums, y rounded to bf16 once; block b is column tile b % n_col_tiles of
-// row tile b / n_col_tiles.
-template <int BM, int kVec>
-__global__ void __launch_bounds__(kThreads, Tile16<BM>::kBlocksPerSM)
+// sums, y rounded to bf16 once (kWT: w read transposed, as gg_tf32's);
+// block b is column tile b % n_col_tiles of row tile b / n_col_tiles.
+template <int BM, int kVec, bool kWT>
+__global__ void __launch_bounds__(kThreads, Tile16<BM, kWT>::kBlocksPerSM)
 gg_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
         long long w_group_stride, long long w_row_stride,
         const int4* __restrict__ plan, int K, int N, int n_col_tiles,
@@ -584,7 +664,7 @@ gg_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
     }
     return;
   }
-  using C = Tile16<BM>;
+  using C = Tile16<BM, kWT>;
   constexpr int kWM = C::kWM, kStageElems = C::kStageElems;
   extern __shared__ __align__(16) unsigned char smem16_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem16_raw);
@@ -606,7 +686,7 @@ gg_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_k)
-      load_stage16<BM, kVec>(smem + s * kStageElems,
+      load_stage16<BM, kVec, kWT>(smem + s * kStageElems,
                              smem + s * kStageElems + BM * kLdA16, x, wg,
                              w_row_stride, row0, row_end, n0, s * kBK16, K,
                              N);
@@ -618,14 +698,15 @@ gg_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const int next = kt + kStages - 1;
     if (next < n_k) {
       bf16* st = smem + (next % kStages) * kStageElems;
-      load_stage16<BM, kVec>(st, st + BM * kLdA16, x, wg, w_row_stride,
-                             row0, row_end, n0, next * kBK16, K, N);
+      load_stage16<BM, kVec, kWT>(st, st + BM * kLdA16, x, wg,
+                                  w_row_stride, row0, row_end, n0,
+                                  next * kBK16, K, N);
     }
     sm90::cp_async_commit();
     const bf16* as = smem + (kt % kStages) * kStageElems + wm * kWM * kLdA16;
     const bf16* bs = smem + (kt % kStages) * kStageElems + BM * kLdA16 +
-                     wn * kWN;
-    stage_products16_for<kWM>(m_tiles, as, bs, acc);
+                     wn * kWN * (kWT ? kLdA16 : 1);
+    stage_products16_for<kWM, kWT>(m_tiles, as, bs, acc);
   }
   sm90::cp_async_wait<0>();
 
@@ -653,21 +734,22 @@ gg_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <int BM, int kVec>
+template <int BM, int kVec, bool kWT>
 cudaError_t launch_tiles16(const bf16* x, const bf16* w,
                            long long w_group_stride, long long w_row_stride,
                            const int4* plan, int K, int N, int num_tiles,
                            bf16* y, cudaStream_t stream) {
-  constexpr int kSmem = Tile16<BM>::kSmem;
+  constexpr int kSmem = Tile16<BM, kWT>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      gg_bf16<BM, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      gg_bf16<BM, kVec, kWT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (err != cudaSuccess) return err;
   const int n_col_tiles = (N + kBN - 1) / kBN;
   const long long blocks = static_cast<long long>(num_tiles) * n_col_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gg_bf16<BM, kVec><<<static_cast<unsigned>(blocks), kThreads, kSmem,
-                      stream>>>(x, w, w_group_stride, w_row_stride, plan, K,
-                                N, n_col_tiles, y);
+  gg_bf16<BM, kVec, kWT><<<static_cast<unsigned>(blocks), kThreads, kSmem,
+                           stream>>>(x, w, w_group_stride, w_row_stride,
+                                     plan, K, N, n_col_tiles, y);
   return cudaGetLastError();
 }
 
@@ -769,8 +851,12 @@ __device__ __forceinline__ void store_tile(const float (&acc)[kWgN / 2],
 // t from the cluster's index in steps of the number of clusters, up to the
 // used row tiles (plan[0].w). Warps 0-7 are the consumer warpgroups,
 // warps 8-11 the producer (one thread of it issues the TMA loads and runs
-// ahead into the next tiles' loads).
-template <int BM>
+// ahead into the next tiles' loads). kWT (dx = dy · wᵀ, K the depth N of
+// w and N its rows K): the w boxes are taken at (depth, row) of the same
+// (N, K, G) map, so each of the tile's 128 output columns lands as one
+// 128-byte swizzled row of 64 depth values, and B is read K-major (the
+// transpose bit off), as x is.
+template <int BM, bool kWT>
 __global__ void __launch_bounds__(kSmThreads, 1)
 gg_sm90(const __grid_constant__ CUtensorMap x_map,
         const __grid_constant__ CUtensorMap w_map, const int4* plan, int K,
@@ -827,9 +913,14 @@ gg_sm90(const __grid_constant__ CUtensorMap x_map,
                                         &full[s], kt * kDepth,
                                         p.y + rank * C::kXRows, 0x3);
 #pragma unroll
-          for (int j = 0; j < C::kBN / 64; ++j)
-            sm90::tma_load_3d(st + C::kABytes + j * 64 * 128, &w_map,
-                              &full[s], n0 + 64 * j, kt * kDepth, p.x);
+          for (int j = 0; j < C::kBN / 64; ++j) {
+            if constexpr (kWT)
+              sm90::tma_load_3d(st + C::kABytes + j * 64 * 128, &w_map,
+                                &full[s], kt * kDepth, n0 + 64 * j, p.x);
+            else
+              sm90::tma_load_3d(st + C::kABytes + j * 64 * 128, &w_map,
+                                &full[s], n0 + 64 * j, kt * kDepth, p.x);
+          }
           if (++s == kStages) {
             s = 0;
             phase ^= 1;
@@ -885,20 +976,28 @@ gg_sm90(const __grid_constant__ CUtensorMap x_map,
               ring_base + s * C::kStageBytes + row_off * 128;
           // (a warpgroup's columns may start inside a 128-byte swizzled
           // row, as 32 of a 64-column tile would: the swizzle is of the
-          // address)
-          const uint32_t b_base = ring_base + s * C::kStageBytes +
-                                  C::kABytes + (col_off / 64) * 64 * 128 +
-                                  (col_off % 64) * 2;
+          // address; kWT: a column is a row)
+          const uint32_t b_base =
+              ring_base + s * C::kStageBytes + C::kABytes +
+              (kWT ? col_off * 128
+                   : (col_off / 64) * 64 * 128 + (col_off % 64) * 2);
           sm90::wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < kDepth / 16; ++ks) {
             // x K-major: 32 bytes a k16 step, 8 rows 1024 bytes apart;
             // w MN-major: 16 rows a k16 step, column blocks 8 KB apart
+            // (kWT: K-major, as x)
             const uint64_t da =
                 sm90::descriptor(a_base + 32 * ks, 16, 1024, 1);
-            const uint64_t db =
-                sm90::descriptor(b_base + 16 * 128 * ks, 64 * 128, 1024, 1);
-            sm90::wgmma_ss_tb<kWgN>(part, da, db, ks > 0 || kt > k0);
+            if constexpr (kWT) {
+              const uint64_t db =
+                  sm90::descriptor(b_base + 32 * ks, 16, 1024, 1);
+              sm90::wgmma_ss<kWgN>(part, da, db, ks > 0 || kt > k0);
+            } else {
+              const uint64_t db = sm90::descriptor(b_base + 16 * 128 * ks,
+                                                   64 * 128, 1024, 1);
+              sm90::wgmma_ss_tb<kWgN>(part, da, db, ks > 0 || kt > k0);
+            }
           }
           sm90::wgmma_commit();
           sm90::wgmma_wait<1>();  // the previous stage's products are done
@@ -941,22 +1040,23 @@ gg_sm90(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-template <int BM>
+template <int BM, bool kWT>
 cudaError_t launch_sm90(int device, const bf16* x, const bf16* w,
                         long long w_group_stride, long long w_row_stride,
                         const int4* plan, int M, int K, int N, int G,
                         int num_tiles, bf16* y, cudaStream_t stream) {
   using C = TileSm90<BM>;
-  constexpr auto kernel = gg_sm90<BM>;
+  constexpr auto kernel = gg_sm90<BM, kWT>;
   // x as (K, M) in boxes of (64, BM / kCluster); w as (N, K, G) with its
   // own strides in boxes of (64, 64, 1): a strided view is read in place
+  // (kWT: w's dims are (K, N, G), its rows the output's columns)
   CUtensorMap x_map, w_map;
   const uint64_t x_dims[2] = {static_cast<uint64_t>(K),
                               static_cast<uint64_t>(M)};
   const uint64_t x_strides[1] = {static_cast<uint64_t>(K) * 2};
   const uint32_t x_box[2] = {kDepth, C::kXRows};
-  const uint64_t w_dims[3] = {static_cast<uint64_t>(N),
-                              static_cast<uint64_t>(K),
+  const uint64_t w_dims[3] = {static_cast<uint64_t>(kWT ? K : N),
+                              static_cast<uint64_t>(kWT ? N : K),
                               static_cast<uint64_t>(G)};
   const uint64_t w_strides[2] = {static_cast<uint64_t>(w_row_stride) * 2,
                                  static_cast<uint64_t>(w_group_stride) * 2};
@@ -1021,6 +1121,95 @@ cudaError_t plan_tiles(const int* sizes, int G, int M, int tile_rows,
   return cudaGetLastError();
 }
 
+// The three entry points of each kernel share these: check, plan the
+// tiles, launch. kWT: dx = dy · wᵀ (K the depth N of w, N its rows K).
+template <bool kWT>
+int run_tf32(int device, const float* x, const float* w,
+             long long w_group_stride, long long w_row_stride,
+             const int* sizes, int M, int K, int N, int G, int tile_rows,
+             int num_tiles, int vec16, int* plan, float* y,
+             cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tile_rows != 64 && tile_rows != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M > 0 && N > 0 && num_tiles > 0) {
+    int4* plan4 = reinterpret_cast<int4*>(plan);
+    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    using Launch = cudaError_t (*)(const float*, const float*, long long,
+                                   long long, const int4*, int, int, int,
+                                   float*, cudaStream_t);
+    const Launch launch = tile_rows == 64
+        ? (vec16 ? &launch_tiles<64, 4, kWT> : &launch_tiles<64, 1, kWT>)
+        : (vec16 ? &launch_tiles<128, 4, kWT> : &launch_tiles<128, 1, kWT>);
+    err = launch(x, w, w_group_stride, w_row_stride, plan4, K, N, num_tiles,
+                 y, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kWT>
+int run_bf16(int device, const void* x, const void* w,
+             long long w_group_stride, long long w_row_stride,
+             const int* sizes, int M, int K, int N, int G, int tile_rows,
+             int num_tiles, int vec16, int* plan, void* y,
+             cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tile_rows != 64 && tile_rows != 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M > 0 && N > 0 && num_tiles > 0) {
+    int4* plan4 = reinterpret_cast<int4*>(plan);
+    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    using Launch = cudaError_t (*)(const bf16*, const bf16*, long long,
+                                   long long, const int4*, int, int, int,
+                                   bf16*, cudaStream_t);
+    const Launch launch = tile_rows == 64
+        ? (vec16 ? &launch_tiles16<64, 8, kWT> : &launch_tiles16<64, 1, kWT>)
+        : (vec16 ? &launch_tiles16<128, 8, kWT>
+                 : &launch_tiles16<128, 1, kWT>);
+    err = launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                 w_group_stride, w_row_stride, plan4, K, N, num_tiles,
+                 static_cast<bf16*>(y), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kWT>
+int run_sm90(int device, const void* x, const void* w,
+             long long w_group_stride, long long w_row_stride,
+             const int* sizes, int M, int K, int N, int G, int tile_rows,
+             int num_tiles, int* plan, void* y, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (K <= 0 || K % 8 != 0 || N % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || w_group_stride % 8 != 0 ||
+      w_row_stride % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Launch = cudaError_t (*)(int, const bf16*, const bf16*, long long,
+                                 long long, const int4*, int, int, int, int,
+                                 int, bf16*, cudaStream_t);
+  Launch launch = nullptr;
+  if (tile_rows == 128) launch = &launch_sm90<128, kWT>;
+  if (tile_rows == 64) launch = &launch_sm90<64, kWT>;
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (M > 0 && N > 0 && num_tiles > 0) {
+    int4* plan4 = reinterpret_cast<int4*>(plan);
+    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch(device, static_cast<const bf16*>(x),
+                 static_cast<const bf16*>(w), w_group_stride, w_row_stride,
+                 plan4, M, K, N, G, num_tiles, static_cast<bf16*>(y), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (M, K) float32, rows sorted by group; w: (G, K, N) float32, element
@@ -1036,25 +1225,9 @@ extern "C" int tdorch_grouped_gemm(int device, const float* x, const float* w,
                                    int M, int K, int N, int G, int tile_rows,
                                    int num_tiles, int vec16, int* plan,
                                    float* y, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (tile_rows != 64 && tile_rows != 128)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M > 0 && N > 0 && num_tiles > 0) {
-    int4* plan4 = reinterpret_cast<int4*>(plan);
-    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    using Launch = cudaError_t (*)(const float*, const float*, long long,
-                                   long long, const int4*, int, int, int,
-                                   float*, cudaStream_t);
-    const Launch launch = tile_rows == 64
-        ? (vec16 ? &launch_tiles<64, 4> : &launch_tiles<64, 1>)
-        : (vec16 ? &launch_tiles<128, 4> : &launch_tiles<128, 1>);
-    err = launch(x, w, w_group_stride, w_row_stride, plan4, K, N, num_tiles,
-                 y, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_tf32<false>(device, x, w, w_group_stride, w_row_stride, sizes,
+                         M, K, N, G, tile_rows, num_tiles, vec16, plan, y,
+                         stream);
 }
 
 // The same for bf16 x, w and y (`gg_bf16`): float32 sums, y rounded to
@@ -1068,26 +1241,9 @@ extern "C" int tdorch_grouped_gemm_bf16(int device, const void* x,
                                         int N, int G, int tile_rows,
                                         int num_tiles, int vec16, int* plan,
                                         void* y, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (tile_rows != 64 && tile_rows != 128)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (M > 0 && N > 0 && num_tiles > 0) {
-    int4* plan4 = reinterpret_cast<int4*>(plan);
-    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    using Launch = cudaError_t (*)(const bf16*, const bf16*, long long,
-                                   long long, const int4*, int, int, int,
-                                   bf16*, cudaStream_t);
-    const Launch launch = tile_rows == 64
-        ? (vec16 ? &launch_tiles16<64, 8> : &launch_tiles16<64, 1>)
-        : (vec16 ? &launch_tiles16<128, 8> : &launch_tiles16<128, 1>);
-    err = launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                 w_group_stride, w_row_stride, plan4, K, N, num_tiles,
-                 static_cast<bf16*>(y), stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_bf16<false>(device, x, w, w_group_stride, w_row_stride, sizes,
+                         M, K, N, G, tile_rows, num_tiles, vec16, plan, y,
+                         stream);
 }
 
 // The same for bf16 x, w and y through TMA and `wgmma` (`gg_sm90`): x, w,
@@ -1102,28 +1258,51 @@ extern "C" int tdorch_grouped_gemm_sm90(int device, const void* x,
                                         int N, int G, int tile_rows,
                                         int num_tiles, int* plan, void* y,
                                         cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (K <= 0 || K % 8 != 0 || N % 8 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0 || w_group_stride % 8 != 0 ||
-      w_row_stride % 8 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  using Launch = cudaError_t (*)(int, const bf16*, const bf16*, long long,
-                                 long long, const int4*, int, int, int, int,
-                                 int, bf16*, cudaStream_t);
-  Launch launch = nullptr;
-  if (tile_rows == 128) launch = &launch_sm90<128>;
-  if (tile_rows == 64) launch = &launch_sm90<64>;
-  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (M > 0 && N > 0 && num_tiles > 0) {
-    int4* plan4 = reinterpret_cast<int4*>(plan);
-    err = plan_tiles(sizes, G, M, tile_rows, num_tiles, plan4, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch(device, static_cast<const bf16*>(x),
-                 static_cast<const bf16*>(w), w_group_stride, w_row_stride,
-                 plan4, M, K, N, G, num_tiles, static_cast<bf16*>(y), stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_sm90<false>(device, x, w, w_group_stride, w_row_stride, sizes,
+                         M, K, N, G, tile_rows, num_tiles, plan, y, stream);
+}
+
+// The backward's dx = dy · wᵀ, row by row over the same tile walk: dy
+// (M, K) takes x's place and w (G, N, K) — element (g, n, k) at
+// w[g * w_group_stride + n * w_row_stride + k] — is read transposed in
+// place; dx (M, N) is fully written, zeros past the groups' sum. Here K is
+// the forward's N (w's depth-major width) and N the forward's K. The
+// arguments are the forward's; the route (`ops.route_dx`) the same rules.
+extern "C" int tdorch_grouped_gemm_dx(int device, const float* dy,
+                                      const float* w,
+                                      long long w_group_stride,
+                                      long long w_row_stride,
+                                      const int* sizes, int M, int K, int N,
+                                      int G, int tile_rows, int num_tiles,
+                                      int vec16, int* plan, float* dx,
+                                      cudaStream_t stream) {
+  return run_tf32<true>(device, dy, w, w_group_stride, w_row_stride, sizes,
+                        M, K, N, G, tile_rows, num_tiles, vec16, plan, dx,
+                        stream);
+}
+
+extern "C" int tdorch_grouped_gemm_dx_bf16(int device, const void* dy,
+                                           const void* w,
+                                           long long w_group_stride,
+                                           long long w_row_stride,
+                                           const int* sizes, int M, int K,
+                                           int N, int G, int tile_rows,
+                                           int num_tiles, int vec16,
+                                           int* plan, void* dx,
+                                           cudaStream_t stream) {
+  return run_bf16<true>(device, dy, w, w_group_stride, w_row_stride, sizes,
+                        M, K, N, G, tile_rows, num_tiles, vec16, plan, dx,
+                        stream);
+}
+
+extern "C" int tdorch_grouped_gemm_dx_sm90(int device, const void* dy,
+                                           const void* w,
+                                           long long w_group_stride,
+                                           long long w_row_stride,
+                                           const int* sizes, int M, int K,
+                                           int N, int G, int tile_rows,
+                                           int num_tiles, int* plan, void* dx,
+                                           cudaStream_t stream) {
+  return run_sm90<true>(device, dy, w, w_group_stride, w_row_stride, sizes,
+                        M, K, N, G, tile_rows, num_tiles, plan, dx, stream);
 }

@@ -29,7 +29,8 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_ROOT = PACKAGE / "_build"
 SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
-           "stage_fused.cu", "moe_gemm.cu", "flash_attention_tf32.cu",
+           "stage_fused.cu", "moe_gemm.cu", "moe_gemm_bwd.cu",
+           "flash_attention_tf32.cu",
            "flash_attention_sm90.cu", "flash_attention_bwd_tf32_sm90.cu",
            "flash_attention_bwd_sm90.cu", "flash_decode.cu", "mamba_scan.cu")
 HEADERS = ("sm90.cuh",)  # included by the sources; part of the build's key
@@ -38,7 +39,9 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
-           "moe_gemm_sm90", "moe_gemm_bf16", "flash_attention_tf32",
+           "moe_gemm_sm90", "moe_gemm_bf16", "moe_gemm_dx",
+           "moe_gemm_dx_sm90", "moe_gemm_dx_bf16", "moe_gemm_dw",
+           "moe_gemm_dw_bf16", "flash_attention_tf32",
            "flash_attention_sm90", "flash_attention_bwd_tf32",
            "flash_attention_bwd_bf16", "flash_decode", "flash_decode_sm90",
            "mamba_scan")
@@ -142,6 +145,21 @@ def load() -> ctypes.CDLL:
                                      i32, i32, i32, i32, i32, ptr, ptr, ptr],
         "tdorch_grouped_gemm_sm90": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
                                      i32, i32, i32, i32, ptr, ptr, ptr],
+        # dx = dy · wᵀ: the forward's arguments, with dy for x, the depth N
+        # and the output's width K
+        "tdorch_grouped_gemm_dx": [i32, ptr, ptr, i64, i64, ptr, i32, i32,
+                                   i32, i32, i32, i32, i32, ptr, ptr, ptr],
+        "tdorch_grouped_gemm_dx_bf16": [i32, ptr, ptr, i64, i64, ptr, i32,
+                                        i32, i32, i32, i32, i32, i32, ptr,
+                                        ptr, ptr],
+        "tdorch_grouped_gemm_dx_sm90": [i32, ptr, ptr, i64, i64, ptr, i32,
+                                        i32, i32, i32, i32, i32, ptr, ptr,
+                                        ptr],
+        # dw: device, x, dy, sizes, M, K, N, G, vec16, dw, stream
+        "tdorch_grouped_gemm_dw": [i32, ptr, ptr, ptr, i32, i32, i32, i32,
+                                   i32, ptr, ptr],
+        "tdorch_grouped_gemm_dw_bf16": [i32, ptr, ptr, ptr, i32, i32, i32,
+                                        i32, i32, ptr, ptr],
         "tdorch_flash_attention_tf32": [i32, ptr, ptr, ptr, i32, i32, i32,
                                         i32, i32, i32, f32, i32, ptr, ptr,
                                         ptr],

@@ -1,4 +1,5 @@
 """Launchers, the port of the JAX package's `launch/`: the workload shape
-table (`specs`) and the serving loop (`serve.generate`, `python -m
-repro_torch.launch.serve`). Training, the mesh and the dry runs are ROADMAP
-item A12."""
+table (`specs`), the serving loop (`serve.generate`, `python -m
+repro_torch.launch.serve`) and the training launcher (`python -m
+repro_torch.launch.train`). The mesh and the dry runs are ROADMAP item
+A12."""

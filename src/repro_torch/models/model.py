@@ -25,10 +25,10 @@ states: the layer's new state).
 `torch.no_grad()`, and attention then launches the forward kernel alone.
 `loss_fn` trains: next-token cross-entropy (plus the MoE aux loss) under
 autograd, every attention's gradient from B5's backward kernels on the
-card (`kernels.attention` is a `torch.autograd.Function`). On the card the
-Mamba scan (B7) and the grouped GEMM (B4) have no backward kernel yet and
-raise under grad (ROADMAP A11e, A11d); on the CPU all five patterns train
-through the plain versions.
+card (`kernels.attention` is a `torch.autograd.Function`), and every MoE
+expert GEMM's from B4's (`grouped_gemm` too). On the card the Mamba scan
+(B7) has no backward kernel yet and raises under grad (ROADMAP A11e); on
+the CPU all five patterns train through the plain versions.
 """
 from __future__ import annotations
 

@@ -76,7 +76,8 @@ from repro_torch.kernels.histogram.ref import histogram_ref
 from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ops import copies16, grouped_gemm, tile_rows
-from repro_torch.kernels.moe_gemm.ref import grouped_gemm_ref
+from repro_torch.kernels.moe_gemm.ref import (grouped_gemm_bwd_ref,
+                                              grouped_gemm_ref)
 from repro_torch.kernels.segment_combine.ops import combine
 from repro_torch.kernels.segment_combine.ref import combine_ref
 from repro_torch.kernels.stage_fused.ops import fused_reduce, layout
@@ -1148,6 +1149,9 @@ def test_attention_autograd_launches_the_backward(dev, dtype):
 
 
 def test_scan_and_grouped_gemm_refuse_grad_on_the_card(dev):
+    """The scan still refuses grad on the card (A11e); the grouped GEMM no
+    longer does: under grad it launches its forward and, for w alone, its
+    dw kernel, and serving launches the forward alone as before."""
     x = torch.zeros((1, 16, 2, 16), device=dev, requires_grad=True)
     dt = torch.full((1, 16, 2), 0.1, device=dev)
     bc = torch.zeros((1, 16, 8), device=dev)
@@ -1157,10 +1161,148 @@ def test_scan_and_grouped_gemm_refuse_grad_on_the_card(dev):
     wg = torch.zeros((2, 32, 16), device=dev, dtype=torch.bfloat16,
                      requires_grad=True)
     sg = torch.tensor([4, 4], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="A11d"):
-        grouped_gemm(xg, wg, sg)
+    (dw,) = torch.autograd.grad(grouped_gemm(xg, wg, sg).sum(), (wg,))
+    assert dw.shape == wg.shape and not bool(dw.any())
     with torch.no_grad():  # serving launches as before
         mamba_ssd(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=16)
         grouped_gemm(xg, wg, sg)
     assert kernels.launches()["mamba_scan"] == 1
-    assert kernels.launches()["moe_gemm_sm90"] == 1
+    assert kernels.launches()["moe_gemm_sm90"] == 2
+    assert kernels.launches()["moe_gemm_dw_bf16"] == 1
+    assert kernels.launches()["moe_gemm_dx_sm90"] == 0
+
+
+# ---------------------------------------------------------------------------
+# B4's backward: dx (the forward's kernels, w read transposed in place) and
+# dw (csrc/moe_gemm_bwd.cu), each against the plain version
+# (`grouped_gemm_bwd_ref`) at chip_smoke.py's gates: float32 within
+# 1e-5·Σ|terms| + 1e-6 of float64, bf16 within BF16_ROUND·|ref| +
+# 1e-5·Σ|terms| + 1e-6 of the float32 sums on the same bf16 operands
+# ---------------------------------------------------------------------------
+BWD_GEMM_CASES = {
+    "granite in-projection": (32, 4096, 1024, 1024, None),
+    "granite out-projection": (32, 4096, 512, 1024, None),
+    "64-row tiles": (32, 2048, 1024, 1024, None),
+    "hot path zero tail": (4, 4096, 256, 128, [128, 100, 140, 150]),
+    "empty groups": (4, 8, 32, 16, [0, 8, 0, 0]),
+    "rows beyond the sum": (5, 57, 24, 40, [11, 0, 20, 9, 0]),
+    "negative, past M": (4, 500, 64, 192, [-7, 300, 0, 400]),
+    "K and N not multiples of 8": (3, 300, 30, 50, None),
+    "sizes all 0": (4, 200, 64, 128, [0, 0, 0, 0]),
+    "no rows": (3, 0, 64, 128, [0, 0, 0]),
+}
+
+
+def _bwd_gemm_gate(x, w, dy, sizes, dx_kernel=None):
+    """dx and dw on the card, each launching its kernel once (dx: the one
+    `route_dx` names, or `dx_kernel`; none for no rows), within the gate;
+    two calls give the same bits. Returns (dx, dw)."""
+    dt = x.dtype
+    dx_k = dx_kernel or moe_ops.route_dx(dy, w)
+    dw_k = "moe_gemm_dw" if dt == torch.float32 else "moe_gemm_dw_bf16"
+
+    def calls():
+        return (moe_ops._launch_dx(dy, w, sizes, kernel=dx_kernel),
+                moe_ops._launch_dw(x, dy, sizes, w.shape))
+    before = kernels.launches()
+    dx, dw = calls()
+    after = kernels.launches()
+    ran = {k: v - before[k] for k, v in after.items() if v != before[k]}
+    assert ran == {**({dx_k: 1} if x.shape[0] else {}), dw_k: 1}
+    up = torch.float64 if dt == torch.float32 else torch.float32
+    want = grouped_gemm_bwd_ref(x.to(up), w.to(up), sizes, dy.to(up))
+    mags = grouped_gemm_bwd_ref(x.abs().double(), w.abs().double(), sizes,
+                                dy.abs().double())
+    for got, wt, m, shape in zip((dx, dw), want, mags,
+                                 (x.shape, tuple(w.shape))):
+        assert got.dtype == dt and tuple(got.shape) == tuple(shape)
+        assert got.is_contiguous() and bool(torch.isfinite(got).all())
+        wt = wt.double()
+        allowed = 1e-5 * m + 1e-6
+        if dt == torch.bfloat16:
+            allowed = allowed + BF16_ROUND * wt.abs()
+        err = (got.double() - wt).abs()
+        if err.numel():
+            assert bool((err <= allowed).all()), float((err / allowed).max())
+    again = calls()
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
+    return dx, dw
+
+
+def _bwd_gemm_case(rng, G, M, K, N, sizes, dtype, dev):
+    x, w, sz = _moe(rng, G, M, K, N, dev)
+    if sizes is not None:
+        sz = _sizes(sizes, dev)
+    dy = torch.from_numpy(_normal(rng, M, N)).to(dev)
+    return x.to(dtype), w.to(dtype), dy.to(dtype), sz
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(BWD_GEMM_CASES))
+def test_grouped_gemm_backward_kernels(dev, dtype, case):
+    """dx and dw at granite-moe-1b-a400m's widths (128- and 64-row tiles),
+    a hot-path call whose rows are mostly the zero tail, and the edges:
+    empty groups (dw exactly 0), rows beyond the sum (dx exactly 0),
+    negative sizes summing past M, K and N not multiples of 8 (gg_bf16's
+    dx in bf16), no rows."""
+    G, M, K, N, sizes = BWD_GEMM_CASES[case]
+    x, w, dy, sz = _bwd_gemm_case(np.random.default_rng(M + K), G, M, K, N,
+                                  sizes, getattr(torch, dtype), dev)
+    dx, dw = _bwd_gemm_gate(x, w, dy, sz)
+    ends = np.minimum(np.cumsum(np.maximum(sz.cpu().numpy(), 0)), M)
+    assert not bool(dx[int(ends[-1]):].any())
+    for g in np.nonzero(np.diff(np.r_[0, ends]) == 0)[0]:
+        assert not bool(dw[g].any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_grouped_gemm_backward_reads_strided_weight_views(dev, dtype,
+                                                          offset):
+    """w a view of wider rows, read in place by dx (bf16: gg_sm90 aligned,
+    gg_bf16 one value in); dw comes back dense, of w's shape, equal to the
+    contiguous stack's."""
+    G, M, K, N = 3, 300, 64, 128
+    rng = np.random.default_rng(40 + offset)
+    x, w, dy, sz = _bwd_gemm_case(rng, G, M, K, N, None,
+                                  getattr(torch, dtype), dev)
+    rows = torch.zeros((G, offset + K * (N + 8)), dtype=w.dtype, device=dev)
+    view = rows[:, offset:].view(G, K, N + 8)[:, :, :N]
+    view.copy_(w)
+    dx, dw = _bwd_gemm_gate(x, view, dy, sz)
+    want = "moe_gemm_dx" if dtype == "float32" else (
+        "moe_gemm_dx_sm90" if offset == 0 else "moe_gemm_dx_bf16")
+    assert moe_ops.route_dx(dy, view) == want
+    assert torch.equal(dx, moe_ops._launch_dx(dy, w, sz))
+
+
+def test_grouped_gemm_backward_bf16_route_on_aligned_operands(dev):
+    """gg_bf16's dx (the unaligned route) forced onto aligned operands at
+    granite's in-projection: within the gate, counted."""
+    x, w, dy, sz = _bwd_gemm_case(np.random.default_rng(41), 32, 2048, 1024,
+                                  1024, None, torch.bfloat16, dev)
+    _bwd_gemm_gate(x, w, dy, sz, dx_kernel="moe_gemm_dx_bf16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_gemm_autograd_on_the_card(dev, dtype):
+    """`grouped_gemm` under `torch.autograd.grad`: one forward, one dx and
+    one dw launch, their results the direct launches'; with x alone
+    requiring grad, no dw launch."""
+    dt = getattr(torch, dtype)
+    x, w, dy, sz = _bwd_gemm_case(np.random.default_rng(42), 8, 1000, 256,
+                                  128, None, dt, dev)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    kernels.reset_launches()
+    gx, gw = torch.autograd.grad(grouped_gemm(xr, wr, sz), (xr, wr), dy)
+    fwd = "moe_gemm" if dtype == "float32" else "moe_gemm_sm90"
+    dx_k = moe_ops.route_dx(dy, w)
+    dw_k = "moe_gemm_dw" if dtype == "float32" else "moe_gemm_dw_bf16"
+    ran = {k: v for k, v in kernels.launches().items() if v}
+    assert ran == {fwd: 1, dx_k: 1, dw_k: 1}
+    assert torch.equal(gx, moe_ops._launch_dx(dy, w, sz))
+    assert torch.equal(gw, moe_ops._launch_dw(x, dy, sz, w.shape))
+    kernels.reset_launches()
+    torch.autograd.grad(grouped_gemm(xr, w, sz), (xr,), dy)
+    ran = {k: v for k, v in kernels.launches().items() if v}
+    assert ran == {fwd: 1, dx_k: 1}

@@ -26,9 +26,11 @@ hold the model stack against the JAX package). This file imports no JAX:
   layer) against float64 on the CPU: the loss within 1e-5 of |ref| and
   every parameter's gradient within chip_smoke.py's TRAIN_F32_REL (1e-4)
   of its max|ref|; the bf16 model's `loss_fn` launches the bf16 kernels
-  (one forward and one backward a layer) and the zamba2 and granite
-  patterns raise under grad (no backward kernel for the scan and the
-  grouped GEMM yet).
+  (one forward and one backward a layer) and the zamba2 pattern raises
+  under grad (no backward kernel for the scan yet); granite-moe-1b-a400m
+  and granite-moe-3b-a800m at two full-width layers, bf16 and float32,
+  train: `loss_fn` launches a layer one histogram, four B4 forward and
+  eight backward launches (dx and dw) and B5's forward and backward.
 """
 import copy
 import dataclasses
@@ -237,10 +239,42 @@ def test_bf16_loss_fn_launches_the_bf16_backward(dev):
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b"])
 def test_scan_and_moe_patterns_refuse_grad_on_card(dev, arch):
+    """The scan pattern still refuses grad on the card (A11e); the MoE
+    pattern trains (`test_moe_pattern_trains_on_card`)."""
     cfg = _full_two_layers(arch, "bfloat16")
     model = Model(cfg, device=dev, seed=7)
-    with pytest.raises(NotImplementedError, match="A11[de]"):
+    with pytest.raises(NotImplementedError, match="A11e"):
         model.loss_fn({k: torch.from_numpy(v).to(dev)
                        for k, v in _tokens(cfg, 1, 256).items()})
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "granite-moe-3b-a800m"])
+def test_moe_pattern_trains_on_card(dev, arch, dtype):
+    """Two full-width MoE layers: `loss_fn` forward and backward launch, a
+    layer, one histogram, four B4 forward launches and eight backward ones
+    (dx and dw of the hot and the cold SwiGLU's two GEMMs), and B5's
+    forward and backward; the loss and every gradient finite, every
+    expert stack's gradient nonzero."""
+    cfg = _full_two_layers(arch, dtype)
+    model = Model(cfg, device=dev, seed=7)
+    loss, grads = _loss_and_grads(model, _tokens(cfg, 1, 512), dev)
+    torch.cuda.synchronize()
+    bf = dtype == "bfloat16"
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"histogram": 2,
+                 "moe_gemm_sm90" if bf else "moe_gemm": 8,
+                 "moe_gemm_dx_sm90" if bf else "moe_gemm_dx": 8,
+                 "moe_gemm_dw_bf16" if bf else "moe_gemm_dw": 8,
+                 "flash_attention_sm90" if bf else "flash_attention_tf32": 2,
+                 ("flash_attention_bwd_bf16" if bf
+                  else "flash_attention_bwd_tf32"): 2})
+    assert kernels.launches() == want
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    for n, g in grads.items():
+        if n.endswith(("w_in", "w_out")):
+            assert bool(g.any()), n

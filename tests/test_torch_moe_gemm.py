@@ -181,17 +181,20 @@ def test_grouped_gemm_plain_version_bf16_rounds_once():
 def test_grouped_gemm_plain_version_semantics():
     """The plain version against a float64 row-by-row product: negative
     sizes count as 0, rows past M are cut, and a float64 input comes back
-    float64 after float32 arithmetic."""
+    float64 after float64 arithmetic (what `gradcheck` of the backward
+    needs); a float32 input after float32 arithmetic."""
     rng = np.random.default_rng(4)
     x = rng.normal(size=(10, 6))
     w = rng.normal(size=(3, 6, 5))
     sizes = torch.tensor([4, -2, 9], dtype=torch.int32)
     got = grouped_gemm_ref(torch.from_numpy(x), torch.from_numpy(w), sizes)
     assert got.dtype == torch.float64
-    x32 = x.astype(np.float32).astype(np.float64)
-    w32 = w.astype(np.float32).astype(np.float64)
-    want = np.concatenate([x32[:4] @ w32[0], x32[4:] @ w32[2]])
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    want = np.concatenate([x[:4] @ w[0], x[4:] @ w[2]])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    got32 = grouped_gemm_ref(torch.from_numpy(x).float(),
+                             torch.from_numpy(w).float(), sizes)
+    assert got32.dtype == torch.float32
+    np.testing.assert_allclose(got32.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_grouped_gemm_refuses_other_devices():
