@@ -14,7 +14,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    backward kernels: bf16 `fa_bwd_pre_sm90`, `fa_bwd_dkdv_sm90`,
    `fa_bwd_dq_sm90`, float32 `fa_bwd_pre_tf32`, `fa_bwd_dkdv_tf32`,
    `fa_bwd_dq_tf32`; B4's backward: the dx forms of `gg_tf32`, `gg_sm90`
-   and `gg_bf16`, and `gg_dw_tf32`, `gg_dw_bf16`).
+   and `gg_bf16`, and `gg_dw_sm90`, `gg_dw_bf16`, `gg_dw_tf32` with their
+   prologue `dw_plan` and the partials' sum `dw_reduce`).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -47,14 +48,18 @@ Phases, each of which raises (non-zero exit) on any failed check:
    query tile of one head, and without one query head, caught; two calls
    a dtype at the training shape and at prefill_gqa128 (hd 128) give the
    same bits. B4's backward in bf16 and float32 (dx: "moe_gemm_dx_sm90",
-   "moe_gemm_dx_bf16", "moe_gemm_dx"; dw: "moe_gemm_dw_bf16",
-   "moe_gemm_dw") at granite-moe-1b-a400m's training shapes (131,072
+   "moe_gemm_dx_bf16", "moe_gemm_dx"; dw: "moe_gemm_dw_sm90",
+   "moe_gemm_dw_bf16", "moe_gemm_dw", each on the kernel `route_dx` /
+   `route_dw` names) at granite-moe-1b-a400m's training shapes (131,072
    Zipf-1.2 rows over 32 experts, the in- and out-projection), the hot
    path's call with a 7/8 zero tail, 64-row tiles, strided w at and off
    16 bytes, empty groups, negative sizes past M, K and N not multiples
-   of 8, against the plain version's float32 sums at `gemm_check`'s gate;
-   two calls at the granite shapes give the same bits; dw without 128 rows
-   of the largest group, and dx without the smallest group's rows, caught.
+   of 8, a hot group split into 24 chunks of the dw walk, against the
+   plain version's float32 sums at `gemm_check`'s gate; every call's dw
+   plan equal to `ops.dw_plan_ref`; two calls at the granite shapes and
+   the split case give the same bits; dw without 128 rows of the largest
+   group, dw without one chunk's partial of a split group, and dx without
+   the smallest group's rows, caught.
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -135,8 +140,10 @@ Phases, each of which raises (non-zero exit) on any failed check:
    training shapes in bf16 and float32: call, host and device ms (CUDA
    events around calls queued behind a spin kernel), the plain version
    (dx and dw together), `torch._grouped_mm` for the same product, the
-   bound over the rows inside the groups, and in bf16 `gg_bf16`'s dx
-   beside `gg_sm90`'s. The segment combine is timed
+   bound over the rows inside the groups, the dw walk's chunk rows, split
+   groups and workspace bytes, and in bf16 `gg_bf16`'s dx beside
+   `gg_sm90`'s and `gg_dw_bf16`'s dw beside `gg_dw_sm90`'s. The segment
+   combine is timed
    at the writer combines of stages (a) add (`index_add_`), (c) min
    (`index_reduce_(..., "amin")`) and (b) write (no one call). The
    histogram (at stage (b)'s root call, the parameter-server lookup's, a
@@ -287,8 +294,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    weights' loss in float32 on the card, launches exact (a MoE layer a step: a histogram, four B4
    forward and eight backward launches — dx and dw of each — and B5's
    forward and backward; the plain versions never called), step ms,
-   tokens/s, peak memory, B4's and B5's forward and backward ms inside a
-   step; its float32 twin (2 layers, 1 x 256: 64-row tiles) against float64
+   tokens/s, peak memory, B4's forward, dx and dw ms and B5's forward and
+   backward ms inside a step; its float32 twin (2 layers, 1 x 256: 64-row tiles) against float64
    on the CPU with the float64 routing pinned to the card's experts
    (TRAIN_F32_LOSS, TRAIN_F32_REL; the tokens it would have routed
    elsewhere counted).
@@ -355,6 +362,8 @@ def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "ssd_outputs", "gg_tf32",
                                              "gg_sm90", "gg_bf16",
                                              "gg_dw_tf32", "gg_dw_bf16",
+                                             "gg_dw_sm90", "dw_plan",
+                                             "dw_reduce",
                                              "seg_combine",
                                              "fused_reduce", "hist_shared",
                                              "hist_global")) -> dict:
@@ -933,7 +942,7 @@ def _launch(**kw):
     return {"histogram": 0, "segment_combine": 0, "stage_fused": 0,
             "moe_gemm": 0, "moe_gemm_sm90": 0, "moe_gemm_bf16": 0,
             "moe_gemm_dx": 0, "moe_gemm_dx_sm90": 0, "moe_gemm_dx_bf16": 0,
-            "moe_gemm_dw": 0, "moe_gemm_dw_bf16": 0,
+            "moe_gemm_dw": 0, "moe_gemm_dw_sm90": 0, "moe_gemm_dw_bf16": 0,
             "flash_attention_tf32": 0,
             "flash_attention_sm90": 0, "flash_attention_bwd_tf32": 0,
             "flash_attention_bwd_bf16": 0,
@@ -1739,7 +1748,8 @@ def dx_counter(dtype: str) -> str:
 
 
 def dw_counter(dtype: str) -> str:
-    return "moe_gemm_dw_bf16" if dtype == "bfloat16" else "moe_gemm_dw"
+    """The launch counter of B4's dw on aligned operands in `dtype`."""
+    return "moe_gemm_dw_sm90" if dtype == "bfloat16" else "moe_gemm_dw"
 
 
 def _sizes_zipf(rng, M: int, G: int, gamma: float = GG_BWD_ZIPF):
@@ -1819,6 +1829,9 @@ def _bwd_case(dev, G, M, K, N, sizes, dtype, seed, offset=None):
                                      device=dev)
 
 
+SPLIT_CASE = "split hot group"
+
+
 def bwd_gemm_cases(rng) -> list:
     """Phase 2's cases for B4's backward: (name, G, M, K, N, sizes,
     w offset or None)."""
@@ -1843,7 +1856,58 @@ def bwd_gemm_cases(rng) -> list:
         ("K and N not multiples of 8", 3, 300, 30, 50, [90, 0, 150], None),
         ("sizes all 0", 4, 200, 64, 128, [0, 0, 0, 0], None),
         ("no rows", 3, 0, 64, 128, [0, 0, 0], None),
+        # the dw walk on an H100 cuts rows in chunks of 512 here
+        # (`dw_chunk_rows`): group 0 is 24 chunks, each boundary inside a
+        # sum of `gg_dw_sm90`'s second warpgroup (half a sum later)
+        (SPLIT_CASE, 4, 20_000, 256, 256, [12_000, 0, 5_000, 2_900], None),
     ]
+
+
+
+def dw_plan_check(scratch: dict, sizes, M: int, name: str) -> int:
+    """The plan a dw call used (`_launch_dw(..., scratch=)`) against
+    `ops.dw_plan_ref` on the same sizes: every chunk (group, rows, slot) in
+    walk order and every split group; raises on a difference. Returns the
+    number of split groups."""
+    from repro_torch.kernels.moe_gemm import ops
+
+    chunks, splits = ops.dw_plan_ref(sizes, M, scratch["chunk_rows"])
+    plan = scratch["plan"].cpu().tolist()
+    n, n_split = plan[0][:2]
+    base = 1 + scratch["max_chunks"]
+    got = ([tuple(r) for r in plan[1:1 + n]],
+           [tuple(r[:3]) for r in plan[base:base + n_split]])
+    if got != (chunks, splits):
+        raise AssertionError(f"dw {name}: the card's plan differs from "
+                             f"dw_plan_ref ({n} chunks, {n_split} split "
+                             f"groups; want {len(chunks)}, {len(splits)})")
+    return n_split
+
+
+def dw_dropped_chunk(x, dy, sizes, sz, dw, scratch: dict, dtype) -> tuple:
+    """dw with one chunk's partial left out of its split group's sum (the
+    group with most chunks, its middle chunk), the others added in chunk
+    order from the call's workspace: (tag, share of the gate); raises if
+    the gate does not see it. `sizes` on the host, `sz` on the card."""
+    from repro_torch.kernels.moe_gemm import ops
+
+    _, splits = ops.dw_plan_ref(sizes, x.shape[0], scratch["chunk_rows"])
+    g, slot0, n = max(splits, key=lambda sp: (sp[2], -sp[0]))
+    ws = scratch["workspace"]
+    keep = [c for c in range(n) if c != n // 2]
+    part = ws[slot0 + keep[0]].clone()
+    for c in keep[1:]:
+        part += ws[slot0 + c]
+    bad = dw.clone()
+    bad[g] = part.to(dw.dtype)
+    want, mags = _grouped_wsums(x, dy, sz, dw.shape[0])
+    allowed = _bwd_allowed(want, mags, dtype)
+    share = float(((bad.double() - want.double()).abs() / allowed).max())
+    tag = f"dw without chunk {n // 2} of {n} of group {g}"
+    if share <= 1.0:
+        raise AssertionError(f"B4 backward's gate ({dtype}) does not see "
+                             f"{tag}: {share:.4g} of it")
+    return tag, share
 
 
 def _dw_without(x, dy, dw, g: int, r0: int, r1: int):
@@ -1912,20 +1976,22 @@ def moe_gemm_bwd_parity(dev) -> dict:
 
     rng = np.random.default_rng(SEED + 28)
     cases = bwd_gemm_cases(rng)
-    worst, shares, bulk = {}, {}, {}
+    worst, shares, bulk, splits = {}, {}, {}, {}
     seed = SEED + 2800
     for dtype in (torch.bfloat16, torch.float32):
         for name, G, M, K, N, sizes, offset in cases:
             seed += 1
             x, dy, w, sz = _bwd_case(dev, G, M, K, N, sizes, dtype, seed,
                                      offset)
+            scratch = {}
             for part, call, check in (
                     ("dx", lambda: ops._launch_dx(dy, w, sz),
                      lambda got: dx_check(dy, w, sz, got, f"dx {name}")),
-                    ("dw", lambda: ops._launch_dw(x, dy, sz, w.shape),
+                    ("dw", lambda: ops._launch_dw(x, dy, sz, w.shape,
+                                                  scratch=scratch),
                      lambda got: dw_check(x, dy, sz, got, f"dw {name}"))):
                 counter = (ops.route_dx(dy, w) if part == "dx"
-                           else dw_counter(str(dtype).split(".")[1]))
+                           else ops.route_dw(x, dy))
                 before = kernels.launches()
                 got = call()
                 torch.cuda.synchronize()
@@ -1938,7 +2004,11 @@ def moe_gemm_bwd_parity(dev) -> dict:
                 worst[counter] = max(worst.get(counter, 0.0), e)
                 shares[counter] = max(shares.get(counter, (0.0, "")),
                                       (sh, name))
-                if M == GG_BWD_M and not torch.equal(got, call()):
+                if part == "dw" and K * N:
+                    n_split = dw_plan_check(scratch, sizes, M, name)
+                    splits[name] = (n_split, scratch["chunk_rows"])
+                if ((M == GG_BWD_M or name == SPLIT_CASE)
+                        and not torch.equal(got, call())):
                     raise AssertionError(f"B4 {part} {name} {dtype}: two "
                                          "calls on the same inputs differ")
                 if part == "dx":
@@ -1948,23 +2018,40 @@ def moe_gemm_bwd_parity(dev) -> dict:
             if name == "in-projection, Zipf":
                 bulk[str(dtype)] = bwd_gemm_bulk_faults(x, dy, w, sz, dx, dw,
                                                         dtype)
-            del x, dy, w, dx, dw, got
+            if name == SPLIT_CASE:
+                bulk[str(dtype)]["faults"].update(
+                    [dw_dropped_chunk(x, dy, sizes, sz, dw, scratch,
+                                      dtype)])
+                if dtype == torch.bfloat16:  # the other bf16 kernel, split
+                    def old():
+                        return ops._launch_dw(x, dy, sz, w.shape,
+                                              kernel="moe_gemm_dw_bf16")
+                    got = old()
+                    e, sh = dw_check(x, dy, sz, got, f"gg_dw_bf16 {name}")
+                    worst["moe_gemm_dw_bf16"] = e
+                    shares["moe_gemm_dw_bf16"] = (sh, name)
+                    if not torch.equal(got, old()):
+                        raise AssertionError(f"gg_dw_bf16 {name}: two calls "
+                                             "on the same inputs differ")
+            del x, dy, w, dx, dw, got, scratch
         torch.cuda.empty_cache()
     log(f"  B4 backward: {len(cases)} cases a dtype (granite-moe-1b-a400m's "
         f"in- and out-projection over {GG_BWD_M:,} Zipf-{GG_BWD_ZIPF} rows, "
         "the hot path's call with a 7/8 zero tail, 64-row tiles, strided "
         "w at and off 16 bytes, empty groups, rows beyond the sum, negative "
-        "sizes past M, K and N not multiples of 8, no rows): dx and dw "
-        "within 2^-8·|ref| (bf16) + 1e-5·Σ|terms| + 1e-6 of the plain "
-        "version's float32 sums; worst shares of the gate (case) "
-        f"{({k: (round(v, 4), c) for k, (v, c) in shares.items()})}; two "
-        "calls at the granite shapes give the same bits")
+        "sizes past M, K and N not multiples of 8, no rows, a split hot "
+        "group): dx and dw within 2^-8·|ref| (bf16) + 1e-5·Σ|terms| + 1e-6 "
+        "of the plain version's float32 sums; worst shares of the gate "
+        f"(case) {({k: (round(v, 4), c) for k, (v, c) in shares.items()})};"
+        " every dw plan equal to dw_plan_ref (split groups, chunk rows: "
+        f"{ {k: v for k, v in splits.items() if v[0]} }); two calls at the "
+        "granite shapes and the split case give the same bits")
     for dtype, b in bulk.items():
         log(f"  B4 backward bulk faults ({dtype}), shares of the gate (each "
             f"must pass 1): {({k: round(v, 4) for k, v in b['faults'].items()})}"
             f"; the gate's median over the median |ref| "
             f"{({k: round(v, 4) for k, v in b['gate_over_median_ref'].items()})}")
-    return {"worst": worst, "shares": shares, "bulk": bulk}
+    return {"worst": worst, "shares": shares, "bulk": bulk, "splits": splits}
 
 
 # row 4d's shapes: the in-projection (the headline) and the out-projection
@@ -1993,9 +2080,10 @@ def moe_gemm_bwd_timing(dev, errors: dict) -> list:
     against the plain version at the gate first) and the bound: bytes
     (dy, the routed experts' w and dx; x, dy and dw) at 3.35 TB/s or the
     rows inside the groups' operations at 989 TFLOP/s (bf16) or 495/3
-    (3xTF32). Beside bf16 dx, `gg_bf16`'s dx on the same operands (the
-    unaligned route). One row per counter; launches are filled in by phase
-    14."""
+    (3xTF32). Beside bf16 dx and dw, `gg_bf16`'s dx and `gg_dw_bf16`'s dw
+    on the same operands (the unaligned routes); for dw the walk's chunk
+    rows, split groups and workspace. One row per counter; launches are
+    filled in by phase 14."""
     import torch
 
     from repro_torch.kernels.moe_gemm import ops
@@ -2027,11 +2115,23 @@ def moe_gemm_bwd_timing(dev, errors: dict) -> list:
                     def check(got, tag):
                         return dx_check(dy, w, sz, got, tag)
                     nbytes = e * (rows * N + used * K * N + M * K) + 4 * E
+                    old_kernel = "moe_gemm_dx_bf16"
+
+                    def old():
+                        return ops._launch_dx(dy, w, sz, kernel=old_kernel)
                 else:
                     sums = _grouped_wsums(x, dy, sz, E)
+                    walk = {}
+                    ops._launch_dw(x, dy, sz, w.shape, scratch=walk)
+                    n_split = int(walk["plan"][0, 1])
 
                     def call():
                         return ops._launch_dw(x, dy, sz, w.shape)
+                    old_kernel = "moe_gemm_dw_bf16"
+
+                    def old():
+                        return ops._launch_dw(x, dy, sz, w.shape,
+                                              kernel=old_kernel)
 
                     def check(got, tag, sums=sums):
                         return dw_check(x, dy, sz, got, tag, sums)
@@ -2061,14 +2161,18 @@ def moe_gemm_bwd_timing(dev, errors: dict) -> list:
                            library_ms=library_ms, library_note=note)
                 if rate == FP32_TC_OPS_PER_S:
                     row["bound_fma_ms"] = bound(nbytes, 2 * rows * K * N)[0]
-                if part == "dx" and dtype == torch.bfloat16:
-                    old = ops._launch_dx(dy, w, sz, kernel="moe_gemm_dx_bf16")
-                    o_err, o_share = check(old, f"gg_bf16 dx {label}")
-                    row["bf16_route"] = dict(
-                        ms=time_ms(lambda: ops._launch_dx(
-                            dy, w, sz, kernel="moe_gemm_dx_bf16")),
-                        max_abs_err=o_err, share_of_gate=o_share)
-                    del old
+                if part == "dw":
+                    row["walk"] = dict(
+                        chunk_rows=walk["chunk_rows"], split_groups=n_split,
+                        blocks=walk["blocks"],
+                        workspace_bytes=walk["workspace"].numel() * 4)
+                    del walk
+                if dtype == torch.bfloat16:  # the unaligned route, the same
+                    o_err, o_share = check(old(), f"{old_kernel} {label}")
+                    row["bf16_route"] = dict(kernel=old_kernel,
+                                             ms=time_ms(old),
+                                             max_abs_err=o_err,
+                                             share_of_gate=o_share)
                 counter = (dx_counter(dt) if part == "dx" else dw_counter(dt))
                 by.setdefault(counter, []).append(row)
             del x, dy, w, sums
@@ -2088,9 +2192,14 @@ def moe_gemm_bwd_timing(dev, errors: dict) -> list:
                    else f"null ({s['library_note']})")
             fma = (f"; {s['bound_fma_ms']:.4f} in FMAs"
                    if "bound_fma_ms" in s else "")
-            old = (f"; gg_bf16's dx {s['bf16_route']['ms']:.4f} ms, "
-                   f"{s['bf16_route']['share_of_gate']:.4f} of the gate"
+            old = (f"; {s['bf16_route']['kernel']} {s['bf16_route']['ms']:.4f}"
+                   f" ms, {s['bf16_route']['share_of_gate']:.4f} of the gate"
                    if "bf16_route" in s else "")
+            if "walk" in s:
+                old += (f"; walk: chunks of {s['walk']['chunk_rows']} rows, "
+                        f"{s['walk']['split_groups']} split groups, "
+                        f"{s['walk']['workspace_bytes']:,} B of workspace, "
+                        f"{s['walk']['blocks']} blocks")
             log(f"  {name}: call {s['ms']:.4f} ms (host {s['host_ms']:.4f}),"
                 f" device {s['device_ms']:.4f} ms, plain (dx and "
                 f"dw) {s['plain_ms']:.4f}, torch._grouped_mm {lib}, bound "
@@ -6722,7 +6831,7 @@ TRAIN_F32_REL = 1e-4
 
 class _KernelEvents:
     """Bracket a kernel family's launch functions (`timed`: {name in
-    `module`: "forward" or "backward"}) with CUDA events inside a `with`
+    `module`: the kind its time is summed under}) with CUDA events inside a `with`
     block, and count its plain versions' calls (`plain`: names in
     `module`; none on the card)."""
 
@@ -6737,7 +6846,7 @@ class _KernelEvents:
         self.ops = importlib.import_module(self.module)
         self.saved = {n: getattr(self.ops, n)
                       for n in (*self.timed, *self.plain_names)}
-        self.events = {"forward": [], "backward": []}
+        self.events = {kind: [] for kind in self.timed.values()}
         self.plain = 0
 
         def timed(kind, fn):
@@ -6785,10 +6894,11 @@ def _AttnEvents() -> _KernelEvents:
 
 def _GemmEvents() -> _KernelEvents:
     """Every B4 launch (`moe_gemm.ops._launch`, the forward; `_launch_dx`
-    and `_launch_dw`, the backward) and its plain versions' calls."""
+    and `_launch_dw`, the backward's two products, timed apart) and its
+    plain versions' calls."""
     return _KernelEvents("repro_torch.kernels.moe_gemm.ops",
-                         {"_launch": "forward", "_launch_dx": "backward",
-                          "_launch_dw": "backward"},
+                         {"_launch": "forward", "_launch_dx": "dx",
+                          "_launch_dw": "dw"},
                          ("grouped_gemm_ref", "grouped_gemm_bwd_ref"))
 
 
@@ -7299,9 +7409,10 @@ def _log_train_moe(t: dict, card: str) -> None:
         f"{t['peak_bytes'] / 1e9:.3f} GB; inside a step "
         f"({t['timed_step_ms']:.2f} ms) B4 forward "
         f"{t['gemm_ms']['forward']:.3f} ms and backward "
-        f"{t['gemm_ms']['backward']:.3f} ms over "
-        f"{t['gemm_calls']['forward']} + {t['gemm_calls']['backward']} "
-        f"calls, B5 forward {t['attention_ms']['forward']:.3f} and backward "
+        f"{t['gemm_ms']['dx'] + t['gemm_ms']['dw']:.3f} ms (dx "
+        f"{t['gemm_ms']['dx']:.3f}, dw {t['gemm_ms']['dw']:.3f}) over "
+        f"{t['gemm_calls']['forward']} + {t['gemm_calls']['dx']} + "
+        f"{t['gemm_calls']['dw']} calls, B5 forward {t['attention_ms']['forward']:.3f} and backward "
         f"{t['attention_ms']['backward']:.3f} ms")
     log(f"  loss history {[round(h['loss'], 6) for h in t['history']]} "
         f"(ln V = {t['ln_vocab']:.4f}; the same weights in float32: "
@@ -7572,7 +7683,8 @@ def main(argv=None) -> int:
          "elastic": {"stages": el_rows, **el_summary},
          "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm,
          "train": train, "train_moe": train_moe,
-         "moe_gemm_bwd_parity": {k: bwd_gemm[k] for k in ("shares", "bulk")},
+         "moe_gemm_bwd_parity": {k: bwd_gemm[k]
+                                 for k in ("shares", "bulk", "splits")},
          "c2": c2,
          "phase_start_s": clock,
          "wall_s": time.perf_counter() - t_start},

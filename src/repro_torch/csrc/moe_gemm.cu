@@ -200,35 +200,6 @@ struct Tile {
   static_assert(BM == 64 || BM == 128, "tiles of 64 or 128 rows");
 };
 
-// Inclusive scan of one value per thread over the block: shuffles within
-// each warp, then over the warps' totals. `total` gets the block's sum;
-// `buf` holds 32 values, and the caller synchronizes before it is used
-// again.
-__device__ long long block_inclusive_scan(long long v, long long* buf,
-                                          long long& total) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n_warps = blockDim.x / 32;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const long long up = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += up;
-  }
-  if (lane == 31) buf[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    long long u = lane < n_warps ? buf[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const long long up = __shfl_up_sync(0xffffffffu, u, off);
-      if (lane >= off) u += up;
-    }
-    buf[lane] = u;
-  }
-  __syncthreads();
-  total = buf[n_warps - 1];
-  return warp > 0 ? v + buf[warp - 1] : v;
-}
-
 // plan[t] = (group, first row, end row, 0) for t in [0, num_tiles); group
 // -1 marks a tile of the zero tail, -2 a tile with no rows. The -2 tiles
 // come last, and entry 0's 4th field is the count of the others (what
@@ -246,13 +217,13 @@ __global__ void gg_plan(const int* __restrict__ sizes, int G, int M,
     const long long s = g < G ? max(sizes[g], 0) : 0;
     long long rows_total, tiles_total;
     const long long rows_incl =
-        row_carry + block_inclusive_scan(s, buf, rows_total);
+        row_carry + sm90::block_inclusive_scan(s, buf, rows_total);
     __syncthreads();
     const long long r0 = min(rows_incl - s, static_cast<long long>(M));
     const long long r1 = min(rows_incl, static_cast<long long>(M));
     const long long t = (r1 - r0 + tile_rows - 1) / tile_rows;
     const long long tiles_incl =
-        tile_carry + block_inclusive_scan(t, buf, tiles_total);
+        tile_carry + sm90::block_inclusive_scan(t, buf, tiles_total);
     __syncthreads();
     for (long long j = 0; j < t; ++j) {
       const long long tile = tiles_incl - t + j;

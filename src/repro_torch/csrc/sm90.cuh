@@ -1,13 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, flash_decode.cu,
-// flash_attention_tf32.cu, flash_attention_bwd_tf32_sm90.cu, moe_gemm.cu):
+// flash_attention_tf32.cu, flash_attention_bwd_tf32_sm90.cu, moe_gemm.cu,
+// moe_gemm_bwd.cu):
 // mbarriers, named barriers, TMA tile loads (multicast to a cluster too)
 // and the host-side tensor maps that describe them (bf16 and float32),
 // cluster barriers and remote arrivals, `cp.async` copies, warp-level
 // `ldmatrix` / `mma.sync` (bf16 and TF32), warpgroup-level `wgmma`
 // (shared-memory descriptors, fences, m64nNk16 bf16 and m64nNk8 TF32
-// products), the 3xTF32 split of a float32 value, and the exponential in
-// base 2.
+// products), a block-wide inclusive scan (the grouped GEMMs' prologues),
+// the 3xTF32 split of a float32 value, and the exponential in base 2.
 //
 // The tensor maps are encoded with `cuTensorMapEncodeTiled`, looked up
 // through the runtime (`cudaGetDriverEntryPoint`), so the library links
@@ -300,7 +301,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // d: the warpgroup's 64 x N sums, N / 2 a thread: d[4j + e] at row 16·warp
 // + lane / 4 + 8·(e / 2), column 8j + 2·(lane % 4) + e % 2.
 // ss: A and B by descriptor, both K-major; ss_tb: A K-major, B MN-major
-// (the transpose bit); rs: A from registers, B MN-major.
+// (the transpose bit); ss_tt: both MN-major; rs: A from registers, B
+// MN-major.
 #define SM90_D32                                                            \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
@@ -384,6 +386,19 @@ __device__ __forceinline__ void wgmma_ss_tb_n128(float (&d)[64], uint64_t da,
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_R64
       "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SM90_D64
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// A and B both MN-major (both transpose bits): A's M and B's N run along
+// the shared-memory rows, the depth down them, as for dw = xᵀ · dy with x
+// and dy stored row by row.
+__device__ __forceinline__ void wgmma_ss_tt_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_R64
+      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
       : SM90_D64
       : "l"(da), "l"(db), "r"(accumulate));
 }
@@ -488,6 +503,36 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
 #undef SM90_R16
 #undef SM90_R32
 #undef SM90_R64
+
+// ---- block-wide scans -----------------------------------------------------
+// Inclusive scan of one value per thread over the block: shuffles within
+// each warp, then over the warps' totals. `total` gets the block's sum;
+// `buf` holds 32 values, and the caller synchronizes before it is used
+// again.
+__device__ __forceinline__ long long block_inclusive_scan(
+    long long v, long long* buf, long long& total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long up = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += up;
+  }
+  if (lane == 31) buf[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    long long u = lane < n_warps ? buf[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long up = __shfl_up_sync(0xffffffffu, u, off);
+      if (lane >= off) u += up;
+    }
+    buf[lane] = u;
+  }
+  __syncthreads();
+  total = buf[n_warps - 1];
+  return warp > 0 ? v + buf[warp - 1] : v;
+}
 
 // ---- arithmetic -----------------------------------------------------------
 __device__ __forceinline__ float exp2_approx(float x) {

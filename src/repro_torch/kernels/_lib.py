@@ -41,7 +41,7 @@ FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
            "moe_gemm_sm90", "moe_gemm_bf16", "moe_gemm_dx",
            "moe_gemm_dx_sm90", "moe_gemm_dx_bf16", "moe_gemm_dw",
-           "moe_gemm_dw_bf16", "flash_attention_tf32",
+           "moe_gemm_dw_sm90", "moe_gemm_dw_bf16", "flash_attention_tf32",
            "flash_attention_sm90", "flash_attention_bwd_tf32",
            "flash_attention_bwd_bf16", "flash_decode", "flash_decode_sm90",
            "mamba_scan")
@@ -155,11 +155,15 @@ def load() -> ctypes.CDLL:
         "tdorch_grouped_gemm_dx_sm90": [i32, ptr, ptr, i64, i64, ptr, i32,
                                         i32, i32, i32, i32, i32, ptr, ptr,
                                         ptr],
-        # dw: device, x, dy, sizes, M, K, N, G, vec16, dw, stream
-        "tdorch_grouped_gemm_dw": [i32, ptr, ptr, ptr, i32, i32, i32, i32,
-                                   i32, ptr, ptr],
-        "tdorch_grouped_gemm_dw_bf16": [i32, ptr, ptr, ptr, i32, i32, i32,
-                                        i32, i32, ptr, ptr],
+        # dw: device, x, dy, sizes, M, K, N, G, the walk's chunk_rows,
+        # max_chunks, blocks and max_split, [vec16,] plan, workspace, dw,
+        # stream
+        "tdorch_grouped_gemm_dw": [i32, ptr, ptr, ptr, *[i32] * 9, ptr, ptr,
+                                   ptr, ptr],
+        "tdorch_grouped_gemm_dw_bf16": [i32, ptr, ptr, ptr, *[i32] * 9, ptr,
+                                        ptr, ptr, ptr],
+        "tdorch_grouped_gemm_dw_sm90": [i32, ptr, ptr, ptr, *[i32] * 8, ptr,
+                                        ptr, ptr, ptr],
         "tdorch_flash_attention_tf32": [i32, ptr, ptr, ptr, i32, i32, i32,
                                         i32, i32, i32, f32, i32, ptr, ptr,
                                         ptr],

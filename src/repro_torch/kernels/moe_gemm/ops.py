@@ -14,10 +14,17 @@ more kernels on the card, each only for an input that needs its gradient
   transposed in place — `gg_tf32` with a transposed w stage (counter
   "moe_gemm_dx"), `gg_sm90` with B K-major ("moe_gemm_dx_sm90") or
   `gg_bf16` with B by `ldmatrix` ("moe_gemm_dx_bf16"), `route_dx`;
-- dw[g] = x_gᵀ · dy_g (`_launch_dw`, `csrc/moe_gemm_bwd.cu`): one block a
-  (group, 128 x 128 tile of dw) walks the group's rows — `gg_dw_tf32`
-  (3xTF32, counter "moe_gemm_dw") or `gg_dw_bf16` ("moe_gemm_dw_bf16").
-  No atomics: two calls give the same bits.
+- dw[g] = x_gᵀ · dy_g (`_launch_dw`, `csrc/moe_gemm_bwd.cu`): a
+  prologue cuts each group's rows into chunks of at most `dw_chunk_rows`
+  rows and lists the work units (chunk, 128 x 128 tile of dw) longest
+  chunk first (`dw_plan_ref` is its plain twin); one persistent block an
+  SM takes the units in list order as it frees up. A group of one chunk
+  is written directly; a split group's chunks write float32 partials
+  that a second kernel adds in chunk order — `gg_dw_sm90` (TMA +
+  `wgmma`, counter "moe_gemm_dw_sm90") where TMA can describe bf16 x and
+  dy, else `gg_dw_bf16` ("moe_gemm_dw_bf16"), and `gg_dw_tf32` (3xTF32,
+  counter "moe_gemm_dw") for float32 (`route_dw`). No atomics: two calls
+  give the same bits.
 On the CPU the backward is `grouped_gemm_bwd_ref`.
 
 Also home of `gathered_swiglu`, the gathered-weights form of the expert
@@ -27,6 +34,9 @@ multi-get view) instead of indexing a dense (G, ., .) stack, so it is the
 per-task dual of `grouped_gemm`'s sorted-by-group layout.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,7 +55,14 @@ _ENTRIES = {"moe_gemm": "tdorch_grouped_gemm",
             "moe_gemm_dx_sm90": "tdorch_grouped_gemm_dx_sm90",
             "moe_gemm_dx_bf16": "tdorch_grouped_gemm_dx_bf16",
             "moe_gemm_dw": "tdorch_grouped_gemm_dw",
+            "moe_gemm_dw_sm90": "tdorch_grouped_gemm_dw_sm90",
             "moe_gemm_dw_bf16": "tdorch_grouped_gemm_dw_bf16"}
+
+# the dw kernels' tile of dw (csrc/moe_gemm_bwd.cu's kBM x kBN) and the
+# rows a bf16 sum stays on the tensor core (kSumDepth): a chunk of a
+# group's rows is a whole number of such sums
+DW_TILE = 128
+SUM_DEPTH = 256
 
 
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor,
@@ -163,11 +180,15 @@ def _tiles(x, w, group_sizes, n_out: int, counter: str) -> torch.Tensor:
 
 
 def _launch_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
-               w_shape) -> torch.Tensor:
+               w_shape, kernel: str | None = None,
+               scratch: dict | None = None) -> torch.Tensor:
     """dw[g] = x_gᵀ · dy_g on the card, (G, K, N) dense in x's dtype, the
     sums over group g's rows only; an empty group's dw is 0 and rows at or
     beyond the groups' sum are not read. Float32 sums (3xTF32 for float32
-    operands), rounded to the dtype once; no atomics."""
+    operands), rounded to the dtype once; no atomics. `kernel` (a launch
+    counter of x's dtype) overrides `route_dw`; `scratch`, where given,
+    receives the call's plan and partial-sum workspace (chip_smoke.py reads
+    them back)."""
     dev = x.device
     _lib.require(x, "x", (torch.float32, torch.bfloat16), 2, dev)
     _lib.require(dy, "dy", (x.dtype,), 2, dev)
@@ -178,25 +199,116 @@ def _launch_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)}, dy {tuple(dy.shape)} and "
                          f"{group_sizes.shape[0]} sizes do not fit w "
                          f"({G}, {K}, {N})")
-    col_tiles = -(-K // 128) * -(-N // 128)
-    if max(M, K, N, G * col_tiles) > _I32_MAX:
-        raise ValueError(f"shape (M={M}, K={K}, N={N}, G={G}) is beyond "
-                         "the kernel's int32 operands")
+    counter = kernel or route_dw(x, dy)
+    if counter not in (("moe_gemm_dw",) if x.dtype == torch.float32 else
+                       ("moe_gemm_dw_sm90", "moe_gemm_dw_bf16")):
+        raise ValueError(f"{counter} is no dw kernel of {x.dtype} operands")
     out = torch.empty((G, K, N), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    counter = "moe_gemm_dw" if x.dtype == torch.float32 else \
-        "moe_gemm_dw_bf16"
-    v = 16 // x.element_size()
-    vec16 = (x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-             and K % v == 0 and N % v == 0)
+    walk = dw_walk(M, K, N, G, _sm_count(dev.index or 0))
+    if max(M, K, N, walk.max_chunks * walk.tiles) > _I32_MAX:
+        raise ValueError(f"shape (M={M}, K={K}, N={N}, G={G}) is beyond "
+                         "the kernel's int32 operands")
+    # one allocation: the plan's int4 entries, then the float32 partials
+    # (16-byte aligned after the plan)
+    n_plan = 4 * (1 + walk.max_chunks + 2 * G)
+    buf = torch.empty(n_plan + walk.slots * K * N, dtype=torch.float32,
+                      device=dev)
+    args = [dev.index or 0, x.data_ptr(), dy.data_ptr(),
+            group_sizes.data_ptr(), M, K, N, G, walk.chunk_rows,
+            walk.max_chunks, walk.blocks, walk.max_split]
+    if counter != "moe_gemm_dw_sm90":  # the cp.async kernels' copy width
+        v = 16 // x.element_size()
+        args.append(int(x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+                        and K % v == 0 and N % v == 0))
     rc = getattr(_lib.load(), _ENTRIES[counter])(
-        dev.index or 0, x.data_ptr(), dy.data_ptr(),
-        group_sizes.data_ptr(), M, K, N, G, int(vec16), out.data_ptr(),
+        *args, buf.data_ptr(), buf.data_ptr() + 4 * n_plan, out.data_ptr(),
         _lib.stream(x))
     _lib.check(rc, counter)
     _lib.count(counter)
+    if scratch is not None:
+        scratch.update(plan=buf[:n_plan].view(torch.int32).view(-1, 4),
+                       workspace=buf[n_plan:].view(walk.slots, K, N),
+                       **walk._asdict())
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def dw_chunk_rows(M: int, K: int, N: int, sms: int) -> int:
+    """The most rows of a group one dw work unit sums: an SM's fair share
+    of the call, tiles·M / sms with tiles = ⌈K/128⌉·⌈N/128⌉ (the dw tiles
+    of a group), rounded down to a multiple of SUM_DEPTH and at least
+    SUM_DEPTH. From the shapes and the SM count alone: no host sync on the
+    sizes. A group longer than this is split, so its tiles cannot end the
+    call alone; the walk takes the longest units first. Half a share
+    splits one more chunk: at granite's training shapes it read up to 3%
+    slower, a quarter slower still (gg_dw_variants.py)."""
+    tiles = -(-K // DW_TILE) * -(-N // DW_TILE)
+    rows = tiles * M // sms // SUM_DEPTH * SUM_DEPTH
+    return max(rows, SUM_DEPTH)
+
+
+class DwWalk(NamedTuple):
+    """The host's numbers for a dw launch (`dw_walk`)."""
+    chunk_rows: int  # C, `dw_chunk_rows`
+    tiles: int       # dw tiles a group
+    max_chunks: int  # G + ⌈M/C⌉: ⌈rows/C⌉ a group, an empty group one
+    max_split: int   # groups that can exceed C: the reduce's rows of
+    #                  blocks (0 skips it)
+    slots: int       # float32 partials in the workspace: a split group of
+    #                  L > C rows has ⌈L/C⌉ < 2L/C chunks, so ≤ 2·⌈M/C⌉
+    blocks: int      # the persistent grid: one block an SM, no more than
+    #                  the units
+
+
+@functools.lru_cache(maxsize=256)
+def dw_walk(M: int, K: int, N: int, G: int, sms: int) -> DwWalk:
+    """The host's numbers for a dw launch at these shapes on `sms` SMs."""
+    C = dw_chunk_rows(M, K, N, sms)
+    tiles = -(-K // DW_TILE) * -(-N // DW_TILE)
+    max_chunks = G + -(-M // C)
+    max_split = min(G, M // (C + 1))
+    return DwWalk(chunk_rows=C, tiles=tiles, max_chunks=max_chunks,
+                  max_split=max_split,
+                  slots=2 * -(-M // C) if max_split else 0,
+                  blocks=min(sms, max_chunks * tiles))
+
+
+def dw_plan_ref(group_sizes, M: int, C: int) -> tuple:
+    """The plain version of the dw prologue's plan (`dw_plan` in
+    csrc/moe_gemm_bwd.cu): (chunks, splits). Each group's rows (negative
+    sizes as 0, cut at M) are cut from its first row into chunks of C rows
+    and a last shorter one; an empty group is one chunk of no rows.
+    `chunks` lists (group, first row, end row, slot) longest first, ties in
+    (group, chunk) order; slot is -1 for a group of one chunk (its units
+    write dw) and the chunk's partial in the workspace for a split group
+    (consecutive slots, split groups in group order). `splits` lists
+    (group, first slot, chunks) of the split groups, in group order."""
+    full, rest, splits = [], [], []
+    start = slot = 0
+    for g, size in enumerate(np.asarray(group_sizes).tolist()):
+        end = min(start + max(int(size), 0), M)
+        rows = end - start
+        n_full = rows // C
+        split = rows > C
+        base = slot if split else -1
+        full += [(g, start + j * C, start + (j + 1) * C,
+                  base + j if split else -1) for j in range(n_full)]
+        if rows % C or rows == 0:
+            rest.append((g, start + n_full * C, end,
+                         base + n_full if split else -1))
+        if split:
+            n = n_full + (rows % C != 0)
+            splits.append((g, slot, n))
+            slot += n
+        start = end
+    rest.sort(key=lambda c: (c[1] - c[2], c[0]))
+    return full + rest, splits
 
 
 def route(x: torch.Tensor, w: torch.Tensor) -> str:
@@ -225,6 +337,21 @@ def route_dx(dy: torch.Tensor, w: torch.Tensor) -> str:
     if N > 0 and K % 8 == 0 and copies16(dy, w):
         return "moe_gemm_dx_sm90"
     return "moe_gemm_dx_bf16"
+
+
+def route_dw(x: torch.Tensor, dy: torch.Tensor) -> str:
+    """The launch counter of the dw kernel a CUDA call takes: "moe_gemm_dw"
+    (`gg_dw_tf32`) for float32; for bf16 "moe_gemm_dw_sm90" (`gg_dw_sm90`)
+    where a TMA tensor map can describe x and dy — both bases 16-byte
+    aligned, K and N multiples of 8 (x and dy are contiguous, so their rows
+    are then 16-byte aligned too) — else "moe_gemm_dw_bf16"
+    (`gg_dw_bf16`)."""
+    if x.dtype != torch.bfloat16:
+        return "moe_gemm_dw"
+    if (x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+            and x.shape[1] % 8 == 0 and dy.shape[1] % 8 == 0):
+        return "moe_gemm_dw_sm90"
+    return "moe_gemm_dw_bf16"
 
 
 def tile_rows(M: int, G: int) -> int:

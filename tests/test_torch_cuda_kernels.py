@@ -1168,13 +1168,15 @@ def test_scan_and_grouped_gemm_refuse_grad_on_the_card(dev):
         grouped_gemm(xg, wg, sg)
     assert kernels.launches()["mamba_scan"] == 1
     assert kernels.launches()["moe_gemm_sm90"] == 2
-    assert kernels.launches()["moe_gemm_dw_bf16"] == 1
+    assert kernels.launches()["moe_gemm_dw_sm90"] == 1
     assert kernels.launches()["moe_gemm_dx_sm90"] == 0
 
 
 # ---------------------------------------------------------------------------
 # B4's backward: dx (the forward's kernels, w read transposed in place) and
-# dw (csrc/moe_gemm_bwd.cu), each against the plain version
+# dw (csrc/moe_gemm_bwd.cu: `gg_dw_sm90`, `gg_dw_bf16`, `gg_dw_tf32` over
+# the plan of `dw_plan`, split groups' partials added by `dw_reduce`), each
+# against the plain version
 # (`grouped_gemm_bwd_ref`) at chip_smoke.py's gates: float32 within
 # 1e-5·Σ|terms| + 1e-6 of float64, bf16 within BF16_ROUND·|ref| +
 # 1e-5·Σ|terms| + 1e-6 of the float32 sums on the same bf16 operands
@@ -1190,20 +1192,25 @@ BWD_GEMM_CASES = {
     "K and N not multiples of 8": (3, 300, 30, 50, None),
     "sizes all 0": (4, 200, 64, 128, [0, 0, 0, 0]),
     "no rows": (3, 0, 64, 128, [0, 0, 0]),
+    # dw_chunk_rows is 512 here on an H100: group 0 splits into 24 chunks
+    "split hot group": (4, 20000, 256, 256, [12000, 0, 5000, 2900]),
 }
 
 
-def _bwd_gemm_gate(x, w, dy, sizes, dx_kernel=None):
-    """dx and dw on the card, each launching its kernel once (dx: the one
-    `route_dx` names, or `dx_kernel`; none for no rows), within the gate;
-    two calls give the same bits. Returns (dx, dw)."""
+def _bwd_gemm_gate(x, w, dy, sizes, dx_kernel=None, dw_kernel=None,
+                   scratch=None):
+    """dx and dw on the card, each launching its kernel once (the ones
+    `route_dx` / `route_dw` name, or `dx_kernel` / `dw_kernel`; no dx for
+    no rows), within the gate; two calls give the same bits. Returns (dx,
+    dw); `scratch` receives dw's plan and workspace."""
     dt = x.dtype
     dx_k = dx_kernel or moe_ops.route_dx(dy, w)
-    dw_k = "moe_gemm_dw" if dt == torch.float32 else "moe_gemm_dw_bf16"
+    dw_k = dw_kernel or moe_ops.route_dw(x, dy)
 
     def calls():
         return (moe_ops._launch_dx(dy, w, sizes, kernel=dx_kernel),
-                moe_ops._launch_dw(x, dy, sizes, w.shape))
+                moe_ops._launch_dw(x, dy, sizes, w.shape, kernel=dw_kernel,
+                                   scratch=scratch))
     before = kernels.launches()
     dx, dw = calls()
     after = kernels.launches()
@@ -1277,11 +1284,53 @@ def test_grouped_gemm_backward_reads_strided_weight_views(dev, dtype,
 
 
 def test_grouped_gemm_backward_bf16_route_on_aligned_operands(dev):
-    """gg_bf16's dx (the unaligned route) forced onto aligned operands at
-    granite's in-projection: within the gate, counted."""
+    """gg_bf16's dx and gg_dw_bf16's dw (the unaligned routes) forced onto
+    aligned operands at granite's in-projection: within the gate,
+    counted."""
     x, w, dy, sz = _bwd_gemm_case(np.random.default_rng(41), 32, 2048, 1024,
                                   1024, None, torch.bfloat16, dev)
-    _bwd_gemm_gate(x, w, dy, sz, dx_kernel="moe_gemm_dx_bf16")
+    _bwd_gemm_gate(x, w, dy, sz, dx_kernel="moe_gemm_dx_bf16",
+                   dw_kernel="moe_gemm_dw_bf16")
+
+
+@pytest.mark.parametrize("dw_kernel", ["moe_gemm_dw_sm90", "moe_gemm_dw_bf16",
+                                       "moe_gemm_dw"])
+def test_grouped_gemm_backward_dw_plan_and_split(dev, dw_kernel):
+    """The dw walk on the card: its plan equal to `dw_plan_ref` (chunks in
+    walk order, split groups), a hot group of 24 chunks within the gate
+    on each dw kernel, two calls bit for bit, and the sum without one
+    chunk's partial (from the workspace) beyond the gate."""
+    G, M, K, N, sizes = BWD_GEMM_CASES["split hot group"]
+    dt = torch.float32 if dw_kernel == "moe_gemm_dw" else torch.bfloat16
+    x, w, dy, sz = _bwd_gemm_case(np.random.default_rng(43), G, M, K, N,
+                                  sizes, dt, dev)
+    scratch = {}
+    _, dw = _bwd_gemm_gate(x, w, dy, sz, dw_kernel=dw_kernel,
+                           scratch=scratch)
+    chunks, splits = moe_ops.dw_plan_ref(sizes, M, scratch["chunk_rows"])
+    plan = scratch["plan"].cpu().tolist()
+    n, n_split = plan[0][:2]
+    base = 1 + scratch["max_chunks"]
+    assert [tuple(r) for r in plan[1:1 + n]] == chunks
+    assert [tuple(r[:3]) for r in plan[base:base + n_split]] == splits
+    assert splits and splits[0][:1] == (0,) and splits[0][2] > 2
+    g, slot0, n_chunks = splits[0]
+    ws = scratch["workspace"]
+    part = ws[slot0].clone()
+    for c in range(2, n_chunks):  # chunk 1 left out
+        part += ws[slot0 + c]
+    whole = ws[slot0].clone()  # dw_reduce's sum, in chunk order
+    for c in range(1, n_chunks):
+        whole += ws[slot0 + c]
+    assert torch.equal(dw[g], whole.to(dt))
+    up = torch.float64 if dt == torch.float32 else torch.float32
+    want = grouped_gemm_bwd_ref(x.to(up), w.to(up), sz, dy.to(up))[1][g]
+    mags = grouped_gemm_bwd_ref(x.abs().double(), w.abs().double(), sz,
+                                dy.abs().double())[1][g]
+    allowed = 1e-5 * mags + 1e-6 + (BF16_ROUND * want.double().abs()
+                                    if dt == torch.bfloat16 else 0)
+    assert not bool(((part.to(dt).double() - want.double()).abs()
+                     <= allowed).all())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1297,7 +1346,7 @@ def test_grouped_gemm_autograd_on_the_card(dev, dtype):
     gx, gw = torch.autograd.grad(grouped_gemm(xr, wr, sz), (xr, wr), dy)
     fwd = "moe_gemm" if dtype == "float32" else "moe_gemm_sm90"
     dx_k = moe_ops.route_dx(dy, w)
-    dw_k = "moe_gemm_dw" if dtype == "float32" else "moe_gemm_dw_bf16"
+    dw_k = moe_ops.route_dw(x, dy)
     ran = {k: v for k, v in kernels.launches().items() if v}
     assert ran == {fwd: 1, dx_k: 1, dw_k: 1}
     assert torch.equal(gx, moe_ops._launch_dx(dy, w, sz))

@@ -268,7 +268,7 @@ def test_moe_pattern_trains_on_card(dev, arch, dtype):
     want.update({"histogram": 2,
                  "moe_gemm_sm90" if bf else "moe_gemm": 8,
                  "moe_gemm_dx_sm90" if bf else "moe_gemm_dx": 8,
-                 "moe_gemm_dw_bf16" if bf else "moe_gemm_dw": 8,
+                 "moe_gemm_dw_sm90" if bf else "moe_gemm_dw": 8,
                  "flash_attention_sm90" if bf else "flash_attention_tf32": 2,
                  ("flash_attention_bwd_bf16" if bf
                   else "flash_attention_bwd_tf32"): 2})

@@ -17,15 +17,23 @@ each group's ragged rows). Held here:
   against a float64 oracle; `core.spmd.grouped_swiglu` and `moe_push_pull`
   (hot and cold paths) under grad against `jax.grad` of the JAX package's
   at the reduced granite widths.
-- The kernels' arithmetic, emulated: `gg_dw_bf16` (exact bf16 products, a
-  float32 sum truncated toward zero a k16 step of rows, folded into the
-  tile's float32 sums every SUM_DEPTH rows, read from the source) and the
-  dx kernels (`gg_sm90`'s arithmetic on wᵀ) against `jax.vjp` at the bf16
-  gate; the float32 sum of a 4,096-row group carried on the tensor core
-  without the fold misses the gate's float32 term on same-sign operands.
-  The float32 kernels (3xTF32, a 32-row stage's sums added to the tile's)
-  through `tests/test_torch_tf32.py`'s emulation against `jax.vjp` at the
-  float32 gate; one TF32 rounding misses it.
+- The kernels' arithmetic, emulated: the bf16 dw kernels (`gg_dw_sm90`,
+  `gg_dw_bf16`: exact bf16 products, a float32 sum truncated toward zero a
+  k16 step of rows, folded into the tile's float32 sums every SUM_DEPTH
+  rows — half a sum later in `gg_dw_sm90`'s second warpgroup — read from
+  the source) and the dx kernels (`gg_sm90`'s arithmetic on wᵀ) against
+  `jax.vjp` at the bf16 gate; the float32 sum of a 4,096-row group carried
+  on the tensor core without the fold misses the gate's float32 term on
+  same-sign operands. The float32 kernels (3xTF32, a 32-row stage's sums
+  added to the tile's) through `tests/test_torch_tf32.py`'s emulation
+  against `jax.vjp` at the float32 gate; one TF32 rounding misses it. Each
+  dw emulation follows the kernels' walk: a group's rows in chunks of
+  `dw_chunk_rows` from its first row (an H100's 132 SMs, and 4 SMs, which
+  splits the long groups), the chunks' float32 sums added in chunk order.
+- The walk itself: `dw_chunk_rows` (whole sums, at most an SM's fair
+  share), `dw_plan_ref` (every row of every group in exactly one chunk,
+  longest chunk first, the workspace slots of the split groups) and
+  `route_dw`.
 """
 import re
 from pathlib import Path
@@ -40,7 +48,10 @@ from jax import lax
 from repro.core import spmd as jspmd
 from repro_torch import kernels
 from repro_torch.core import spmd
-from repro_torch.kernels.moe_gemm.ops import grouped_gemm, route_dx
+from repro_torch.kernels.moe_gemm import ops
+from repro_torch.kernels.moe_gemm.ops import (dw_chunk_rows, dw_plan_ref,
+                                              dw_walk, grouped_gemm,
+                                              route_dw, route_dx)
 from repro_torch.kernels.moe_gemm.ref import grouped_gemm_bwd_ref
 from test_torch_moe_gemm_sm90 import SUM_DEPTH as SM90_SUM_DEPTH
 from test_torch_moe_gemm_sm90 import _trunc32, _views, emulate_sums
@@ -63,6 +74,8 @@ def _constant(name: str) -> int:
 SUM_DEPTH = _constant("kSumDepth")  # rows a bf16 sum stays on the core
 DEPTH16 = _constant("kDepth16")     # rows a bf16 ring stage
 DEPTH32 = _constant("kDepth32")     # rows a float32 ring stage
+TILE_K, TILE_N = _constant("kBM"), _constant("kBN")  # a dw tile
+H100_SMS = 132
 GEMM_REL = 1e-5                     # chip_smoke.py's GEMM_REL
 BF16_ROUND = 2.0 ** -8              # chip_smoke.py's BF16_ROUND
 MOE_GEOMS = ((4, 96, 32, 64), (1, 1, 64, 128), (6, 150, 128, 256),
@@ -340,48 +353,72 @@ def test_moe_push_pull_grads_match_jax(num_hot, seed):
 # ---------------------------------------------------------------------------
 # the kernels' arithmetic, emulated
 # ---------------------------------------------------------------------------
-def emulate_dw_bf16(x, dy, sizes, depth=SUM_DEPTH):
-    """gg_dw_bf16's float32 sums (before dw's rounding) of bf16 x (M, K)
-    and dy (M, N): per group, per k16 step of its rows (from its first
-    row), the 16 exact products go into the tensor core's sum, truncated
-    toward zero; a sum starts every `depth` rows and is then added into
-    the float32 sums to nearest, and at the group's last step."""
+def _chunks(start: int, end: int, chunk):
+    """A group's rows [start, end) as the kernels' chunks: `chunk` rows
+    each from its first row (the whole group where None)."""
+    step = chunk or max(end - start, 1)
+    return [(c0, min(end, c0 + step)) for c0 in range(start, end, step)]
+
+
+def _by_chunks(sizes, M, chunk, chunk_sums, shape):
+    """dw (G, K, N) in float32: per group, `chunk_sums(c0, c1)` of each of
+    its chunks, added in chunk order in float32 (`dw_reduce`); an empty
+    group 0."""
+    out = torch.zeros((len(sizes), *shape), dtype=torch.float32)
+    start = 0
+    for g, size in enumerate(np.asarray(sizes).tolist()):
+        end = min(start + max(int(size), 0), M)
+        for i, (c0, c1) in enumerate(_chunks(start, end, chunk)):
+            part = chunk_sums(c0, c1)
+            out[g] = part if i == 0 else out[g] + part
+        start = end
+    return out
+
+
+def emulate_dw_bf16(x, dy, sizes, depth=SUM_DEPTH, chunk=None, shift=0):
+    """The bf16 dw kernels' float32 sums (before dw's rounding) of bf16 x
+    (M, K) and dy (M, N): per chunk of a group's rows (`chunk` rows from
+    its first row; the whole group where None), per k16 step of its rows,
+    the 16 exact products go into the tensor core's sum, truncated toward
+    zero; a sum starts where 16·i + shift is a multiple of `depth` (i
+    counted from the chunk's first row, `gg_dw_sm90`'s second warpgroup at
+    shift = SUM_DEPTH / 2) and at the chunk's first step, and is added into
+    the chunk's float32 sums to nearest where the next starts or at the
+    chunk's last step; a split group's chunks are then added in chunk
+    order."""
     M, K = x.shape
     N = dy.shape[1]
     xf, df = x.double(), dy.double()
-    out = torch.zeros((len(sizes), K, N), dtype=torch.float32)
-    start = 0
-    for g, size in enumerate(np.asarray(sizes).tolist()):
-        end = min(start + max(int(size), 0), M)
-        steps = -(-(end - start) // 16)
+
+    def chunk_sums(c0, c1):
+        steps = -(-(c1 - c0) // 16)
         acc = torch.zeros((K, N), dtype=torch.float32)
         part = None
         for i in range(steps):
-            r = slice(start + 16 * i, min(end, start + 16 * i + 16))
+            r = slice(c0 + 16 * i, min(c1, c0 + 16 * i + 16))
             p = xf[r].T @ df[r]
-            first = i == 0 or (16 * i) % depth == 0
+            first = i == 0 or (16 * i + shift) % depth == 0
             part = _trunc32(p if first else part.double() + p)
-            if i == steps - 1 or (16 * (i + 1)) % depth == 0:
+            if i == steps - 1 or (16 * (i + 1) + shift) % depth == 0:
                 acc = acc + part
-        out[g] = acc
-        start = end
-    return out
+        return acc
+    return _by_chunks(sizes, M, chunk, chunk_sums, (K, N))
 
 
-def emulate_dw_tf32(x, dy, sizes, split=True):
-    """gg_dw_tf32's arithmetic: per group, per DEPTH32-row stage from its
-    first row, the 3xTF32 products (or one TF32 rounding) into stage sums
-    added to the running float32 sums."""
+def emulate_dw_tf32(x, dy, sizes, split=True, chunk=None):
+    """gg_dw_tf32's arithmetic: per chunk of a group's rows (as
+    `emulate_dw_bf16`), per DEPTH32-row stage from its first row, the
+    3xTF32 products (or one TF32 rounding) into stage sums added to the
+    chunk's float32 sums; a split group's chunks added in chunk order."""
     M, K = x.shape
-    out = torch.zeros((len(sizes), K, dy.shape[1]), dtype=torch.float32)
-    start = 0
-    for g, size in enumerate(np.asarray(sizes).tolist()):
-        end = min(start + max(int(size), 0), M)
-        for r0 in range(start, end, DEPTH32):
-            r = slice(r0, min(end, r0 + DEPTH32))
-            out[g] += _mm(x[r].T.contiguous(), dy[r], split)
-        start = end
-    return out
+
+    def chunk_sums(c0, c1):
+        acc = torch.zeros((K, dy.shape[1]), dtype=torch.float32)
+        for r0 in range(c0, c1, DEPTH32):
+            r = slice(r0, min(c1, r0 + DEPTH32))
+            acc += _mm(x[r].T.contiguous(), dy[r], split)
+        return acc
+    return _by_chunks(sizes, M, chunk, chunk_sums, (K, dy.shape[1]))
 
 
 def _bf16_case(geom, seed, same_sign=False):
@@ -394,17 +431,56 @@ def _bf16_case(geom, seed, same_sign=False):
 # of 4,096 rows (what a training step gives an expert)
 EMU_GEOMS = MOE_GEOMS + ((4, 256, 1024, 64), (4, 256, 64, 1024),
                          (2, 8192, 32, 32))
+# a hot group of 2,300 rows: on 4 SMs dw_chunk_rows is 1,280, so it splits
+# at 1,280 rows from its first row — inside a sum of the second warpgroup
+SPLIT_GEOM, SPLIT_SIZES = (3, 3000, 128, 256), [2300, 0, 700]
+
+
+def _emu_case(geom, seed):
+    """`_bf16_case`, or SPLIT_GEOM with SPLIT_SIZES."""
+    x, w, dy, sizes = _bf16_case(geom, seed)
+    return x, w, dy, (np.array(SPLIT_SIZES, np.int32)
+                      if geom == SPLIT_GEOM else sizes)
+
+
+def _check_dw_bf16_emulation(geom, sms, shift):
+    """The bf16 dw kernels' sums in the walk's chunks on `sms` SMs, the
+    folds of the warpgroup at `shift`, rounded to bf16 once, against
+    `jax.vjp` at the card's bf16 gate; returns (emulated sums, whether a
+    group was split)."""
+    x, w, dy, sizes = _emu_case(geom, seed=sum(geom) + 2)
+    _, want = _jax_vjp(x.float().numpy(), w.float().numpy(),
+                       dy.float().numpy(), sizes)
+    _, (_, mags) = _exact(x.float(), w.float(), dy.float(), sizes)
+    G, M, K, N = geom
+    chunk = dw_chunk_rows(M, K, N, sms)
+    got = emulate_dw_bf16(x, dy, sizes, chunk=chunk, shift=shift)
+    assert _share(got.to(torch.bfloat16), want, mags, bf16=True) <= 1.0
+    return got, chunk, (x, dy, sizes)
 
 
 @pytest.mark.parametrize("geom", EMU_GEOMS,
                          ids=lambda g: "x".join(map(str, g)))
 def test_dw_bf16_emulation_within_gate_of_jax(geom):
-    x, w, dy, sizes = _bf16_case(geom, seed=sum(geom) + 2)
-    _, want = _jax_vjp(x.float().numpy(), w.float().numpy(),
-                       dy.float().numpy(), sizes)
-    _, (_, mags) = _exact(x.float(), w.float(), dy.float(), sizes)
-    got = emulate_dw_bf16(x, dy, sizes).to(torch.bfloat16)
-    assert _share(got, want, mags, bf16=True) <= 1.0
+    """On an H100's SMs, both warpgroups' folds."""
+    for shift in (0, SUM_DEPTH // 2):
+        _check_dw_bf16_emulation(geom, H100_SMS, shift)
+
+
+@pytest.mark.parametrize("shift", [0, SUM_DEPTH // 2],
+                         ids=["warpgroup0", "warpgroup1"])
+@pytest.mark.parametrize("geom", EMU_GEOMS + (SPLIT_GEOM,),
+                         ids=lambda g: "x".join(map(str, g)))
+def test_dw_bf16_split_emulation_within_gate_of_jax(geom, shift):
+    """On 4 SMs, which splits the long groups (SPLIT_GEOM's hot group at
+    1,280 rows, inside a sum of the second warpgroup): the chunks'
+    partials added in chunk order stay within the gate, and the split
+    changes the sums."""
+    got, chunk, (x, dy, sizes) = _check_dw_bf16_emulation(geom, 4, shift)
+    if geom == SPLIT_GEOM:
+        assert chunk == 1280 and chunk < SPLIT_SIZES[0]
+        assert not torch.equal(got, emulate_dw_bf16(x, dy, sizes,
+                                                    shift=shift))
 
 
 @pytest.mark.parametrize("geom", EMU_GEOMS[:5],
@@ -470,26 +546,155 @@ def test_dw_carried_sum_misses_the_float32_term():
 
 def test_dw_kernel_constants():
     """Sums of whole ring stages, at most 256 rows deep (what the tests
-    above hold), and the float32 stage the emulation takes."""
+    above hold), the float32 stage the emulation takes, and the host's
+    walk on the source's tile and sum depth."""
     assert SUM_DEPTH % DEPTH16 == 0 and SUM_DEPTH <= 256
+    assert SUM_DEPTH % (2 * DEPTH16) == 0  # halved between the warpgroups
     assert DEPTH32 == 32
+    assert ops.SUM_DEPTH == SUM_DEPTH
+    assert ops.DW_TILE == TILE_K == TILE_N
+
+
+# ---------------------------------------------------------------------------
+# the walk: chunks, the plan, the persistent blocks' units, the route
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M,K,N,sms", [
+    (131072, 1024, 1024, 132),  # granite-moe-1b-a400m's in-projection
+    (131072, 512, 1024, 132),   # and out-projection
+    (2048, 1024, 1024, 132), (3000, 128, 256, 4), (8192, 32, 32, 4),
+    (1, 8, 8, 132), (0, 64, 64, 132), (10**6, 30, 50, 7)])
+def test_dw_chunk_rows(M, K, N, sms):
+    """A whole number of sums, at least one; where an SM's fair share of
+    the call's tile-rows is a sum or more, no unit longer than it."""
+    C = dw_chunk_rows(M, K, N, sms)
+    assert C % SUM_DEPTH == 0 and C >= SUM_DEPTH
+    tiles = -(-K // TILE_K) * -(-N // TILE_N)
+    fair = tiles * M / sms
+    if fair >= SUM_DEPTH:
+        assert C <= fair < C + SUM_DEPTH
+    else:
+        assert C == SUM_DEPTH
+    walk = dw_walk(M, K, N, 5, sms)
+    assert walk.chunk_rows == C and walk.tiles == tiles
+    assert walk.max_chunks == 5 + -(-M // C)
+    assert walk.blocks == min(sms, walk.max_chunks * tiles)
+
+
+def test_dw_chunk_rows_at_granites_shapes():
+    """On an H100 the hot expert (a third of 131,072 Zipf-1.2 rows) splits
+    into two chunks at the out-projection and stays whole at the
+    in-projection, where an SM's fair share is 64 tiles' worth."""
+    assert dw_chunk_rows(131072, 512, 1024, H100_SMS) == 31744
+    assert dw_chunk_rows(131072, 1024, 1024, H100_SMS) == 63488
+
+
+PLAN_CASES = {
+    "granite Zipf": (np.bincount(np.random.default_rng(3).zipf(1.2, 131072)
+                                 % 32, minlength=32), 131072, 15872),
+    "negative, past M": ([5, 0, 700, 300, -3, 1000], 2000, 256),
+    "all empty": ([0, 0, 0], 100, 256),
+    "no rows": ([4, 4], 0, 256),
+    "exact multiples": ([512, 256, 768, 0], 1536, 256),
+    "one group": ([9000], 9000, 1024),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_CASES))
+def test_dw_plan_ref_covers_every_row_once_longest_first(name):
+    """Every row of every group in exactly one chunk of its group, the
+    chunks cut at multiples of C from the group's first row (so at whole
+    sums) and at most C long; an empty group one chunk of no rows; the
+    chunks longest first, ties in (group, chunk) order; a split group's
+    chunks on consecutive workspace slots in chunk order, within the
+    wrapper's bound of 2·⌈M/C⌉ slots and G + ⌈M/C⌉ chunks."""
+    sizes, M, C = PLAN_CASES[name]
+    chunks, splits = dw_plan_ref(sizes, M, C)
+    ends = np.minimum(np.cumsum(np.maximum(np.asarray(sizes), 0)), M)
+    starts = np.r_[0, ends[:-1]]
+    G = len(starts)
+    assert len(chunks) <= G + -(-M // C)
+    covered = np.zeros(M, int)
+    seen = {g: [] for g in range(G)}
+    for g, r0, r1, slot in chunks:
+        assert starts[g] <= r0 <= r1 <= ends[g] and r1 - r0 <= C
+        assert (r0 - starts[g]) % C == 0
+        covered[r0:r1] += 1
+        seen[g].append((r0, r1, slot))
+    assert (covered[:int(ends[-1]) if G else 0] == 1).all()
+    assert not covered[int(ends[-1]) if G else 0:].any()
+    key = [(-(r1 - r0), g, r0) for g, r0, r1, _ in chunks]
+    assert key == sorted(key)
+    split = {g: (slot0, n) for g, slot0, n in splits}
+    assert [g for g, _, _ in splits] == sorted(split)
+    slots = 0
+    for g in range(G):
+        parts = sorted(seen[g])
+        if ends[g] == starts[g]:
+            assert parts == [(starts[g], starts[g], -1)]
+        elif g in split:
+            slot0, n = split[g]
+            assert slot0 == slots and len(parts) == n > 1
+            assert [p[2] for p in parts] == list(range(slot0, slot0 + n))
+            slots += n
+        else:
+            assert len(parts) == 1 and parts[0][2] == -1
+    assert slots <= 2 * -(-M // C)
+
+
+@pytest.mark.parametrize("K,N,offset,want", [
+    (1024, 1024, 0, "moe_gemm_dw_sm90"),  # granite's in-projection
+    (512, 1024, 0, "moe_gemm_dw_sm90"),   # and out-projection
+    (24, 16, 0, "moe_gemm_dw_sm90"),
+    (24, 16, 1, "moe_gemm_dw_bf16"),      # x one value into its storage
+    (30, 16, 0, "moe_gemm_dw_bf16"),      # x rows of 30
+    (24, 12, 0, "moe_gemm_dw_bf16"),      # dy rows of 12
+    (8, 8, 0, "moe_gemm_dw_sm90"),
+])
+def test_route_dw_predicate(K, N, offset, want):
+    """bf16 dw takes gg_dw_sm90 exactly where a TMA tensor map can
+    describe x and dy: both bases 16-byte aligned, K and N multiples of 8
+    (their rows then 16-byte aligned too); float32 takes gg_dw_tf32
+    whatever the layout."""
+    M = 40
+    store = torch.zeros(offset + M * K + 64, dtype=torch.bfloat16)
+    x = store[offset:offset + M * K].view(M, K)
+    dy = torch.zeros((M, N), dtype=torch.bfloat16)
+    assert route_dw(x, dy) == want
+    assert route_dw(x.float(), dy.float()) == "moe_gemm_dw"
+
+
+def _check_tf32_backward_emulation(geom, sms):
+    x, w, dy, sizes = (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                       and a.dtype == np.float32 else a
+                       for a in _case(geom, seed=sum(geom) + 4))
+    if geom == SPLIT_GEOM:
+        sizes = np.array(SPLIT_SIZES, np.int32)
+    want = _jax_vjp(x.numpy(), w.numpy(), dy.numpy(), sizes)
+    exact, mags = _exact(x, w, dy, sizes)
+    G, M, K, N = geom
+    got = (emulate_grouped_gemm(dy, w.transpose(1, 2).contiguous(), sizes),
+           emulate_dw_tf32(x, dy, sizes,
+                           chunk=dw_chunk_rows(M, K, N, sms)))
+    for g, wt, e, m in zip(got, want, exact, mags):
+        assert _share(g, wt, m, bf16=False) <= 1.0
+        assert _share(g, e, m, bf16=False) <= 0.5
 
 
 @pytest.mark.parametrize("geom", EMU_GEOMS[:6],
                          ids=lambda g: "x".join(map(str, g)))
 def test_tf32_backward_emulation_within_the_float32_gate(geom):
-    """float32 dx (`gg_tf32` on wᵀ) and dw (`gg_dw_tf32`) in 3xTF32 against
-    `jax.vjp` at the float32 gate, and against float64 within half of it."""
-    x, w, dy, sizes = (torch.from_numpy(a) if isinstance(a, np.ndarray)
-                       and a.dtype == np.float32 else a
-                       for a in _case(geom, seed=sum(geom) + 4))
-    want = _jax_vjp(x.numpy(), w.numpy(), dy.numpy(), sizes)
-    exact, mags = _exact(x, w, dy, sizes)
-    got = (emulate_grouped_gemm(dy, w.transpose(1, 2).contiguous(), sizes),
-           emulate_dw_tf32(x, dy, sizes))
-    for g, wt, e, m in zip(got, want, exact, mags):
-        assert _share(g, wt, m, bf16=False) <= 1.0
-        assert _share(g, e, m, bf16=False) <= 0.5
+    """float32 dx (`gg_tf32` on wᵀ) and dw (`gg_dw_tf32`, in the walk's
+    chunks on an H100's SMs) in 3xTF32 against `jax.vjp` at the float32
+    gate, and against float64 within half of it."""
+    _check_tf32_backward_emulation(geom, H100_SMS)
+
+
+@pytest.mark.parametrize("geom", EMU_GEOMS[:6] + (SPLIT_GEOM,),
+                         ids=lambda g: "x".join(map(str, g)))
+def test_tf32_backward_split_emulation_within_the_float32_gate(geom):
+    """The same on 4 SMs, which splits the long groups: dw's chunk
+    partials added in chunk order."""
+    _check_tf32_backward_emulation(geom, 4)
 
 
 def test_tf32_backward_single_rounding_misses_the_gate():
