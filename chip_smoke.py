@@ -15,7 +15,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    `fa_bwd_dq_sm90`, float32 `fa_bwd_pre_tf32`, `fa_bwd_dkdv_tf32`,
    `fa_bwd_dq_tf32`; B4's backward: the dx forms of `gg_tf32`, `gg_sm90`
    and `gg_bf16`, and `gg_dw_sm90`, `gg_dw_bf16`, `gg_dw_tf32` with their
-   prologue `dw_plan` and the partials' sum `dw_reduce`).
+   prologue `dw_plan` and the partials' sum `dw_reduce`; B7's backward:
+   `ssd_bwd_dstates`, `ssd_bwd_state_pass`, `ssd_bwd_chunk`).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -59,7 +60,14 @@ Phases, each of which raises (non-zero exit) on any failed check:
    plan equal to `ops.dw_plan_ref`; two calls at the granite shapes and
    the split case give the same bits; dw without 128 rows of the largest
    group, dw without one chunk's partial of a split group, and dx without
-   the smallest group's rows, caught.
+   the smallest group's rows, caught. B7's backward ("mamba_scan_bwd",
+   float32, through `mamba_ssd` under autograd) against `ssd_scan_bwd_ref`
+   in float64 (`ssd_bwd_check`'s gate) at zamba2's training shape (2,
+   4,096, 64 heads, 64, d_state 64, chunk 128), a chunk of 200 run as 100,
+   one chunk, hd 5 / ds 3 / chunk 7, hd 40 / ds 24 / 33 heads and decays
+   that underflow, dh_final given and not; dx, ddt and dB without one
+   chunk's incoming gradient and dB, dC without one head group's partial,
+   caught; two calls at the training shape give the same bits.
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -142,7 +150,11 @@ Phases, each of which raises (non-zero exit) on any failed check:
    (dx and dw together), `torch._grouped_mm` for the same product, the
    bound over the rows inside the groups, the dw walk's chunk rows, split
    groups and workspace bytes, and in bf16 `gg_bf16`'s dx beside
-   `gg_sm90`'s and `gg_dw_bf16`'s dw beside `gg_dw_sm90`'s. The segment
+   `gg_sm90`'s and `gg_dw_bf16`'s dw beside `gg_dw_sm90`'s. Row 7b: B7's
+   backward at zamba2-1.2b's training shape and phase 5's ssd stage: call
+   and device ms (split into its three kernels), the plain version, the
+   bound (3xTF32 operations, the FMA bound beside it), no library call,
+   and the outputs held to phase 2's gate at each shape. The segment
    combine is timed
    at the writer combines of stages (a) add (`index_add_`), (c) min
    (`index_reduce_(..., "amin")`) and (b) write (no one call). The
@@ -270,12 +282,15 @@ Phases, each of which raises (non-zero exit) on any failed check:
    logits, decode caches; xlstm's recurrent states on the reference's
    stabilizer), within `lm_gate` of max|·| (granite also counts the decode
    steps' expert choices that differ from the prefill's), and each of
-   `lm_faults` planted must miss it. Each config at n_layers=2 in float32
+   `lm_faults` planted must miss it. The second `generate` and the cache
+   consistency run granite at 8 layers, zamba2 at 19, tinyllama at 11 and
+   xlstm at 16 (`LM_CHECK_LAYERS`). Each config at n_layers=2 in float32
    on the card against float64 on the CPU (logits and caches within
    LM_F32_REL of max|ref|), and `mamba_ssd`'s final state at (8, 4096, 64,
    64) against the plain version.
-14. Training (`repro_torch.runtime.Trainer`, `Model.loss_fn`, B5's
-   backward): tinyllama-1.1b at full width and depth in bf16 (random
+14. Training (`repro_torch.runtime.Trainer`, `Model.loss_fn`, B4's,
+   B5's and B7's backwards): tinyllama-1.1b at full width and depth in
+   bf16 (random
    weights from a seed), `SyntheticLMStream` of batch 4 x 4,096 tokens,
    int8 gradient compression, AdamW with a 2-step warmup, 5 steps: once
    uninterrupted (step ms, tokens/s, peak memory; B5's forward and
@@ -298,7 +313,16 @@ Phases, each of which raises (non-zero exit) on any failed check:
    backward ms inside a step; its float32 twin (2 layers, 1 x 256: 64-row tiles) against float64
    on the CPU with the float64 routing pinned to the card's experts
    (TRAIN_F32_LOSS, TRAIN_F32_REL; the tokens it would have routed
-   elsewhere counted).
+   elsewhere counted). Then zamba2-1.2b at full width and depth in bf16
+   (38 Mamba2 layers, 7 applications of the shared attention block),
+   batch 2 x 4,096, 4 steps, compression on, no checkpoint: losses
+   finite, the first within TRAIN_MOE_FIRST_REL of the float32 loss,
+   launches exact (a step: one B7 forward and one backward a Mamba layer,
+   float32 as the layer lifts the scan's inputs, and B5's forward and
+   backward an application), step ms, tokens/s, peak memory, B7's and
+   B5's forward and backward ms inside a step (B7's backward by kernel
+   from the profiler); its float32 twin (2 layers, 1 x 256) against
+   float64 on the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -359,7 +383,8 @@ def kernel_resources(nvcc_log: Path, names=("fa_tf32", "fa_sm90",
                                              "fa_bwd_dq",
                                              "fd_split", "fd_sm90",
                                              "ssd_states", "ssd_state_pass",
-                                             "ssd_outputs", "gg_tf32",
+                                             "ssd_outputs", "ssd_bwd_",
+                                             "gg_tf32",
                                              "gg_sm90", "gg_bf16",
                                              "gg_dw_tf32", "gg_dw_bf16",
                                              "gg_dw_sm90", "dw_plan",
@@ -947,7 +972,7 @@ def _launch(**kw):
             "flash_attention_sm90": 0, "flash_attention_bwd_tf32": 0,
             "flash_attention_bwd_bf16": 0,
             "flash_decode": 0, "flash_decode_sm90": 0, "mamba_scan": 0,
-            **kw}
+            "mamba_scan_bwd": 0, **kw}
 
 
 # launches of each kernel in each stage of the main path: K1 where Phase 1
@@ -2762,16 +2787,17 @@ def bwd_counter(dtype: str) -> str:
             else "flash_attention_bwd_tf32")
 
 
-def bwd_split(events: dict, source: str):
-    """A backward call's device ms by kernel (`BWD_PARTS`) from
-    `device_ms`'s events by name; the rest (fills, allocations) as
-    "other". None where `device_ms` fell back to CUDA events
-    (`source` not "profiler"): those have no events by name."""
+def bwd_split(events: dict, source: str, parts: dict = BWD_PARTS):
+    """A backward call's device ms by kernel (`parts`: {part: a substring
+    of its kernel's name}) from `device_ms`'s events by name; the rest
+    (fills, allocations, sums) as "other". None where `device_ms` fell back
+    to CUDA events (`source` not "profiler"): those have no events by
+    name."""
     if source != "profiler":
         return None
-    out = {k: 0.0 for k in (*BWD_PARTS, "other")}
+    out = {k: 0.0 for k in (*parts, "other")}
     for name, ms in events.items():
-        part = next((k for k, v in BWD_PARTS.items() if v in name), "other")
+        part = next((k for k, v in parts.items() if v in name), "other")
         out[part] += ms
     return out
 
@@ -3115,6 +3141,358 @@ def attention_bwd_timing(dev, errors: dict) -> list:
                 f"{s['max_abs_err']:.4g}, {s['share_of_gate']:.4f} of the "
                 f"gate; at {s['shape']}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# B7's backward (csrc/mamba_scan_bwd.cu, float32): parity (phase 2), and
+# times and the gate at row 7b's shapes (phase 6)
+# ---------------------------------------------------------------------------
+# The backward through `mamba_ssd` under autograd (the kernels' forward,
+# its saved states and l, then the three backward kernels) against
+# `ssd_scan_bwd_ref` in float64 on the same inputs, each of dx, ddt, dA,
+# dB, dC within the forward's gate form: (SSD_REL + 8·u32·max|l|)·Σ|terms|
+# + 1e-6, Σ|terms| being `ssd_scan_bwd_ref(terms=True)` (the same pass on
+# |x|, |B|, |C|, |dy|, |dh_final|, |A| with every difference a sum). Set
+# before the first run on the card: every product 3xTF32 (~2^-21 of each
+# term) summed in float32 a k-step, dl's sums over up to 128 steps and dB,
+# dC over up to 32 heads a block in float32 (√n·u32 in practice), the
+# decays' exp(l_t − l_s) from float32 l (the max|l| part, as the forward).
+# tests/test_torch_ssd_emulation.py holds the kernels' arithmetic,
+# emulated, against float64 at this gate and shows one TF32 rounding of W
+# or P missing it.
+# dA has a limit of its own, the same rel on the root-sum-square of its
+# (row, chunk, step) parts' Σ|terms| (`ssd_scan_bwd_ref(dA_steps=True)`):
+# rounding in different steps is independent, so it adds in quadrature,
+# and its terms cancel (dl's pairs enter twice with opposite signs), so
+# the Σ|terms| gate of the other outputs came to ~5x the median |dA| at
+# zamba2's training shape and could not see a dA that was zero, half
+# summed or permuted. On the CPU (float64, 16 heads of that shape) the
+# limit is 0.21x the median |dA|; the plain float32 backward reads
+# 5.8e-5 of it, dropping row 1's partial of chunk 7 2.4x it, row 1's
+# partials 12.5x and rotating the heads 117x; phase 2 plants those three
+# (`ssd_bwd_da_faults`).
+SSD_BWD_SOURCE = "src/repro_torch/csrc/mamba_scan_bwd.cu"
+# the JAX package's backward of the scan: `jax.grad` of the XLA ops of
+# `mamba_chunked` (no Pallas kernel)
+SSD_BWD_REPLACES = "src/repro/models/mamba.py:77"
+SSD_BWD_PARTS = {"dstates": "ssd_bwd_dstates", "state_pass":
+                 "ssd_bwd_state_pass", "chunk": "ssd_bwd_chunk"}
+SSD_BWD_OUTPUTS = ("dx", "ddt", "dA", "dB", "dC")
+# (tag, B, S, nh, hd, ds, chunk, dh_final given, large decays)
+SSD_BWD_PARITY = [
+    ("train_zamba2", 2, 4096, 64, 64, 64, 128, False, False),
+    ("kernel chunk 100", 2, 400, 17, 64, 64, 200, True, False),
+    ("one chunk", 2, 128, 3, 32, 16, 128, True, False),
+    ("hd 5, ds 3, chunk 7", 2, 42, 20, 5, 3, 7, True, False),
+    ("hd 40, ds 24, 33 heads", 1, 256, 33, 40, 24, 64, True, False),
+    ("decays underflow", 2, 64, 3, 16, 8, 16, True, True),
+]
+# bulk faults at (1, 2,048, 64, 64, 64, 128): 16 chunks, two head groups
+SSD_BWD_BULK_CASE = ("bulk faults", 1, 2048, 64, 64, 64, 128, True, False)
+SSD_BWD_BULK_CHUNK = 7  # the chunk whose incoming G is dropped
+SSD_BWD_DA_FAULT = (1, 7)  # (row, chunk) of the dA partial dropped
+
+
+def ssd_bwd_inputs(dev, case, seed: int) -> tuple:
+    """(x, dt, A, Bc, Cc, dy, dh_final or None) float32 on the device from
+    the seed, as `stage_inputs` makes the scan's (dt ~ U(0.01, 0.3), A ~
+    −U(0.3, 2.0); with large decays dt ~ U(1, 5), A ~ −U(5, 25), l falling
+    by up to ~2,000 within a chunk of 16)."""
+    import torch
+
+    _, B, S, nh, hd, ds, chunk, with_dh, large = case
+    st = dict(kernel="mamba_scan", B=B, S=S, nh=nh, hd=hd, ds=ds,
+              chunk=chunk)
+    x, dt, A, Bc, Cc = stage_inputs(st, "float32", dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    if large:
+        dt = 1 + 4 * torch.rand((B, S, nh), generator=g, device=dev)
+        A = -(5 + 20 * torch.rand((nh,), generator=g, device=dev))
+    dy = torch.randn((B, S, nh, hd), generator=g, device=dev)
+    dh = (torch.randn((B, nh, hd, ds), generator=g, device=dev)
+          if with_dh else None)
+    return x, dt, A, Bc, Cc, dy, dh
+
+
+def ssd_bwd_call(inputs: tuple, chunk: int) -> tuple:
+    """The backward as training reaches it: `mamba_ssd(return_state=True)`
+    under autograd, then `torch.autograd.grad` with dy (and dh_final):
+    (dx, ddt, dA, dB, dC)."""
+    import torch
+
+    from repro_torch.kernels import mamba_ssd
+
+    x, dt, A, Bc, Cc, dy, dh = inputs
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bc, Cc)]
+    with torch.enable_grad():
+        y, h = mamba_ssd(*leaves, chunk=chunk, return_state=True)
+        outs, grads = ([y], [dy]) if dh is None else ([y, h], [dy, dh])
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+def ssd_bwd_gate(inputs: tuple, chunk: int) -> tuple:
+    """(want, allowed, dA's partials): `ssd_scan_bwd_ref` in float64 on the
+    inputs; each output's gate, (SSD_REL + 8·u32·max|l|)·Σ|terms| + 1e-6,
+    dA's with the root-sum-square of its steps' Σ|terms| in place of their
+    sum; and dA's partial of each (row, chunk), (B, NC, nh)."""
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_bwd_ref
+
+    x, dt, A, Bc, Cc, dy, dh = (None if t is None else t.double()
+                                for t in inputs)
+    c = min(chunk, x.shape[1])
+    max_l = float((dt * A).reshape(x.shape[0], -1, c, x.shape[2]).cumsum(
+        2).abs().max().item())
+    want = list(ssd_scan_bwd_ref(x, dt, A, Bc, Cc, dy, dh, chunk=chunk,
+                                 dA_steps=True))
+    mags = ssd_scan_bwd_ref(x, dt, A, Bc, Cc, dy, dh, chunk=chunk,
+                            terms=True, dA_steps=True)
+    rel = SSD_REL + 8 * U32 * max_l
+    parts = want[2].sum(3)
+    want[2] = parts.sum((0, 1))
+    allowed = [rel * m + 1e-6 for m in mags]
+    allowed[2] = rel * mags[2].square().sum((0, 1, 3)).sqrt() + 1e-6
+    return tuple(want), tuple(allowed), parts
+
+
+def ssd_bwd_check(got, inputs, chunk: int, name: str, gate=None) -> tuple:
+    """(max |Δ|, share of the gate, {output: share}) of the backward's five
+    outputs against `ssd_bwd_gate`'s (`gate` where given); raises past
+    it."""
+    want, allowed, _ = gate or ssd_bwd_gate(inputs, chunk)
+    out = {n: _within(g, w, a, f"{name} {n}")
+           for n, g, w, a in zip(SSD_BWD_OUTPUTS, got, want, allowed)}
+    return (max(e for e, _ in out.values()),
+            max(s for _, s in out.values()),
+            {n: s for n, (_, s) in out.items()})
+
+
+def ssd_bwd_bulk_faults(dev, seed: int) -> dict:
+    """At SSD_BWD_BULK_CASE: the kernels' outputs within the gate, and each
+    planted fault beyond it (raises otherwise): (a) the gradient that the
+    later chunks and dh_final send into chunk SSD_BWD_BULK_CHUNK dropped
+    from that chunk's dx, ddt and dB (its G_k taken as 0), (b) dB and (c)
+    dC without the partial of the second group of 32 heads. Each missing
+    part is `ssd_scan_bwd_ref` in float64 with dy (and dh_final) zeroed
+    outside it: the backward is linear in them. Returns each fault's share
+    of the gate and the gate's median over the median |ref| per output."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan.ops import HEADS_PER_BLOCK
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_bwd_ref
+
+    case = SSD_BWD_BULK_CASE
+    chunk = case[6]
+    inputs = ssd_bwd_inputs(dev, case, seed)
+    got = ssd_bwd_call(inputs, chunk)
+    gate = ssd_bwd_gate(inputs, chunk)
+    want, allowed, _ = gate
+    ssd_bwd_check(got, inputs, chunk, "bulk-fault case", gate)
+    x, dt, A, Bc, Cc, dy, dh = (t.double() for t in inputs)
+
+    def part(dy_m, dh_m):
+        return ssd_scan_bwd_ref(x, dt, A, Bc, Cc, dy_m, dh_m, chunk=chunk)
+
+    def share(i: int, bad) -> float:
+        return float(((bad - want[i]).abs() / allowed[i]).max())
+    k0 = SSD_BWD_BULK_CHUNK * chunk
+    rows = slice(k0, k0 + chunk)
+    later = dy.clone()
+    later[:, :k0 + chunk] = 0  # what reaches chunk k through its G
+    g_part = part(later, dh)
+    heads = slice(HEADS_PER_BLOCK, None)
+    dy_g, dh_g = torch.zeros_like(dy), torch.zeros_like(dh)
+    dy_g[:, :, heads], dh_g[:, heads] = dy[:, :, heads], dh[:, heads]
+    grp = part(dy_g, dh_g)
+    faults = {}
+    for i, n in ((0, "dx"), (1, "ddt"), (3, "dB")):
+        bad = got[i].double().clone()
+        bad[:, rows] -= g_part[i][:, rows]
+        faults[f"{n} without chunk {SSD_BWD_BULK_CHUNK}'s G"] = share(i, bad)
+    for i, n in ((3, "dB"), (4, "dC")):
+        faults[f"{n} without the second head group"] = share(
+            i, got[i].double() - grp[i])
+    for tag, v in faults.items():
+        if v <= 1.0:
+            raise AssertionError(f"the scan backward's gate does not see "
+                                 f"{tag}: {v:.4g} of it")
+    typical = {n: float(a.median() / w.abs().median())
+               for n, w, a in zip(SSD_BWD_OUTPUTS, want, allowed)}
+    return {"faults": faults, "gate_over_median_ref": typical}
+
+
+def ssd_bwd_da_faults(dA, gate: tuple) -> dict:
+    """dA planted wrong, each reading past dA's limit (raises otherwise):
+    (a) the partial of SSD_BWD_DA_FAULT's (row, chunk) dropped, (b) that
+    row's partials all dropped, (c) the heads' values rotated by one. The
+    partials are `ssd_bwd_gate`'s (float64). Returns each fault's share
+    of the limit."""
+    want, allowed, parts = gate
+    b, k = SSD_BWD_DA_FAULT
+    got = dA.double()
+    bad = {f"dA without row {b}'s chunk {k}": got - parts[b, k],
+           f"dA without row {b}": got - parts[b].sum(0),
+           "dA's heads rotated by one": got.roll(1)}
+    faults = {t: float(((v - want[2]).abs() / allowed[2]).max())
+              for t, v in bad.items()}
+    for tag, v in faults.items():
+        if v <= 1.0:
+            raise AssertionError(f"dA's limit does not see {tag}: {v:.4g} "
+                                 "of it")
+    return faults
+
+
+def ssd_bwd_parity(dev) -> dict:
+    """Phase 2's scan-backward cases (SSD_BWD_PARITY): each call launches
+    the forward and the backward once and lands within `ssd_bwd_check`'s
+    gate; the bulk faults miss it, and at the training shape the dA faults
+    (`ssd_bwd_da_faults`) miss dA's; two calls at the training shape give
+    the same bits. Returns the worst max |Δ| and the shares."""
+    import torch
+
+    from repro_torch import kernels
+
+    worst, shares, seed = 0.0, {}, SEED + 700
+    da_faults = None
+    for case in SSD_BWD_PARITY:
+        seed += 2
+        inputs = ssd_bwd_inputs(dev, case, seed)
+        before = kernels.launches()
+        got = ssd_bwd_call(inputs, case[6])
+        torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in kernels.launches().items()
+               if v != before[k]}
+        if ran != {"mamba_scan": 1, "mamba_scan_bwd": 1}:
+            raise AssertionError(f"scan backward {case[0]}: launched {ran}")
+        gate = ssd_bwd_gate(inputs, case[6])
+        e, share, each = ssd_bwd_check(got, inputs, case[6],
+                                       f"scan backward {case[0]}", gate)
+        worst = max(worst, e)
+        shares[case[0]] = each
+        if case[0] == "train_zamba2":  # the same bits from the same inputs
+            da_faults = ssd_bwd_da_faults(got[2], gate)
+            again = ssd_bwd_call(inputs, case[6])
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("scan backward at train_zamba2: two "
+                                     "calls on the same inputs differ")
+            del again
+        del inputs, got, gate
+        torch.cuda.empty_cache()
+    bulk = ssd_bwd_bulk_faults(dev, seed + 2)
+    bulk["faults"].update(da_faults)
+    torch.cuda.empty_cache()
+    def rounded(d: dict) -> dict:
+        return {k: float(f"{v:.4g}") for k, v in d.items()}
+    log(f"  scan backward (mamba_scan_bwd, through mamba_ssd's autograd): "
+        f"{len(SSD_BWD_PARITY)} cases "
+        f"({', '.join(c[0] for c in SSD_BWD_PARITY)}), dx / ddt / dA / dB "
+        f"/ dC within ({SSD_REL} + 8·u32·max|l|)·Σ|terms| + 1e-6 against "
+        "float64 (dA: the root-sum-square of its steps' Σ|terms|); shares "
+        "of the gate "
+        f"{({k: rounded(d) for k, d in shares.items()})}; two calls at "
+        "train_zamba2 give the same bits")
+    log(f"  scan backward bulk faults at {SSD_BWD_BULK_CASE[1:7]} (dA's at "
+        f"train_zamba2), shares of the gate (each must pass 1): "
+        f"{rounded(bulk['faults'])}; the "
+        "gate's median over the median |ref| "
+        f"{rounded(bulk['gate_over_median_ref'])}")
+    return {"worst": worst, "shares": shares, "bulk": bulk}
+
+
+def ssd_bwd_timing_shapes() -> list:
+    """Row 7b's shapes: zamba2-1.2b's training step (phase 14) and phase
+    5's ssd stage."""
+    ssd = next(st for st in attention_ssm_stages() if st["tag"] == "ssd")
+    train = dict(ssd, tag="train_zamba2", B=TRAIN_SSM_BATCH,
+                 S=TRAIN_SSM_SEQ,
+                 source="zamba2-1.2b training step (phase 14)")
+    return [train, ssd]
+
+
+def _ssd_bwd_work(st: dict) -> tuple:
+    """(bytes, operations, rate) of one backward call in float32: its
+    inputs read once (x, dy, dt, A, B, C, the forward's states and l) and
+    dx, ddt, dA, dB, dC written once (the G scratch not counted); the
+    operations its data needs: per (b, chunk, head) the causal c(c+1)/2
+    pairs of P = dy·xᵀ, Wᵀ·dy (hd deep), Qᵀ·C and Q·B (ds deep), and
+    c·hd·ds for each of B·Gᵀ, x·G, dy·H and D_k; C·Bᵀ once per (b, chunk),
+    its heads sharing it."""
+    B, S, nh, hd, ds, c = (st[k] for k in ("B", "S", "nh", "hd", "ds",
+                                            "chunk"))
+    c = min(c, S)
+    NC = S // c
+    pairs = c * (c + 1) // 2
+    nbytes = 4 * (3 * B * S * nh * hd + 2 * B * S * nh + nh
+                  + 4 * B * S * ds + B * nh * NC * (hd * ds + 128))
+    ops = 2 * B * NC * (pairs * ds + nh * (2 * pairs * (hd + ds)
+                                           + 4 * c * hd * ds))
+    return nbytes, ops, FP32_TC_OPS_PER_S
+
+
+def ssd_bwd_timing(dev, worst: float) -> dict:
+    """Row 7b: the backward's call ms (CUDA events around `ops._backward`
+    on the forward's own saved states) and device ms (torch.profiler, split
+    by kernel) at `ssd_bwd_timing_shapes()`, beside the plain version on
+    the same float32 inputs (one timed run), the bound (`_ssd_bwd_work`;
+    the FMA bound beside it) and each shape's own outputs at phase 2's
+    gate. No one PyTorch call computes it: library null. Launches are
+    filled in by phase 14."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import ops
+
+    shapes = []
+    for i, st in enumerate(ssd_bwd_timing_shapes()):
+        case = (st["tag"], st["B"], st["S"], st["nh"], st["hd"], st["ds"],
+                st["chunk"], False, False)
+        inputs = ssd_bwd_inputs(dev, case, SEED + 800 + i)
+        x, dt, A, Bc, Cc, dy, _ = inputs
+        chunk = st["chunk"]
+        _, _, states, l = ops._forward(x, dt, A, Bc, Cc, chunk, True, True)
+
+        def call(inputs=inputs, states=states, l=l):
+            return ops._backward(*inputs[:6], None, states, l, chunk)
+
+        def plain(inputs=inputs):
+            return ops.ssd_scan_bwd_ref(*inputs[:6], None, chunk=chunk)
+        nbytes, nops, rate = _ssd_bwd_work(st)
+        b_ms, b_by = bound(nbytes, nops, rate)
+        row = dict(stage=st["tag"], dtype="float32", config=st["source"],
+                   shape=(f"{st['tag']}: x/dy ({st['B']}, {st['S']}, "
+                          f"{st['nh']}, {st['hd']}), B/C ({st['B']}, "
+                          f"{st['S']}, {st['ds']}) float32, chunk "
+                          f"{chunk}"),
+                   ms=time_auto(call),
+                   plain_ms=time_ms(plain, reps=1, warmup=1),
+                   bound_ms=b_ms, bound_by=b_by,
+                   bound_fma_ms=bound(nbytes, nops)[0], bytes=nbytes,
+                   operations=nops, library_ms=None,
+                   library_note="no one PyTorch call computes the SSD "
+                   "scan's backward")
+        row["device_ms"], row["device_events"], row["device_source"] = \
+            device_ms(call, reps=5)
+        row["device_split"] = bwd_split(row["device_events"],
+                                        row["device_source"], SSD_BWD_PARTS)
+        # the call's own outputs at this shape, at phase 2's gate
+        row["max_abs_err"], row["share_of_gate"], _ = ssd_bwd_check(
+            ssd_bwd_call(inputs, chunk), inputs, chunk,
+            f"row 7b {st['tag']}")
+        shapes.append(row)
+        del inputs, states, l, x, dt, A, Bc, Cc, dy
+        torch.cuda.empty_cache()
+    for s in shapes:
+        split = ("split not measured" if s["device_split"] is None
+                 else ", ".join(f"{k} {v:.4f}"
+                                for k, v in s["device_split"].items()))
+        log(f"  mamba_scan_bwd: call {s['ms']:.4f} ms, device "
+            f"{s['device_ms']:.4f} ms ({split}), plain {s['plain_ms']:.4f}, "
+            f"library null, bound {s['bound_ms']:.4f} by {s['bound_by']} / "
+            f"{s['bound_fma_ms']:.4f} in FMAs; max |Δ| "
+            f"{s['max_abs_err']:.4g}, {s['share_of_gate']:.4f} of the gate; "
+            f"at {s['shape']}")
+    worst = max([worst] + [s["max_abs_err"] for s in shapes])
+    return dict(name="mamba_scan_bwd", route="cuda", source=SSD_BWD_SOURCE,
+                replaces=SSD_BWD_REPLACES, launches=0,
+                **{**shapes[0], "max_abs_err": worst}, shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -6006,6 +6384,18 @@ LM_SEED = 41
 # would take most of its check's time in the 7 prefills
 LM_CHECK_STEPS = 128
 LM_CHECK_PROMPT = {"xlstm": 1024}
+# checks 2 and 3 (kernel calls against their plain versions, cache
+# consistency and its faults) run on a model of the config at this depth,
+# with its own random weights from LM_SEED, where the pattern has an
+# entry: the run clock pays for B7's backward and phase 14's zamba2 part
+# with them. Every layer kind and kernel shape of the full model is still
+# there; at full depth granite's 32 layers (224 ms a decode step at batch
+# 8) took ~92 s of the phase in check 2's three 128-step runs, zamba2's
+# 38 ~30 s; at 16 and 19 layers 48.2 and 20.7 s, tinyllama's 22 16.8 s
+# (a fast host). On a host 1.4x slower the whole run read 1,111 s with
+# granite at 16 and xlstm at 24 (68.8 and 37.6 s of check 2), so granite
+# runs them at 8 layers and xlstm at two units of its three.
+LM_CHECK_LAYERS = {"moe": 8, "zamba2": 19, "dense": 11, "xlstm": 16}
 LM_TIMED_STEPS = 32  # decode steps timed one by one (the median is kept)
 LM_BUSY_STEPS = 4  # decode steps under torch.profiler
 # Check 2's gate, as a share of max|logits|, set before the first chip run:
@@ -6508,7 +6898,10 @@ def lm_serve(dev, cfg) -> dict:
     every kernel call held against its plain version (its prefill and all
     its decode steps, at the main path's shapes). (3) Cache consistency
     (`lm_consistency`) within `lm_gate(cfg)`; then each of `lm_faults(cfg)`,
-    planted, must miss that gate."""
+    planted, must miss that gate. Checks 2 and 3 run at LM_CHECK_LAYERS'
+    depth where the pattern has an entry."""
+    import dataclasses
+
     import torch
 
     from repro_torch import kernels
@@ -6598,6 +6991,13 @@ def lm_serve(dev, cfg) -> dict:
 
     part_s["main path and timings"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
+    if cfg.pattern in LM_CHECK_LAYERS:  # checks 2 and 3 at a cut depth
+        del model
+        torch.cuda.empty_cache()
+        model = Model(dataclasses.replace(
+            cfg, n_layers=LM_CHECK_LAYERS[cfg.pattern]), device=dev,
+            seed=LM_SEED)
+    row["check_layers"] = model.cfg.n_layers
 
     # (2) the main path again, every kernel call against its plain version
     checks = []
@@ -6768,8 +7168,9 @@ def lm_path(dev) -> dict:
             worst[n] = (worst.get(n, (0, 0))[0] + 1,
                         max(worst.get(n, (0, 0))[1], s))
         lengths = [k["length"] for k in r["kernel_checks"] if k["length"]]
-        log(f"  {r['arch']}: generate's kernel calls against their plain "
-            f"versions (calls, worst share of the gate): "
+        log(f"  {r['arch']}: at {r['check_layers']} layers, generate's "
+            "kernel calls against their plain versions (calls, worst share "
+            "of the gate): "
             f"{ {n: (c, round(s, 4)) for n, (c, s) in worst.items()} }"
             + (f"; decode lengths {min(lengths)}-{max(lengths)}"
                if lengths else ""))
@@ -6902,6 +7303,14 @@ def _GemmEvents() -> _KernelEvents:
                          ("grouped_gemm_ref", "grouped_gemm_bwd_ref"))
 
 
+def _SSDEvents() -> _KernelEvents:
+    """Every B7 forward and backward launch (`mamba_scan.ops._forward` /
+    `_backward`) and its plain versions' calls."""
+    return _KernelEvents("repro_torch.kernels.mamba_scan.ops",
+                         {"_forward": "forward", "_backward": "backward"},
+                         ("ssd_scan_fwd_ref", "ssd_scan_bwd_ref"))
+
+
 def _train_launches(cfg, steps: int, dtype: str) -> dict:
     """One forward and one backward launch a layer a step."""
     return _launch(**{launched_kernel("flash_attention", dtype):
@@ -6940,8 +7349,9 @@ def train_f32_check(dev, arch: str = TRAIN_ARCH) -> dict:
     the card: one `loss_fn` forward and backward (3xTF32 B5 forward and
     backward, one each a layer; for the MoE pattern B1 and B4's forward,
     dx and dw as `_moe_train_launches` counts them, at 1 x 256 tokens 64-row
-    tiles) against the same weights in float64 on the CPU (the plain
-    versions): the loss within TRAIN_F32_LOSS of |ref|, each parameter's
+    tiles; for zamba2 B7's forward and backward a Mamba layer and B5's an
+    application of the shared block, `_ssm_train_launches`) against the
+    same weights in float64 on the CPU (the plain versions): the loss within TRAIN_F32_LOSS of |ref|, each parameter's
     gradient within TRAIN_F32_REL of its max|ref|. A MoE model's float64
     run takes the card's top-k experts (its gates and aux loss from its
     own float64 probabilities at them); the tokens whose top-k set its own
@@ -6991,16 +7401,17 @@ def train_f32_check(dev, arch: str = TRAIN_ARCH) -> dict:
         return loss.detach(), dict(zip(names, got))
 
     kernels.reset_launches()
-    with _AttnEvents() as ev, _GemmEvents() as gev:
+    with _AttnEvents() as ev, _GemmEvents() as gev, _SSDEvents() as sev:
         loss, got = grads(model, dev, recorded)
         torch.cuda.synchronize(dev)
     ran = kernels.launches()
-    want_launch = (_moe_train_launches if cfg.pattern == "moe"
-                   else _train_launches)(cfg, 1, "float32")
-    if ran != want_launch or ev.plain or gev.plain:
+    want_launch = {"moe": _moe_train_launches, "zamba2": _ssm_train_launches
+                   }.get(cfg.pattern, _train_launches)(cfg, 1, "float32")
+    plain = ev.plain + gev.plain + sev.plain
+    if ran != want_launch or plain:
         raise AssertionError(f"{arch} float32 twin: launched {ran} and the "
-                             f"plain versions {ev.plain + gev.plain} times, "
-                             f"expected {want_launch} and none")
+                             f"plain versions {plain} times, expected "
+                             f"{want_launch} and none")
     rloss, want = grads(ref, "cpu", pinned)
     loss_err, loss_share = _within(loss.cpu(), rloss, TRAIN_F32_LOSS *
                                    rloss.abs(), f"{arch} float32 twin loss")
@@ -7292,6 +7703,153 @@ def train_moe_path(dev) -> dict:
     return row
 
 
+# zamba2-1.2b (src/repro/configs/zamba2_1_2b.py) at full width and depth:
+# 38 Mamba2 layers (d_model 2,048, 64 heads of 64, d_state 64, chunk 128)
+# and 7 applications of the shared attention block (32 heads of 64). Batch
+# 2 x 4,096, granite's: with B7's backward keeping only its inputs and
+# the chunk states, a Mamba layer keeps 0.562 GB a 4,096-token row for
+# its backward and an application of the shared block 0.589 GB
+# (`saved_tensors.py --arch zamba2-1.2b` on the CPU at 2 layers x 4,096
+# and 6 x 1,024), so 2 x 4,096 reckons at ~52 GB of activations beside
+# ~19 GB of parameters, gradients, moments and residuals
+TRAIN_SSM_ARCH = "zamba2-1.2b"
+TRAIN_SSM_BATCH = 2
+TRAIN_SSM_SEQ = 4096
+TRAIN_SSM_STEPS = 4
+
+
+def _ssm_train_launches(cfg, steps: int, dtype: str) -> dict:
+    """A zamba2 step: B7's forward and backward (float32: the layer lifts
+    x, B, C) a Mamba layer, B5's forward and backward an application of
+    the shared attention block."""
+    n = steps * cfg.n_layers
+    a = steps * -(-cfg.n_layers // cfg.shared_attn_every)
+    return _launch(**{"mamba_scan": n, "mamba_scan_bwd": n,
+                      launched_kernel("flash_attention", dtype): a,
+                      bwd_counter(dtype): a})
+
+
+def train_ssm_path(dev) -> dict:
+    """Phase 14, zamba2 part: `Trainer` takes TRAIN_SSM_STEPS steps of
+    zamba2-1.2b at full width and depth in bf16 (random weights from
+    TRAIN_SEED) on `SyntheticLMStream(vocab, TRAIN_SSM_BATCH,
+    TRAIN_SSM_SEQ)`, int8 gradient compression, no checkpoint: every loss
+    finite, the first within TRAIN_MOE_FIRST_REL of the same weights' loss
+    in float32 on the card; launches exact (`_ssm_train_launches`), the
+    plain versions never called; step times, peak memory, and B7's and
+    B5's forward and backward ms inside one more step (CUDA events; B7's
+    backward split by kernel from a torch.profiler session over that
+    step); then the float32 twin (`train_f32_check`)."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    cfg = get_config(TRAIN_SSM_ARCH)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size,
+                               batch_size=TRAIN_SSM_BATCH,
+                               seq_len=TRAIN_SSM_SEQ, seed=TRAIN_SEED)
+    row = dict(arch=TRAIN_SSM_ARCH, batch=TRAIN_SSM_BATCH,
+               seq=TRAIN_SSM_SEQ, steps=TRAIN_SSM_STEPS,
+               dtype=cfg.compute_dtype)
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    first = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(0).items()}
+    with torch.no_grad():
+        m32 = Model(cfg, device=dev, seed=TRAIN_SEED).to(torch.float32)
+        m32.cfg = f32
+        row["first_loss_float32"] = float(m32.loss_fn(first)[0])
+    del m32, first
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, AdamWConfig(warmup_steps=TRAIN_WARMUP),
+                     TrainerConfig(total_steps=TRAIN_SSM_STEPS,
+                                   checkpoint_every=TRAIN_SSM_STEPS + 1,
+                                   checkpoint_dir=tmp, log_every=1,
+                                   compress_grads=True),
+                     stream, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with _AttnEvents() as ev, _SSDEvents() as sev:
+            out = tr.run(seed=TRAIN_SEED)
+        row["wall_s_steps"] = time.perf_counter() - t0
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        ran = kernels.launches()
+        want = _ssm_train_launches(cfg, TRAIN_SSM_STEPS, cfg.compute_dtype)
+        if ran != want or ev.plain or sev.plain:
+            raise AssertionError(
+                f"zamba2 training launched {ran} and the plain versions "
+                f"{ev.plain} + {sev.plain} times, expected {want} and none")
+        row["launches"] = {k: v for k, v in ran.items() if v}
+        row["params"] = tr.model.param_count()
+        history = out["history"]
+        # B7 and B5 inside one more step, by CUDA events; B7's backward
+        # kernels by the profiler's device events over the same step
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(TRAIN_SSM_STEPS).items()}
+        kernels.reset_launches()
+        with _AttnEvents() as ev, _SSDEvents() as sev, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            tr.train_step(out["state"], batch)
+            torch.cuda.synchronize(dev)
+            row["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        row["attention_ms"] = ev.ms()
+        row["ssd_ms"] = sev.ms()
+        row["ssd_calls"] = {k: len(v) for k, v in sev.events.items()}
+        events = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                events[e.name] = events.get(e.name, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3
+        split = bwd_split(events, "profiler", SSD_BWD_PARTS)
+        del split["other"]  # the rest of the step
+        row["ssd_bwd_split_ms"] = split if any(split.values()) else None
+        if kernels.launches() != _ssm_train_launches(cfg, 1,
+                                                     cfg.compute_dtype):
+            raise AssertionError(f"a zamba2 step launched "
+                                 f"{kernels.launches()}")
+        del tr, out, batch, prof
+        torch.cuda.empty_cache()
+
+    for h in history:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"zamba2 step {h['step']}: loss "
+                                 f"{h['loss']}, grad norm {h['grad_norm']}")
+    ref = row["first_loss_float32"]
+    row["first_loss_share"] = abs(history[0]["loss"] - ref) / (
+        TRAIN_MOE_FIRST_REL * abs(ref))
+    if row["first_loss_share"] > 1:
+        raise AssertionError(f"zamba2 first loss {history[0]['loss']}, the "
+                             f"same weights in float32 {ref}")
+    row["ln_vocab"] = math.log(cfg.vocab_size)
+    row["history"] = history
+    step_s = [h["sec_per_step"] for h in history[1:]]
+    row["step_ms"] = float(np.median(step_s)) * 1e3
+    row["step_ms_all"] = [v * 1e3 for v in step_s]
+    row["tokens_per_s"] = TRAIN_SSM_BATCH * TRAIN_SSM_SEQ / (
+        row["step_ms"] / 1e3)
+    row["float32"] = train_f32_check(dev, TRAIN_SSM_ARCH)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # C2: bf16 prefill_mha once beyond its gate (a diagnostic, not in the default
 # run: `--c2-repeats N`)
@@ -7430,6 +7988,37 @@ def _log_train_moe(t: dict, card: str) -> None:
         f"granite part took {t['wall_s']:.1f} s")
 
 
+def _log_train_ssm(t: dict, card: str) -> None:
+    f = t["float32"]
+    split = ("split not measured" if t["ssd_bwd_split_ms"] is None else
+             ", ".join(f"{k} {v:.3f}" for k, v in
+                       t["ssd_bwd_split_ms"].items()))
+    log(f"  {t['arch']} ({t['dtype']}, {t['params']:,} parameters), batch "
+        f"{t['batch']} x {t['seq']} on {card}: step {t['step_ms']:.2f} ms "
+        f"(median of steps 2-{t['steps']}; "
+        f"{[round(x, 2) for x in t['step_ms_all']]}), "
+        f"{t['tokens_per_s']:.0f} tokens/s; peak "
+        f"{t['peak_bytes'] / 1e9:.3f} GB; inside a step "
+        f"({t['timed_step_ms']:.2f} ms, under the profiler) B7 forward "
+        f"{t['ssd_ms']['forward']:.3f} ms and backward "
+        f"{t['ssd_ms']['backward']:.3f} ms over {t['ssd_calls']['forward']}"
+        f" + {t['ssd_calls']['backward']} calls (device: {split}), B5 "
+        f"forward {t['attention_ms']['forward']:.3f} and backward "
+        f"{t['attention_ms']['backward']:.3f} ms")
+    log(f"  loss history {[round(h['loss'], 6) for h in t['history']]} "
+        f"(ln V = {t['ln_vocab']:.4f}; the same weights in float32: "
+        f"{t['first_loss_float32']:.6f}, the first loss at "
+        f"{t['first_loss_share']:.4f} of {TRAIN_MOE_FIRST_REL}·|ref|); grad "
+        f"norms {[round(h['grad_norm'], 6) for h in t['history']]}; launches "
+        f"{t['launches']} over {t['steps']} steps; {t['wall_s_steps']:.1f} s "
+        "of steps")
+    log(f"  float32 twin ({f['n_layers']} layers, {f['batch']} x {f['seq']}) "
+        f"vs float64 on the CPU: launches {f['launches']}; loss "
+        f"{f['loss']:.6f} at {f['loss_share']:.4f} of {TRAIN_F32_LOSS}·|ref|"
+        f", gradients at most {f['grad_share_max']:.4f} of "
+        f"{TRAIN_F32_REL}·max|ref|; the zamba2 part took {t['wall_s']:.1f} s")
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU "
@@ -7481,6 +8070,7 @@ def main(argv=None) -> int:
     parity_worst = parity_phase(dev)
     bwd_gemm = moe_gemm_bwd_parity(dev)
     parity_worst.update(bwd_gemm["worst"])
+    ssd_bwd = ssd_bwd_parity(dev)
     torch.cuda.synchronize()
 
     phase("[3/14] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
@@ -7558,6 +8148,8 @@ def main(argv=None) -> int:
     rows += attention_bwd_timing(dev, parity_worst)
     log("  row 4d: B4's backward")
     rows += moe_gemm_bwd_timing(dev, parity_worst)
+    log("  row 7b: B7's backward")
+    rows.append(ssd_bwd_timing(dev, ssd_bwd["worst"]))
     for r in rows:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
@@ -7648,7 +8240,9 @@ def main(argv=None) -> int:
           f"checkpoint every {TRAIN_CKPT_EVERY} steps and a failure at step "
           f"{min(TRAIN_FAILURE)}; {TRAIN_MOE_ARCH} at full width and depth "
           f"in bf16, batch {TRAIN_MOE_BATCH} x {TRAIN_MOE_SEQ}, "
-          f"{TRAIN_MOE_STEPS} steps; each float32 twin against float64")
+          f"{TRAIN_MOE_STEPS} steps; {TRAIN_SSM_ARCH} at full width and "
+          f"depth in bf16, batch {TRAIN_SSM_BATCH} x {TRAIN_SSM_SEQ}, "
+          f"{TRAIN_SSM_STEPS} steps; each float32 twin against float64")
     t0 = time.perf_counter()
     train = train_path(dev)
     train["wall_s"] = time.perf_counter() - t0
@@ -7657,6 +8251,10 @@ def main(argv=None) -> int:
     train_moe = train_moe_path(dev)
     train_moe["wall_s"] = time.perf_counter() - t0
     _log_train_moe(train_moe, card)
+    t0 = time.perf_counter()
+    train_ssm = train_ssm_path(dev)
+    train_ssm["wall_s"] = time.perf_counter() - t0
+    _log_train_ssm(train_ssm, card)
     for r in rows:  # B5's and B4's backward: launches on the training path
         if r["name"] == bwd_counter("bfloat16"):
             r["launches"] = train["launches"][r["name"]]
@@ -7666,6 +8264,8 @@ def main(argv=None) -> int:
             r["launches"] = train_moe["launches"][r["name"]]
         elif r["name"] in (dx_counter("float32"), dw_counter("float32")):
             r["launches"] = train_moe["float32"]["launches"][r["name"]]
+        elif r["name"] == "mamba_scan_bwd":
+            r["launches"] = train_ssm["launches"][r["name"]]
     missing = [r["name"] for r in rows if not r["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their main path: "
@@ -7682,9 +8282,10 @@ def main(argv=None) -> int:
          "serve": {"stages": serve_rows, **serve_summary},
          "elastic": {"stages": el_rows, **el_summary},
          "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm,
-         "train": train, "train_moe": train_moe,
+         "train": train, "train_moe": train_moe, "train_ssm": train_ssm,
          "moe_gemm_bwd_parity": {k: bwd_gemm[k]
                                  for k in ("shares", "bulk", "splits")},
+         "ssd_bwd_parity": {k: ssd_bwd[k] for k in ("shares", "bulk")},
          "c2": c2,
          "phase_start_s": clock,
          "wall_s": time.perf_counter() - t_start},

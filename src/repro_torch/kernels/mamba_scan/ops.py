@@ -1,15 +1,17 @@
-"""Mamba2 SSD chunk scan: `mamba_ssd` launches the CUDA kernel
-(`csrc/mamba_scan.cu`) for a CUDA tensor and runs the plain version
+"""Mamba2 SSD chunk scan: `mamba_ssd` launches the CUDA kernels
+(`csrc/mamba_scan.cu`; under autograd the backward's,
+`csrc/mamba_scan_bwd.cu`) for a CUDA tensor and runs the plain versions
 (`ref.py`) for a CPU tensor."""
 from __future__ import annotations
 
 import torch
 
 from .. import _lib
-from .ref import ssd_scan_ref, ssd_shapes
+from .ref import ssd_scan_bwd_ref, ssd_scan_fwd_ref, ssd_shapes
 
 MAX_WIDTH = 64      # head_dim and d_state the kernel takes
 MAX_CHUNK = 128     # csrc/mamba_scan.cu's kMaxChunk
+HEADS_PER_BLOCK = 32  # the backward's blocks take up to 32 heads each
 _MAX_GRID_Y = 65535
 
 
@@ -33,20 +35,141 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     float32 or bfloat16 of one dtype, dt and A contiguous float32, and
     hd, ds <= 64. The kernels keep each chunk's state in a float32
     scratch of (B, nh, S / chunk, hd, ds), allocated here with one of the
-    chunks' cumulative log-decays l (B, nh, S / chunk, 128). On the card
-    it has no backward yet: an input that requires grad under grad mode
-    raises `NotImplementedError` (ROADMAP A11e)."""
-    B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
-    if not _lib.on_cuda(x):
-        return ssd_scan_ref(x, dt, A, Bc, Cc, chunk=chunk,
-                            return_state=return_state)
+    chunks' cumulative log-decays l (B, nh, S / chunk, 128).
+
+    Differentiable in x, dt, A, Bc and Cc (and through h): under grad mode
+    with an input that requires grad it is a `torch.autograd.Function`
+    whose forward keeps its inputs and that scratch (the states entering
+    each chunk, and l), and whose backward launches the three kernels of
+    `csrc/mamba_scan_bwd.cu` for float32 (counted once as
+    "mamba_scan_bwd") or runs `ssd_scan_bwd_ref` on the CPU. On the card a
+    bfloat16 scan under grad raises `NotImplementedError` (ROADMAP A11f);
+    the models lift the scan's inputs to float32. Otherwise (serving) the
+    forward keeps nothing."""
+    ssd_shapes(x, dt, A, Bc, Cc, chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, A, Bc, Cc)):
-        raise NotImplementedError(
-            "mamba_ssd has no backward kernel on the card yet (ROADMAP "
-            "item A11e); the plain version trains on the CPU")
+        if _lib.on_cuda(x) and x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "mamba_ssd has no bfloat16 backward kernel on the card "
+                "(ROADMAP item A11f); lift x, Bc and Cc to float32")
+        y, h = _SSDScan.apply(x, dt, A, Bc, Cc, chunk)
+        return (y, h) if return_state else y
+    y, h, _, _ = _forward(x, dt, A, Bc, Cc, chunk, return_state, False)
+    return (y, h) if return_state else y
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc, chunk):
+        y, h, states, l = _forward(x, dt, A, Bc, Cc, chunk, True, True)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bc, Cc, states, l)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bc, Cc, states, l = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dh = None if dh is None else dh.contiguous()
+        return (*_backward(x, dt, A, Bc, Cc, dy, dh, states, l, ctx.chunk),
+                None)
+
+
+def _forward(x, dt, A, Bc, Cc, chunk: int, return_state: bool, keep: bool):
+    """(y, h, states, l): the kernels on the card, the plain version on
+    the CPU. h, the state after the last step, is None on the card unless
+    asked for (`return_state`) or kept. With `keep` (the autograd forward)
+    `states` — the states entering each chunk, (B, nh, NC, hd, ds) — and,
+    on the card, `l` — the chunks' cumulative log-decays, (B, nh, NC, 128)
+    — are returned for the backward (the CPU returns l as None: its
+    backward forms l again from dt and A); else both are None."""
+    B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
+    if not _lib.on_cuda(x):
+        y, h, states = ssd_scan_fwd_ref(x, dt, A, Bc, Cc, chunk=chunk)
+        return y, h, states if keep else None, None
     dev = x.device
-    _lib.require(x, "x", (torch.float32, torch.bfloat16), 4, dev)
+    _check(x, dt, A, Bc, Cc, (torch.float32, torch.bfloat16))
+    y = torch.empty_like(x)
+    final = (torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=dev)
+             if return_state or keep else None)
+    kc = kernel_chunk(c)
+    nc = -(-S // kc)
+    states = torch.empty((B, nh, nc, hd, ds), dtype=torch.float32,
+                         device=dev)
+    l = torch.empty((B, nh, nc, MAX_CHUNK), dtype=torch.float32, device=dev)
+    if y.numel() == 0:
+        return y, final, states, l
+    rc = _lib.load().tdorch_ssd_scan(
+        dev.index or 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        Bc.data_ptr(), Cc.data_ptr(), B, S, nh, hd, ds, kc,
+        int(x.dtype == torch.bfloat16), states.data_ptr(), l.data_ptr(),
+        _lib.ptr(final), y.data_ptr(), _lib.stream(x))
+    _lib.check(rc, "mamba_scan")
+    _lib.count("mamba_scan")
+    return (y, final, states, l) if keep else (y, final, None, None)
+
+
+def _backward(x, dt, A, Bc, Cc, dy, dh, states, l, chunk: int):
+    """(dx, ddt, dA, dBc, dCc): the three backward kernels of
+    `csrc/mamba_scan_bwd.cu` on the card (float32, one count
+    "mamba_scan_bwd"), `ssd_scan_bwd_ref` on the CPU. `states` and `l` are
+    what `_forward(..., keep=True)` returned; dy is shaped as x, dh (B, nh,
+    hd, ds) or None (zero). The kernels write dBc's and dCc's partials
+    for each block of up to 32 heads and dA's for each (row, chunk, head);
+    they are summed here (the same order every call)."""
+    B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
+    if not _lib.on_cuda(x):
+        return ssd_scan_bwd_ref(x, dt, A, Bc, Cc, dy, dh, chunk=chunk,
+                                states=states)
+    dev = x.device
+    _check(x, dt, A, Bc, Cc, (torch.float32,))
+    _lib.require(dy, "dy", (torch.float32,), 4, dev)
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must be shaped as x "
+                         f"{tuple(x.shape)}")
+    if dh is not None:
+        _lib.require(dh, "dh_final", (torch.float32,), 4, dev)
+        if dh.shape != (B, nh, hd, ds):
+            raise ValueError(f"dh_final {tuple(dh.shape)} must be "
+                             f"{(B, nh, hd, ds)}")
+    kc = kernel_chunk(c)
+    nc = -(-S // kc)
+    _lib.require(states, "states", (torch.float32,), 5, dev)
+    _lib.require(l, "l", (torch.float32,), 4, dev)
+    if states.shape != (B, nh, nc, hd, ds) or l.shape != (B, nh, nc,
+                                                          MAX_CHUNK):
+        raise ValueError("states / l are not the forward's scratch for "
+                         "these shapes")
+    if x.numel() == 0:
+        return (torch.zeros_like(x), torch.zeros_like(dt),
+                torch.zeros_like(A), torch.zeros_like(Bc),
+                torch.zeros_like(Cc))
+    dx, ddt = torch.empty_like(x), torch.empty_like(dt)
+    groups = -(-nh // HEADS_PER_BLOCK)
+    dB = torch.empty((groups, B, S, ds), dtype=torch.float32, device=dev)
+    dC = torch.empty_like(dB)
+    dA = torch.empty((B, nc, nh), dtype=torch.float32, device=dev)
+    grads = torch.empty_like(states)  # D_k, then G_k
+    rc = _lib.load().tdorch_ssd_scan_bwd(
+        dev.index or 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        Bc.data_ptr(), Cc.data_ptr(), dy.data_ptr(), _lib.ptr(dh),
+        states.data_ptr(), l.data_ptr(), B, S, nh, hd, ds, kc, groups,
+        grads.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dA.data_ptr(), _lib.stream(x))
+    _lib.check(rc, "mamba_scan_bwd")
+    _lib.count("mamba_scan_bwd")
+    return dx, ddt, dA.sum((0, 1)), dB.sum(0), dC.sum(0)
+
+
+def _check(x, dt, A, Bc, Cc, dtypes) -> None:
+    """The checks of a launch's inputs: device, dtype, contiguity, widths
+    and the grid's limits."""
+    B, S, nh, hd = x.shape
+    ds = Bc.shape[2]
+    dev = x.device
+    _lib.require(x, "x", dtypes, 4, dev)
     _lib.require(Bc, "Bc", (x.dtype,), 3, dev)
     _lib.require(Cc, "Cc", (x.dtype,), 3, dev)
     _lib.require(dt, "dt", (torch.float32,), 3, dev)
@@ -57,21 +180,3 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if max(B, nh) > _MAX_GRID_Y or B * S * nh * hd >= 2**62:
         raise ValueError(f"shape B={B}, S={S}, nh={nh} is beyond the "
                          "kernel's grid")
-    y = torch.empty_like(x)
-    final = (torch.zeros((B, nh, hd, ds), dtype=torch.float32, device=dev)
-             if return_state else None)
-    if y.numel() == 0:
-        return (y, final) if return_state else y
-    kc = kernel_chunk(c)
-    nc = -(-S // kc)
-    states = torch.empty((B, nh, nc, hd, ds), dtype=torch.float32,
-                         device=dev)
-    l = torch.empty((B, nh, nc, MAX_CHUNK), dtype=torch.float32, device=dev)
-    rc = _lib.load().tdorch_ssd_scan(
-        dev.index or 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bc.data_ptr(), Cc.data_ptr(), B, S, nh, hd, ds, kc,
-        int(x.dtype == torch.bfloat16), states.data_ptr(), l.data_ptr(),
-        _lib.ptr(final), y.data_ptr(), _lib.stream(x))
-    _lib.check(rc, "mamba_scan")
-    _lib.count("mamba_scan")
-    return (y, final) if return_state else y

@@ -26,9 +26,9 @@ states: the layer's new state).
 `loss_fn` trains: next-token cross-entropy (plus the MoE aux loss) under
 autograd, every attention's gradient from B5's backward kernels on the
 card (`kernels.attention` is a `torch.autograd.Function`), and every MoE
-expert GEMM's from B4's (`grouped_gemm` too). On the card the Mamba scan
-(B7) has no backward kernel yet and raises under grad (ROADMAP A11e); on
-the CPU all five patterns train through the plain versions.
+expert GEMM's from B4's (`grouped_gemm` too), and every Mamba scan's from
+B7's (`mamba_ssd`, float32: the layer lifts x, B and C). On the CPU all
+five patterns train through the plain versions.
 """
 from __future__ import annotations
 

@@ -58,8 +58,9 @@ P ⊙ (|dO|·|v|ᵀ + Σ|dO ⊙ O|) (`terms="products"`); the
 forward's log-sum-exp output
 against the plain one, with the output unchanged by it; `attention` under
 autograd on the card (one forward and one backward launch), and with grad
-off (no lse: the serving launch). `mamba_ssd` and `grouped_gemm` raise
-under grad on the card (no backward kernel yet, ROADMAP A11e / A11d).
+off (no lse: the serving launch). Under grad the float32 `mamba_ssd`
+launches its forward and backward kernels and the bf16 one raises (no
+bf16 backward kernel, ROADMAP A11f); `grouped_gemm` launches its backward.
 """
 import numpy as np
 import pytest
@@ -1149,14 +1150,21 @@ def test_attention_autograd_launches_the_backward(dev, dtype):
 
 
 def test_scan_and_grouped_gemm_refuse_grad_on_the_card(dev):
-    """The scan still refuses grad on the card (A11e); the grouped GEMM no
-    longer does: under grad it launches its forward and, for w alone, its
-    dw kernel, and serving launches the forward alone as before."""
+    """The bf16 scan refuses grad on the card (A11f); the float32 scan and
+    the grouped GEMM no longer do: under grad the scan launches its forward
+    and its backward ("mamba_scan_bwd"), the GEMM its forward and, for w
+    alone, its dw kernel, and serving launches the forwards alone as
+    before."""
     x = torch.zeros((1, 16, 2, 16), device=dev, requires_grad=True)
     dt = torch.full((1, 16, 2), 0.1, device=dev)
     bc = torch.zeros((1, 16, 8), device=dev)
-    with pytest.raises(NotImplementedError, match="A11e"):
-        mamba_ssd(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=16)
+    a = -torch.ones(2, device=dev)
+    with pytest.raises(NotImplementedError, match="A11f"):
+        mamba_ssd(x.detach().bfloat16().requires_grad_(), dt, a,
+                  bc.bfloat16(), bc.bfloat16(), chunk=16)
+    (dx,) = torch.autograd.grad(mamba_ssd(x, dt, a, bc, bc, chunk=16).sum(),
+                                (x,))
+    assert dx.shape == x.shape and not bool(dx.any())
     xg = torch.zeros((8, 32), device=dev, dtype=torch.bfloat16)
     wg = torch.zeros((2, 32, 16), device=dev, dtype=torch.bfloat16,
                      requires_grad=True)
@@ -1164,9 +1172,10 @@ def test_scan_and_grouped_gemm_refuse_grad_on_the_card(dev):
     (dw,) = torch.autograd.grad(grouped_gemm(xg, wg, sg).sum(), (wg,))
     assert dw.shape == wg.shape and not bool(dw.any())
     with torch.no_grad():  # serving launches as before
-        mamba_ssd(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=16)
+        mamba_ssd(x, dt, a, bc, bc, chunk=16)
         grouped_gemm(xg, wg, sg)
-    assert kernels.launches()["mamba_scan"] == 1
+    assert kernels.launches()["mamba_scan"] == 2
+    assert kernels.launches()["mamba_scan_bwd"] == 1
     assert kernels.launches()["moe_gemm_sm90"] == 2
     assert kernels.launches()["moe_gemm_dw_sm90"] == 1
     assert kernels.launches()["moe_gemm_dx_sm90"] == 0

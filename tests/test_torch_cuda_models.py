@@ -239,15 +239,40 @@ def test_bf16_loss_fn_launches_the_bf16_backward(dev):
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b"])
-def test_scan_and_moe_patterns_refuse_grad_on_card(dev, arch):
-    """The scan pattern still refuses grad on the card (A11e); the MoE
-    pattern trains (`test_moe_pattern_trains_on_card`)."""
-    cfg = _full_two_layers(arch, "bfloat16")
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_scan_pattern_trains_on_card(dev, dtype):
+    """Two full-width zamba2 layers (one application of the shared
+    attention block): `loss_fn` forward and backward launch a Mamba layer
+    one scan forward and one backward (float32: the layer lifts x, B and C)
+    and B5's forward and backward once; the loss and every gradient finite,
+    A_log's, dt_bias's and in_proj's gradients nonzero."""
+    cfg = _full_two_layers("zamba2-1.2b", dtype)
     model = Model(cfg, device=dev, seed=7)
-    with pytest.raises(NotImplementedError, match="A11e"):
-        model.loss_fn({k: torch.from_numpy(v).to(dev)
-                       for k, v in _tokens(cfg, 1, 256).items()})
+    loss, grads = _loss_and_grads(model, _tokens(cfg, 1, 512), dev)
+    torch.cuda.synchronize()
+    bf = dtype == "bfloat16"
+    want = {k: 0 for k in kernels.KERNELS}
+    want.update({"mamba_scan": 2, "mamba_scan_bwd": 2,
+                 "flash_attention_sm90" if bf else "flash_attention_tf32": 1,
+                 ("flash_attention_bwd_bf16" if bf
+                  else "flash_attention_bwd_tf32"): 1})
+    assert kernels.launches() == want
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    for n, g in grads.items():
+        if n.endswith(("A_log", "dt_bias", "in_proj")):
+            assert bool(g.any()), n
+
+
+def test_bf16_scan_under_grad_raises_on_card(dev):
+    """No bf16 backward kernel for the scan (ROADMAP A11f): a bf16
+    `mamba_ssd` under grad raises; it does not run the plain version."""
+    x = torch.randn((1, 128, 2, 16), device=dev).bfloat16().requires_grad_()
+    dt = torch.full((1, 128, 2), 0.1, device=dev)
+    bc = torch.randn((1, 128, 8), device=dev).bfloat16()
+    with pytest.raises(NotImplementedError, match="A11f"):
+        mamba_ssd(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=64)
+    assert kernels.launches() == {k: 0 for k in kernels.KERNELS}
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -20,6 +20,18 @@ them:
   w ∘ x are split into bf16 hi (rounded to nearest) + lo (the rest,
   rounded), two products each.
 
+The backward's kernels (`csrc/mamba_scan_bwd.cu`, float32 only) run every
+product in 3xTF32 with its sum added in float32 a k-step of 8
+(`emulate_ssd_bwd`): D_k = (exp(l) ∘ dy)ᵀ·C, the chunk states' gradients G
+passed in reverse in float32, then per chunk Pᵀ = x·dyᵀ and B·Cᵀ (rows s),
+W, Qᵀ and Z formed from them in float32 and multiplied as the next
+products' A operands (split again), P = dy·xᵀ (rows t) for Q·B, and B·Gᵀ,
+x·G, dy·H. Its gate is the forward's form on each of dx, ddt, dB, dC,
+Σ|terms| from `ssd_scan_bwd_ref(terms=True)`, and on dA the same rel
+times the root-sum-square of its steps' Σ|terms| (`dA_steps=True`); one
+TF32 rounding of W, or of the Q formed from P, misses it
+(`*_bwd_single_*`).
+
 Gates (chip_smoke.py): float32 against float64, |Δ| <= (SSD_REL +
 8·u32·max|l|)·Σ|terms| + 1e-6, Σ|terms| being the scan of |x|, |B|, |C|;
 bf16 against the float32 scan of the same bf16 inputs, plus 2^-8·|ref|
@@ -34,7 +46,7 @@ import torch
 from repro.kernels.mamba_scan.kernel import ssd_scan as jax_ssd
 from repro.kernels.mamba_scan.ref import ssd_scan_ref as jax_ssd_ref
 from repro_torch.kernels.mamba_scan.ops import kernel_chunk
-from repro_torch.kernels.mamba_scan.ref import ssd_scan_ref
+from repro_torch.kernels.mamba_scan.ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 # one intra-op thread per test process: the suite runs in parallel workers
 torch.set_num_threads(1)
@@ -43,6 +55,7 @@ SSD_REL = 1e-5            # chip_smoke.py's SSD_REL
 U32 = 2.0 ** -24          # float32 unit roundoff
 BF16_ROUND = 2.0 ** -8    # chip_smoke.py's BF16_ROUND
 SLICE = 32                # mamba_scan.cu's kSlice
+STEP = 8                  # mamba_scan_bwd.cu's k-step (m16n8k8)
 TF32_MASK = -(1 << 13)    # 0xffffe000: clears 13 mantissa bits
 # (S, nh, hd, ds, chunk): the MAMBA family, and chunk 256 (run as 128)
 MAMBA_GEOMS = [(32, 2, 8, 8, 16), (64, 3, 16, 8, 16), (128, 1, 32, 16, 32),
@@ -69,13 +82,14 @@ def _parts(a, route, split):
     return a, None  # "exact": float64, no rounding
 
 
-def _mm(a, b, route, split_a, split_b):
-    """a @ b on the tensor cores: per slice of 32 along K the small
-    products first, then hi·hi, into sums of their own, added in float32."""
+def _mm(a, b, route, split_a, split_b, step=SLICE):
+    """a @ b on the tensor cores: per slice of `step` along K (the forward's
+    32, the backward's k-step of 8) the small products first, then hi·hi,
+    into sums of their own, added in float32."""
     out = None
-    for k0 in range(0, a.shape[-1], SLICE):
-        a_hi, a_lo = _parts(a[..., k0:k0 + SLICE], route, split_a)
-        b_hi, b_lo = _parts(b[..., k0:k0 + SLICE, :], route, split_b)
+    for k0 in range(0, a.shape[-1], step):
+        a_hi, a_lo = _parts(a[..., k0:k0 + step], route, split_a)
+        b_hi, b_lo = _parts(b[..., k0:k0 + step, :], route, split_b)
         part = None
         if a_lo is not None:
             part = a_lo @ b_hi
@@ -85,6 +99,23 @@ def _mm(a, b, route, split_a, split_b):
         part = full if part is None else part + full
         out = part if out is None else out + part
     return out
+
+
+def _states(xc, dtc, Bcc, l, route, split_b):
+    """Passes (i) and (ii): each chunk's local state s_k = (w ∘ x)ᵀ·B, w_s
+    = exp(l_end − l_s)·dt_s, then the states passed in chunk order in
+    float32; returns the state entering each chunk (B, NC, nh, hd, ds).
+    Bcc: (B, NC, 1, c, ds)."""
+    w = torch.exp(l[..., -1:] - l) * dtc
+    s = _mm((xc * w[..., None]).transpose(-1, -2), Bcc, route, True,
+            split_b)
+    decay = torch.exp(l[..., -1])
+    h = torch.zeros_like(s[:, 0])
+    h_prev = torch.empty_like(s)
+    for k in range(s.shape[1]):
+        h_prev[:, k] = h
+        h = decay[:, k, :, None, None] * h + s[:, k]
+    return h_prev
 
 
 def emulate_ssd(x, dt, A, Bc, Cc, chunk, route, split_m=True):
@@ -102,17 +133,7 @@ def emulate_ssd(x, dt, A, Bc, Cc, chunk, route, split_m=True):
     Bcc = Bc.reshape(B, NC, c, ds)
     Ccc = Cc.reshape(B, NC, c, ds)
     l = torch.cumsum(dtc * A[:, None], -1)
-    # (i) chunk states and decays
-    w = torch.exp(l[..., -1:] - l) * dtc
-    s = _mm((xc * w[..., None]).transpose(-1, -2), Bcc[:, :, None], route,
-            True, tc)  # (B, NC, nh, hd, ds)
-    decay = torch.exp(l[..., -1])
-    # (ii) state passing, in chunk order
-    h = torch.zeros_like(s[:, 0])
-    h_prev = torch.empty_like(s)
-    for k in range(NC):
-        h_prev[:, k] = h
-        h = decay[:, k, :, None, None] * h + s[:, k]
+    h_prev = _states(xc, dtc, Bcc[:, :, None], l, route, tc)
     # (iii) outputs
     CB = _mm(Ccc, Bcc.transpose(-1, -2), route, tc, tc)  # (B, NC, c, c)
     above = ~torch.tril(torch.ones((c, c), dtype=torch.bool))
@@ -247,3 +268,147 @@ def test_ssd_single_bf16_rounding_of_m_breaks_the_bf16_gate():
                                 split_m=False).numpy(), want, arrays, 32,
                     bf16_out=True)
     assert split <= 1.0 < single, (split, single)
+
+
+def _decay_t(l, c):
+    """E[..., t, s] = exp(l_t − l_s) for s <= t, else 0."""
+    above = ~torch.tril(torch.ones((c, c), dtype=torch.bool))
+    return torch.exp((l[..., :, None] - l[..., None, :]).masked_fill(
+        above, float("-inf")))
+
+
+def emulate_ssd_bwd(x, dt, A, Bc, Cc, dy, dh, chunk, route="tf32",
+                    split_w=True, split_q=True):
+    """The backward kernels' passes: (dx, ddt, dA, dB, dC) from float32
+    inputs (route "tf32") or float64 ones ("exact": the decomposition's
+    algebra alone). H, the state entering each chunk, is the forward
+    kernels' (`emulate_ssd`'s passes (i)-(ii)). `split_w` / `split_q`
+    False: W / Q taken as one TF32 rounding (no lo part)."""
+    B, S, nh, hd = x.shape
+    ds = Bc.shape[-1]
+    c = kernel_chunk(min(chunk, S))
+    NC = S // c
+
+    def mm(a, b, split_a=True):
+        return _mm(a, b, route, split_a, True, STEP)
+    xc = x.reshape(B, NC, c, nh, hd).permute(0, 1, 3, 2, 4)
+    dyc = dy.reshape(B, NC, c, nh, hd).permute(0, 1, 3, 2, 4)
+    dtc = dt.reshape(B, NC, c, nh).permute(0, 1, 3, 2)  # (B, NC, nh, c)
+    Bcc = Bc.reshape(B, NC, c, 1, ds).transpose(2, 3)  # (B, NC, 1, c, ds)
+    Ccc = Cc.reshape(B, NC, c, 1, ds).transpose(2, 3)
+    l = torch.cumsum(dtc * A[:, None], -1)
+    L = l[..., -1]
+    H = _states(xc, dtc, Bcc, l, route, True)  # the forward kernels'
+    w_end = torch.exp(L[..., None] - l)
+    # (i) D_k, (ii) G in reverse
+    el = torch.exp(l)
+    D = mm((dyc * el[..., None]).transpose(-1, -2), Ccc)
+    G = torch.empty_like(D)
+    g = torch.zeros_like(D[:, 0]) if dh is None else dh.clone()
+    for k in reversed(range(NC)):
+        G[:, k] = g
+        g = torch.exp(L[:, k])[..., None, None] * g + D[:, k]
+    # (iii) rows s: Pᵀ, B·Cᵀ, then W, Qᵀ, Z; rows t: P, then Q
+    E_ts = _decay_t(l, c)
+    E_st = E_ts.transpose(-1, -2)
+    PT = mm(xc, dyc.transpose(-1, -2))
+    CBT = mm(Bcc, Ccc.transpose(-1, -2))
+    W = CBT * E_st * dtc[..., :, None]
+    QT = PT * E_st * dtc[..., :, None]
+    Z = PT * CBT * E_st  # [s][t]
+    P = mm(dyc, xc.transpose(-1, -2))
+    Q = P * E_ts * dtc[..., None, :]
+    w = w_end * dtc
+    XG, dyH = mm(xc, G), mm(dyc, H)
+    dx = mm(W, dyc, split_w) + w[..., None] * mm(Bcc, G.transpose(-1, -2))
+    dB = (mm(QT, Ccc, split_q) + w[..., None] * XG).sum(2)
+    dC = (mm(Q, Bcc, split_q) + el[..., None] * dyH).sum(2)
+    colz = Z.sum(-1)
+    xgb = (XG * Bcc).sum(-1)
+    R = w * xgb
+    dl = ((Z * dtc[..., :, None]).sum(-2) - dtc * colz
+          + el * (dyH * Ccc).sum(-1) - R)
+    tail = R.sum(-1) + torch.exp(L) * (G * H).sum((-1, -2))
+    suffix = torch.flip(torch.cumsum(torch.flip(dl, (-1,)), -1), (-1,)) \
+        + tail[..., None]
+    ddt = colz + w_end * xgb + A[:, None] * suffix
+    dA = (dtc * suffix).sum((0, 1, 3))
+    return (dx.permute(0, 1, 3, 2, 4).reshape(B, S, nh, hd),
+            ddt.permute(0, 1, 3, 2).reshape(B, S, nh), dA,
+            dB.reshape(B, S, ds), dC.reshape(B, S, ds))
+
+
+def _bwd_case(geom, seed, **kw):
+    """`_case`'s inputs with dy and dh_final, float32."""
+    S, nh, hd, ds, _ = geom
+    rng = np.random.default_rng(seed + 1000)
+    return (*_case(geom, seed, **kw),
+            rng.normal(size=(2, S, nh, hd)).astype(np.float32),
+            rng.normal(size=(2, nh, hd, ds)).astype(np.float32))
+
+
+def _bwd_shares(got, arrays, chunk):
+    """Each output's max |Δ| / allowed at chip_smoke.py's scan-backward
+    gate: (SSD_REL + 8·u32·max|l|)·Σ|terms| + 1e-6, float64 reference;
+    dA's with the root-sum-square of its steps' Σ|terms|."""
+    t = _torch(arrays, torch.float64)
+    x, dt, A = arrays[:3]
+    c = min(chunk, x.shape[1])
+    max_l = np.abs(np.cumsum((np.float64(dt) * A).reshape(
+        2, -1, c, x.shape[2]), axis=2)).max()
+    want = ssd_scan_bwd_ref(*t, chunk=chunk)
+    mags = list(ssd_scan_bwd_ref(*t, chunk=chunk, terms=True,
+                                 dA_steps=True))
+    mags[2] = mags[2].square().sum((0, 1, 3)).sqrt()
+    out = []
+    for g, w, m in zip(got, want, mags):
+        assert bool(torch.isfinite(g).all()) and g.shape == w.shape
+        allowed = (SSD_REL + 8 * U32 * max_l) * m + 1e-6
+        out.append(float(((g.double() - w).abs() / allowed).max()))
+    return out
+
+
+@pytest.mark.parametrize("geom", MAMBA_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_ssd_bwd_decomposition_is_the_reverse_pass(geom):
+    """Without rounding (float64) the kernels' passes give
+    `ssd_scan_bwd_ref` (held to autograd in
+    tests/test_torch_mamba_scan_bwd.py) to float64 rounding."""
+    arrays = _torch(_bwd_case(geom, seed=30), torch.float64)
+    got = emulate_ssd_bwd(*arrays, geom[-1], "exact")
+    want = ssd_scan_bwd_ref(*arrays, chunk=geom[-1])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-9,
+                                   atol=1e-9 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("geom", MAMBA_GEOMS,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_ssd_bwd_3xtf32_within_the_float32_gate(geom):
+    arrays = _bwd_case(geom, seed=31)
+    got = emulate_ssd_bwd(*_torch(arrays), geom[-1])
+    assert max(_bwd_shares(got, arrays, geom[-1])) <= 1.0
+
+
+def test_ssd_bwd_3xtf32_underflowing_decays_within_the_gate():
+    geom = (64, 3, 16, 8, 16)
+    arrays = _bwd_case(geom, seed=32, dt_range=(1.0, 5.0),
+                       a_range=(5.0, 25.0))
+    got = emulate_ssd_bwd(*_torch(arrays), 16)
+    assert max(_bwd_shares(got, arrays, 16)) <= 1.0
+
+
+@pytest.mark.parametrize("fault,outputs", [("w", (0,)), ("q", (3, 4))],
+                         ids=["W", "Q"])
+def test_ssd_bwd_single_tf32_rounding_breaks_the_gate(fault, outputs):
+    """W (into dx), or Q formed from P (into dB and dC), truncated to TF32
+    once (no lo part): up to 2^-10 of each term, far past the gate, which
+    the split holds on the same inputs."""
+    geom = MAMBA_GEOMS[2]
+    arrays = _bwd_case(geom, seed=33)
+    split = _bwd_shares(emulate_ssd_bwd(*_torch(arrays), 32), arrays, 32)
+    single = _bwd_shares(emulate_ssd_bwd(
+        *_torch(arrays), 32, split_w=fault != "w", split_q=fault != "q"),
+        arrays, 32)
+    assert max(split) <= 1.0
+    assert all(single[i] > 4.0 for i in outputs), (split, single)
