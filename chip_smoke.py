@@ -16,7 +16,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    `fa_bwd_dq_tf32`; B4's backward: the dx forms of `gg_tf32`, `gg_sm90`
    and `gg_bf16`, and `gg_dw_sm90`, `gg_dw_bf16`, `gg_dw_tf32` with their
    prologue `dw_plan` and the partials' sum `dw_reduce`; B7's backward:
-   `ssd_bwd_dstates`, `ssd_bwd_state_pass`, `ssd_bwd_chunk`).
+   `ssd_bwd_dstates_sm90` and `ssd_bwd_chunk_sm90` (TMA + TF32 `wgmma`),
+   the shared `ssd_bwd_state_pass`, and `ssd_bwd_dstates`, `ssd_bwd_chunk`
+   for operands TMA cannot describe).
 2. Kernel parity: every kernel against its plain PyTorch version on the
    card — the histogram on each of its routes (`histogram.ops.route`: the
    shared-memory route below 48 KB and in the opt-in band, the global
@@ -60,14 +62,16 @@ Phases, each of which raises (non-zero exit) on any failed check:
    plan equal to `ops.dw_plan_ref`; two calls at the granite shapes and
    the split case give the same bits; dw without 128 rows of the largest
    group, dw without one chunk's partial of a split group, and dx without
-   the smallest group's rows, caught. B7's backward ("mamba_scan_bwd",
-   float32, through `mamba_ssd` under autograd) against `ssd_scan_bwd_ref`
-   in float64 (`ssd_bwd_check`'s gate) at zamba2's training shape (2,
-   4,096, 64 heads, 64, d_state 64, chunk 128), a chunk of 200 run as 100,
-   one chunk, hd 5 / ds 3 / chunk 7, hd 40 / ds 24 / 33 heads and decays
-   that underflow, dh_final given and not; dx, ddt and dB without one
-   chunk's incoming gradient and dB, dC without one head group's partial,
-   caught; two calls at the training shape give the same bits.
+   the smallest group's rows, caught. B7's backward (float32, through
+   `mamba_ssd` under autograd) against `ssd_scan_bwd_ref` in float64
+   (`ssd_bwd_check`'s gate) at zamba2's training shape (2, 4,096, 64
+   heads, 64, d_state 64, chunk 128), a chunk of 200 run as 100, one
+   chunk, hd 5 / ds 3 / chunk 7, hd 40 / ds 24 / 33 heads and decays that
+   underflow, dh_final given and not, each on the route `ops.bwd_route`
+   must give it (SSD_BWD_ROUTE: "mamba_scan_bwd", TMA + `wgmma`, and for
+   hd 5 / ds 3 the "mamba_scan_bwd_mma" kernels); dx, ddt and dB without
+   one chunk's incoming gradient and dB, dC without one head group's
+   partial, caught; two calls at the training shape give the same bits.
 3. The main path at a real cluster and backlog size — the full YCSB
    setting of the repo's benchmark: P=16 machines, 50,000 tasks per machine
    (800,000 tasks a stage), 800,000 keys of width 16 (51 MB of float32 store
@@ -152,9 +156,11 @@ Phases, each of which raises (non-zero exit) on any failed check:
    groups and workspace bytes, and in bf16 `gg_bf16`'s dx beside
    `gg_sm90`'s and `gg_dw_bf16`'s dw beside `gg_dw_sm90`'s. Row 7b: B7's
    backward at zamba2-1.2b's training shape and phase 5's ssd stage: call
-   and device ms (split into its three kernels), the plain version, the
-   bound (3xTF32 operations, the FMA bound beside it), no library call,
-   and the outputs held to phase 2's gate at each shape. The segment
+   and device ms (split into its kernels), the `mma.sync` route's kernels
+   ("mamba_scan_bwd_mma") on the same operands in turns, the plain
+   version, the bound (3xTF32 operations, the FMA bound beside it), no
+   library call, and the outputs held to phase 2's gate at each shape.
+   The segment
    combine is timed
    at the writer combines of stages (a) add (`index_add_`), (c) min
    (`index_reduce_(..., "amin")`) and (b) write (no one call). The
@@ -318,7 +324,9 @@ Phases, each of which raises (non-zero exit) on any failed check:
    batch 2 x 4,096, 4 steps, compression on, no checkpoint: losses
    finite, the first within TRAIN_MOE_FIRST_REL of the float32 loss,
    launches exact (a step: one B7 forward and one backward a Mamba layer,
-   float32 as the layer lifts the scan's inputs, and B5's forward and
+   float32 as the layer lifts the scan's inputs, the backward on the
+   "mamba_scan_bwd" route and none on "mamba_scan_bwd_mma", and B5's
+   forward and
    backward an application), step ms, tokens/s, peak memory, B7's and
    B5's forward and backward ms inside a step (B7's backward by kernel
    from the profiler); its float32 twin (2 layers, 1 x 256) against
@@ -972,7 +980,7 @@ def _launch(**kw):
             "flash_attention_sm90": 0, "flash_attention_bwd_tf32": 0,
             "flash_attention_bwd_bf16": 0,
             "flash_decode": 0, "flash_decode_sm90": 0, "mamba_scan": 0,
-            "mamba_scan_bwd": 0, **kw}
+            "mamba_scan_bwd": 0, "mamba_scan_bwd_mma": 0, **kw}
 
 
 # launches of each kernel in each stage of the main path: K1 where Phase 1
@@ -3144,8 +3152,9 @@ def attention_bwd_timing(dev, errors: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
-# B7's backward (csrc/mamba_scan_bwd.cu, float32): parity (phase 2), and
-# times and the gate at row 7b's shapes (phase 6)
+# B7's backward (csrc/mamba_scan_bwd_sm90.cu, and csrc/mamba_scan_bwd.cu for
+# operands TMA cannot describe; float32): parity (phase 2), and times and
+# the gate at row 7b's shapes (phase 6)
 # ---------------------------------------------------------------------------
 # The backward through `mamba_ssd` under autograd (the kernels' forward,
 # its saved states and l, then the three backward kernels) against
@@ -3153,13 +3162,15 @@ def attention_bwd_timing(dev, errors: dict) -> list:
 # dB, dC within the forward's gate form: (SSD_REL + 8·u32·max|l|)·Σ|terms|
 # + 1e-6, Σ|terms| being `ssd_scan_bwd_ref(terms=True)` (the same pass on
 # |x|, |B|, |C|, |dy|, |dh_final|, |A| with every difference a sum). Set
-# before the first run on the card: every product 3xTF32 (~2^-21 of each
-# term) summed in float32 a k-step, dl's sums over up to 128 steps and dB,
-# dC over up to 32 heads a block in float32 (√n·u32 in practice), the
-# decays' exp(l_t − l_s) from float32 l (the max|l| part, as the forward).
-# tests/test_torch_ssd_emulation.py holds the kernels' arithmetic,
+# before the first run on the card: every product 3xTF32 (~2^-21
+# of each term), dl's sums over up to 128 steps and dB, dC over a block's
+# heads in float32 (√n·u32 in practice), the decays' exp(l_t − l_s) from
+# float32 l (the max|l| part, as the forward). The same for the TMA
+# route's kernels, whose tensor core carries sums up to 192 of K deep.
+# tests/test_torch_ssd_emulation.py holds both routes' arithmetic,
 # emulated, against float64 at this gate and shows one TF32 rounding of W
-# or P missing it.
+# or P, and dB / dC carried on the tensor core through every head, missing
+# it.
 # dA has a limit of its own, the same rel on the root-sum-square of its
 # (row, chunk, step) parts' Σ|terms| (`ssd_scan_bwd_ref(dA_steps=True)`):
 # rounding in different steps is independent, so it adds in quadrature,
@@ -3171,12 +3182,12 @@ def attention_bwd_timing(dev, errors: dict) -> list:
 # 5.8e-5 of it, dropping row 1's partial of chunk 7 2.4x it, row 1's
 # partials 12.5x and rotating the heads 117x; phase 2 plants those three
 # (`ssd_bwd_da_faults`).
-SSD_BWD_SOURCE = "src/repro_torch/csrc/mamba_scan_bwd.cu"
+SSD_BWD_SOURCE = "src/repro_torch/csrc/mamba_scan_bwd_sm90.cu"
 # the JAX package's backward of the scan: `jax.grad` of the XLA ops of
 # `mamba_chunked` (no Pallas kernel)
 SSD_BWD_REPLACES = "src/repro/models/mamba.py:77"
-SSD_BWD_PARTS = {"dstates": "ssd_bwd_dstates", "state_pass":
-                 "ssd_bwd_state_pass", "chunk": "ssd_bwd_chunk"}
+SSD_BWD_PARTS = {"dstates": "ssd_bwd_dstates_sm90", "state_pass":
+                 "ssd_bwd_state_pass", "chunk": "ssd_bwd_chunk_sm90"}
 SSD_BWD_OUTPUTS = ("dx", "ddt", "dA", "dB", "dC")
 # (tag, B, S, nh, hd, ds, chunk, dh_final given, large decays)
 SSD_BWD_PARITY = [
@@ -3187,7 +3198,10 @@ SSD_BWD_PARITY = [
     ("hd 40, ds 24, 33 heads", 1, 256, 33, 40, 24, 64, True, False),
     ("decays underflow", 2, 64, 3, 16, 8, 16, True, True),
 ]
-# bulk faults at (1, 2,048, 64, 64, 64, 128): 16 chunks, two head groups
+# each case's route (`ops.bwd_route`): "sm90" but where TMA cannot
+# describe a row (hd 5, ds 3: 20 and 12 bytes)
+SSD_BWD_ROUTE = {"hd 5, ds 3, chunk 7": "mma"}
+# bulk faults at (1, 2,048, 64, 64, 64, 128): 16 chunks, four head groups
 SSD_BWD_BULK_CASE = ("bulk faults", 1, 2048, 64, 64, 64, 128, True, False)
 SSD_BWD_BULK_CHUNK = 7  # the chunk whose incoming G is dropped
 SSD_BWD_DA_FAULT = (1, 7)  # (row, chunk) of the dA partial dropped
@@ -3271,13 +3285,14 @@ def ssd_bwd_bulk_faults(dev, seed: int) -> dict:
     planted fault beyond it (raises otherwise): (a) the gradient that the
     later chunks and dh_final send into chunk SSD_BWD_BULK_CHUNK dropped
     from that chunk's dx, ddt and dB (its G_k taken as 0), (b) dB and (c)
-    dC without the partial of the second group of 32 heads. Each missing
+    dC without the partial of the second group of heads (heads 16-31: the
+    "sm90" route's groups, `ops.SM90_HEADS_PER_BLOCK`). Each missing
     part is `ssd_scan_bwd_ref` in float64 with dy (and dh_final) zeroed
     outside it: the backward is linear in them. Returns each fault's share
     of the gate and the gate's median over the median |ref| per output."""
     import torch
 
-    from repro_torch.kernels.mamba_scan.ops import HEADS_PER_BLOCK
+    from repro_torch.kernels.mamba_scan.ops import SM90_HEADS_PER_BLOCK
     from repro_torch.kernels.mamba_scan.ref import ssd_scan_bwd_ref
 
     case = SSD_BWD_BULK_CASE
@@ -3299,7 +3314,7 @@ def ssd_bwd_bulk_faults(dev, seed: int) -> dict:
     later = dy.clone()
     later[:, :k0 + chunk] = 0  # what reaches chunk k through its G
     g_part = part(later, dh)
-    heads = slice(HEADS_PER_BLOCK, None)
+    heads = slice(SM90_HEADS_PER_BLOCK, 2 * SM90_HEADS_PER_BLOCK)
     dy_g, dh_g = torch.zeros_like(dy), torch.zeros_like(dh)
     dy_g[:, :, heads], dh_g[:, heads] = dy[:, :, heads], dh[:, heads]
     grp = part(dy_g, dh_g)
@@ -3343,26 +3358,39 @@ def ssd_bwd_da_faults(dA, gate: tuple) -> dict:
 
 def ssd_bwd_parity(dev) -> dict:
     """Phase 2's scan-backward cases (SSD_BWD_PARITY): each call launches
-    the forward and the backward once and lands within `ssd_bwd_check`'s
-    gate; the bulk faults miss it, and at the training shape the dA faults
+    the forward and, on the route SSD_BWD_ROUTE names (`ops.bwd_route`
+    agreeing), the backward once, and lands within `ssd_bwd_check`'s gate;
+    the bulk faults miss it, and at the training shape the dA faults
     (`ssd_bwd_da_faults`) miss dA's; two calls at the training shape give
-    the same bits. Returns the worst max |Δ| and the shares."""
+    the same bits. Returns the worst max |Δ|, the shares and the routes."""
     import torch
 
     from repro_torch import kernels
+    from repro_torch.kernels.mamba_scan import ops
 
-    worst, shares, seed = 0.0, {}, SEED + 700
+    worst, shares, routes, seed = 0.0, {}, {}, SEED + 700
     da_faults = None
     for case in SSD_BWD_PARITY:
         seed += 2
         inputs = ssd_bwd_inputs(dev, case, seed)
+        route = SSD_BWD_ROUTE.get(case[0], "sm90")
+        x, _, _, Bc, Cc, dy, _ = inputs
+        nc = -(-x.shape[1] // ops.kernel_chunk(min(case[6], x.shape[1])))
+        states = torch.empty((x.shape[0], x.shape[2], nc, x.shape[3],
+                              Bc.shape[2]), device=dev)  # the forward's
+        if ops.bwd_route(x, dy, Bc, Cc, states) != route:
+            raise AssertionError(f"scan backward {case[0]}: bwd_route "
+                                 f"is not {route!r}")
+        del states
         before = kernels.launches()
         got = ssd_bwd_call(inputs, case[6])
         torch.cuda.synchronize()
         ran = {k: v - before[k] for k, v in kernels.launches().items()
                if v != before[k]}
-        if ran != {"mamba_scan": 1, "mamba_scan_bwd": 1}:
-            raise AssertionError(f"scan backward {case[0]}: launched {ran}")
+        if ran != {"mamba_scan": 1, ops.BWD_COUNTERS[route]: 1}:
+            raise AssertionError(f"scan backward {case[0]}: launched {ran}, "
+                                 f"not its route {route!r}")
+        routes[case[0]] = ops.BWD_COUNTERS[route]
         gate = ssd_bwd_gate(inputs, case[6])
         e, share, each = ssd_bwd_check(got, inputs, case[6],
                                        f"scan backward {case[0]}", gate)
@@ -3382,12 +3410,11 @@ def ssd_bwd_parity(dev) -> dict:
     torch.cuda.empty_cache()
     def rounded(d: dict) -> dict:
         return {k: float(f"{v:.4g}") for k, v in d.items()}
-    log(f"  scan backward (mamba_scan_bwd, through mamba_ssd's autograd): "
-        f"{len(SSD_BWD_PARITY)} cases "
-        f"({', '.join(c[0] for c in SSD_BWD_PARITY)}), dx / ddt / dA / dB "
-        f"/ dC within ({SSD_REL} + 8·u32·max|l|)·Σ|terms| + 1e-6 against "
-        "float64 (dA: the root-sum-square of its steps' Σ|terms|); shares "
-        "of the gate "
+    log(f"  scan backward (through mamba_ssd's autograd): "
+        f"{len(SSD_BWD_PARITY)} cases on their routes {routes}, dx / ddt / "
+        f"dA / dB / dC within ({SSD_REL} + 8·u32·max|l|)·Σ|terms| + 1e-6 "
+        "against float64 (dA: the root-sum-square of its steps' Σ|terms|); "
+        "shares of the gate "
         f"{({k: rounded(d) for k, d in shares.items()})}; two calls at "
         "train_zamba2 give the same bits")
     log(f"  scan backward bulk faults at {SSD_BWD_BULK_CASE[1:7]} (dA's at "
@@ -3395,7 +3422,8 @@ def ssd_bwd_parity(dev) -> dict:
         f"{rounded(bulk['faults'])}; the "
         "gate's median over the median |ref| "
         f"{rounded(bulk['gate_over_median_ref'])}")
-    return {"worst": worst, "shares": shares, "bulk": bulk}
+    return {"worst": worst, "shares": shares, "bulk": bulk,
+            "routes": routes}
 
 
 def ssd_bwd_timing_shapes() -> list:
@@ -3413,9 +3441,10 @@ def _ssd_bwd_work(st: dict) -> tuple:
     inputs read once (x, dy, dt, A, B, C, the forward's states and l) and
     dx, ddt, dA, dB, dC written once (the G scratch not counted); the
     operations its data needs: per (b, chunk, head) the causal c(c+1)/2
-    pairs of P = dy·xᵀ, Wᵀ·dy (hd deep), Qᵀ·C and Q·B (ds deep), and
-    c·hd·ds for each of B·Gᵀ, x·G, dy·H and D_k; C·Bᵀ once per (b, chunk),
-    its heads sharing it."""
+    pairs of P = dy·xᵀ and Wᵀ·dy (hd deep), and c·hd·ds for each of B·Gᵀ,
+    x·G, dy·H and D_k; per (b, chunk) the pairs of C·Bᵀ, (Σ_h Q)ᵀ·C and
+    (Σ_h Q)·B (ds deep): B and C belong to the chunk, so its heads share
+    C·Bᵀ, and Σ_h Qᵀ·C = (Σ_h Q)ᵀ·C."""
     B, S, nh, hd, ds, c = (st[k] for k in ("B", "S", "nh", "hd", "ds",
                                             "chunk"))
     c = min(c, S)
@@ -3423,8 +3452,8 @@ def _ssd_bwd_work(st: dict) -> tuple:
     pairs = c * (c + 1) // 2
     nbytes = 4 * (3 * B * S * nh * hd + 2 * B * S * nh + nh
                   + 4 * B * S * ds + B * nh * NC * (hd * ds + 128))
-    ops = 2 * B * NC * (pairs * ds + nh * (2 * pairs * (hd + ds)
-                                           + 4 * c * hd * ds))
+    ops = 2 * B * NC * (3 * pairs * ds + nh * (2 * pairs * hd
+                                               + 4 * c * hd * ds))
     return nbytes, ops, FP32_TC_OPS_PER_S
 
 
@@ -3435,7 +3464,9 @@ def ssd_bwd_timing(dev, worst: float) -> dict:
     the same float32 inputs (one timed run), the bound (`_ssd_bwd_work`;
     the FMA bound beside it) and each shape's own outputs at phase 2's
     gate. No one PyTorch call computes it: library null. Launches are
-    filled in by phase 14."""
+    filled in by phase 14. The `mma.sync` route's kernels
+    ("mamba_scan_bwd_mma", forced on these aligned operands) are timed
+    beside them in turns (new, old, old, new): `mma_ms`."""
     import torch
 
     from repro_torch.kernels.mamba_scan import ops
@@ -3449,19 +3480,26 @@ def ssd_bwd_timing(dev, worst: float) -> dict:
         chunk = st["chunk"]
         _, _, states, l = ops._forward(x, dt, A, Bc, Cc, chunk, True, True)
 
-        def call(inputs=inputs, states=states, l=l):
-            return ops._backward(*inputs[:6], None, states, l, chunk)
+        def call(inputs=inputs, states=states, l=l, route=None):
+            return ops._backward(*inputs[:6], None, states, l, chunk,
+                                 route=route)
+
+        def call_mma():
+            return call(route="mma")
 
         def plain(inputs=inputs):
             return ops.ssd_scan_bwd_ref(*inputs[:6], None, chunk=chunk)
         nbytes, nops, rate = _ssd_bwd_work(st)
         b_ms, b_by = bound(nbytes, nops, rate)
+        turns = [time_auto(call), time_auto(call_mma), time_auto(call_mma),
+                 time_auto(call)]
         row = dict(stage=st["tag"], dtype="float32", config=st["source"],
                    shape=(f"{st['tag']}: x/dy ({st['B']}, {st['S']}, "
                           f"{st['nh']}, {st['hd']}), B/C ({st['B']}, "
                           f"{st['S']}, {st['ds']}) float32, chunk "
                           f"{chunk}"),
-                   ms=time_auto(call),
+                   ms=(turns[0] + turns[3]) / 2,
+                   mma_ms=(turns[1] + turns[2]) / 2, turns_ms=turns,
                    plain_ms=time_ms(plain, reps=1, warmup=1),
                    bound_ms=b_ms, bound_by=b_by,
                    bound_fma_ms=bound(nbytes, nops)[0], bytes=nbytes,
@@ -3470,8 +3508,11 @@ def ssd_bwd_timing(dev, worst: float) -> dict:
                    "scan's backward")
         row["device_ms"], row["device_events"], row["device_source"] = \
             device_ms(call, reps=5)
-        row["device_split"] = bwd_split(row["device_events"],
-                                        row["device_source"], SSD_BWD_PARTS)
+        # the partials' sums in ops._backward (torch.sum) apart from the
+        # rest
+        row["device_split"] = bwd_split(
+            row["device_events"], row["device_source"],
+            {**SSD_BWD_PARTS, "sums": "reduce_kernel"})
         # the call's own outputs at this shape, at phase 2's gate
         row["max_abs_err"], row["share_of_gate"], _ = ssd_bwd_check(
             ssd_bwd_call(inputs, chunk), inputs, chunk,
@@ -3483,7 +3524,9 @@ def ssd_bwd_timing(dev, worst: float) -> dict:
         split = ("split not measured" if s["device_split"] is None
                  else ", ".join(f"{k} {v:.4f}"
                                 for k, v in s["device_split"].items()))
-        log(f"  mamba_scan_bwd: call {s['ms']:.4f} ms, device "
+        log(f"  mamba_scan_bwd: call {s['ms']:.4f} ms (turns new, old, old, "
+            f"new {[round(t, 4) for t in s['turns_ms']]}; the mma.sync "
+            f"route's kernels mamba_scan_bwd_mma {s['mma_ms']:.4f}), device "
             f"{s['device_ms']:.4f} ms ({split}), plain {s['plain_ms']:.4f}, "
             f"library null, bound {s['bound_ms']:.4f} by {s['bound_by']} / "
             f"{s['bound_fma_ms']:.4f} in FMAs; max |Δ| "
@@ -8285,7 +8328,8 @@ def main(argv=None) -> int:
          "train": train, "train_moe": train_moe, "train_ssm": train_ssm,
          "moe_gemm_bwd_parity": {k: bwd_gemm[k]
                                  for k in ("shares", "bulk", "splits")},
-         "ssd_bwd_parity": {k: ssd_bwd[k] for k in ("shares", "bulk")},
+         "ssd_bwd_parity": {k: ssd_bwd[k]
+                            for k in ("shares", "bulk", "routes")},
          "c2": c2,
          "phase_start_s": clock,
          "wall_s": time.perf_counter() - t_start},

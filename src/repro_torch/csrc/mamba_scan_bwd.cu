@@ -628,6 +628,21 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// (ii) over the chunks' D_k in `grads`, seeded by dh_final (or 0).
+cudaError_t state_pass(const float* l, const float* dh_final, int B, int nh,
+                       int NC, int hdds, float* grads, cudaStream_t stream) {
+  if (hdds % 4 == 0 && aligned16(grads) && aligned16(dh_final)) {
+    ssd_bwd_state_pass<4>
+        <<<dim3((hdds / 4 + kStateThreads - 1) / kStateThreads, nh, B),
+           kStateThreads, 0, stream>>>(grads, l, dh_final, nh, NC, hdds);
+  } else {
+    ssd_bwd_state_pass<1>
+        <<<dim3((hdds + kStateThreads - 1) / kStateThreads, nh, B),
+           kStateThreads, 0, stream>>>(grads, l, dh_final, nh, NC, hdds);
+  }
+  return cudaGetLastError();
+}
+
 template <bool kAsync>
 cudaError_t run(const float* x, const float* dt, const float* A,
                 const float* Bc, const float* Cc, const float* dy,
@@ -649,17 +664,7 @@ cudaError_t run(const float* x, const float* dt, const float* A,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int hdds = hd * ds;
-  if (hdds % 4 == 0 && aligned16(grads) && aligned16(dh_final)) {
-    ssd_bwd_state_pass<4>
-        <<<dim3((hdds / 4 + kStateThreads - 1) / kStateThreads, nh, B),
-           kStateThreads, 0, stream>>>(grads, l, dh_final, nh, NC, hdds);
-  } else {
-    ssd_bwd_state_pass<1>
-        <<<dim3((hdds + kStateThreads - 1) / kStateThreads, nh, B),
-           kStateThreads, 0, stream>>>(grads, l, dh_final, nh, NC, hdds);
-  }
-  err = cudaGetLastError();
+  err = state_pass(l, dh_final, B, nh, NC, hd * ds, grads, stream);
   if (err != cudaSuccess) return err;
 
   constexpr int bytes = ChunkSmem::kBytes;
@@ -674,6 +679,17 @@ cudaError_t run(const float* x, const float* dt, const float* A,
 }
 
 }  // namespace
+
+// The state pass alone, for mamba_scan_bwd_sm90.cu's route: grads (B, nh,
+// NC, hd·ds) holds each chunk's D_k and gets G_k; l the forward's (B, nh,
+// NC, 128); dh_final (B, nh, hd·ds) or null.
+extern "C" int tdorch_ssd_bwd_state_pass(const float* l,
+                                         const float* dh_final, int B,
+                                         int nh, int NC, int hdds,
+                                         float* grads, cudaStream_t stream) {
+  return static_cast<int>(
+      state_pass(l, dh_final, B, nh, NC, hdds, grads, stream));
+}
 
 // x, dy: (B, S, nh, hd); Bc, Cc: (B, S, ds); dt: (B, S, nh); A: (nh,);
 // all float32 and contiguous, 1 <= hd, ds <= 64, 1 <= chunk <= 128, B, nh

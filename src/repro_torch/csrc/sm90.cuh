@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (flash_attention_sm90.cu, flash_attention_bwd_sm90.cu, flash_decode.cu,
 // flash_attention_tf32.cu, flash_attention_bwd_tf32_sm90.cu, moe_gemm.cu,
-// moe_gemm_bwd.cu):
+// moe_gemm_bwd.cu, mamba_scan.cu, mamba_scan_bwd.cu,
+// mamba_scan_bwd_sm90.cu):
 // mbarriers, named barriers, TMA tile loads (multicast to a cluster too)
 // and the host-side tensor maps that describe them (bf16 and float32),
 // cluster barriers and remote arrivals, `cp.async` copies, warp-level
@@ -489,13 +490,25 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" SM90_R64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SM90_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
-  static_assert(N == 32 || N == 64, "n32 or n64");
+  static_assert(N == 32 || N == 64 || N == 128, "n32, n64 or n128");
   if constexpr (N == 32) wgmma_rs_tf32_n32(d, a, db);
-  else wgmma_rs_tf32_n64(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_tf32_n64(d, a, db);
+  else wgmma_rs_tf32_n128(d, a, db);
 }
 
 #undef SM90_D32

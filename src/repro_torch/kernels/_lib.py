@@ -33,7 +33,7 @@ SOURCES = ("errors.cu", "histogram.cu", "segment_combine.cu",
            "flash_attention_tf32.cu",
            "flash_attention_sm90.cu", "flash_attention_bwd_tf32_sm90.cu",
            "flash_attention_bwd_sm90.cu", "flash_decode.cu", "mamba_scan.cu",
-           "mamba_scan_bwd.cu")
+           "mamba_scan_bwd.cu", "mamba_scan_bwd_sm90.cu")
 HEADERS = ("sm90.cuh",)  # included by the sources; part of the build's key
 LIBRARY = "libtdorch_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -45,7 +45,7 @@ KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
            "moe_gemm_dw_sm90", "moe_gemm_dw_bf16", "flash_attention_tf32",
            "flash_attention_sm90", "flash_attention_bwd_tf32",
            "flash_attention_bwd_bf16", "flash_decode", "flash_decode_sm90",
-           "mamba_scan", "mamba_scan_bwd")
+           "mamba_scan", "mamba_scan_bwd", "mamba_scan_bwd_mma")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -190,6 +190,8 @@ def load() -> ctypes.CDLL:
         # x, dt, A, Bc, Cc, dy, dh_final, states, l; B, S, nh, hd, ds,
         # chunk; grads (scratch), dx, ddt, dB / dC / dA partials, stream
         "tdorch_ssd_scan_bwd": [i32, *[ptr] * 9, *[i32] * 7, *[ptr] * 7],
+        "tdorch_ssd_scan_bwd_sm90": [i32, *[ptr] * 9, *[i32] * 7,
+                                     *[ptr] * 7],
     }
     for name, argtypes in sig.items():
         fn = getattr(lib, name)

@@ -1,7 +1,8 @@
 """Mamba2 SSD chunk scan: `mamba_ssd` launches the CUDA kernels
 (`csrc/mamba_scan.cu`; under autograd the backward's,
-`csrc/mamba_scan_bwd.cu`) for a CUDA tensor and runs the plain versions
-(`ref.py`) for a CPU tensor."""
+`csrc/mamba_scan_bwd_sm90.cu` or `csrc/mamba_scan_bwd.cu` by `bwd_route`)
+for a CUDA tensor and runs the plain versions (`ref.py`) for a CPU
+tensor."""
 from __future__ import annotations
 
 import torch
@@ -11,7 +12,11 @@ from .ref import ssd_scan_bwd_ref, ssd_scan_fwd_ref, ssd_shapes
 
 MAX_WIDTH = 64      # head_dim and d_state the kernel takes
 MAX_CHUNK = 128     # csrc/mamba_scan.cu's kMaxChunk
-HEADS_PER_BLOCK = 32  # the backward's blocks take up to 32 heads each
+HEADS_PER_BLOCK = 32  # the "mma" backward's blocks take up to 32 heads
+# the "sm90" backward's units (b, chunk, group) take up to 16 heads: 256
+# units at zamba2's training shape, ~2 for each of an H100's 132 SMs
+SM90_HEADS_PER_BLOCK = 16
+BWD_COUNTERS = {"sm90": "mamba_scan_bwd", "mma": "mamba_scan_bwd_mma"}
 _MAX_GRID_Y = 65535
 
 
@@ -41,8 +46,10 @@ def mamba_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     with an input that requires grad it is a `torch.autograd.Function`
     whose forward keeps its inputs and that scratch (the states entering
     each chunk, and l), and whose backward launches the three kernels of
-    `csrc/mamba_scan_bwd.cu` for float32 (counted once as
-    "mamba_scan_bwd") or runs `ssd_scan_bwd_ref` on the CPU. On the card a
+    `csrc/mamba_scan_bwd_sm90.cu` for float32 operands TMA can describe
+    (counted once as "mamba_scan_bwd"), those of `csrc/mamba_scan_bwd.cu`
+    for the rest ("mamba_scan_bwd_mma"; `bwd_route`), or runs
+    `ssd_scan_bwd_ref` on the CPU. On the card a
     bfloat16 scan under grad raises `NotImplementedError` (ROADMAP A11f);
     the models lift the scan's inputs to float32. Otherwise (serving) the
     forward keeps nothing."""
@@ -111,14 +118,30 @@ def _forward(x, dt, A, Bc, Cc, chunk: int, return_state: bool, keep: bool):
     return (y, final, states, l) if keep else (y, final, None, None)
 
 
-def _backward(x, dt, A, Bc, Cc, dy, dh, states, l, chunk: int):
-    """(dx, ddt, dA, dBc, dCc): the three backward kernels of
-    `csrc/mamba_scan_bwd.cu` on the card (float32, one count
-    "mamba_scan_bwd"), `ssd_scan_bwd_ref` on the CPU. `states` and `l` are
-    what `_forward(..., keep=True)` returned; dy is shaped as x, dh (B, nh,
-    hd, ds) or None (zero). The kernels write dBc's and dCc's partials
-    for each block of up to 32 heads and dA's for each (row, chunk, head);
-    they are summed here (the same order every call)."""
+def bwd_route(x, dy, Bc, Cc, states) -> str:
+    """The backward's kernels for these operands, from their shapes and
+    addresses alone: "sm90" (`csrc/mamba_scan_bwd_sm90.cu`, TMA + TF32
+    `wgmma`) where a TMA tensor map can describe every tile it loads — hd
+    and ds multiples of 4 (rows of whole 16-byte units) and x, dy, Bc, Cc
+    and the forward's states at 16-byte aligned addresses — else "mma"
+    (`csrc/mamba_scan_bwd.cu`, `mma.sync` over `cp.async` or plain loads).
+    Neither falls back to the other."""
+    hd, ds = x.shape[3], Bc.shape[2]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, Bc, Cc, states))
+    return "sm90" if hd % 4 == 0 and ds % 4 == 0 and aligned else "mma"
+
+
+def _backward(x, dt, A, Bc, Cc, dy, dh, states, l, chunk: int,
+              route: str | None = None):
+    """(dx, ddt, dA, dBc, dCc): the backward kernels on the card (float32;
+    `bwd_route`'s, or `route` where given, e.g. to time the "mma" kernels
+    on operands "sm90" takes; counted as `BWD_COUNTERS` says),
+    `ssd_scan_bwd_ref` on the CPU. `states` and `l` are what
+    `_forward(..., keep=True)` returned; dy is shaped as x, dh (B, nh, hd,
+    ds) or None (zero). The kernels write dBc's and dCc's partials for each
+    group of heads (`HEADS_PER_BLOCK` / `SM90_HEADS_PER_BLOCK` a group) and
+    dA's for each (row, chunk, head); they are summed here (the same order
+    every call)."""
     B, S, nh, hd, ds, c = ssd_shapes(x, dt, A, Bc, Cc, chunk)
     if not _lib.on_cuda(x):
         return ssd_scan_bwd_ref(x, dt, A, Bc, Cc, dy, dh, chunk=chunk,
@@ -146,20 +169,27 @@ def _backward(x, dt, A, Bc, Cc, dy, dh, states, l, chunk: int):
         return (torch.zeros_like(x), torch.zeros_like(dt),
                 torch.zeros_like(A), torch.zeros_like(Bc),
                 torch.zeros_like(Cc))
+    route = route or bwd_route(x, dy, Bc, Cc, states)
+    if route not in BWD_COUNTERS:
+        raise ValueError(f"route {route!r}: one of {tuple(BWD_COUNTERS)}")
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
-    groups = -(-nh // HEADS_PER_BLOCK)
+    per_group = SM90_HEADS_PER_BLOCK if route == "sm90" else HEADS_PER_BLOCK
+    groups = -(-nh // per_group)
     dB = torch.empty((groups, B, S, ds), dtype=torch.float32, device=dev)
     dC = torch.empty_like(dB)
     dA = torch.empty((B, nc, nh), dtype=torch.float32, device=dev)
     grads = torch.empty_like(states)  # D_k, then G_k
-    rc = _lib.load().tdorch_ssd_scan_bwd(
+    lib = _lib.load()
+    entry = (lib.tdorch_ssd_scan_bwd_sm90 if route == "sm90"
+             else lib.tdorch_ssd_scan_bwd)
+    rc = entry(
         dev.index or 0, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bc.data_ptr(), Cc.data_ptr(), dy.data_ptr(), _lib.ptr(dh),
         states.data_ptr(), l.data_ptr(), B, S, nh, hd, ds, kc, groups,
         grads.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
         dC.data_ptr(), dA.data_ptr(), _lib.stream(x))
-    _lib.check(rc, "mamba_scan_bwd")
-    _lib.count("mamba_scan_bwd")
+    _lib.check(rc, BWD_COUNTERS[route])
+    _lib.count(BWD_COUNTERS[route])
     return dx, ddt, dA.sum((0, 1)), dB.sum(0), dC.sum(0)
 
 

@@ -10,8 +10,10 @@ two layers, 8 experts, top 2), as the JAX launcher does on a CPU host;
 `--full` trains the full config (granite-moe-1b-a400m: 24 layers, 32
 experts, top 8) on the one card, where the JAX launcher would bind a pod's
 mesh. `Trainer` (`runtime/trainer.py`) does the work: `Model.loss_fn`
-under autograd through the kernels' backward (B5's, and B4's for the MoE
-pattern), AdamW, optional int8 gradient compression, checkpoints and a
+under autograd through the kernels' backward (B5's; B4's for the MoE
+pattern; B7's, the SSD scan's, for the zamba2 pattern: "mamba_scan_bwd",
+or "mamba_scan_bwd_mma" for operands TMA cannot describe), AdamW,
+optional int8 gradient compression, checkpoints and a
 failure injector. The reduced configs' head dims (8, 16) are below the
 attention kernel's, so on the card only `--full` configs train: the
 launcher refuses the others there before it builds anything.

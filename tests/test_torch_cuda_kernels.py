@@ -1181,6 +1181,119 @@ def test_scan_and_grouped_gemm_refuse_grad_on_the_card(dev):
     assert kernels.launches()["moe_gemm_dx_sm90"] == 0
 
 
+# B7's backward on both routes (`ops.bwd_route`): (B, S, nh, hd, ds, chunk,
+# dh_final given), as chip_smoke.py's SSD_BWD_PARITY, and the route each
+# takes. hd 5 / ds 3 and ds 6 leave rows off 16 bytes: TMA cannot take them.
+SSD_BWD_GEOMS = [((1, 512, 20, 64, 64, 128, False), "sm90"),
+                 ((2, 400, 17, 64, 64, 100, True), "sm90"),
+                 ((2, 128, 3, 32, 16, 128, True), "sm90"),
+                 ((1, 256, 33, 40, 24, 64, True), "sm90"),
+                 ((2, 64, 3, 16, 8, 16, True), "sm90"),
+                 ((2, 42, 20, 5, 3, 7, True), "mma"),
+                 ((1, 96, 4, 16, 6, 32, True), "mma")]
+
+
+def _ssd_bwd_case(dev, geom, seed):
+    B, S, nh, hd, ds, chunk, with_dh = geom
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_normal(rng, B, S, nh, hd)).to(dev)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.3, size=(B, S, nh)).astype(
+        np.float32)).to(dev)
+    A = torch.from_numpy(-rng.uniform(0.3, 2.0, size=(nh,)).astype(
+        np.float32)).to(dev)
+    Bc, Cc = (torch.from_numpy(_normal(rng, B, S, ds)).to(dev)
+              for _ in range(2))
+    dy = torch.from_numpy(_normal(rng, B, S, nh, hd)).to(dev)
+    dh = (torch.from_numpy(_normal(rng, B, nh, hd, ds)).to(dev)
+          if with_dh else None)
+    return x, dt, A, Bc, Cc, dy, dh
+
+
+def _ssd_bwd_grads(inputs, chunk):
+    x, dt, A, Bc, Cc, dy, dh = inputs
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, Bc, Cc)]
+    y, h = mamba_ssd(*leaves, chunk=chunk, return_state=True)
+    outs, grads = ([y], [dy]) if dh is None else ([y, h], [dy, dh])
+    return torch.autograd.grad(outs, leaves, grads)
+
+
+def _ssd_bwd_gate(got, inputs, chunk):
+    """chip_smoke.py's scan-backward gate: (SSD_REL + 8·u32·max|l|)·Σ|terms|
+    + 1e-6 on dx, ddt, dB, dC against float64, dA's on the root-sum-square
+    of its steps' Σ|terms|."""
+    from repro_torch.kernels.mamba_scan.ref import ssd_scan_bwd_ref
+
+    x, dt, A, Bc, Cc, dy, dh = (None if t is None else t.double()
+                                for t in inputs)
+    c = min(chunk, x.shape[1])
+    max_l = float((dt * A).reshape(x.shape[0], -1, c, x.shape[2]).cumsum(
+        2).abs().max())
+    want = ssd_scan_bwd_ref(x, dt, A, Bc, Cc, dy, dh, chunk=chunk)
+    mags = list(ssd_scan_bwd_ref(x, dt, A, Bc, Cc, dy, dh, chunk=chunk,
+                                 terms=True, dA_steps=True))
+    mags[2] = mags[2].square().sum((0, 1, 3)).sqrt()
+    rel = SSD_REL + 8 * U32 * max_l
+    for name, g, w, m in zip(("dx", "ddt", "dA", "dB", "dC"), got, want,
+                             mags):
+        assert bool(torch.isfinite(g).all()), name
+        assert bool(((g.double() - w).abs() <= rel * m + 1e-6).all()), name
+
+
+@pytest.mark.parametrize("geom,route", SSD_BWD_GEOMS,
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else v)
+def test_ssd_bwd_routes(dev, geom, route):
+    """`mamba_ssd`'s float32 backward takes `bwd_route`'s kernels (the
+    counter of that route once, the other's never), lands within the gate,
+    and two calls give the same bits; an aligned case forced onto the "mma"
+    kernels lands within it too, and the "sm90" entry refuses operands off
+    16 bytes rather than reading them."""
+    from repro_torch.kernels.mamba_scan import ops
+
+    inputs = _ssd_bwd_case(dev, geom, seed=sum(geom[:6]))
+    chunk = geom[5]
+    x, dt, A, Bc, Cc, dy, dh = inputs
+    _, _, states, l = ops._forward(x, dt, A, Bc, Cc, chunk, True, True)
+    assert ops.bwd_route(x, dy, Bc, Cc, states) == route
+    got = _ssd_bwd_grads(inputs, chunk)
+    torch.cuda.synchronize()
+    other = "mma" if route == "sm90" else "sm90"
+    assert kernels.launches()[ops.BWD_COUNTERS[route]] == 1
+    assert kernels.launches()[ops.BWD_COUNTERS[other]] == 0
+    _ssd_bwd_gate(got, inputs, chunk)
+    again = _ssd_bwd_grads(inputs, chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if route == "sm90":
+        forced = ops._backward(x, dt, A, Bc, Cc, dy, dh, states, l, chunk,
+                               route="mma")
+        _ssd_bwd_gate(forced, inputs, chunk)
+        assert kernels.launches()["mamba_scan_bwd_mma"] == 1
+    else:
+        with pytest.raises(RuntimeError, match="mamba_scan_bwd"):
+            ops._backward(x, dt, A, Bc, Cc, dy, dh, states, l, chunk,
+                          route="sm90")
+
+
+def test_ssd_bwd_route_refuses_an_unaligned_base(dev):
+    """x viewed one float into a buffer (a base off 16 bytes) takes the
+    "mma" kernels and lands within the gate."""
+    from repro_torch.kernels.mamba_scan import ops
+
+    geom = (1, 256, 4, 32, 16, 64, True)
+    inputs = list(_ssd_bwd_case(dev, geom, seed=5))
+    buf = torch.empty(inputs[0].numel() + 1, device=dev)
+    x = buf[1:].view(inputs[0].shape)
+    x.copy_(inputs[0])
+    inputs[0] = x
+    assert ops.bwd_route(x, inputs[5], inputs[3], inputs[4], inputs[5]) \
+        == "mma"
+    got = _ssd_bwd_grads(inputs, geom[5])
+    torch.cuda.synchronize()
+    assert kernels.launches()["mamba_scan_bwd_mma"] == 1
+    assert kernels.launches()["mamba_scan_bwd"] == 0
+    _ssd_bwd_gate(got, inputs, geom[5])
+
+
 # ---------------------------------------------------------------------------
 # B4's backward: dx (the forward's kernels, w read transposed in place) and
 # dw (csrc/moe_gemm_bwd.cu: `gg_dw_sm90`, `gg_dw_bf16`, `gg_dw_tf32` over

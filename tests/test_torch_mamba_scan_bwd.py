@@ -14,10 +14,16 @@ reverse pass `ssd_scan_bwd_ref` and `mamba_ssd` as a
   max|ref|, + rtol 1e-4).
 - `Model.loss_fn` for zamba2 reaches `ssd_scan_bwd_ref` once a layer, and
   the scan keeps for its backward its inputs and the chunk states only.
+- `ops.bwd_route`, which picks the backward's kernels from shapes and
+  addresses alone: zamba2's training shape and chip_smoke.py's aligned
+  SSD_BWD_PARITY shapes take "sm90", ds 3 (hd 5), ds 6 and an x off 16
+  bytes take "mma".
 
-On the CPU nothing launches; the kernels (`csrc/mamba_scan_bwd.cu`) are held
-to this reverse pass on the card by chip_smoke.py, and their arithmetic,
-emulated, by tests/test_torch_ssd_emulation.py.
+On the CPU nothing launches; the kernels (`csrc/mamba_scan_bwd_sm90.cu`,
+and `csrc/mamba_scan_bwd.cu` for operands TMA cannot describe) are held to
+this reverse pass on the card by chip_smoke.py and
+tests/test_torch_cuda_kernels.py, and their arithmetic, emulated, by
+tests/test_torch_ssd_emulation.py.
 """
 import jax
 import jax.numpy as jnp
@@ -248,3 +254,66 @@ def test_scan_saves_its_inputs_and_chunk_states_only():
     plain = _saved_bytes(lambda: ssd_scan_ref(*leaves, chunk=c))
     assert got == inputs + states
     assert plain > 9 * got, (plain, got)
+
+
+def _route_operands(B, S, nh, hd, ds, chunk, offset=0):
+    """x, dy, Bc, Cc and the forward's states with the backward's shapes, as
+    zero-strided views (the route reads shapes and addresses only) `offset`
+    floats into a 64-byte aligned buffer."""
+    buf = torch.empty(64)
+    nc = -(-S // ops.kernel_chunk(min(chunk, S)))
+
+    def view(*shape):
+        return buf[offset:].as_strided(shape, (0,) * len(shape))
+    return (view(B, S, nh, hd), view(B, S, nh, hd), view(B, S, ds),
+            view(B, S, ds), view(B, nh, nc, hd, ds))
+
+
+@pytest.mark.parametrize("geom,offset,route", [
+    ((2, 4096, 64, 64, 64, 128), 0, "sm90"),   # zamba2's training step
+    ((2, 32768, 64, 64, 64, 128), 0, "sm90"),  # phase 5's ssd stage
+    ((2, 400, 17, 64, 64, 200), 0, "sm90"),
+    ((2, 128, 3, 32, 16, 128), 0, "sm90"),
+    ((1, 256, 33, 40, 24, 64), 0, "sm90"),
+    ((2, 64, 3, 16, 8, 16), 0, "sm90"),
+    ((2, 42, 20, 5, 3, 7), 0, "mma"),          # rows of 20 and 12 bytes
+    ((1, 96, 4, 16, 6, 32), 0, "mma"),         # B / C rows of 24 bytes
+    ((2, 4096, 64, 64, 64, 128), 1, "mma"),    # bases off 16 bytes
+    ((2, 4096, 64, 64, 64, 128), 4, "sm90"),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_bwd_route(geom, offset, route):
+    assert ops.bwd_route(*_route_operands(*geom, offset=offset)) == route
+
+
+def test_bwd_route_reads_every_operand_address():
+    """One operand off 16 bytes is enough to leave the TMA route."""
+    ops_ = _route_operands(2, 4096, 64, 64, 64, 128)
+    off = _route_operands(2, 4096, 64, 64, 64, 128, offset=1)
+    for i in range(5):
+        moved = [off[j] if j == i else t for j, t in enumerate(ops_)]
+        assert ops.bwd_route(*moved) == "mma", i
+
+
+def test_bwd_bound_counts_the_q_products_once_a_chunk():
+    """chip_smoke.py's bound for row 7b (`_ssd_bwd_work`) against its
+    products counted one by one on a small shape: per (row, chunk) C·Bᵀ,
+    (Σ_h Q)ᵀ·C and (Σ_h Q)·B over the causal pairs s <= t (ds deep, B and
+    C shared by the heads), per head P and Wᵀ·dy over them (hd deep) and
+    B·Gᵀ, x·G, dy·H and D_k (c·hd·ds each); a multiply-add two
+    operations."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    B, S, nh, hd, ds, c = 2, 12, 3, 4, 8, 4
+    fma = 0
+    for _ in range(B):
+        for _ in range(S // c):
+            for t in range(c):
+                for _ in range(t + 1):
+                    fma += 3 * ds + nh * 2 * hd
+            fma += nh * 4 * c * hd * ds
+    st = dict(B=B, S=S, nh=nh, hd=hd, ds=ds, chunk=c)
+    assert chip_smoke._ssd_bwd_work(st)[1] == 2 * fma
