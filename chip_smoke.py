@@ -156,9 +156,7 @@ Phases, each of which raises (non-zero exit) on any failed check:
    groups and workspace bytes, and in bf16 `gg_bf16`'s dx beside
    `gg_sm90`'s and `gg_dw_bf16`'s dw beside `gg_dw_sm90`'s. Row 7b: B7's
    backward at zamba2-1.2b's training shape and phase 5's ssd stage: call
-   and device ms (split into its kernels), the `mma.sync` route's kernels
-   ("mamba_scan_bwd_mma") on the same operands in turns, the plain
-   version, the bound (3xTF32 operations, the FMA bound beside it), no
+   and device ms (split into its kernels), the plain version, the bound (3xTF32 operations, the FMA bound beside it), no
    library call, and the outputs held to phase 2's gate at each shape.
    The segment
    combine is timed
@@ -331,6 +329,34 @@ Phases, each of which raises (non-zero exit) on any failed check:
    B5's forward and backward ms inside a step (B7's backward by kernel
    from the profiler); its float32 twin (2 layers, 1 x 256) against
    float64 on the CPU.
+15. The model-level mesh (`repro_torch.launch`: `steps.build_step` on
+   `mesh.make_host_mesh(1, 4)`, whose "model" axis is a stacked mesh of 4
+   shards on the card; the MoE layers' mesh branches in `models/moe.py`),
+   bf16, seeded weights: (a) granite-moe-1b-a400m trained at full width
+   and depth, batch 1 x 4,096 (1,024 tokens x top-8 a shard), 5 steps of
+   the bound train step (the sequence-split branch): losses finite,
+   launches exact (a MoE layer a step: a histogram, four B4 forward and
+   eight backward launches, B5's forward and backward), the plain versions
+   never called; step ms (median of steps 2-5, each step's device span
+   beside it), B4's and B5's device ms a step, tokens/s, peak memory, a
+   device's all-to-all and psum bytes a step (forward and backward),
+   dropped assignments a step; then one more step with every kernel call,
+   forward (B1, B4, B5) and backward (B4's dx and dw, B5's), held against
+   its plain version at the mesh's shapes, at phase 13's and phase 2's
+   gates.
+   (b) At capacity factor 4 (nothing drops, asserted) and aux weight 0,
+   the (1, 4) mesh against a (1, 1) one on the same weights: the float32
+   twin (2 layers, 1 x 256) within phase 14's gates (loss 1e-5·|ref|,
+   gradients 1e-4·max|ref|), and 8 layers in bf16 at 1 x 4,096 within
+   0.1% of the same weights' float32 loss. (c) granite-moe-3b-a800m at 8
+   layers (`LM_CHECK_LAYERS`): an 8 x 4,096 prefill (the sequence-split
+   branch) and 16 greedy decode steps (the psum branch) through the bound
+   prefill and decode steps, launches exact (a prefill: a histogram and
+   four B4 a layer, B5; a step: two B4 a layer, B6), prefill ms (after
+   one untimed prefill) and decode ms, peak memory, collectives, drops; again with every kernel call held
+   against its plain version; and at capacity factor 4 against the same
+   weights on one device, the mesh's tokens fed to both, every logits
+   tensor within `lm_gate` (0.25 of max|ref|).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -338,7 +364,7 @@ name and power limit.
 
 A diagnostic of the open fault C2 (ROADMAP), not in the default run:
 ``--c2-repeats N`` runs phase 5's bf16 prefill_mha stage N times after
-phase 4 and reads every share of its gate, then runs phases 5-13 as
+phase 4 and reads every share of its gate, then runs phases 5-15 as
 always.
 """
 from __future__ import annotations
@@ -3464,9 +3490,7 @@ def ssd_bwd_timing(dev, worst: float) -> dict:
     the same float32 inputs (one timed run), the bound (`_ssd_bwd_work`;
     the FMA bound beside it) and each shape's own outputs at phase 2's
     gate. No one PyTorch call computes it: library null. Launches are
-    filled in by phase 14. The `mma.sync` route's kernels
-    ("mamba_scan_bwd_mma", forced on these aligned operands) are timed
-    beside them in turns (new, old, old, new): `mma_ms`."""
+    filled in by phase 14."""
     import torch
 
     from repro_torch.kernels.mamba_scan import ops
@@ -3480,26 +3504,19 @@ def ssd_bwd_timing(dev, worst: float) -> dict:
         chunk = st["chunk"]
         _, _, states, l = ops._forward(x, dt, A, Bc, Cc, chunk, True, True)
 
-        def call(inputs=inputs, states=states, l=l, route=None):
-            return ops._backward(*inputs[:6], None, states, l, chunk,
-                                 route=route)
-
-        def call_mma():
-            return call(route="mma")
+        def call(inputs=inputs, states=states, l=l):
+            return ops._backward(*inputs[:6], None, states, l, chunk)
 
         def plain(inputs=inputs):
             return ops.ssd_scan_bwd_ref(*inputs[:6], None, chunk=chunk)
         nbytes, nops, rate = _ssd_bwd_work(st)
         b_ms, b_by = bound(nbytes, nops, rate)
-        turns = [time_auto(call), time_auto(call_mma), time_auto(call_mma),
-                 time_auto(call)]
         row = dict(stage=st["tag"], dtype="float32", config=st["source"],
                    shape=(f"{st['tag']}: x/dy ({st['B']}, {st['S']}, "
                           f"{st['nh']}, {st['hd']}), B/C ({st['B']}, "
                           f"{st['S']}, {st['ds']}) float32, chunk "
                           f"{chunk}"),
-                   ms=(turns[0] + turns[3]) / 2,
-                   mma_ms=(turns[1] + turns[2]) / 2, turns_ms=turns,
+                   ms=time_auto(call),
                    plain_ms=time_ms(plain, reps=1, warmup=1),
                    bound_ms=b_ms, bound_by=b_by,
                    bound_fma_ms=bound(nbytes, nops)[0], bytes=nbytes,
@@ -3524,9 +3541,7 @@ def ssd_bwd_timing(dev, worst: float) -> dict:
         split = ("split not measured" if s["device_split"] is None
                  else ", ".join(f"{k} {v:.4f}"
                                 for k, v in s["device_split"].items()))
-        log(f"  mamba_scan_bwd: call {s['ms']:.4f} ms (turns new, old, old, "
-            f"new {[round(t, 4) for t in s['turns_ms']]}; the mma.sync "
-            f"route's kernels mamba_scan_bwd_mma {s['mma_ms']:.4f}), device "
+        log(f"  mamba_scan_bwd: call {s['ms']:.4f} ms, device "
             f"{s['device_ms']:.4f} ms ({split}), plain {s['plain_ms']:.4f}, "
             f"library null, bound {s['bound_ms']:.4f} by {s['bound_by']} / "
             f"{s['bound_fma_ms']:.4f} in FMAs; max |Δ| "
@@ -6725,12 +6740,14 @@ def _value_checks(rows: list):
                        shape=[tuple(t.shape) for t in a
                               if isinstance(t, torch.Tensor)],
                        length=kw.get("length"), dtype=str(a[0].dtype))
-            if name == "grouped_gemm":
-                e, share = gemm_check(*a, out, tag)
-            elif name == "count_ids":
-                e, share = _histogram_check(a, kw, out, tag)
-            else:
-                e, share = _checked_call(name, fn, a, kw, out, dtype, tag)
+            with torch.no_grad():  # a training step's forward too
+                if name == "grouped_gemm":
+                    e, share = gemm_check(*a, out, tag)
+                elif name == "count_ids":
+                    e, share = _histogram_check(a, kw, out, tag)
+                else:
+                    e, share = _checked_call(name, fn, a, kw, out, dtype,
+                                             tag)
             rows.append(dict(row, max_abs_err=e, share_of_tolerance=share))
             return out
         return call
@@ -7899,6 +7916,543 @@ def train_ssm_path(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the model-level mesh (launch.steps on launch.mesh.make_host_mesh)
+# ---------------------------------------------------------------------------
+# a ("data", "model") mesh of 1 x 4 stacked shards on the card: the MoE
+# layers' sequence-split branch (train, prefill) and psum branch (decode)
+MESH = (1, 4)
+# (a) granite-moe-1b-a400m trained at full width and depth: train_4k's
+# batch of 256 cut to one row of 4,096 (each shard routes 1,024 tokens x
+# top-8); 5 steps, the first a warm-up (the median is of steps 2-5), then
+# one more with every kernel call checked
+MESH_TRAIN_BATCH = 1
+MESH_TRAIN_SEQ = 4096
+MESH_TRAIN_STEPS = 5
+# the capacity factor at which nothing drops on a mesh of 4: a shard's
+# send capacity T_l·k/ep·cf is then T_l·k, every assignment it has
+MESH_AMPLE = 4.0
+# (c) granite-moe-3b-a800m served at full width at LM_CHECK_LAYERS' depth:
+# an LM_BATCH x LM_PROMPT prefill, then MESH_SERVE_STEPS greedy decode
+# steps
+MESH_SERVE_ARCH = "granite-moe-3b-a800m"
+MESH_SERVE_STEPS = 16
+
+
+class _DropCount:
+    """The assignments the MoE layers' push path drops while the `with`
+    block runs (`repro_torch.models.moe.moe_push_pull` wrapped; its drop
+    count is a device tensor, summed on the card and read once)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.fn, self.sum, self.calls = moe.moe_push_pull, None, 0
+
+        def counted(*a, **kw):
+            y, aux = self.fn(*a, **kw)
+            n = aux.dropped_assignments.reshape(-1)[0]  # psum'd: row 0
+            self.sum = n if self.sum is None else self.sum + n
+            self.calls += 1
+            return y, aux
+        moe.moe_push_pull = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_push_pull = self.fn
+        return False
+
+    @property
+    def total(self) -> int:
+        return 0 if self.sum is None else int(self.sum)
+
+
+def _mesh_serve_launches(cfg, steps: int) -> dict:
+    """A prefill on the mesh (the sequence-split branch: a histogram and
+    four B4 launches a MoE layer, B5 a layer) and `steps` decode steps (the
+    psum branch: one grouped SwiGLU over all shards' experts, two B4
+    launches a layer, no histogram; B6 a layer)."""
+    n = cfg.n_layers
+    return _launch(**{"flash_attention_sm90": n, "histogram": n,
+                      "moe_gemm_sm90": 4 * n + 2 * n * steps,
+                      "flash_decode_sm90": n * steps})
+
+
+def _collectives_row(mesh, per: int) -> dict:
+    """A device's collectives on `mesh` (`launch.collectives`), divided by
+    `per` (steps)."""
+    from repro_torch.launch.collectives import collective_stats
+
+    st = collective_stats(mesh)
+    g = mesh.groups[0]
+    return dict(wire_bytes=st.wire_bytes / per,
+                result_bytes={k: v / per for k, v in g.result_bytes.items()},
+                calls={k: v / per for k, v in g.calls.items()},
+                a2a_send_bytes=g.a2a_bytes / per)
+
+
+class _BwdChecks:
+    """Hold every backward kernel call of B4 (`moe_gemm.ops._launch_dx`,
+    `_launch_dw`) and B5 (`flash_attention.ops._backward`) inside the
+    `with` block against its plain version on the same inputs, at phase
+    2's gates (`dx_check`, `dw_check`, `bwd_check`); the calls still launch
+    and count. `rows` receives one entry a call, as `_value_checks`'."""
+
+    def __init__(self, rows: list):
+        self.rows = rows
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.moe_gemm import ops as gg
+
+        self.saved = (gg._launch_dx, gg._launch_dw, fa._backward)
+        launch_dx, launch_dw, backward = self.saved
+        counts = {}
+
+        def checked(entry, fn, check):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                i = counts[entry] = counts.get(entry, 0) + 1
+                tag = f"{entry} call {i}"
+                with torch.no_grad():
+                    e, share = check(a, out, tag)
+                self.rows.append(dict(
+                    call=tag, entry=entry, dtype=str(a[0].dtype),
+                    shape=[tuple(t.shape) for t in a
+                           if isinstance(t, torch.Tensor)],
+                    max_abs_err=e, share_of_tolerance=share))
+                return out
+            return call
+        gg._launch_dx = checked("grouped_gemm dx", launch_dx,
+                                lambda a, out, tag: dx_check(*a[:3], out,
+                                                             tag))
+        gg._launch_dw = checked("grouped_gemm dw", launch_dw,
+                                lambda a, out, tag: dw_check(*a[:3], out,
+                                                             tag))
+        fa._backward = checked("attention backward", backward,
+                               lambda a, out, tag: bwd_check(out, a[:6],
+                                                             a[6], tag))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.moe_gemm import ops as gg
+
+        gg._launch_dx, gg._launch_dw, fa._backward = self.saved
+        return False
+
+
+# the entries phase 15 (a)'s checked step must reach: the forward's through
+# `_value_checks`, the backward's through `_BwdChecks`
+MESH_TRAIN_CHECKED = ("grouped_gemm", "attention", "count_ids",
+                      "grouped_gemm dx", "grouped_gemm dw",
+                      "attention backward")
+
+
+def mesh_train(dev) -> dict:
+    """Phase 15 (a): `build_step` of granite-moe-1b-a400m at full width and
+    depth in bf16 on `make_host_mesh(*MESH)`, MESH_TRAIN_STEPS steps of
+    MESH_TRAIN_BATCH x MESH_TRAIN_SEQ: losses finite, launches exact
+    (`_moe_train_launches`: one data group runs them as one device does),
+    the plain versions never called; step ms (the median of steps 2 on,
+    each step's CUDA-event span beside its host wall), tokens/s, peak
+    memory, B4's and B5's device ms a step, the collectives and dropped
+    assignments a step. Then one more step, not counted, with every kernel
+    call of the forward (`_value_checks`) and of the backward
+    (`_BwdChecks`) held against its plain version at the mesh's own shapes
+    (the shards' receive buffers), each entry of MESH_TRAIN_CHECKED
+    reached."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cfg = get_config(TRAIN_MOE_ARCH)
+    mesh = make_host_mesh(*MESH, device=dev)
+    shape = dict(seq=MESH_TRAIN_SEQ, batch=MESH_TRAIN_BATCH, kind="train")
+    step = build_step(cfg, mesh, shape, grad_accum=1, device=dev,
+                      seed=TRAIN_SEED,
+                      opt_cfg=AdamWConfig(warmup_steps=TRAIN_WARMUP))
+    params = dict(step.model.named_parameters())
+    opt = init_opt_state(params)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size,
+                               batch_size=MESH_TRAIN_BATCH,
+                               seq_len=MESH_TRAIN_SEQ, seed=TRAIN_SEED)
+    row = dict(arch=TRAIN_MOE_ARCH, mesh=MESH, batch=MESH_TRAIN_BATCH,
+               seq=MESH_TRAIN_SEQ, steps=MESH_TRAIN_STEPS,
+               params=step.model.param_count(), dtype=cfg.compute_dtype,
+               tokens_a_shard=MESH_TRAIN_BATCH * MESH_TRAIN_SEQ // MESH[1])
+    history = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    mesh.reset_counts()
+    spans = []
+    with _AttnEvents() as ev, _GemmEvents() as gev, _DropCount() as drops:
+        for i in range(MESH_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in stream.batch_at(i).items()}
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            s.record()
+            _, _, met = step.fn(params, opt, batch)
+            e.record()
+            loss = float(met["loss"])  # waits for the step's work
+            history.append(dict(step=i + 1, loss=loss,
+                                aux=float(met["aux"]),
+                                grad_norm=float(met["grad_norm"]),
+                                ms=(time.perf_counter() - t0) * 1e3))
+            spans.append((s, e))
+    row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    for h, (s, e) in zip(history, spans):
+        h["device_span_ms"] = s.elapsed_time(e)
+    row["kernel_ms_per_step"] = {
+        f"B5 {k}": v / MESH_TRAIN_STEPS for k, v in ev.ms().items()}
+    row["kernel_ms_per_step"].update({
+        f"B4 {k}": v / MESH_TRAIN_STEPS for k, v in gev.ms().items()})
+    ran = kernels.launches()
+    _check_path_launches("model-level mesh's training", ran, {
+        "train": _moe_train_launches(cfg, MESH_TRAIN_STEPS,
+                                     cfg.compute_dtype)})
+    if ev.plain or gev.plain:
+        raise AssertionError(f"mesh training called the plain versions "
+                             f"{ev.plain} + {gev.plain} times")
+    for h in history:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"mesh training step {h['step']}: {h}")
+    row["launches"] = {k: v for k, v in ran.items() if v}
+    row["history"] = history
+    row["step_ms"] = float(np.median([h["ms"] for h in history[1:]]))
+    row["tokens_per_s"] = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ / (
+        row["step_ms"] / 1e3)
+    row["dropped_per_step"] = drops.total / MESH_TRAIN_STEPS
+    row["assignments_per_step"] = (MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
+                                   * cfg.moe.top_k * cfg.n_layers)
+    row["collectives_per_step"] = _collectives_row(mesh, MESH_TRAIN_STEPS)
+
+    checks = []
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(MESH_TRAIN_STEPS).items()}
+    with _KernelHook(_value_checks(checks)), _BwdChecks(checks):
+        _, _, met = step.fn(params, opt, batch)
+    if not math.isfinite(float(met["loss"])):
+        raise AssertionError(f"mesh training's checked step: {met}")
+    by_entry = {e: sum(c["entry"] == e for c in checks)
+                for e in sorted({c["entry"] for c in checks})}
+    missing = [e for e in MESH_TRAIN_CHECKED if not by_entry.get(e)]
+    if missing:
+        raise AssertionError(f"mesh training's checked step reached no "
+                             f"call of {missing}: {by_entry}")
+    row["kernel_checks"] = len(checks)
+    row["kernel_checks_by_entry"] = by_entry
+    worst = max(checks, key=lambda c: c["share_of_tolerance"])
+    row["kernel_worst_share"] = worst["share_of_tolerance"]
+    row["kernel_worst_call"] = worst["call"]
+    del step, params, opt, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def _mesh_grads(model, batch):
+    import torch
+
+    loss, _ = model.loss_fn(batch)
+    names = [n for n, _ in model.named_parameters()]
+    got = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    return loss.detach(), dict(zip(names, got))
+
+
+def mesh_equal(dev) -> dict:
+    """Phase 15 (b): at MESH_AMPLE capacity (asserted: nothing drops) and
+    aux weight 0 (the mesh's aux is the mean of the shards' own, which
+    differs from one device's aux over all tokens by definition), the
+    (1, 4) mesh against a (1, 1) one on the same weights, both from
+    `build_step`: the float32 twin (TRAIN_F32's 2 layers at full width, 1
+    x 256) within phase 14's gates — loss TRAIN_F32_LOSS·|ref|, every
+    gradient TRAIN_F32_REL·max|ref|; then LM_CHECK_LAYERS["moe"] layers in
+    bf16 at MESH_TRAIN_BATCH x MESH_TRAIN_SEQ, the mesh's loss within
+    TRAIN_MOE_FIRST_REL of the same weights' float32 loss on one device."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_step
+
+    base = get_config(TRAIN_MOE_ARCH)
+    ample = dataclasses.replace(base.moe, capacity_factor=MESH_AMPLE,
+                                aux_loss_weight=0.0)
+
+    def models(cfg, seq, batch, shapes=(MESH, (1, 1))):
+        out = []
+        for s in shapes:
+            out.append(build_step(cfg, make_host_mesh(*s, device=dev),
+                                  dict(seq=seq, batch=batch, kind="train"),
+                                  device=dev, seed=TRAIN_SEED).model)
+        return out
+
+    def tokens(cfg, batch, seq):
+        return {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMStream(
+            vocab_size=cfg.vocab_size, batch_size=batch, seq_len=seq,
+            seed=TRAIN_SEED).batch_at(0).items()}
+
+    # the float32 twin
+    f32 = dataclasses.replace(base, n_layers=TRAIN_F32["n_layers"],
+                              moe=ample, param_dtype="float32",
+                              compute_dtype="float32")
+    m4, m1 = models(f32, TRAIN_F32["seq"], TRAIN_F32["batch"])
+    batch = tokens(f32, TRAIN_F32["batch"], TRAIN_F32["seq"])
+    with _DropCount() as drops:
+        loss4, g4 = _mesh_grads(m4, batch)
+        loss1, g1 = _mesh_grads(m1, batch)
+    if drops.total or drops.calls != 2 * f32.n_layers:
+        raise AssertionError(f"mesh float32 twin: {drops.total} assignments "
+                             f"dropped over {drops.calls} dispatches")
+    row = dict(layers=f32.n_layers, batch=TRAIN_F32["batch"],
+               seq=TRAIN_F32["seq"], capacity_factor=MESH_AMPLE,
+               loss=float(loss1))
+    row["loss_err"], row["loss_share"] = _within(
+        loss4, loss1, TRAIN_F32_LOSS * loss1.abs(), "mesh float32 twin loss")
+    shares = {}
+    for n, w in g1.items():
+        _, shares[n] = _within(g4[n], w, torch.full_like(
+            w, TRAIN_F32_REL * float(w.abs().max())),
+            f"mesh float32 twin gradient {n}")
+    row["grad_share_max"] = max(shares.values())
+    row["grad_share_worst"] = max(shares, key=shares.get)
+    del m4, m1, g4, g1
+    torch.cuda.empty_cache()
+
+    # bf16 at LM_CHECK_LAYERS' depth against its float32 weights
+    c8 = dataclasses.replace(base, n_layers=LM_CHECK_LAYERS["moe"],
+                             moe=ample)
+    (m4,) = models(c8, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, (MESH,))
+    batch = tokens(c8, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ)
+    with torch.no_grad(), _DropCount() as drops:
+        bf16 = float(m4.loss_fn(batch)[0])
+        c32 = dataclasses.replace(c8, param_dtype="float32",
+                                  compute_dtype="float32")
+        (m1,) = models(c32, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, ((1, 1),))
+        m1.load_state_dict({k: v.float() for k, v in
+                            m4.state_dict().items()})
+        ref = float(m1.loss_fn(batch)[0])
+    if drops.total:
+        raise AssertionError(f"mesh bf16 check dropped {drops.total}")
+    row["bf16"] = dict(layers=c8.n_layers, batch=MESH_TRAIN_BATCH,
+                       seq=MESH_TRAIN_SEQ, loss=bf16, loss_float32=ref,
+                       share=abs(bf16 - ref) / (TRAIN_MOE_FIRST_REL
+                                                * abs(ref)))
+    if not row["bf16"]["share"] <= 1:
+        raise AssertionError(f"mesh bf16 loss {bf16} against the float32 "
+                             f"weights' {ref}: {row['bf16']['share']:.3f} "
+                             f"of {TRAIN_MOE_FIRST_REL}·|ref|")
+    del m4, m1
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_serve(dev) -> dict:
+    """Phase 15 (c): MESH_SERVE_ARCH at full width, LM_CHECK_LAYERS["moe"]
+    layers, bf16, on `make_host_mesh(*MESH)` through `build_step`: an
+    LM_BATCH x LM_PROMPT prefill (the sequence-split branch) and
+    MESH_SERVE_STEPS greedy decode steps (the psum branch). (1) after one
+    untimed prefill, counted and timed: launches exact
+    (`_mesh_serve_launches`), prefill ms, decode step ms, peak memory,
+    collectives, dropped assignments. (2) again with
+    every kernel call held against its plain version (`_value_checks`).
+    (3) at MESH_AMPLE capacity against the same weights on one device,
+    the mesh's greedy tokens fed to both: every logits tensor within
+    `lm_gate`'s share of max|ref|."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(MESH_SERVE_ARCH),
+                              n_layers=LM_CHECK_LAYERS["moe"])
+    P, B, T = LM_PROMPT, LM_BATCH, MESH_SERVE_STEPS
+    mesh = make_host_mesh(*MESH, device=dev)
+    pre = build_step(cfg, mesh, dict(seq=P, batch=B, kind="prefill"),
+                     device=dev, seed=LM_SEED)
+    dec = build_step(cfg, mesh, dict(seq=P + T, batch=B, kind="decode"),
+                     model=pre.model)
+    g = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                            device=dev, dtype=torch.int32)
+    row = dict(arch=MESH_SERVE_ARCH, layers=cfg.n_layers, batch=B, prompt=P,
+               steps=T, mesh=MESH)
+
+    def serve(tokens=None, model_pre=pre.fn, model_dec=dec.fn, times=None):
+        """Prefill, then T decode steps: greedy, or fed `tokens` (B, T)."""
+        if times is not None:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+        logits, caches = model_pre({"tokens": prompts}, max_len=P + T)
+        if times is not None:
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out, fed = [logits], []
+        for i in range(T):
+            tok = (out[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+                   if tokens is None else tokens[:, i:i + 1])
+            fed.append(tok)
+            if times is not None:
+                t0 = time.perf_counter()
+            logits, caches = model_dec(caches, {"tokens": tok}, P + i)
+            if times is not None:
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out.append(logits)
+        return out, torch.cat(fed, 1)
+
+    # (1) counted and timed, after one untimed prefill (the model's first)
+    pre.fn({"tokens": prompts}, max_len=P + T)
+    times = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    mesh.reset_counts()
+    with _DropCount() as drops:
+        out, fed = serve(times=times)
+    ran = kernels.launches()
+    _check_path_launches("model-level mesh's serving", ran, {
+        "serve": _mesh_serve_launches(cfg, T)})
+    for t in out:
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError("mesh serving: non-finite logits")
+    row.update(peak_bytes=torch.cuda.max_memory_allocated(dev),
+               launches={k: v for k, v in ran.items() if v},
+               prefill_ms=times[0], decode_step_ms=float(np.median(
+                   times[1:])), decode_step_ms_all=times[1:],
+               dropped_prefill=drops.total, dispatches=drops.calls,
+               assignments_prefill=B * P * cfg.moe.top_k * cfg.n_layers,
+               collectives=_collectives_row(mesh, 1))
+
+    # (2) every kernel call against its plain version
+    checks = []
+    with _KernelHook(_value_checks(checks)):
+        serve()
+    row["kernel_checks"] = len(checks)
+    row["kernel_worst_share"] = max(c["share_of_tolerance"] for c in checks)
+    row["kernel_checks_by_entry"] = {
+        e: sum(c["entry"] == e for c in checks)
+        for e in sorted({c["entry"] for c in checks})}
+
+    # (3) ample capacity against one device, the mesh's tokens fed to both
+    ample = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MESH_AMPLE))
+    pre.model.cfg = ample
+    one = Model(ample, device=dev, seed=LM_SEED)
+    with torch.no_grad():
+        same = all(torch.equal(a, b) for a, b in zip(
+            pre.model.parameters(), one.parameters()))
+    if not same:
+        raise AssertionError("the mesh's and one device's weights differ")
+    with _DropCount() as drops:
+        got, fed = serve()
+
+    def one_pre(batch, max_len):
+        return one.prefill(tokens=batch["tokens"], max_len=max_len)
+
+    def one_dec(caches, batch, pos):
+        return one.decode_step(caches, tokens=batch["tokens"],
+                               cache_pos=pos)
+    want, _ = serve(fed, one_pre, one_dec)
+    if drops.total:
+        raise AssertionError(f"mesh serving at capacity {MESH_AMPLE} "
+                             f"dropped {drops.total}")
+    gate = lm_gate(cfg)
+    shares = [float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()) for a, b in zip(got, want)]
+    row["one_device"] = dict(gate=gate, prefill=shares[0],
+                             decode_max=max(shares[1:]), shares=shares)
+    if max(shares) > gate:
+        raise AssertionError(f"mesh serving against one device: logits at "
+                             f"{max(shares):.4f} of max|ref| (gate {gate})")
+    del pre, dec, one, out, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_path(dev) -> dict:
+    """Phase 15: (a) `mesh_train`, (b) `mesh_equal`, (c) `mesh_serve`."""
+    t0 = time.perf_counter()
+    out = {"train": mesh_train(dev)}
+    out["equal"] = mesh_equal(dev)
+    out["serve"] = mesh_serve(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _log_mesh(m: dict, card: str) -> None:
+    t, e, s = m["train"], m["equal"], m["serve"]
+    tc, sc = t["collectives_per_step"], s["collectives"]
+    kms = {k: round(v, 2) for k, v in t["kernel_ms_per_step"].items()}
+    log(f"  (a) {t['arch']} ({t['dtype']}, {t['params']:,} parameters) on a "
+        f"{t['mesh'][0]} x {t['mesh'][1]} stacked mesh, batch {t['batch']} x "
+        f"{t['seq']} ({t['tokens_a_shard']} tokens a shard) on {card}: step "
+        f"{t['step_ms']:.2f} ms (median of steps 2-{t['steps']}; host "
+        f"{[round(h['ms'], 2) for h in t['history']]}, device span "
+        f"{[round(h['device_span_ms'], 2) for h in t['history']]}; kernels "
+        f"a step {kms} ms), "
+        f"{t['tokens_per_s']:.0f} tokens/s, peak {t['peak_bytes'] / 1e9:.3f}"
+        f" GB; losses {[round(h['loss'], 6) for h in t['history']]}, aux "
+        f"{[round(h['aux'], 6) for h in t['history']]}; a step: "
+        f"{t['dropped_per_step']:.0f} of {t['assignments_per_step']:,} "
+        f"assignments dropped, all-to-all "
+        f"{tc['result_bytes']['all-to-all'] / 1e9:.4f} GB and psum "
+        f"{tc['result_bytes']['all-reduce'] / 1e9:.4f} GB a device "
+        f"({tc['calls']['all-to-all']:.0f} / {tc['calls']['all-reduce']:.0f}"
+        f" calls, forward and backward; wire {tc['wire_bytes'] / 1e9:.4f} "
+        f"GB); launches {t['launches']}; one more step with "
+        f"{t['kernel_checks']} kernel calls against their plain versions "
+        f"({t['kernel_checks_by_entry']}), worst "
+        f"{t['kernel_worst_share']:.4f} of its gate "
+        f"({t['kernel_worst_call']})")
+    b = e["bf16"]
+    log(f"  (b) at capacity {e['capacity_factor']} (no drops), aux weight 0,"
+        f" (1, 4) against (1, 1): float32 twin ({e['layers']} layers, "
+        f"{e['batch']} x {e['seq']}) loss {e['loss']:.6f} at "
+        f"{e['loss_share']:.4f} of {TRAIN_F32_LOSS}·|ref|, gradients at most"
+        f" {e['grad_share_max']:.4f} of {TRAIN_F32_REL}·max|ref| "
+        f"({e['grad_share_worst']}); bf16 at {b['layers']} layers, "
+        f"{b['batch']} x {b['seq']}: loss {b['loss']:.6f} against "
+        f"{b['loss_float32']:.6f} in float32 on one device, "
+        f"{b['share']:.4f} of {TRAIN_MOE_FIRST_REL}·|ref|")
+    o = s["one_device"]
+    log(f"  (c) {s['arch']} at {s['layers']} layers, batch {s['batch']}, a "
+        f"{s['prompt']}-token prompt and {s['steps']} decode steps: prefill "
+        f"{s['prefill_ms']:.2f} ms (sequence split), decode step "
+        f"{s['decode_step_ms']:.2f} ms (median; psum branch), peak "
+        f"{s['peak_bytes'] / 1e9:.3f} GB; {s['dropped_prefill']:,} of "
+        f"{s['assignments_prefill']:,} prefill assignments dropped; "
+        f"all-to-all {sc['result_bytes']['all-to-all'] / 1e9:.4f} GB, psum "
+        f"{sc['result_bytes']['all-reduce'] / 1e9:.4f} GB a device; launches"
+        f" {s['launches']}; {s['kernel_checks']} kernel calls against their "
+        f"plain versions ({s['kernel_checks_by_entry']}), worst "
+        f"{s['kernel_worst_share']:.4f} of its gate; at capacity "
+        f"{MESH_AMPLE} against one device: prefill logits "
+        f"{o['prefill']:.4f}, decode at most {o['decode_max']:.4f} of "
+        f"max|ref| (gate {o['gate']}); phase 15 took {m['wall_s']:.1f} s")
+
+
 def c2_repeats(dev, n: int) -> dict:
     """Phase 5's bf16 prefill_mha stage `n` times in this process, on its
     own inputs (same seed): each repeat calls the kernel and the float32
@@ -8096,7 +8650,7 @@ def main(argv=None) -> int:
         log(f"{msg} [{t:.1f} s into the run]")
 
     card = gpu_name_and_power()
-    phase(f"[1/14] environment: {card}; torch {torch.__version__}, CUDA "
+    phase(f"[1/15] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -8109,14 +8663,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("[2/14] kernel parity against the plain PyTorch versions")
+    phase("[2/15] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     bwd_gemm = moe_gemm_bwd_parity(dev)
     parity_worst.update(bwd_gemm["worst"])
     ssd_bwd = ssd_bwd_parity(dev)
     torch.cuda.synchronize()
 
-    phase("[3/14] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    phase("[3/15] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -8124,7 +8678,7 @@ def main(argv=None) -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    phase("[4/14] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    phase("[4/15] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -8143,7 +8697,7 @@ def main(argv=None) -> int:
         f"naive {ps_summary['gate_naive']}")
 
     c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
-    phase("[5/14] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    phase("[5/15] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -8156,7 +8710,7 @@ def main(argv=None) -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    phase("[6/14] kernel times at the paths' shapes")
+    phase("[6/15] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -8197,10 +8751,10 @@ def main(argv=None) -> int:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    phase("[7/14] device busy share of a stage (torch.profiler)")
+    phase("[7/15] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    phase(f"[8/14] engines and plans: stages (a)-(c) at {ENGINES_TPM:,} "
+    phase(f"[8/15] engines and plans: stages (a)-(c) at {ENGINES_TPM:,} "
           "tasks a machine under engine='pull', 'push', 'sort', 'auto'; "
           "bench_plan's pagerank_stages and bfs_stages through run_plan "
           "and the run_stage loop")
@@ -8211,7 +8765,7 @@ def main(argv=None) -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    phase(f"[9/14] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    phase(f"[9/15] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -8223,7 +8777,7 @@ def main(argv=None) -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
-    phase("[10/14] KV store and serve tier: DistributedHashTable(800,000, "
+    phase("[10/15] KV store and serve tier: DistributedHashTable(800,000, "
         "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
         "streamed in sync and thread mode, and the MoE / embedding front "
         "doors at granite-moe-3b-a800m's widths")
@@ -8232,7 +8786,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("serving path", kernels.launches(), serve_expected)
 
-    phase("[11/14] elasticity at the main path's size: recovery (restart with "
+    phase("[11/15] elasticity at the main path's size: recovery (restart with "
         "durable snapshots, shrink), work stealing, bench_elastic's "
         "migration arms over 800,000 keys, a mid-plan kill in run_chain and "
         "the serve tier's elastic counters, backend='torch' vs numpy")
@@ -8241,7 +8795,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("elastic path", kernels.launches(), el_expected)
 
-    phase("[12/14] multi-device execution: backend='torch_spmd' on the "
+    phase("[12/15] multi-device execution: backend='torch_spmd' on the "
         "stacked mesh (one shard a machine) — phase 3's stages at P=16, the "
         "chaos scenario, the MoE dispatch at granite's widths (ep 8), "
         "embed_skew_aware on 8 shards, the group mesh of 4 gloo ranks, "
@@ -8252,7 +8806,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("sharded path", kernels.launches(), sp_expected)
 
-    phase(f"[13/14] language-model serving: {', '.join(LM_ARCHS)} at full "
+    phase(f"[13/15] language-model serving: {', '.join(LM_ARCHS)} at full "
         f"width and depth in bf16 (random weights), batch {LM_BATCH}, a "
         f"{LM_PROMPT}-token prompt, {LM_GEN} tokens generated greedily; "
         "every kernel call against its plain version, cache consistency "
@@ -8277,7 +8831,7 @@ def main(argv=None) -> int:
             if k["call"].startswith(entry + " ")])
         if r["name"] == "moe_gemm_sm90":  # its main path is the model's
             r["launches"] = n
-    phase(f"[14/14] training: {TRAIN_ARCH} at full width and depth in bf16 "
+    phase(f"[14/15] training: {TRAIN_ARCH} at full width and depth in bf16 "
           f"(random weights), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
           f"{TRAIN_STEPS} steps of Trainer with int8 gradient compression, a "
           f"checkpoint every {TRAIN_CKPT_EVERY} steps and a failure at step "
@@ -8314,6 +8868,23 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels never launched on their main path: "
                              f"{missing}")
 
+    phase(f"[15/15] model-level mesh: launch.steps.build_step on a "
+          f"{MESH[0]} x {MESH[1]} stacked mesh (launch.mesh.make_host_mesh),"
+          f" bf16: {TRAIN_MOE_ARCH} trained at full width and depth, batch "
+          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps "
+          f"(the MoE layers' sequence split); the mesh against one device "
+          f"at capacity {MESH_AMPLE}; {MESH_SERVE_ARCH} at "
+          f"{LM_CHECK_LAYERS['moe']} layers, a {LM_BATCH} x {LM_PROMPT} "
+          f"prefill and {MESH_SERVE_STEPS} decode steps (the psum branch), "
+          "every kernel call against its plain version")
+    mesh = mesh_path(dev)
+    _log_mesh(mesh, card)
+    for r in rows:  # the mesh path's launches (training and serving)
+        n = sum(mesh[k]["launches"].get(r["name"], 0)
+                for k in ("train", "serve"))
+        if n:
+            r["launches_mesh_path"] = n
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -8326,6 +8897,7 @@ def main(argv=None) -> int:
          "elastic": {"stages": el_rows, **el_summary},
          "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm,
          "train": train, "train_moe": train_moe, "train_ssm": train_ssm,
+         "mesh": mesh,
          "moe_gemm_bwd_parity": {k: bwd_gemm[k]
                                  for k in ("shares", "bulk", "splits")},
          "ssd_bwd_parity": {k: ssd_bwd[k]

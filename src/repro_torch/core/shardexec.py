@@ -22,7 +22,13 @@ collective exchanges in between:
     (a masked `psum`).
 
 The mesh is a small object with `P`, `S`, `axis_index()`, `all_to_all`,
-`psum` and `all_gather`, in two realizations that run the one stage body:
+`psum` and `all_gather`, in two realizations that run the one stage body.
+Each counts its collectives by kind ("all-to-all", "all-reduce",
+"all-gather": `calls`, and `result_bytes`, the bytes of one shard's
+result, as an HLO module states a collective's result on a device), which
+`launch.collectives.collective_stats` turns into wire bytes; on the
+stacked mesh an all-to-all's or a psum's backward (the same collective on
+the gradient: a transpose, a sum over the shards) counts as well:
 
 * `StackedMesh` — all P shards in one process on one device. Every
   shard-local tensor carries a leading dimension S = P; an all-to-all is a
@@ -59,6 +65,30 @@ from .torchexec import (LambdaFailed, _as_update_rows, _call_user,
 _IMAX = 2**31 - 1
 
 
+COLLECTIVE_KINDS = ("all-to-all", "all-reduce", "all-gather")
+
+
+class _Counted:
+    """The collective counters both meshes keep."""
+
+    def reset_counts(self) -> None:
+        self.a2a_bytes = 0
+        self.calls = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        self.result_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
+
+    def _note(self, kind: str, shard_result: int) -> None:
+        self.calls[kind] += 1
+        self.result_bytes[kind] += int(shard_result)
+
+    def _note_backward(self, out: torch.Tensor, kind: str,
+                       shard_result: int) -> torch.Tensor:
+        """Count the collective's transpose — the same kind on the
+        gradient — when autograd runs it."""
+        if out.requires_grad:
+            out.register_hook(lambda g: self._note(kind, shard_result))
+        return out
+
+
 def _bucket(n: int) -> int:
     """Per-shard task and pair counts pad to the next power of two (floored
     at 16): the JAX package's plan-scope bucket rule, which its sharded
@@ -80,17 +110,17 @@ class ShardStageError(RuntimeError):
 # ---------------------------------------------------------------------------
 # the mesh (machines == shards)
 # ---------------------------------------------------------------------------
-class StackedMesh:
+class StackedMesh(_Counted):
     """All P shards in this process, on `device`: shard-local tensors carry
     a leading shard dimension S = P. `a2a_bytes` counts the bytes of every
-    all-to-all's send buffer."""
+    all-to-all's send buffer (all shards')."""
 
     kind = "stacked"
 
     def __init__(self, P: int, device):
         self.P = self.S = int(P)
         self.device = torch.device(device)
-        self.a2a_bytes = 0
+        self.reset_counts()
 
     @property
     def shards(self) -> np.ndarray:
@@ -105,19 +135,27 @@ class StackedMesh:
         """(S, P, ...) -> (S, P, ...): row [s, p] of the result is what
         shard p sent to shard s."""
         self.a2a_bytes += x.numel() * x.element_size()
-        return x.transpose(0, 1).contiguous()
+        n = x[0].numel() * x.element_size()
+        self._note("all-to-all", n)
+        return self._note_backward(x.transpose(0, 1).contiguous(),
+                                   "all-to-all", n)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """(S, ...) -> (S, ...): every row the sum over the mesh."""
-        return x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x)
+        n = x[0].numel() * x.element_size()
+        self._note("all-reduce", n)
+        return self._note_backward(
+            x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x),
+            "all-reduce", n)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(S, n, ...) -> (S, P·n, ...): every row all shards' rows."""
+        self._note("all-gather", self.P * x[0].numel() * x.element_size())
         return x.reshape((1, -1) + x.shape[2:]).expand(
             (self.S, self.P * x.shape[1]) + x.shape[2:])
 
 
-class GroupMesh:
+class GroupMesh(_Counted):
     """One machine a process over the initialized default process group
     (S = 1): shard-local tensors carry a leading dimension of 1."""
 
@@ -138,7 +176,7 @@ class GroupMesh:
         self.P, self.S = int(P), 1
         self.rank = dist.get_rank()
         self.device = torch.device(device)
-        self.a2a_bytes = 0
+        self.reset_counts()
 
     @property
     def shards(self) -> np.ndarray:
@@ -150,17 +188,20 @@ class GroupMesh:
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         self.a2a_bytes += x.numel() * x.element_size()
+        self._note("all-to-all", x[0].numel() * x.element_size())
         send = x[0].contiguous()
         recv = torch.empty_like(send)
         self._dist.all_to_all_single(recv, send)
         return recv[None]
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
+        self._note("all-reduce", x[0].numel() * x.element_size())
         y = x.clone(memory_format=torch.contiguous_format)
         self._dist.all_reduce(y)
         return y
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        self._note("all-gather", self.P * x[0].numel() * x.element_size())
         send = x[0].contiguous()
         parts = [torch.empty_like(send) for _ in range(self.P)]
         self._dist.all_gather(parts, send)

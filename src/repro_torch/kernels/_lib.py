@@ -10,10 +10,15 @@ package imports on machines without the CUDA toolkit.
 Every wrapper in `kernels/*/ops.py` checks its tensors here, launches on
 torch's current stream, raises if the C entry point reports a CUDA error,
 and adds one to its kernel's launch count (`launches()`), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels. Each launch also names its
+work: the operations the kernel does on its inputs and the bytes it must
+move (every tensor it is handed read or written once), which
+`record_work()` collects for the roofline (`launch/roofline.py`): the
+kernels launch through `ctypes`, where no dispatch mode sees them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,7 +26,7 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,6 +52,8 @@ KERNELS = ("histogram", "segment_combine", "stage_fused", "moe_gemm",
            "flash_attention_bwd_bf16", "flash_decode", "flash_decode_sm90",
            "mamba_scan", "mamba_scan_bwd", "mamba_scan_bwd_mma")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+Work = Callable[[], Tuple[float, float]]  # () -> (operations, bytes)
+_RECORD: Optional[List[Tuple[str, float, float]]] = None
 
 
 def launches() -> Dict[str, int]:
@@ -59,8 +66,38 @@ def reset_launches() -> None:
         _LAUNCHES[name] = 0
 
 
-def count(name: str) -> None:
+def count(name: str, work: Optional[Work] = None) -> None:
+    """One launch of kernel `name`; `work` gives its (operations, bytes),
+    called only inside `record_work()` (a count may read the card)."""
     _LAUNCHES[name] += 1
+    if _RECORD is not None:
+        if work is None:
+            raise RuntimeError(f"kernel {name!r} names no work")
+        _RECORD.append((name, *work()))
+
+
+@contextlib.contextmanager
+def record_work():
+    """Collect (name, operations, bytes) for every launch inside;
+    `work_of` sums them."""
+    global _RECORD
+    outer, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = outer
+
+
+def work_of(recorded) -> Tuple[float, float]:
+    """(operations, bytes) summed over `record_work()`'s launches."""
+    return (float(sum(r[1] for r in recorded)),
+            float(sum(r[2] for r in recorded)))
+
+
+def nbytes(*tensors: Optional[torch.Tensor]) -> int:
+    """The bytes of the tensors given (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def _digest() -> str:

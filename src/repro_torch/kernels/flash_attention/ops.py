@@ -84,7 +84,8 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
         KV, hd, hd ** -0.5, int(bool(causal)), out.data_ptr(),
         _lib.ptr(lse), _lib.stream(q))
     _lib.check(rc, name)
-    _lib.count(name)
+    _lib.count(name, lambda: (_attention_ops(B, S, H, hd, T, causal),
+                              _lib.nbytes(q, k, v, out, lse)))
     return out, lse
 
 
@@ -119,8 +120,17 @@ def _backward(q, k, v, out, lse, dout, causal: bool):
         *(t.data_ptr() for t in lo), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _lib.stream(q))
     _lib.check(rc, name)
-    _lib.count(name)
+    _lib.count(name, lambda: (
+        2.5 * _attention_ops(B, S, H, hd, T, causal),
+        _lib.nbytes(q, k, v, out, lse, dout, D, *lo, dq, dk, dv)))
     return dq, dk, dv
+
+
+def _attention_ops(B, S, H, hd, T, causal: bool) -> int:
+    """The forward's operations: Q·Kᵀ and P·V over the causal half (with
+    the diagonal) or all S·T scores; the backward does 2.5 times as many
+    (Sᵀ and dPᵀ again, dq, dk and dv)."""
+    return 4 * hd * B * H * (S * (S + 1) // 2 if causal else S * T)
 
 
 def _check(q, k, v) -> None:

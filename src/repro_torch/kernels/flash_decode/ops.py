@@ -110,5 +110,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     rc = (_lib.load().tdorch_flash_decode_sm90(*args, kh, *tail) if bf16
           else _lib.load().tdorch_flash_decode(*args, *tail))
     _lib.check(rc, name)
-    _lib.count(name)
+
+    def work():  # the valid prefix of the caches (all of them if <= 0)
+        n = int(length) if len_ptr is not None else len_val
+        n = T if n <= 0 else min(n, T)
+        kv = 2 * B * n * KV * hd * k_cache.element_size()
+        return 4 * B * H * n * hd, _lib.nbytes(q, out) + kv
+    _lib.count(name, work)
     return out

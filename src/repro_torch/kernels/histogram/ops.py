@@ -87,5 +87,5 @@ def count_ids(ids: torch.Tensor, num_bins: int, *,
         index, ids.data_ptr(), _lib.ptr(weights), n, num_bins,
         _ROUTE_CODE[kind], blocks, out.data_ptr(), _lib.stream(ids))
     _lib.check(rc, "histogram")
-    _lib.count("histogram")
+    _lib.count("histogram", lambda: (n, _lib.nbytes(ids, weights, out)))
     return out

@@ -114,7 +114,9 @@ def _forward(x, dt, A, Bc, Cc, chunk: int, return_state: bool, keep: bool):
         int(x.dtype == torch.bfloat16), states.data_ptr(), l.data_ptr(),
         _lib.ptr(final), y.data_ptr(), _lib.stream(x))
     _lib.check(rc, "mamba_scan")
-    _lib.count("mamba_scan")
+    _lib.count("mamba_scan", lambda: (
+        _scan_ops(B, S, nh, hd, ds, kc),
+        _lib.nbytes(x, dt, A, Bc, Cc, states, l, final, y)))
     return (y, final, states, l) if keep else (y, final, None, None)
 
 
@@ -189,8 +191,25 @@ def _backward(x, dt, A, Bc, Cc, dy, dh, states, l, chunk: int,
         grads.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dB.data_ptr(),
         dC.data_ptr(), dA.data_ptr(), _lib.stream(x))
     _lib.check(rc, BWD_COUNTERS[route])
-    _lib.count(BWD_COUNTERS[route])
+    _lib.count(BWD_COUNTERS[route], lambda: (
+        _scan_ops(B, S, nh, hd, ds, kc, bwd=True),
+        _lib.nbytes(x, dt, A, Bc, Cc, dy, dh, states, l, grads, dx, ddt, dB,
+                    dC, dA)))
     return dx, ddt, dA.sum((0, 1)), dB.sum(0), dC.sum(0)
+
+
+def _scan_ops(B, S, nh, hd, ds, c, bwd: bool = False) -> int:
+    """The scan's operations in chunks of c: per (row, chunk) the causal
+    pairs of C·Bᵀ (ds deep, shared by the heads) and per head those of the
+    scores · x (hd deep) and c·hd·ds for the states in and out; the
+    backward forms C·Bᵀ, (Σ_h Q)ᵀ·C and (Σ_h Q)·B and twice each head's
+    products."""
+    c = min(c, S)
+    nc, pairs = -(-S // c), c * (c + 1) // 2
+    per_head = 2 * pairs * hd + 4 * c * hd * ds
+    if bwd:
+        return 2 * B * nc * (3 * pairs * ds + nh * per_head)
+    return B * nc * (2 * pairs * ds + nh * per_head)
 
 
 def _check(x, dt, A, Bc, Cc, dtypes) -> None:

@@ -175,7 +175,9 @@ def _tiles(x, w, group_sizes, n_out: int, counter: str) -> torch.Tensor:
     rc = getattr(_lib.load(), _ENTRIES[counter])(
         *args, plan.data_ptr(), out.data_ptr(), _lib.stream(x))
     _lib.check(rc, counter)
-    _lib.count(counter)
+    _lib.count(counter, lambda: (
+        2 * min(int(group_sizes.sum()), M) * depth * n_out,
+        _lib.nbytes(x, w, group_sizes, out)))
     return out
 
 
@@ -226,7 +228,9 @@ def _launch_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
         *args, buf.data_ptr(), buf.data_ptr() + 4 * n_plan, out.data_ptr(),
         _lib.stream(x))
     _lib.check(rc, counter)
-    _lib.count(counter)
+    _lib.count(counter, lambda: (
+        2 * min(int(group_sizes.sum()), M) * K * N,
+        _lib.nbytes(x, dy, group_sizes, out)))
     if scratch is not None:
         scratch.update(plan=buf[:n_plan].view(torch.int32).view(-1, 4),
                        workspace=buf[n_plan:].view(walk.slots, K, N),

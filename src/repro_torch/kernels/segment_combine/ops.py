@@ -62,5 +62,6 @@ def combine(values: torch.Tensor, seg: torch.Tensor, num_segments: int, *,
             dev.index or 0, values.data_ptr(), is_f64, seg.data_ptr(), n, w,
             num_segments, _OP_CODE[op], out.data_ptr(), _lib.stream(values))
     _lib.check(rc, "segment_combine")
-    _lib.count("segment_combine")
+    _lib.count("segment_combine", lambda: (
+        n * w, _lib.nbytes(values, seg, order, out)))
     return out

@@ -86,7 +86,8 @@ def fused_reduce(values: torch.Tensor, indptr: torch.Tensor,
         min(max_arity or 0, 2**31 - 1), lay.vec, lay.group.bit_length() - 1,
         lay.cols, out.data_ptr(), _lib.stream(values))
     _lib.check(rc, "stage_fused")
-    _lib.count("stage_fused")
+    _lib.count("stage_fused", lambda: (
+        indices.numel() * w, _lib.nbytes(values, indptr, indices, out)))
     return out
 
 

@@ -5,6 +5,8 @@ shared attention blocks, and xLSTM's mLSTM and sLSTM blocks.
 Every block function has the uniform signature
     block(params, cfg, x, positions, cache, *, decode, cache_pos)
       -> (x_out, new_cache, aux_loss_or_None)
+and the MoE layer also takes the model's mesh (`mesh`, for its mesh
+branches in `models/moe.py`).
 Attention caches are (k, v) pairs, written in place at decode; at prefill
 the block returns the layer's (k, v) (or its Mamba / LSTM state) as the
 cache seed. The recurrent blocks return new state tensors at decode; the
@@ -110,13 +112,14 @@ def init_moe_block(cfg: ModelConfig, dtype, device, generator):
 
 
 def moe_layer_block(params, cfg, x, positions, cache=None, *, decode=False,
-                    cache_pos=None):
+                    cache_pos=None, mesh=None):
     h, new_cache = _attn(params.attn, cfg,
                          rmsnorm(x, params.ln1, cfg.norm_eps),
                          positions, cache, decode, cache_pos)
     x = x + h
     y, aux = moe_block(params.moe, cfg,
-                       rmsnorm(x, params.ln2, cfg.norm_eps), decode=decode)
+                       rmsnorm(x, params.ln2, cfg.norm_eps), mesh=mesh,
+                       decode=decode)
     return x + y, new_cache, aux
 
 

@@ -3,10 +3,20 @@ patterns (dense, parallel, moe, zamba2, xlstm): init, forward, prefill,
 decode and the decode caches, with a Python loop over the layers (no
 scan).
 
-`Model(cfg, device=None)` builds its parameters on `device` (CUDA when
-None: it raises without a card; the tests pass "cpu") from a seeded
-`torch.Generator`. `from_jax_params` carries a JAX `Model.init` pytree
-across (the layouts are the JAX package's, so it only renames).
+`Model(cfg, device=None, seed=0, mesh=None)` builds its parameters on
+`device` (CUDA when None: it raises without a card; the tests pass "cpu")
+from a seeded `torch.Generator`; on the meta device it builds them with no
+generator and no storage (the shapes alone, as `jax.eval_shape` gives the
+JAX package). `from_jax_params` carries a JAX `Model.init` pytree across
+(the layouts are the JAX package's, so it only renames).
+
+`mesh` (`launch.mesh.Mesh`) is the model-level mesh: a MoE config's
+expert tables pad to a multiple of its "model" axis (the padded experts
+are masked in the router), and the MoE layers run the JAX package's mesh
+branches on it (`models/moe.py`). Everything else runs on the whole batch
+on the one device. The JAX package's residual-stream sharding constraint
+(`act_sharding`, `with_sharding_constraint` at every block) places
+tensors across devices under GSPMD and has no counterpart in one process.
 
 Caches keep the JAX package's structure and stacking: (k, v) of (L, B, T,
 KV, hd) for the dense, parallel and moe patterns; for zamba2 {"mamba":
@@ -32,7 +42,8 @@ five patterns train through the plain versions.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -67,15 +78,36 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def ep_padded(cfg: ModelConfig, mesh) -> ModelConfig:
+    """`cfg` with a MoE config's expert tables padded to a multiple of the
+    mesh's "model" axis (`num_experts_padded`), as the JAX package's
+    `Model.__post_init__` pads them."""
+    if cfg.pattern != "moe" or mesh is None or "model" not in \
+            mesh.axis_names:
+        return cfg
+    ep, m = mesh.shape["model"], cfg.moe
+    pad = -(-m.num_experts // ep) * ep
+    if pad == m.padded:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, num_experts_padded=pad))
+
+
 class Model(torch.nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device=None, seed: int = 0,
+                 mesh=None):
         super().__init__()
         if cfg.pattern not in _BLOCKS and cfg.pattern not in ("zamba2",
                                                               "xlstm"):
             raise ValueError(f"unknown pattern {cfg.pattern!r}")
-        self.cfg = cfg
+        self.cfg = cfg = ep_padded(cfg, mesh)
+        self.mesh = mesh
         dev = resolve_device(device)
-        g = torch.Generator(device=dev).manual_seed(seed)
+        if mesh is not None and mesh.executes and mesh.device != dev:
+            raise ValueError(f"the mesh runs on {mesh.device}, the model on "
+                             f"{dev}")
+        g = None if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
         dtype, d, P = self.pdtype, cfg.d_model, torch.nn.Parameter
         self.embed = P(truncated_normal((cfg.vocab_size, d), 1.0, dtype, dev,
                                         g))
@@ -114,6 +146,17 @@ class Model(torch.nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the batch splits over."""
+        if self.mesh is None:
+            return ("data",)
+        return tuple(a for a in ("pod", "data") if a in self.mesh.axis_names)
+
+    def _block_kw(self) -> Dict:
+        """The blocks' keyword arguments: the mesh, for the MoE layer."""
+        return dict(mesh=self.mesh) if self.cfg.pattern == "moe" else {}
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -160,12 +203,13 @@ class Model(torch.nn.Module):
         kv = store if cfg.pattern in _BLOCKS or store is None \
             else store["attn"]
         ks, vs, convs, ssms = [], [], [], []
+        kw = self._block_kw()
 
         def attn_layer(fn, p, i):
             nonlocal x, aux
             c = (kv[0][i], kv[1][i]) if decode else None
             x, (k, v), a = fn(p, cfg, x, positions, c, decode=decode,
-                              cache_pos=cache_pos)
+                              cache_pos=cache_pos, **kw)
             if a is not None:
                 aux = aux + a
             if decode:

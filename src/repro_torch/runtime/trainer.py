@@ -33,6 +33,61 @@ from .compression import (compress_gradients, decompress,
 from .failures import FailureInjector, StragglerDetector
 
 
+def _grads(model: Model, params: Dict[str, torch.Tensor], batch):
+    """(loss, metrics, {name: gradient}) of one (micro)batch; a parameter
+    the loss does not reach gets zeros, as `jax.grad` gives it."""
+    loss, metrics = model.loss_fn(batch)
+    names = list(params)
+    got = torch.autograd.grad(loss, [params[k] for k in names],
+                              allow_unused=True)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
+        k: torch.zeros_like(params[k]) if g is None else g
+        for k, g in zip(names, got)}
+
+
+def _microbatches(batch: Dict[str, torch.Tensor], n: int):
+    """`batch` cut into n microbatches along the batch dim (dim 1 of the
+    (3, B, S) M-RoPE positions, dim 0 of the rest)."""
+    parts = {k: v.chunk(n, dim=1 if k == "positions" else 0)
+             for k, v in batch.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def train_step(model: Model, state: Dict[str, Any], batch,
+               opt_cfg: AdamWConfig, grad_accum: int = 1,
+               compress_grads: bool = False) -> Dict[str, Any]:
+    """One training step of `model` on `batch`: `Model.loss_fn` under
+    autograd (over `grad_accum` microbatches, the gradients summed in
+    float32 and averaged), optional int8 error-feedback compression
+    (`state["comp"]`), `adamw_update` in place on `state["params"]` and
+    `state["opt"]`. Returns {"loss", "nll", "aux", "lr", "grad_norm"} as
+    tensors. `Trainer.train_step` and `launch.steps.build_train_step`
+    both run it."""
+    params = state["params"]
+    if grad_accum > 1:
+        n = grad_accum
+        acc = {k: torch.zeros(p.shape, dtype=torch.float32,
+                              device=p.device) for k, p in params.items()}
+        loss, metrics = 0.0, {}
+        for mb in _microbatches(batch, n):
+            l_mb, m_mb, grads = _grads(model, params, mb)
+            for k, g in grads.items():
+                acc[k] += g
+            loss = loss + l_mb
+            metrics = {k: metrics.get(k, 0.0) + v for k, v in m_mb.items()}
+        grads = {k: a / n for k, a in acc.items()}
+        loss = loss / n
+        metrics = {k: v / n for k, v in metrics.items()}
+    else:
+        loss, metrics, grads = _grads(model, params, batch)
+    if compress_grads:
+        payload, _ = compress_gradients(grads, state["comp"])
+        grads = decompress(payload, grads)
+    _, _, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg,
+                                     model.decayed())
+    return {"loss": loss, **metrics, **opt_metrics}
+
+
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 200
@@ -80,42 +135,12 @@ class Trainer:
                 "comp": init_compression_state(params)}
 
     # ------------------------------------------------------------------
-    def _grads(self, params: Dict[str, torch.Tensor], batch):
-        """(loss, {name: gradient}) of one (micro)batch; a parameter the
-        loss does not reach gets zeros, as `jax.grad` gives it."""
-        loss, _ = self.model.loss_fn(batch)
-        names = list(params)
-        got = torch.autograd.grad(loss, [params[k] for k in names],
-                                  allow_unused=True)
-        return loss.detach(), {
-            k: torch.zeros_like(params[k]) if g is None else g
-            for k, g in zip(names, got)}
-
     def train_step(self, state: Dict[str, Any], batch) -> Dict[str, Any]:
         """One step on `batch` (tensors on the device): the state written in
-        place; returns {"loss", "lr", "grad_norm"} as tensors."""
-        cfg, params = self.cfg, state["params"]
-        if cfg.grad_accum > 1:
-            n = cfg.grad_accum
-            acc = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device) for k, p in params.items()}
-            loss = 0.0
-            for mb in zip(*(v.chunk(n) for v in batch.values())):
-                l_mb, grads = self._grads(params, dict(zip(batch, mb)))
-                for k, g in grads.items():
-                    acc[k] += g
-                loss = loss + l_mb
-            grads = {k: a / n for k, a in acc.items()}
-            loss = loss / n
-        else:
-            loss, grads = self._grads(params, batch)
-        if cfg.compress_grads:
-            payload, _ = compress_gradients(grads, state["comp"])
-            grads = decompress(payload, grads)
-        _, _, metrics = adamw_update(params, grads, state["opt"],
-                                     self.opt_cfg, self.model.decayed())
-        metrics["loss"] = loss
-        return metrics
+        place; returns {"loss", "nll", "aux", "lr", "grad_norm"} as
+        tensors."""
+        return train_step(self.model, state, batch, self.opt_cfg,
+                          self.cfg.grad_accum, self.cfg.compress_grads)
 
     def _restore(self, state: Dict[str, Any]):
         """The newest checkpoint copied into `state`'s tensors: its step, or

@@ -5,7 +5,8 @@ seeded numpy inputs and the same parameters in one process (float32).
 MoE: `_route` (top_i exactly, the gates, the switch aux loss; padded
 experts never chosen), `moe_block` under each dispatch engine ("tdorch",
 "push", "pull", "dense"), with a capacity that drops nothing and with one
-that drops, in bf16 under each engine, and the mesh branches refused.
+that drops, and in bf16 under each engine (its mesh branches are in
+tests/test_torch_moe_mesh.py).
 xLSTM: `mlstm_chunked` (output, final C / n / m, conv tail) at S = chunk
 and at multiples of it, `mlstm_decode`, `slstm_forward` and
 `slstm_decode`; the chunked scan and
@@ -136,12 +137,6 @@ def test_moe_block_matches_jax(arch, dispatch, capacity):
     assert got.shape == x3.shape and got.dtype == torch.float32
     _close(got, want)
     _close(aux, waux)
-
-
-def test_moe_block_refuses_a_mesh():
-    _, tc, _, m, x = _moe_case("granite-moe-1b-a400m", 4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tmoe.moe_block(m, tc, _t(x)[None], mesh=object())
 
 
 @pytest.mark.parametrize("dispatch", DISPATCHES)
