@@ -264,7 +264,8 @@ Phases, each of which raises (non-zero exit) on any failed check:
    `embed_skew_aware` on 8 shards over phase 4's table. (e) The group
    mesh: 4 gloo ranks sharing the card on stage (a)'s traffic at P=4,
    200,000 tasks, gloo's collectives on CUDA tensors: stats equal to the
-   stacked mesh's. (f) benchmarks/bench_spmd.py's YCSB cells (P=8, Zipf 1.2
+   stacked mesh's (run by phase 16's ranks, in its one spawn, and checked
+   there). (f) benchmarks/bench_spmd.py's YCSB cells (P=8, Zipf 1.2
    and 2.0, replication on and off): charged and measured work_ratio and
    its gate. Launches by stage: K1 once a sharded stage plus the cost
    model's calls, K2 twice a writing stage, K4 twice a grouped SwiGLU.
@@ -298,9 +299,10 @@ Phases, each of which raises (non-zero exit) on any failed check:
    weights from a seed), `SyntheticLMStream` of batch 4 x 4,096 tokens,
    int8 gradient compression, AdamW with a 2-step warmup, 5 steps: once
    uninterrupted (step ms, tokens/s, peak memory; B5's forward and
-   backward ms inside a step by CUDA events) and once with a checkpoint
-   every 3 steps in a temporary directory and a failure at step 4 (restored
-   and continued). Every loss and grad norm finite, the first within 1.0 of
+   backward ms inside a step by CUDA events); then at 8 of its 22 layers
+   (TRAIN_CKPT_LAYERS) once uninterrupted and once with a checkpoint every
+   3 steps in a temporary directory and a failure at step 4 (restored and
+   continued). Every loss and grad norm finite, the first within 1.0 of
    ln 32,000, the run with the failure's every logged loss and grad norm
    bit-identical to the uninterrupted run's at its step, launches exact
    (one B5 forward and one backward a layer a step run, the plain versions
@@ -357,6 +359,25 @@ Phases, each of which raises (non-zero exit) on any failed check:
    against its plain version; and at capacity factor 4 against the same
    weights on one device, the mesh's tokens fed to both, every logits
    tensor within `lm_gate` (0.25 of max|ref|).
+16. The model axis on a group mesh (`launch.mesh.make_group_mesh(1, 4)`:
+   4 gloo ranks sharing the card, one process a shard, `GroupMesh`'s
+   autograd-aware collectives; each rank holds its 8 of granite's 32
+   experts a layer), bf16, seeded weights: one spawn of ranks, which
+   first run phase 12 (e)'s sharded stage. (a) phase 15 (a)'s training
+   (granite-moe-1b-a400m at full width and depth, 1 x 4,096, its seed,
+   capacity and optimizer) through `build_step`, GMESH_STEPS steps, then
+   one with every kernel call on rank 0 held against its plain version:
+   step 1's dropped assignments equal phase 15 (a)'s exactly, every
+   step's loss within TRAIN_MOE_FIRST_REL (0.1%) of its, every replicated
+   parameter bit-identical across the ranks, rank 0's launches exact and
+   no plain version called on any rank; rank 0's step ms and tokens/s,
+   each rank's peak memory and the card's used memory, a device's
+   collective bytes a step beside phase 15's (the boundary collectives by
+   name). (b) phase 15 (b)'s float32 twin on the group mesh against the
+   stacked (1, 4) twin within phase 14's gates. (c) phase 15 (c)'s
+   granite-moe-3b-a800m at 8 layers: its prefill and GMESH_SERVE_STEPS
+   decode steps fed phase 15's greedy tokens, rank 0's logits within
+   `lm_gate` of phase 15's, launches exact, prefill and decode-step ms.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel numbers as JSON, and the one before that the card's
@@ -364,7 +385,7 @@ name and power limit.
 
 A diagnostic of the open fault C2 (ROADMAP), not in the default run:
 ``--c2-repeats N`` runs phase 5's bf16 prefill_mha stage N times after
-phase 4 and reads every share of its gate, then runs phases 5-15 as
+phase 4 and reads every share of its gate, then runs phases 5-16 as
 always.
 """
 from __future__ import annotations
@@ -5788,7 +5809,6 @@ MOE_TIGHT = 1.25  # the dispatch's default capacity factor
 EMBED_SHARDS = 8
 GROUP_P = 4
 GROUP_TPM = 50_000  # 200,000 tasks over 4 ranks
-GROUP_TIMEOUT_S = 300
 YCSB_P, YCSB_TPM, YCSB_KEYS, YCSB_STAGES, YCSB_SEED = 8, 2_000, 16_000, 8, 17
 YCSB_GAMMAS = (1.2, 2.0)
 YCSB_REPLICATION = {"num_hot": 64, "refresh": 2, "decay": 0.5,
@@ -6216,84 +6236,50 @@ def _group_stage(tpm: int):
     return K, tasks, init
 
 
-def _group_rank(rank: int, world: int, port: int, out: str, tpm: int,
-                device: str) -> None:
-    """One machine of the group mesh: a gloo rank on the shared card."""
-    import datetime
-
+def _group_stage_rank(rank: int, out: str, tpm: int, device: str) -> None:
+    """One machine of phase 12 (e)'s group mesh, inside an initialized
+    world of GROUP_P gloo ranks on the shared card (phase 16's spawn): the
+    sharded stage on `get_mesh`'s default-group mesh; rank 0 writes its
+    store, results, stats, wall and launches to `out`."""
     import torch
-    import torch.distributed as dist
 
     from repro_torch import kernels
     from repro_torch.core import DataStore, Orchestrator, TorchSpmdBackend
 
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=120))
-    try:
-        K, tasks, init = _group_stage(tpm)
-        store = DataStore.create(K, GROUP_P, value_width=VALUE_WIDTH)
-        store.write_rows(np.arange(K), init)
-        be = TorchSpmdBackend(device=device)
-        sess = Orchestrator(store, backend=be)
-        kernels.reset_launches()
-        if device == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = sess.run_stage(tasks, muladd, write_back="add",
-                             return_results=True)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if rank == 0:
-            st = be.stage_stats[-1]
-            np.savez(out, values=store.values,
-                     results=np.asarray(res.results),
-                     stats=np.stack([np.asarray(v) for v in st]))
-            Path(out + ".json").write_text(json.dumps(dict(
-                wall_s=wall, launches=kernels.launches(),
-                kind=be.mesh(GROUP_P).kind, a2a_bytes=be.a2a_bytes)))
-    finally:
-        dist.destroy_process_group()
+    K, tasks, init = _group_stage(tpm)
+    store = DataStore.create(K, GROUP_P, value_width=VALUE_WIDTH)
+    store.write_rows(np.arange(K), init)
+    be = TorchSpmdBackend(device=device)
+    sess = Orchestrator(store, backend=be)
+    kernels.reset_launches()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sess.run_stage(tasks, muladd, write_back="add",
+                         return_results=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rank == 0:
+        st = be.stage_stats[-1]
+        np.savez(out, values=store.values, results=np.asarray(res.results),
+                 stats=np.stack([np.asarray(v) for v in st]))
+        Path(out + ".json").write_text(json.dumps(dict(
+            wall_s=wall, launches=kernels.launches(),
+            kind=be.mesh(GROUP_P).kind, a2a_bytes=be.a2a_bytes)))
 
 
-def spmd_group(device, st, tpm: int = GROUP_TPM) -> dict:
+def spmd_group(device, st, out: str, spawn_wall: float,
+               tpm: int = GROUP_TPM) -> dict:
     """(e) The group mesh: GROUP_P gloo ranks (one process a machine)
-    sharing the card, on stage (a)'s traffic at P=4; its stats must equal
-    the stacked mesh's on the same batch, both within phase 3's gate of the
-    numpy oracle. The ranks are joined with a deadline and killed past
-    it."""
-    import shutil
-    import socket
-    import tempfile
-
-    import torch.multiprocessing as mp
-
+    sharing the card ran stage (a)'s traffic at P=4 (`_group_stage_rank`,
+    in phase 16's spawn, which writes rank 0's `out`); its stats must equal
+    the stacked mesh's on the same batch, both within phase 3's gate of
+    the numpy oracle."""
     from repro_torch.core import DataStore, Orchestrator, TorchSpmdBackend
 
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_group_"))
-    try:
-        out = str(tmp / "rank0.npz")
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        t0 = time.perf_counter()
-        ctx = mp.start_processes(_group_rank, args=(GROUP_P, port, out, tpm,
-                                                    device),
-                                 nprocs=GROUP_P, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + GROUP_TIMEOUT_S
-        while not ctx.join(timeout=5):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise AssertionError("the group mesh's ranks passed their "
-                                     f"{GROUP_TIMEOUT_S} s deadline")
-        spawn_wall = time.perf_counter() - t0
-        got = np.load(out)
-        info = json.loads(Path(out + ".json").read_text())
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    got = np.load(out)
+    info = json.loads(Path(out + ".json").read_text())
     K, tasks, init = _group_stage(tpm)
     be = TorchSpmdBackend(device=device)
     _cost_model_k1(be)
@@ -6326,9 +6312,10 @@ def spmd_group(device, st, tpm: int = GROUP_TPM) -> dict:
                rank0_launches=info["launches"],
                rank0_a2a_bytes=info["a2a_bytes"],
                value_err_share=[e[1] for e in errs])
-    log(f"  (e) group mesh, {GROUP_P} gloo ranks on one card, "
-        f"{tasks.n} tasks: rank 0's stage {info['wall_s']:.4f} s (spawn and "
-        f"all {spawn_wall:.2f} s), the stacked mesh {row['stacked_wall_s']:.4f}"
+    log(f"  phase 12 (e), group mesh, {GROUP_P} gloo ranks on one card, "
+        f"{tasks.n} tasks: rank 0's stage {info['wall_s']:.4f} s (phase 16's "
+        f"spawn {spawn_wall:.2f} s), the stacked mesh "
+        f"{row['stacked_wall_s']:.4f}"
         f" s; stats equal; values {row['value_err_share']} of the gate "
         "(gloo's collectives on the card's tensors); rank 0's launches "
         f"{ {k_: v for k_, v in info['launches'].items() if v} }")
@@ -6400,19 +6387,18 @@ def spmd_ycsb(device, st) -> list:
 
 
 def spmd_path(device: str, K: int, stages, init, ps: dict, *,
-              tpm: int = TASKS_PER_MACHINE, group_tpm: int = GROUP_TPM,
-              moe_tokens: int = MOE_T):
+              tpm: int = TASKS_PER_MACHINE, moe_tokens: int = MOE_T):
     """Phase 12: (a) phase 3's stages, (b) the chaos scenario, (c) the MoE
-    dispatch, (d) `embed_skew_aware`, (e) the group mesh and (f)
-    bench_spmd's cells, each on a mesh of one shard a machine. Returns
-    (rows, summary, expected launches by stage); the keyword sizes cut it
-    down for a rehearsal on the CPU."""
+    dispatch, (d) `embed_skew_aware` and (f) bench_spmd's cells, each on a
+    mesh of one shard a machine. (e), the group mesh's stage, runs in
+    phase 16's spawn of ranks (`spmd_group`). Returns (rows, summary,
+    expected launches by stage); the keyword sizes cut it down for a
+    rehearsal on the CPU."""
     st = _Stages(device, dict(SPMD_EXPECTED))
     summary = {"stages": spmd_main_path(device, st, K, stages, init),
                "chaos": spmd_chaos(device, st, K, init, tpm),
                "moe": spmd_moe(device, st, ps, moe_tokens),
                "embed": spmd_embed(device, st, ps),
-               "group": spmd_group(device, st, group_tpm),
                "ycsb": spmd_ycsb(device, st)}
     return st.rows, summary, st.expected
 
@@ -7272,6 +7258,12 @@ TRAIN_SEQ = 4096
 # H100's host) put the whole run at 1,087 s of its 1,200; with 5 the one
 # save is at step 3, the failure's restore point
 TRAIN_STEPS = 5
+# the run with checkpoints, a failure and the restore, and the
+# uninterrupted run it must equal bit for bit, at 8 of the 22 layers (6.8
+# GB of state to save and restore, against 15.4 at full depth): the save
+# and the restore at full depth took 86-89 s of the run's clock (53.2 at
+# 11 layers; PERF.md §5), which phase 16 needed
+TRAIN_CKPT_LAYERS = 8
 TRAIN_CKPT_EVERY = 3
 TRAIN_FAILURE = {4: [0]}  # node 0 dies with 4 steps done: back to step 3
 TRAIN_WARMUP = 2
@@ -7497,12 +7489,14 @@ def train_path(dev) -> dict:
     `SyntheticLMStream(vocab, TRAIN_BATCH, TRAIN_SEQ)`, grad_accum 1, int8
     gradient compression, `AdamWConfig(warmup_steps=TRAIN_WARMUP)`:
     (1) uninterrupted (the control: step times, peak memory, launches,
-    B5's forward and backward ms inside one more step); (2) with a
-    checkpoint every TRAIN_CKPT_EVERY steps in a temporary directory and a
-    failure at step 4 (restored, continued): every logged loss and grad
-    norm bit-identical to the control's at its step, launches exact (one
-    forward and one backward a layer a step run, the plain versions never
+    B5's forward and backward ms inside one more step); (2) at
+    TRAIN_CKPT_LAYERS layers, uninterrupted and with a checkpoint every
+    TRAIN_CKPT_EVERY steps in a temporary directory and a failure at step
+    4 (restored, continued): every logged loss and grad norm of the latter
+    bit-identical to the former's at its step, launches exact (one forward
+    and one backward a layer a step run, the plain versions never
     called); (3) the float32 twin (`train_f32_check`)."""
+    import dataclasses
     import math
     import tempfile
 
@@ -7561,9 +7555,20 @@ def train_path(dev) -> dict:
         del ctl, out, batch
         torch.cuda.empty_cache()
 
-    # (2) checkpoints, a failure, the restore
+    # (2) checkpoints, a failure, the restore, against the same depth's
+    # uninterrupted run
+    ck = dataclasses.replace(cfg, n_layers=TRAIN_CKPT_LAYERS)
+    row["checkpoint_layers"] = ck.n_layers
     with tempfile.TemporaryDirectory() as tmp:
-        tr = Trainer(cfg, opt, TrainerConfig(
+        t0 = time.perf_counter()
+        ck_control = Trainer(ck, opt, TrainerConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS + 1,
+            checkpoint_dir=tmp, log_every=1, compress_grads=True), stream,
+            device=dev).run(seed=TRAIN_SEED)["history"]
+        row["control_ck_wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(ck, opt, TrainerConfig(
             total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
             checkpoint_dir=tmp, log_every=1, compress_grads=True,
             keep_checkpoints=1), stream,
@@ -7578,7 +7583,7 @@ def train_path(dev) -> dict:
         fail_at = min(TRAIN_FAILURE)
         steps_run = TRAIN_STEPS + fail_at - TRAIN_CKPT_EVERY * (
             fail_at // TRAIN_CKPT_EVERY)
-        want = _train_launches(cfg, steps_run, cfg.compute_dtype)
+        want = _train_launches(ck, steps_run, ck.compute_dtype)
         if ran != want or ev.plain or out["recoveries"] != 1:
             raise AssertionError(
                 f"the run with a failure launched {ran}, the plain versions "
@@ -7592,14 +7597,14 @@ def train_path(dev) -> dict:
 
     # gates
     ln_v = math.log(cfg.vocab_size)
-    for h in control + history:
+    for h in control + ck_control + history:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
             raise AssertionError(f"step {h['step']}: loss {h['loss']}, grad "
                                  f"norm {h['grad_norm']}")
     if abs(control[0]["loss"] - ln_v) > TRAIN_FIRST_LOSS:
         raise AssertionError(f"first loss {control[0]['loss']}, ln V = "
                              f"{ln_v}")
-    by_step = {h["step"]: h for h in control}
+    by_step = {h["step"]: h for h in ck_control}
     steps = [h["step"] for h in history]
     if steps != sorted(steps) or len(steps) != steps_run:
         raise AssertionError(f"the run with a failure logged steps {steps}")
@@ -7611,6 +7616,7 @@ def train_path(dev) -> dict:
                 f"norm {h['grad_norm']}; uninterrupted {c['loss']}, "
                 f"{c['grad_norm']}")
     row["history"] = control
+    row["history_checkpoint_control"] = ck_control
     row["history_with_failure"] = history
     step_s = [h["sec_per_step"] for h in control[1:]]
     row["step_ms"] = float(np.median(step_s)) * 1e3
@@ -7925,7 +7931,8 @@ MESH = (1, 4)
 # (a) granite-moe-1b-a400m trained at full width and depth: train_4k's
 # batch of 256 cut to one row of 4,096 (each shard routes 1,024 tokens x
 # top-8); 5 steps, the first a warm-up (the median is of steps 2-5), then
-# one more with every kernel call checked
+# one more with every kernel call checked. Phase 16 (a) trains the same on
+# the group mesh and is held to these losses and drops
 MESH_TRAIN_BATCH = 1
 MESH_TRAIN_SEQ = 4096
 MESH_TRAIN_STEPS = 5
@@ -8111,7 +8118,9 @@ def mesh_train(dev) -> dict:
             history.append(dict(step=i + 1, loss=loss,
                                 aux=float(met["aux"]),
                                 grad_norm=float(met["grad_norm"]),
-                                ms=(time.perf_counter() - t0) * 1e3))
+                                ms=(time.perf_counter() - t0) * 1e3,
+                                dropped=drops.total - sum(
+                                    h["dropped"] for h in history)))
             spans.append((s, e))
     row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     for h, (s, e) in zip(history, spans):
@@ -8172,7 +8181,7 @@ def _mesh_grads(model, batch):
     return loss.detach(), dict(zip(names, got))
 
 
-def mesh_equal(dev) -> dict:
+def mesh_equal(dev, ref: dict) -> dict:
     """Phase 15 (b): at MESH_AMPLE capacity (asserted: nothing drops) and
     aux weight 0 (the mesh's aux is the mean of the shards' own, which
     differs from one device's aux over all tokens by definition), the
@@ -8181,7 +8190,9 @@ def mesh_equal(dev) -> dict:
     x 256) within phase 14's gates — loss TRAIN_F32_LOSS·|ref|, every
     gradient TRAIN_F32_REL·max|ref|; then LM_CHECK_LAYERS["moe"] layers in
     bf16 at MESH_TRAIN_BATCH x MESH_TRAIN_SEQ, the mesh's loss within
-    TRAIN_MOE_FIRST_REL of the same weights' float32 loss on one device."""
+    TRAIN_MOE_FIRST_REL of the same weights' float32 loss on one device.
+    `ref["twin"]` keeps the (1, 4) twin's loss and gradients (on the host)
+    for phase 16."""
     import dataclasses
 
     import torch
@@ -8220,6 +8231,8 @@ def mesh_equal(dev) -> dict:
     if drops.total or drops.calls != 2 * f32.n_layers:
         raise AssertionError(f"mesh float32 twin: {drops.total} assignments "
                              f"dropped over {drops.calls} dispatches")
+    ref["twin"] = dict(loss=loss4.double().cpu(), grads={
+        n: g.double().cpu() for n, g in g4.items()})
     row = dict(layers=f32.n_layers, batch=TRAIN_F32["batch"],
                seq=TRAIN_F32["seq"], capacity_factor=MESH_AMPLE,
                loss=float(loss1))
@@ -8263,7 +8276,7 @@ def mesh_equal(dev) -> dict:
     return row
 
 
-def mesh_serve(dev) -> dict:
+def mesh_serve(dev, ref: dict) -> dict:
     """Phase 15 (c): MESH_SERVE_ARCH at full width, LM_CHECK_LAYERS["moe"]
     layers, bf16, on `make_host_mesh(*MESH)` through `build_step`: an
     LM_BATCH x LM_PROMPT prefill (the sequence-split branch) and
@@ -8274,7 +8287,8 @@ def mesh_serve(dev) -> dict:
     every kernel call held against its plain version (`_value_checks`).
     (3) at MESH_AMPLE capacity against the same weights on one device,
     the mesh's greedy tokens fed to both: every logits tensor within
-    `lm_gate`'s share of max|ref|."""
+    `lm_gate`'s share of max|ref|. `ref["serve"]` keeps (1)'s prompts, its
+    greedy tokens and logits (on the host) for phase 16."""
     import dataclasses
 
     import torch
@@ -8337,6 +8351,8 @@ def mesh_serve(dev) -> dict:
     for t in out:
         if not bool(torch.isfinite(t).all()):
             raise AssertionError("mesh serving: non-finite logits")
+    ref["serve"] = dict(prompts=prompts.cpu(), fed=fed.cpu(),
+                        logits=[t.float().cpu() for t in out])
     row.update(peak_bytes=torch.cuda.max_memory_allocated(dev),
                launches={k: v for k, v in ran.items() if v},
                prefill_ms=times[0], decode_step_ms=float(np.median(
@@ -8391,14 +8407,19 @@ def mesh_serve(dev) -> dict:
     return row
 
 
-def mesh_path(dev) -> dict:
-    """Phase 15: (a) `mesh_train`, (b) `mesh_equal`, (c) `mesh_serve`."""
+def mesh_path(dev) -> tuple:
+    """Phase 15: (a) `mesh_train`, (b) `mesh_equal`, (c) `mesh_serve`.
+    Returns (the rows, the references phase 16 is held to: (a)'s losses
+    and drops a step, (b)'s twin, (c)'s serving)."""
     t0 = time.perf_counter()
+    ref = {}
     out = {"train": mesh_train(dev)}
-    out["equal"] = mesh_equal(dev)
-    out["serve"] = mesh_serve(dev)
+    ref["train"] = [dict(step=h["step"], loss=h["loss"], dropped=h["dropped"])
+                    for h in out["train"]["history"]]
+    out["equal"] = mesh_equal(dev, ref)
+    out["serve"] = mesh_serve(dev, ref)
     out["wall_s"] = time.perf_counter() - t0
-    return out
+    return out, ref
 
 
 def _log_mesh(m: dict, card: str) -> None:
@@ -8451,6 +8472,510 @@ def _log_mesh(m: dict, card: str) -> None:
         f"{MESH_AMPLE} against one device: prefill logits "
         f"{o['prefill']:.4f}, decode at most {o['decode_max']:.4f} of "
         f"max|ref| (gate {o['gate']}); phase 15 took {m['wall_s']:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the model axis on a group mesh (launch.mesh.make_group_mesh)
+# ---------------------------------------------------------------------------
+# GROUP_P gloo ranks share the card (NCCL refuses two ranks on one device),
+# one process a shard of a (1, 4) ("data", "model") mesh: GroupMesh's
+# autograd-aware collectives, each rank holding its 8 of granite's 32
+# experts a layer and computing the rest replicated. One spawn serves phase
+# 12 (e)'s sharded stage (the default world group) and the model.
+GMESH = (1, 4)
+GMESH_STEPS = 3  # timed training steps; one more is checked
+GMESH_SERVE_STEPS = 8  # decode steps fed phase 15 (c)'s greedy tokens
+GMESH_TIMEOUT_S = 600  # the ranks are killed past this deadline
+# the ranks' caching allocators: segments that grow, so four allocators on
+# one card fragment less
+GMESH_ALLOC = "expandable_segments:True"
+
+
+def _leaf_digests(model) -> dict:
+    """{name: sha256 of the bytes} of every replicated parameter."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for n, p in model.named_parameters():
+        if n in model.sharded_names():
+            continue
+        raw = p.detach().contiguous().view(torch.uint8).cpu().numpy()
+        out[n] = hashlib.sha256(raw.tobytes()).hexdigest()
+    return out
+
+
+def _gmesh_train(dev, mesh, rank: int) -> dict:
+    """Phase 16 (a) on one rank: phase 15 (a)'s `build_step` (its config,
+    seed, batch, capacity and optimizer) on the group mesh, GMESH_STEPS
+    steps timed, one more with every kernel call held against its plain
+    version on rank 0 (the others run it unchecked: the collectives need
+    every rank)."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch.collectives import collective_stats
+    from repro_torch.launch.steps import build_step
+    from repro_torch.optim import AdamWConfig, init_opt_state
+
+    cfg = get_config(TRAIN_MOE_ARCH)
+    shape = dict(seq=MESH_TRAIN_SEQ, batch=MESH_TRAIN_BATCH, kind="train")
+    step = build_step(cfg, mesh, shape, grad_accum=1, device=dev,
+                      seed=TRAIN_SEED,
+                      opt_cfg=AdamWConfig(warmup_steps=TRAIN_WARMUP))
+    model = step.model
+    params = dict(model.named_parameters())
+    opt = init_opt_state(params)
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size,
+                               batch_size=MESH_TRAIN_BATCH,
+                               seq_len=MESH_TRAIN_SEQ, seed=TRAIN_SEED)
+    row = dict(params=model.param_count(), layers=cfg.n_layers,
+               experts_a_layer=model.blocks[0].moe.w_in.shape[0])
+    history = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    mesh.reset_counts()
+    with _AttnEvents() as ev, _GemmEvents() as gev, _DropCount() as drops:
+        for i in range(GMESH_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in stream.batch_at(i).items()}
+            t0 = time.perf_counter()
+            _, _, met = step.fn(params, opt, batch)
+            loss = float(met["loss"])  # waits for the step's work
+            history.append(dict(step=i + 1, loss=loss,
+                                aux=float(met["aux"]),
+                                grad_norm=float(met["grad_norm"]),
+                                ms=(time.perf_counter() - t0) * 1e3,
+                                dropped=drops.total - sum(
+                                    h["dropped"] for h in history)))
+    row["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    row["card_used_bytes"] = int(total - free)
+    row["kernel_ms_per_step"] = {
+        f"B5 {k}": v / GMESH_STEPS for k, v in ev.ms().items()}
+    row["kernel_ms_per_step"].update({
+        f"B4 {k}": v / GMESH_STEPS for k, v in gev.ms().items()})
+    row["plain_calls"] = ev.plain + gev.plain
+    ran = kernels.launches()
+    row["launches"] = {k: v for k, v in ran.items() if v}
+    row["expected"] = _moe_train_launches(cfg, GMESH_STEPS,
+                                          cfg.compute_dtype)
+    st = collective_stats(mesh)
+    g = mesh.groups[0]
+    row["collectives_per_step"] = dict(
+        result_bytes={k: v / GMESH_STEPS for k, v in g.result_bytes.items()},
+        calls={k: v / GMESH_STEPS for k, v in g.calls.items()},
+        boundary={k: [c / GMESH_STEPS, b / GMESH_STEPS]
+                  for k, (c, b) in st.boundary.items()},
+        wire_bytes=st.wire_bytes / GMESH_STEPS)
+    for h in history:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"group mesh step {h['step']}: {h}")
+    row["history"] = history
+
+    checks = []
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(GMESH_STEPS).items()}
+    with _DropCount() as drops:
+        if rank == 0:
+            with _KernelHook(_value_checks(checks)), _BwdChecks(checks):
+                _, _, met = step.fn(params, opt, batch)
+        else:
+            _, _, met = step.fn(params, opt, batch)
+        history.append(dict(step=GMESH_STEPS + 1, loss=float(met["loss"]),
+                            aux=float(met["aux"]), dropped=drops.total,
+                            grad_norm=float(met["grad_norm"]), checked=True))
+    if rank == 0:
+        by_entry = {e: sum(c["entry"] == e for c in checks)
+                    for e in sorted({c["entry"] for c in checks})}
+        missing = [e for e in MESH_TRAIN_CHECKED if not by_entry.get(e)]
+        if missing:
+            raise AssertionError(f"group mesh's checked step reached no "
+                                 f"call of {missing}: {by_entry}")
+        worst = max(checks, key=lambda c: c["share_of_tolerance"])
+        row.update(kernel_checks=len(checks), kernel_checks_by_entry=by_entry,
+                   kernel_worst_share=worst["share_of_tolerance"],
+                   kernel_worst_call=worst["call"])
+    row["replicated_sha256"] = _leaf_digests(model)
+    del step, model, params, opt, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def _gmesh_twin(dev, mesh, rank: int, out_dir: Path) -> dict:
+    """Phase 16 (b) on one rank: phase 15 (b)'s float32 twin (TRAIN_F32's
+    layers at full width, 1 x 256, MESH_AMPLE capacity, aux weight 0) on
+    the group mesh: the loss and every gradient, the experts' gathered
+    from the ranks; rank 0 writes them to `out_dir`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch.steps import build_step
+
+    base = get_config(TRAIN_MOE_ARCH)
+    f32 = dataclasses.replace(
+        base, n_layers=TRAIN_F32["n_layers"], param_dtype="float32",
+        compute_dtype="float32", moe=dataclasses.replace(
+            base.moe, capacity_factor=MESH_AMPLE, aux_loss_weight=0.0))
+    model = build_step(f32, mesh, dict(seq=TRAIN_F32["seq"],
+                                       batch=TRAIN_F32["batch"],
+                                       kind="train"),
+                       device=dev, seed=TRAIN_SEED).model
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMStream(
+        vocab_size=f32.vocab_size, batch_size=TRAIN_F32["batch"],
+        seq_len=TRAIN_F32["seq"], seed=TRAIN_SEED).batch_at(0).items()}
+    with _DropCount() as drops:
+        loss, grads = _mesh_grads(model, batch)
+    grads = model.gather(grads)
+    if rank == 0:
+        torch.save({"loss": loss.double().cpu(),
+                    "grads": {n: g.double().cpu() for n, g in grads.items()}},
+                   out_dir / "twin.pt")
+    del model, grads
+    torch.cuda.empty_cache()
+    return dict(dropped=drops.total, dispatches=drops.calls)
+
+
+def _gmesh_serve(dev, mesh, rank: int, ref_path: Path,
+                 out_dir: Path) -> dict:
+    """Phase 16 (c) on one rank: phase 15 (c)'s model (MESH_SERVE_ARCH at
+    LM_CHECK_LAYERS' depth, seed, capacity) on the group mesh through the
+    bound prefill and decode steps: its prompts' prefill (the sequence
+    split) and GMESH_SERVE_STEPS decode steps (the psum branch) fed its
+    greedy tokens; rank 0 writes the logits to `out_dir`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.collectives import collective_stats
+    from repro_torch.launch.steps import build_step
+
+    ref = torch.load(ref_path)
+    cfg = dataclasses.replace(get_config(MESH_SERVE_ARCH),
+                              n_layers=LM_CHECK_LAYERS["moe"])
+    P, B, T = LM_PROMPT, LM_BATCH, GMESH_SERVE_STEPS
+    max_len = P + MESH_SERVE_STEPS  # phase 15 (c)'s caches
+    pre = build_step(cfg, mesh, dict(seq=P, batch=B, kind="prefill"),
+                     device=dev, seed=LM_SEED)
+    dec = build_step(cfg, mesh, dict(seq=max_len, batch=B, kind="decode"),
+                     model=pre.model)
+    prompts = ref["prompts"].to(dev)
+    fed = ref["fed"].to(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    mesh.reset_counts()
+    times = []
+    t0 = time.perf_counter()
+    logits, caches = pre.fn({"tokens": prompts}, max_len=max_len)
+    torch.cuda.synchronize(dev)
+    times.append((time.perf_counter() - t0) * 1e3)
+    out = [logits.float().cpu()]
+    for i in range(T):
+        t0 = time.perf_counter()
+        logits, caches = dec.fn(caches, {"tokens": fed[:, i:i + 1]}, P + i)
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits.float().cpu())
+    ran = kernels.launches()
+    st = collective_stats(mesh)
+    if rank == 0:
+        torch.save(out, out_dir / "serve.pt")
+    row = dict(prefill_ms=times[0],
+               decode_step_ms=float(np.median(times[1:])),
+               decode_step_ms_all=times[1:],
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               launches={k: v for k, v in ran.items() if v},
+               expected=_mesh_serve_launches(cfg, T),
+               collectives=dict(result_bytes=dict(
+                   mesh.groups[0].result_bytes), wire_bytes=st.wire_bytes))
+    del pre, dec, caches
+    torch.cuda.empty_cache()
+    return row
+
+
+def _gmesh_rank(rank: int, world: int, port: int, out_dir: str,
+                ref_path: str) -> None:
+    """One rank of phase 16's spawn on the shared card: phase 12 (e)'s
+    sharded stage on the default world group, then the (1, 4) group mesh's
+    (a) training, (b) float32 twin and (c) serving. Writes its rows to
+    `out_dir`. The kernel library is phase 1's: a rank never builds it."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_group_mesh
+
+    if not (_lib.build_dir() / _lib.LIBRARY).is_file():
+        raise RuntimeError("phase 1's kernel library is missing")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        t0 = time.perf_counter()
+        _group_stage_rank(rank, str(out / "stage.npz"), GROUP_TPM, "cuda")
+        rows = {"stage_s": time.perf_counter() - t0}
+        mesh = make_group_mesh(*GMESH, device=dev)
+        for key, fn in (("train", lambda: _gmesh_train(dev, mesh, rank)),
+                        ("twin", lambda: _gmesh_twin(dev, mesh, rank, out)),
+                        ("serve", lambda: _gmesh_serve(
+                            dev, mesh, rank, Path(ref_path), out))):
+            t0 = time.perf_counter()
+            rows[key] = fn()
+            rows[key]["wall_s"] = time.perf_counter() - t0
+        (out / f"rank{rank}.json").write_text(json.dumps(rows, default=str))
+    finally:
+        dist.destroy_process_group()
+
+
+def _gmesh_spawn(tmp: Path, ref_path: Path) -> float:
+    """Start the GROUP_P ranks and join them by GMESH_TIMEOUT_S (killed
+    past it); returns the spawn's wall."""
+    import os
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    old = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = GMESH_ALLOC
+    t0 = time.perf_counter()
+    try:
+        ctx = mp.start_processes(_gmesh_rank, args=(GROUP_P, port, str(tmp),
+                                                    str(ref_path)),
+                                 nprocs=GROUP_P, join=False,
+                                 start_method="spawn")
+    finally:
+        if old is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = old
+    deadline = time.monotonic() + GMESH_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("phase 16's ranks passed their "
+                                 f"{GMESH_TIMEOUT_S} s deadline")
+    return time.perf_counter() - t0
+
+
+def group_mesh_path(dev, ref: dict) -> dict:
+    """Phase 16: GROUP_P gloo ranks sharing the card (`_gmesh_rank`), held
+    to phase 15's stacked mesh on the same weights: (a) step 1's dropped
+    assignments equal phase 15 (a)'s exactly, every step's loss within
+    TRAIN_MOE_FIRST_REL of its, every replicated parameter bit-identical
+    across the ranks after the checked step, rank 0's launches exact and
+    no plain version called on any rank, the checked step's calls within
+    their gates; (b) the float32 twin's loss and gradients within phase
+    14's gates of phase 15 (b)'s (1, 4) twin; (c) rank 0's logits within
+    `lm_gate`'s share of max|·| of phase 15 (c)'s. Phase 12 (e)'s stage
+    is checked here too (`spmd_group`)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = dict(allocated=torch.cuda.memory_allocated(dev),
+                reserved=torch.cuda.memory_reserved(dev))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gmesh_"))
+    try:
+        ref_path = tmp / "ref.pt"
+        s = ref["serve"]
+        torch.save({"prompts": s["prompts"],
+                    "fed": s["fed"][:, :GMESH_SERVE_STEPS]}, ref_path)
+        spawn_wall = _gmesh_spawn(tmp, ref_path)
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(GROUP_P)]
+        twin = torch.load(tmp / "twin.pt")
+        logits = torch.load(tmp / "serve.pt")
+        stage = spmd_group("cuda", _Stages("cuda", {}),
+                           str(tmp / "stage.npz"), spawn_wall)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = dict(mesh=GMESH, ranks=GROUP_P, spawn_wall_s=spawn_wall,
+               stage=stage, stage_s=[r["stage_s"] for r in ranks],
+               parent_bytes=held)
+
+    # (a) training against phase 15 (a)
+    t0 = ranks[0]["train"]
+    want = ref["train"]
+    hist = t0["history"]
+    if hist[0]["dropped"] != want[0]["dropped"]:
+        raise AssertionError(f"group mesh step 1 dropped {hist[0]['dropped']}"
+                             f" assignments, the stacked mesh "
+                             f"{want[0]['dropped']}")
+    shares = []
+    for h, w in zip(hist, want):
+        shares.append(abs(h["loss"] - w["loss"])
+                      / (TRAIN_MOE_FIRST_REL * abs(w["loss"])))
+        if shares[-1] > 1:
+            raise AssertionError(f"group mesh step {h['step']}: loss "
+                                 f"{h['loss']} against the stacked mesh's "
+                                 f"{w['loss']}")
+    digests = [r["train"]["replicated_sha256"] for r in ranks]
+    differ = [n for n in digests[0] if any(d[n] != digests[0][n]
+                                           for d in digests[1:])]
+    if differ:
+        raise AssertionError(f"replicated parameters differ across the "
+                             f"ranks: {differ[:8]} ({len(differ)} leaves)")
+    ran = {k: t0["launches"].get(k, 0) for k in t0["expected"]}
+    if ran != t0["expected"]:
+        raise AssertionError(f"group mesh rank 0 training launched {ran}, "
+                             f"expected {t0['expected']}")
+    plain = [r["train"]["plain_calls"] for r in ranks]
+    if any(plain):
+        raise AssertionError(f"group mesh training called the plain "
+                             f"versions {plain} times (by rank)")
+    row["train"] = dict(
+        arch=TRAIN_MOE_ARCH, layers=t0["layers"], params_rank0=t0["params"],
+        experts_a_layer=t0["experts_a_layer"], batch=MESH_TRAIN_BATCH,
+        seq=MESH_TRAIN_SEQ, history=hist, stacked=want,
+        loss_shares=shares, drops_equal_step1=True,
+        replicated_leaves=len(digests[0]),
+        step_ms=float(np.median([h["ms"] for h in hist[1:GMESH_STEPS]])),
+        peak_bytes=[r["train"]["peak_bytes"] for r in ranks],
+        card_used_bytes=t0["card_used_bytes"],
+        kernel_ms_per_step=t0["kernel_ms_per_step"],
+        launches=t0["launches"],
+        collectives_per_step=t0["collectives_per_step"],
+        kernel_checks=t0["kernel_checks"],
+        kernel_checks_by_entry=t0["kernel_checks_by_entry"],
+        kernel_worst_share=t0["kernel_worst_share"],
+        kernel_worst_call=t0["kernel_worst_call"],
+        wall_s=[r["train"]["wall_s"] for r in ranks])
+    row["train"]["tokens_per_s"] = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ / (
+        row["train"]["step_ms"] / 1e3)
+
+    # (b) the float32 twin against phase 15 (b)'s (1, 4) stacked twin
+    w = ref["twin"]
+    tw = ranks[0]["twin"]
+    if tw["dropped"]:
+        raise AssertionError(f"group mesh float32 twin dropped "
+                             f"{tw['dropped']}")
+    e, share = _within(twin["loss"], w["loss"], TRAIN_F32_LOSS
+                       * w["loss"].abs(), "group mesh float32 twin loss")
+    gshares = {}
+    for n, g in w["grads"].items():
+        _, gshares[n] = _within(twin["grads"][n], g, torch.full_like(
+            g, TRAIN_F32_REL * float(g.abs().max())),
+            f"group mesh float32 twin gradient {n}")
+    row["twin"] = dict(loss=float(w["loss"]), loss_share=share,
+                       grad_share_max=max(gshares.values()),
+                       grad_share_worst=max(gshares, key=gshares.get),
+                       wall_s=tw["wall_s"])
+
+    # (c) serving against phase 15 (c)
+    sv = ranks[0]["serve"]
+    ran = {k: sv["launches"].get(k, 0) for k in sv["expected"]}
+    if ran != sv["expected"]:
+        raise AssertionError(f"group mesh rank 0 serving launched {ran}, "
+                             f"expected {sv['expected']}")
+    gate = lm_gate(get_config(MESH_SERVE_ARCH))
+    lshares = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(logits, s["logits"])]
+    if len(lshares) != GMESH_SERVE_STEPS + 1 or max(lshares) > gate:
+        raise AssertionError(f"group mesh serving against the stacked mesh:"
+                             f" logits at {lshares} of max|ref| (gate "
+                             f"{gate})")
+    row["serve"] = dict(arch=MESH_SERVE_ARCH, layers=LM_CHECK_LAYERS["moe"],
+                        batch=LM_BATCH, prompt=LM_PROMPT,
+                        steps=GMESH_SERVE_STEPS, gate=gate,
+                        prefill_share=lshares[0],
+                        decode_share_max=max(lshares[1:]),
+                        prefill_ms=sv["prefill_ms"],
+                        decode_step_ms=sv["decode_step_ms"],
+                        decode_step_ms_all=sv["decode_step_ms_all"],
+                        peak_bytes=[r["serve"]["peak_bytes"] for r in ranks],
+                        launches=sv["launches"],
+                        collectives=sv["collectives"], wall_s=sv["wall_s"])
+    row["wall_s"] = time.perf_counter() - t_start
+    return row
+
+
+def _log_gmesh(g: dict, card: str, stacked: dict) -> None:
+    t, tw, sv = g["train"], g["twin"], g["serve"]
+    c = t["collectives_per_step"]
+    sc = stacked["train"]["collectives_per_step"]["result_bytes"]
+    diff = {k: (c["result_bytes"][k] - sc[k]) / 1e9
+            for k in c["result_bytes"]}
+    kms = {k: round(v, 2) for k, v in t["kernel_ms_per_step"].items()}
+    bnd = {k: [round(n, 1), round(b / 1e9, 4)]
+           for k, (n, b) in c["boundary"].items()}
+    log(f"  {g['ranks']} gloo ranks sharing {card}, a {g['mesh'][0]} x "
+        f"{g['mesh'][1]} group mesh: spawn and all {g['spawn_wall_s']:.1f} s"
+        f" (phase 12 (e)'s stage {max(g['stage_s']):.2f} s of it); this "
+        f"process held {g['parent_bytes']['allocated'] / 1e9:.3f} GB "
+        f"({g['parent_bytes']['reserved'] / 1e9:.3f} reserved) of the card "
+        "while they ran")
+    log(f"  (a) {t['arch']}, {t['layers']} layers, {t['experts_a_layer']} "
+        f"experts a layer a rank ({t['params_rank0']:,} parameters on rank "
+        f"0), batch {t['batch']} x {t['seq']}: rank 0's step "
+        f"{t['step_ms']:.2f} ms (median of steps 2-{GMESH_STEPS}; "
+        f"{[round(h['ms'], 2) for h in t['history'] if 'ms' in h]}), "
+        f"{t['tokens_per_s']:.0f} tokens/s; kernels a step {kms} ms; peak "
+        f"{[round(b / 1e9, 3) for b in t['peak_bytes']]} GB by rank, the "
+        f"card's used memory {t['card_used_bytes'] / 1e9:.3f} GB; losses "
+        f"{[round(h['loss'], 6) for h in t['history']]} against the stacked "
+        f"mesh's {[round(h['loss'], 6) for h in t['stacked']]} "
+        f"({max(t['loss_shares']):.4f} of {TRAIN_MOE_FIRST_REL}·|ref| at "
+        f"most); drops {[h['dropped'] for h in t['history']]} against "
+        f"{[h['dropped'] for h in t['stacked']]} (step 1 equal); "
+        f"{t['replicated_leaves']} replicated leaves bit-identical on the "
+        f"{g['ranks']} ranks; a device's collectives a step: all-to-all "
+        f"{c['result_bytes']['all-to-all'] / 1e9:.4f} GB, all-reduce "
+        f"{c['result_bytes']['all-reduce'] / 1e9:.4f} GB, all-gather "
+        f"{c['result_bytes']['all-gather'] / 1e9:.4f} GB (against the "
+        f"stacked mesh: {({k: round(v, 4) for k, v in diff.items()})} GB; "
+        f"boundary {bnd} calls and GB), wire {c['wire_bytes'] / 1e9:.4f} GB; launches "
+        f"{t['launches']}; the checked step's {t['kernel_checks']} calls on "
+        f"rank 0 ({t['kernel_checks_by_entry']}), worst "
+        f"{t['kernel_worst_share']:.4f} of its gate "
+        f"({t['kernel_worst_call']})")
+    log(f"  (b) float32 twin against the stacked (1, 4) twin: loss "
+        f"{tw['loss']:.6f} at {tw['loss_share']:.4f} of "
+        f"{TRAIN_F32_LOSS}·|ref|, gradients at most "
+        f"{tw['grad_share_max']:.4f} of {TRAIN_F32_REL}·max|ref| "
+        f"({tw['grad_share_worst']})")
+    log(f"  (c) {sv['arch']} at {sv['layers']} layers, batch {sv['batch']},"
+        f" a {sv['prompt']}-token prompt and {sv['steps']} decode steps fed "
+        f"phase 15's tokens: prefill {sv['prefill_ms']:.2f} ms (cold), "
+        f"decode step {sv['decode_step_ms']:.2f} ms (median), peak "
+        f"{[round(b / 1e9, 3) for b in sv['peak_bytes']]} GB by rank; "
+        f"all-to-all "
+        f"{sv['collectives']['result_bytes']['all-to-all'] / 1e9:.4f} GB a "
+        f"device; launches {sv['launches']}; logits against the "
+        f"stacked mesh: prefill {sv['prefill_share']:.4f}, decode at most "
+        f"{sv['decode_share_max']:.4f} of max|ref| (gate {sv['gate']}); "
+        f"phase 16 took {g['wall_s']:.1f} s")
+
 
 
 def c2_repeats(dev, n: int) -> dict:
@@ -8542,11 +9067,14 @@ def _log_train(t: dict, card: str) -> None:
         "call)")
     log(f"  loss history {[round(h['loss'], 6) for h in t['history']]}; "
         f"grad norms {[round(h['grad_norm'], 6) for h in t['history']]}; "
-        f"with the failure: steps {[h['step'] for h in t['history_with_failure']]}"
-        f", every loss and grad norm bit-identical to the uninterrupted "
-        f"run's; launches {t['launches']} over {t['steps_run']} steps run; "
-        f"walls {t['control_wall_s']:.1f} s (uninterrupted) and "
-        f"{t['recovery_wall_s']:.1f} s (checkpoints, failure, restore)")
+        f"at {t['checkpoint_layers']} layers with the failure: steps "
+        f"{[h['step'] for h in t['history_with_failure']]}, every loss and "
+        f"grad norm bit-identical to the uninterrupted run's at that depth;"
+        f" launches {t['launches']} over {t['steps_run']} steps run; walls "
+        f"{t['control_wall_s']:.1f} s (uninterrupted, full depth), "
+        f"{t['control_ck_wall_s']:.1f} s and {t['recovery_wall_s']:.1f} s "
+        f"({t['checkpoint_layers']} layers: uninterrupted; checkpoints, "
+        "failure, restore)")
     log(f"  float32 twin ({f['n_layers']} layers, {f['batch']} x {f['seq']}) "
         f"vs float64 on the CPU: launches {f['launches']}; loss "
         f"{f['loss']:.6f} at {f['loss_share']:.4f} of {TRAIN_F32_LOSS}·|ref|"
@@ -8650,7 +9178,7 @@ def main(argv=None) -> int:
         log(f"{msg} [{t:.1f} s into the run]")
 
     card = gpu_name_and_power()
-    phase(f"[1/15] environment: {card}; torch {torch.__version__}, CUDA "
+    phase(f"[1/16] environment: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _lib.build()
@@ -8663,14 +9191,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase("[2/15] kernel parity against the plain PyTorch versions")
+    phase("[2/16] kernel parity against the plain PyTorch versions")
     parity_worst = parity_phase(dev)
     bwd_gemm = moe_gemm_bwd_parity(dev)
     parity_worst.update(bwd_gemm["worst"])
     ssd_bwd = ssd_bwd_parity(dev)
     torch.cuda.synchronize()
 
-    phase("[3/15] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
+    phase("[3/16] main path: P=16, 800,000 tasks/stage, 800,000 keys x 16, "
         "backend='torch' vs the numpy oracle")
     kernels.reset_launches()
     stages_out, K, stages, init = main_path("cuda")
@@ -8678,7 +9206,7 @@ def main(argv=None) -> int:
     launches = kernels.launches()
     _check_path_launches("main path", launches, EXPECTED_LAUNCHES)
 
-    phase("[4/15] parameter-server path: granite-moe-3b-a800m, one MoE layer "
+    phase("[4/16] parameter-server path: granite-moe-3b-a800m, one MoE layer "
         "(40 experts x 2,359,296 words, top-8) and the 49,155 x 1536 "
         "embedding table, P=8, backend='torch'")
     kernels.reset_launches()
@@ -8697,7 +9225,7 @@ def main(argv=None) -> int:
         f"naive {ps_summary['gate_naive']}")
 
     c2 = c2_repeats(dev, args.c2_repeats) if args.c2_repeats else None
-    phase("[5/15] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
+    phase("[5/16] attention and SSM path: zamba2-1.2b (Mamba2 scan, shared "
         "MHA prefill and long_500k decode), command-r-35b (GQA prefill, hd "
         "128), tinyllama-1.1b (GQA decode_32k), float32 and bf16")
     kernels.reset_launches()
@@ -8710,7 +9238,7 @@ def main(argv=None) -> int:
                                           if r["launches"][k]])
               for k in KERNEL_SOURCES}
 
-    phase("[6/15] kernel times at the paths' shapes")
+    phase("[6/16] kernel times at the paths' shapes")
     rows = timing_phase(dev, K, stages, init, launches, ps_data,
                         ps_launches)
     rows.append(moe_gemm_timing(dev, ps_data, ps_launches["moe_gemm"]))
@@ -8751,10 +9279,10 @@ def main(argv=None) -> int:
         if not all(np.isfinite(r[k]) for k in ("ms", "plain_ms", "bound_ms")):
             raise AssertionError(f"{r['name']}: non-finite timing")
 
-    phase("[7/15] device busy share of a stage (torch.profiler)")
+    phase("[7/16] device busy share of a stage (torch.profiler)")
     busy = busy_phase(K, stages, init)
 
-    phase(f"[8/15] engines and plans: stages (a)-(c) at {ENGINES_TPM:,} "
+    phase(f"[8/16] engines and plans: stages (a)-(c) at {ENGINES_TPM:,} "
           "tasks a machine under engine='pull', 'push', 'sort', 'auto'; "
           "bench_plan's pagerank_stages and bfs_stages through run_plan "
           "and the run_stage loop")
@@ -8765,7 +9293,7 @@ def main(argv=None) -> int:
     _check_path_launches("engines and plans path", kernels.launches(),
                          {**engine_expected, **plan_expected})
 
-    phase(f"[9/15] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
+    phase(f"[9/16] TDO-GP: Erdős-Rényi and star graphs of 2^{GRAPH_SCALE} "
         f"vertices, Barabási-Albert of {GRAPH_BA_N}, P={GRAPH_P}; BFS, SSSP, "
         "CC, PageRank, BC, backend='torch' vs the numpy oracle")
     kernels.reset_launches()
@@ -8777,7 +9305,7 @@ def main(argv=None) -> int:
     rows[0]["shapes"].append(ingest_histogram_timing(
         dev, root_call, graph_launches["histogram"]))
 
-    phase("[10/15] KV store and serve tier: DistributedHashTable(800,000, "
+    phase("[10/16] KV store and serve tier: DistributedHashTable(800,000, "
         "16, value_width=16) one-shot (YCSB A/B, multi_get, run_chain), "
         "streamed in sync and thread mode, and the MoE / embedding front "
         "doors at granite-moe-3b-a800m's widths")
@@ -8786,7 +9314,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("serving path", kernels.launches(), serve_expected)
 
-    phase("[11/15] elasticity at the main path's size: recovery (restart with "
+    phase("[11/16] elasticity at the main path's size: recovery (restart with "
         "durable snapshots, shrink), work stealing, bench_elastic's "
         "migration arms over 800,000 keys, a mid-plan kill in run_chain and "
         "the serve tier's elastic counters, backend='torch' vs numpy")
@@ -8795,18 +9323,18 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _check_path_launches("elastic path", kernels.launches(), el_expected)
 
-    phase("[12/15] multi-device execution: backend='torch_spmd' on the "
+    phase("[12/16] multi-device execution: backend='torch_spmd' on the "
         "stacked mesh (one shard a machine) — phase 3's stages at P=16, the "
         "chaos scenario, the MoE dispatch at granite's widths (ep 8), "
-        "embed_skew_aware on 8 shards, the group mesh of 4 gloo ranks, "
-        "bench_spmd's YCSB cells")
+        "embed_skew_aware on 8 shards, bench_spmd's YCSB cells (the group "
+        "mesh's stage runs in phase 16's spawn)")
     kernels.reset_launches()
     sp_rows, sp_summary, sp_expected = spmd_path("cuda", K, stages, init,
                                                  ps_data)
     torch.cuda.synchronize()
     _check_path_launches("sharded path", kernels.launches(), sp_expected)
 
-    phase(f"[13/15] language-model serving: {', '.join(LM_ARCHS)} at full "
+    phase(f"[13/16] language-model serving: {', '.join(LM_ARCHS)} at full "
         f"width and depth in bf16 (random weights), batch {LM_BATCH}, a "
         f"{LM_PROMPT}-token prompt, {LM_GEN} tokens generated greedily; "
         "every kernel call against its plain version, cache consistency "
@@ -8831,10 +9359,11 @@ def main(argv=None) -> int:
             if k["call"].startswith(entry + " ")])
         if r["name"] == "moe_gemm_sm90":  # its main path is the model's
             r["launches"] = n
-    phase(f"[14/15] training: {TRAIN_ARCH} at full width and depth in bf16 "
+    phase(f"[14/16] training: {TRAIN_ARCH} at full width and depth in bf16 "
           f"(random weights), batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
-          f"{TRAIN_STEPS} steps of Trainer with int8 gradient compression, a "
-          f"checkpoint every {TRAIN_CKPT_EVERY} steps and a failure at step "
+          f"{TRAIN_STEPS} steps of Trainer with int8 gradient compression; "
+          f"at {TRAIN_CKPT_LAYERS} layers a checkpoint every "
+          f"{TRAIN_CKPT_EVERY} steps and a failure at step "
           f"{min(TRAIN_FAILURE)}; {TRAIN_MOE_ARCH} at full width and depth "
           f"in bf16, batch {TRAIN_MOE_BATCH} x {TRAIN_MOE_SEQ}, "
           f"{TRAIN_MOE_STEPS} steps; {TRAIN_SSM_ARCH} at full width and "
@@ -8868,7 +9397,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernels never launched on their main path: "
                              f"{missing}")
 
-    phase(f"[15/15] model-level mesh: launch.steps.build_step on a "
+    phase(f"[15/16] model-level mesh: launch.steps.build_step on a "
           f"{MESH[0]} x {MESH[1]} stacked mesh (launch.mesh.make_host_mesh),"
           f" bf16: {TRAIN_MOE_ARCH} trained at full width and depth, batch "
           f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps "
@@ -8877,13 +9406,29 @@ def main(argv=None) -> int:
           f"{LM_CHECK_LAYERS['moe']} layers, a {LM_BATCH} x {LM_PROMPT} "
           f"prefill and {MESH_SERVE_STEPS} decode steps (the psum branch), "
           "every kernel call against its plain version")
-    mesh = mesh_path(dev)
+    mesh, mesh_ref = mesh_path(dev)
     _log_mesh(mesh, card)
     for r in rows:  # the mesh path's launches (training and serving)
         n = sum(mesh[k]["launches"].get(r["name"], 0)
                 for k in ("train", "serve"))
         if n:
             r["launches_mesh_path"] = n
+
+    phase(f"[16/16] the model axis on a group mesh: {GROUP_P} gloo ranks "
+          f"sharing the card, a {GMESH[0]} x {GMESH[1]} mesh "
+          f"(launch.mesh.make_group_mesh): {TRAIN_MOE_ARCH} trained, "
+          f"{GMESH_STEPS} steps and a checked one, against phase 15; its "
+          f"float32 twin; {MESH_SERVE_ARCH} at {LM_CHECK_LAYERS['moe']} "
+          f"layers, a prefill and {GMESH_SERVE_STEPS} decode steps; phase "
+          "12 (e)'s sharded stage in the same spawn")
+    gmesh = group_mesh_path(dev, mesh_ref)
+    sp_summary["group"] = gmesh["stage"]
+    _log_gmesh(gmesh, card, mesh)
+    for r in rows:  # rank 0's launches on the group mesh's path
+        n = sum(gmesh[k]["launches"].get(r["name"], 0)
+                for k in ("train", "serve"))
+        if n:
+            r["launches_group_mesh_path"] = n
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -8897,7 +9442,7 @@ def main(argv=None) -> int:
          "elastic": {"stages": el_rows, **el_summary},
          "spmd": {"stages": sp_rows, **sp_summary}, "lm": lm,
          "train": train, "train_moe": train_moe, "train_ssm": train_ssm,
-         "mesh": mesh,
+         "mesh": mesh, "group_mesh": gmesh,
          "moe_gemm_bwd_parity": {k: bwd_gemm[k]
                                  for k in ("shares", "bulk", "splits")},
          "ssd_bwd_parity": {k: ssd_bwd[k]

@@ -22,23 +22,41 @@ collective exchanges in between:
     (a masked `psum`).
 
 The mesh is a small object with `P`, `S`, `axis_index()`, `all_to_all`,
-`psum` and `all_gather`, in two realizations that run the one stage body.
-Each counts its collectives by kind ("all-to-all", "all-reduce",
+`psum`, `all_gather` and `pvary`, in two realizations that run the one
+stage body (and the MoE layer's mesh branches, `models/moe.py`). Each
+counts its collectives by kind ("all-to-all", "all-reduce",
 "all-gather": `calls`, and `result_bytes`, the bytes of one shard's
 result, as an HLO module states a collective's result on a device), which
-`launch.collectives.collective_stats` turns into wire bytes; on the
-stacked mesh an all-to-all's or a psum's backward (the same collective on
-the gradient: a transpose, a sum over the shards) counts as well:
+`launch.collectives.collective_stats` turns into wire bytes; a collective
+run in the backward counts as well.
+
+Under autograd the collectives follow the transpose rules `shard_map`
+gives the JAX package's for varying and invariant values: an
+all-to-all's backward is the same exchange on the gradient; a `psum`
+(varying in, invariant out) passes the gradient through, as each shard's
+cotangent of an invariant value is already the whole one; an
+`all_gather` with an invariant result hands each shard its own slice of
+the gradient; `pvary` (invariant in, varying out: `pbroadcast`) is the
+identity whose backward sums the gradient over the mesh. A replicated
+value that meets shard-local work goes through `pvary` first, so its
+gradient gathers every shard's share once.
 
 * `StackedMesh` — all P shards in one process on one device. Every
   shard-local tensor carries a leading dimension S = P; an all-to-all is a
-  transpose of the first two dimensions, a `psum` a sum over the first. This
-  is how one card runs P machines, as the JAX package's tests run a mesh of
-  P host devices in one process.
-* `GroupMesh` — one process a machine over an initialized
-  `torch.distributed` process group (S = 1): the collectives are
-  `all_to_all_single`, `all_reduce` and `all_gather`, on the tensors'
-  own device (gloo takes CUDA tensors as well as CPU ones).
+  transpose of the first two dimensions, a `psum` a sum over the first,
+  `pvary` an expand over it. Autograd of these ops is already the sum over
+  the shards the rules above ask for (the transposes and sums count as
+  collectives; `pvary`'s sum, which no device would run as one, does not).
+  This is how one card runs P machines, as the JAX package's tests run a
+  mesh of P host devices in one process.
+* `GroupMesh` — one process a machine over a `torch.distributed` process
+  group (the default world group, or one given: a model axis inside a
+  ("data", "model") mesh), S = 1: the collectives are `all_to_all_single`,
+  `all_reduce` and `all_gather` on the tensors' own device (gloo takes CUDA
+  tensors as well as CPU ones), each a `torch.autograd.Function` with the
+  backward above. Collectives a process holding every shard does not need
+  — `pvary`'s backward sums, the global norm's sum over the model axis —
+  are counted by name in `boundary` too.
 
 `get_mesh(P, device)` returns the group mesh when a process group is
 initialized, the stacked mesh otherwise. Replicated quantities (the
@@ -75,10 +93,18 @@ class _Counted:
         self.a2a_bytes = 0
         self.calls = dict.fromkeys(COLLECTIVE_KINDS, 0)
         self.result_bytes = dict.fromkeys(COLLECTIVE_KINDS, 0)
+        # {name: [calls, result bytes]} of the collectives a process that
+        # holds every shard does not run (also counted under their kind)
+        self.boundary: Dict[str, list] = {}
 
-    def _note(self, kind: str, shard_result: int) -> None:
+    def _note(self, kind: str, shard_result: int,
+              boundary: Optional[str] = None) -> None:
         self.calls[kind] += 1
         self.result_bytes[kind] += int(shard_result)
+        if boundary is not None:
+            ent = self.boundary.setdefault(boundary, [0, 0])
+            ent[0] += 1
+            ent[1] += int(shard_result)
 
     def _note_backward(self, out: torch.Tensor, kind: str,
                        shard_result: int) -> torch.Tensor:
@@ -140,10 +166,11 @@ class StackedMesh(_Counted):
         return self._note_backward(x.transpose(0, 1).contiguous(),
                                    "all-to-all", n)
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
+    def psum(self, x: torch.Tensor, boundary: Optional[str] = None
+             ) -> torch.Tensor:
         """(S, ...) -> (S, ...): every row the sum over the mesh."""
         n = x[0].numel() * x.element_size()
-        self._note("all-reduce", n)
+        self._note("all-reduce", n, boundary)
         return self._note_backward(
             x.sum(0, keepdim=True, dtype=x.dtype).expand_as(x),
             "all-reduce", n)
@@ -154,18 +181,109 @@ class StackedMesh(_Counted):
         return x.reshape((1, -1) + x.shape[2:]).expand(
             (self.S, self.P * x.shape[1]) + x.shape[2:])
 
+    def pvary(self, x: torch.Tensor) -> torch.Tensor:
+        """An invariant (replicated) x -> (S, ...): every local shard's
+        view of it. An expand: autograd sums the shards' gradients."""
+        return x[None].expand((self.S,) + x.shape)
+
+    def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
+        """(S, ...) local shards' rows -> (P, ...) every shard's rows, the
+        same in every process: here the rows themselves (this process
+        holds every shard; no collective)."""
+        return x
+
+    def mean_shards(self, a: torch.Tensor) -> torch.Tensor:
+        """(S, ...) the local shards' values -> their mean over the mesh
+        (`lax.pmean`), invariant."""
+        return a.mean(0)
+
+
+def _same_bytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _AllToAll(torch.autograd.Function):
+    """The group's all-to-all of one shard's (P, ...) send rows; its
+    transpose is the same exchange on the gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, send):
+        ctx.mesh = mesh
+        return mesh._exchange(send)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.mesh._note("all-to-all", _same_bytes(g))
+        return None, ctx.mesh._exchange(g)
+
+
+class _Psum(torch.autograd.Function):
+    """The group's sum, varying in, invariant out: the gradient of an
+    invariant result is already whole on every rank, so it passes
+    through."""
+
+    @staticmethod
+    def forward(ctx, mesh, x):
+        y = x.clone(memory_format=torch.contiguous_format)
+        mesh._dist.all_reduce(y, group=mesh.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _AllGather(torch.autograd.Function):
+    """The group's gather along dim 0, invariant out: each rank's
+    gradient is its own slice of the (whole, invariant) gradient — not a
+    reduce-scatter, which would count it once a rank."""
+
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh, ctx.n = mesh, x.shape[0]
+        send = x.contiguous()
+        parts = [torch.empty_like(send) for _ in range(mesh.P)]
+        mesh._dist.all_gather(parts, send, group=mesh.group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.mesh.rank, ctx.n
+        return None, g[r * n:(r + 1) * n]
+
+
+class _PVary(torch.autograd.Function):
+    """Invariant in, varying out (`pbroadcast`): the identity, whose
+    backward sums the rank-local gradients over the group."""
+
+    @staticmethod
+    def forward(ctx, mesh, x):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        mesh._note("all-reduce", _same_bytes(g), "pvary backward")
+        y = g.clone(memory_format=torch.contiguous_format)
+        mesh._dist.all_reduce(y, group=mesh.group)
+        return None, y
+
 
 class GroupMesh(_Counted):
-    """One machine a process over the initialized default process group
-    (S = 1): shard-local tensors carry a leading dimension of 1."""
+    """One machine a process over a `torch.distributed` process group —
+    `group`, or the initialized default (world) group when None — with S
+    = 1: shard-local tensors carry a leading dimension of 1. `rank` is the
+    process's rank inside the group, which is its machine."""
 
     kind = "group"
 
-    def __init__(self, P: int, device):
+    def __init__(self, P: int, device, group=None):
         import torch.distributed as dist
 
         self._dist = dist
-        world = dist.get_world_size()
+        self.group = group
+        world = dist.get_world_size(group)
         if world != P:
             raise RuntimeError(
                 f"backend='torch_spmd' runs one machine a process: the store "
@@ -174,7 +292,7 @@ class GroupMesh(_Counted):
                 "torch.distributed.destroy_process_group() to run the "
                 "stacked mesh (all machines in one process)")
         self.P, self.S = int(P), 1
-        self.rank = dist.get_rank()
+        self.rank = dist.get_rank(group)
         self.device = torch.device(device)
         self.reset_counts()
 
@@ -186,26 +304,34 @@ class GroupMesh(_Counted):
         return torch.tensor([self.rank], dtype=torch.int32,
                             device=self.device)
 
+    def _exchange(self, send: torch.Tensor) -> torch.Tensor:
+        send = send.contiguous()
+        recv = torch.empty_like(send)
+        self._dist.all_to_all_single(recv, send, group=self.group)
+        return recv
+
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         self.a2a_bytes += x.numel() * x.element_size()
         self._note("all-to-all", x[0].numel() * x.element_size())
-        send = x[0].contiguous()
-        recv = torch.empty_like(send)
-        self._dist.all_to_all_single(recv, send)
-        return recv[None]
+        return _AllToAll.apply(self, x[0])[None]
 
-    def psum(self, x: torch.Tensor) -> torch.Tensor:
-        self._note("all-reduce", x[0].numel() * x.element_size())
-        y = x.clone(memory_format=torch.contiguous_format)
-        self._dist.all_reduce(y)
-        return y
+    def psum(self, x: torch.Tensor, boundary: Optional[str] = None
+             ) -> torch.Tensor:
+        self._note("all-reduce", x[0].numel() * x.element_size(), boundary)
+        return _Psum.apply(self, x)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         self._note("all-gather", self.P * x[0].numel() * x.element_size())
-        send = x[0].contiguous()
-        parts = [torch.empty_like(send) for _ in range(self.P)]
-        self._dist.all_gather(parts, send)
-        return torch.cat(parts)[None]
+        return _AllGather.apply(self, x[0])[None]
+
+    def pvary(self, x: torch.Tensor) -> torch.Tensor:
+        return _PVary.apply(self, x)[None]
+
+    def gather_shards(self, x: torch.Tensor) -> torch.Tensor:
+        return self.all_gather(x[:, None])[0]
+
+    def mean_shards(self, a: torch.Tensor) -> torch.Tensor:
+        return self.psum(a)[0] / self.P
 
 
 def get_mesh_kind() -> str:

@@ -13,7 +13,7 @@ The same four phases as `engine.py`, in collective form:
     by a masked `psum`.
   Phase 3: grouped expert compute (`grouped_swiglu`: the grouped GEMM
     kernel on the card, its plain version on the CPU).
-  Phase 4: weighted adds combined per token.
+  Phase 4: weighted adds combined per token (`add_rows`: in a fixed order).
 
 `moe_push_pull` is TD-Orch's dispatch; `moe_direct_push` (classic expert
 parallelism, capacity drops) and `moe_direct_pull` (replicate every
@@ -41,8 +41,19 @@ from .torchexec import (Routing, bucket_routing, detect_contention,
 
 
 # ---------------------------------------------------------------------------
-# grouped expert compute (Phase 3)
+# the weighted combine (Phase 4) and grouped expert compute (Phase 3)
 # ---------------------------------------------------------------------------
+def add_rows(y: torch.Tensor, rows: torch.Tensor,
+             vals: torch.Tensor) -> torch.Tensor:
+    """y[rows[i]] += vals[i], in place: each row's terms summed in their
+    order in `rows` (in float32 for a bf16 y), then added to it once — the
+    same bits on every run and on every mesh, where `index_add_`'s atomics
+    on the card add in any order (a training run's drops and losses then
+    differ from run to run)."""
+    return y.index_put_((rows,), vals, accumulate=True)
+
+
+
 def grouped_swiglu(xs: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
                    group_sizes: torch.Tensor, impl: str = "ragged",
                    capacity_mult: float = 2.0) -> torch.Tensor:
@@ -197,7 +208,7 @@ def moe_push_pull(x, topk_idx, topk_gate, w_in, w_out,
         out = grouped_swiglu(x_flat[rows], hot_w_in, hot_w_out, sizes,
                              impl=cfg.gemm_impl)
         gates = torch.where(is_hot, flat_g, 0.0).reshape(-1)[order]
-        y.index_add_(0, rows, out * gates[:, None])
+        add_rows(y, rows, out * gates[:, None])
     else:
         hot_ids = torch.zeros((0,), dtype=torch.int64, device=dev)
         is_hot = torch.zeros((S, A), dtype=torch.bool, device=dev)
@@ -228,8 +239,7 @@ def moe_push_pull(x, topk_idx, topk_gate, w_in, w_out,
     y_assign = gather_from_buckets(back, routing, A)  # (S, A, d)
     kept = _kept_mask(routing)
     cold_gate = torch.where(is_hot | ~kept, 0.0, flat_g)
-    y.index_add_(0, tok_flat, (y_assign * cold_gate[..., None]).reshape(
-        S * A, d))
+    add_rows(y, tok_flat, (y_assign * cold_gate[..., None]).reshape(S * A, d))
 
     dropped = mesh.psum(((~is_hot) & ~kept).sum(1))
     y, aux = y.view(S, T, d), MoEAux(dropped_assignments=dropped,
@@ -240,13 +250,16 @@ def moe_push_pull(x, topk_idx, topk_gate, w_in, w_out,
 def _pull(w: torch.Tensor, slot: torch.Tensor, H: int, mesh) -> torch.Tensor:
     """(S, e, ...) local expert weights -> (H, ...) hot experts' weights on
     every shard: each shard adds the hot experts it owns into a zero buffer
-    (`slot` == H: not hot), then the buffers are summed over the mesh."""
+    (`slot` == H: not hot), then the buffers are summed over the mesh. The
+    sum is invariant and every shard computes its own tokens with it, so it
+    passes through `pvary`: its gradient is summed over the shards before
+    it returns to the owners."""
     S = w.shape[0]
     buf = torch.zeros((S, H + 1) + w.shape[2:], dtype=w.dtype,
                       device=w.device)
     buf.scatter_add_(1, slot.reshape(slot.shape + (1,) * (w.ndim - 2))
                      .expand_as(w), w)
-    return mesh.psum(buf[:, :H])[0].contiguous()
+    return mesh.pvary(mesh.psum(buf[:, :H])[0])[0].contiguous()
 
 
 def moe_direct_push(x, topk_idx, topk_gate, w_in, w_out,
@@ -268,8 +281,10 @@ def moe_direct_pull(x, topk_idx, topk_gate, w_in, w_out,
     k = topk_idx.shape[-1]
     E = cfg.num_experts
     dev = x.device
-    all_w_in = mesh.all_gather(w_in)[0].contiguous()  # (E, d, 2f)
-    all_w_out = mesh.all_gather(w_out)[0].contiguous()
+    # every shard's experts, used by this shard's own tokens: pvary, so
+    # the gradient is summed over the shards before each takes its slice
+    all_w_in = mesh.pvary(mesh.all_gather(w_in)[0])[0].contiguous()
+    all_w_out = mesh.pvary(mesh.all_gather(w_out)[0])[0].contiguous()
     A = T * k
     flat_e = topk_idx.reshape(S, A).long()
     token_of = torch.arange(T, device=dev).repeat_interleave(k)
@@ -279,8 +294,8 @@ def moe_direct_pull(x, topk_idx, topk_gate, w_in, w_out,
     rows = tok_flat[order]
     out = grouped_swiglu(_flatten(x)[rows], all_w_in, all_w_out, sizes,
                          impl=cfg.gemm_impl)
-    y = torch.zeros((S * T, d), dtype=x.dtype, device=dev).index_add_(
-        0, rows, out * topk_gate.reshape(-1)[order][:, None])
+    y = add_rows(torch.zeros((S * T, d), dtype=x.dtype, device=dev), rows,
+                 out * topk_gate.reshape(-1)[order][:, None])
     counts = detect_contention(flat_e, E, mesh)
     aux = MoEAux(dropped_assignments=torch.zeros(S, dtype=torch.int64,
                                                  device=dev),
@@ -302,5 +317,5 @@ def moe_reference(x, topk_idx, topk_gate, w_in_full, w_out_full):
     order, sizes = sort_by_group(topk_idx.reshape(-1).long(), E)
     rows = token_of[order]
     out = grouped_swiglu(x[rows], w_in_full, w_out_full, sizes)
-    return torch.zeros((T, d), dtype=x.dtype, device=x.device).index_add_(
-        0, rows, out * topk_gate.reshape(-1)[order][:, None])
+    return add_rows(torch.zeros((T, d), dtype=x.dtype, device=x.device),
+                    rows, out * topk_gate.reshape(-1)[order][:, None])

@@ -27,7 +27,10 @@ specs of every argument — what the dry run checks and the launchers call.
     model      the `Model` (on `device`, the card unless named; "meta"
                builds the shapes alone, as the dry run does), EP-padded
                for the mesh. `model=` binds an existing model instead (a
-               prefill and a decode step on the same weights);
+               prefill and a decode step on the same weights). On a
+               group mesh (`mesh.make_group_mesh`) it is this rank's: its
+               experts alone, and `fn` takes this rank's data group's
+               rows; `arg_specs` and `specs` stay the whole model's;
     shape      the workload (batch, seq, kind; accum at training);
     out_shapes meta tensors of the caches a prefill fills.
 
@@ -104,7 +107,11 @@ def _bind(cfg, mesh, device, seed, model) -> Model:
 
 
 def _meta_params(model: Model) -> Dict[str, torch.Tensor]:
-    return {n: torch.empty_like(p, device="meta")
+    """Meta tensors of the whole model's parameters (on a group mesh a
+    rank holds a shard of the expert tables; the specs are the whole
+    model's)."""
+    return {n: torch.empty(model.global_shape(n, p), dtype=p.dtype,
+                           device="meta")
             for n, p in model.named_parameters()}
 
 

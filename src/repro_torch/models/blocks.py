@@ -99,16 +99,18 @@ def parallel_block(params, cfg, x, positions, cache=None, *, decode=False,
 # MoE (granite-moe): attention + TD-Orch-dispatched expert FFN
 # ---------------------------------------------------------------------------
 class MoEBlock(torch.nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator,
+                 shard=None):
         super().__init__()
         self.ln1 = _ones(cfg.d_model, dtype, device)
         self.attn = init_attention(cfg, dtype, device, generator)
         self.ln2 = _ones(cfg.d_model, dtype, device)
-        self.moe = init_moe(cfg, dtype, device, generator)
+        self.moe = init_moe(cfg, dtype, device, generator, shard)
 
 
-def init_moe_block(cfg: ModelConfig, dtype, device, generator):
-    return MoEBlock(cfg, dtype, device, generator)
+def init_moe_block(cfg: ModelConfig, dtype, device, generator, shard=None):
+    """`shard` (rank, ep): that rank's experts alone (`models/moe.py`)."""
+    return MoEBlock(cfg, dtype, device, generator, shard)
 
 
 def moe_layer_block(params, cfg, x, positions, cache=None, *, decode=False,

@@ -14,9 +14,15 @@ JAX package). `from_jax_params` carries a JAX `Model.init` pytree across
 expert tables pad to a multiple of its "model" axis (the padded experts
 are masked in the router), and the MoE layers run the JAX package's mesh
 branches on it (`models/moe.py`). Everything else runs on the whole batch
-on the one device. The JAX package's residual-stream sharding constraint
-(`act_sharding`, `with_sharding_constraint` at every block) places
-tensors across devices under GSPMD and has no counterpart in one process.
+on the one device. Over processes (`launch.mesh.make_group_mesh`) each
+rank holds only its E_pad/ep experts of every MoE layer's `w_in` and
+`w_out` (`sharded_names`), rows [r·E_pad/ep, (r+1)·E_pad/ep) of the
+stacked model's tables — the seeded draw and `from_jax_params(...,
+shard=)` give it exactly those — and computes the rest replicated, on its
+data group's rows; `gather` puts a rank's shards back together. The JAX
+package's residual-stream sharding constraint (`act_sharding`,
+`with_sharding_constraint` at every block) places tensors across devices
+under GSPMD and has no counterpart here.
 
 Caches keep the JAX package's structure and stacking: (k, v) of (L, B, T,
 KV, hd) for the dense, parallel and moe patterns; for zamba2 {"mamba":
@@ -43,7 +49,7 @@ five patterns train through the plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +84,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def model_shard(mesh) -> Optional[Tuple[int, int]]:
+    """(this rank, ep) when `mesh`'s "model" axis is one process a shard
+    (a group mesh), else None."""
+    if mesh is None or not getattr(mesh, "groups", ()):
+        return None
+    g = mesh.groups[0]
+    return (g.rank, g.P) if g.kind == "group" else None
+
+
 def ep_padded(cfg: ModelConfig, mesh) -> ModelConfig:
     """`cfg` with a MoE config's expert tables padded to a multiple of the
     mesh's "model" axis (`num_experts_padded`), as the JAX package's
@@ -108,6 +123,7 @@ class Model(torch.nn.Module):
                              f"{dev}")
         g = None if dev.type == "meta" else \
             torch.Generator(device=dev).manual_seed(seed)
+        self.shard = model_shard(mesh)
         dtype, d, P = self.pdtype, cfg.d_model, torch.nn.Parameter
         self.embed = P(truncated_normal((cfg.vocab_size, d), 1.0, dtype, dev,
                                         g))
@@ -117,8 +133,10 @@ class Model(torch.nn.Module):
                                               dtype, dev, g))
         if cfg.pattern in _BLOCKS:
             init_fn, _ = _BLOCKS[cfg.pattern]
+            kw = dict(shard=self.shard) if cfg.pattern == "moe" else {}
             self.blocks = torch.nn.ModuleList(
-                init_fn(cfg, dtype, dev, g) for _ in range(cfg.n_layers))
+                init_fn(cfg, dtype, dev, g, **kw)
+                for _ in range(cfg.n_layers))
         elif cfg.pattern == "xlstm":
             per_m = cfg.xlstm.slstm_every - 1
             self.mlstm = torch.nn.ModuleList(
@@ -159,7 +177,38 @@ class Model(torch.nn.Module):
         return dict(mesh=self.mesh) if self.cfg.pattern == "moe" else {}
 
     def param_count(self) -> int:
+        """This process's parameters (a rank's shards on a group mesh)."""
         return sum(p.numel() for p in self.parameters())
+
+    def sharded_names(self) -> frozenset:
+        """The parameters split over the "model" axis's processes: every
+        MoE layer's w_in and w_out on a group mesh, none otherwise."""
+        if self.shard is None:
+            return frozenset()
+        return frozenset(n for n, _ in self.named_parameters()
+                         if n.endswith(".moe.w_in")
+                         or n.endswith(".moe.w_out"))
+
+    def global_shape(self, name: str, p: torch.Tensor) -> torch.Size:
+        """Parameter `name`'s shape in the whole model (a shard's rows
+        times ep on a group mesh)."""
+        if name not in self.sharded_names():
+            return p.shape
+        return torch.Size((p.shape[0] * self.shard[1],) + p.shape[1:])
+
+    def gather(self, tree: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """{name: tensor} keyed as the parameters (the parameters
+        themselves, gradients, moments) with every sharded entry gathered
+        over the "model" axis into the whole model's (one all-gather
+        each, in the dict's order; every rank of the group calls it). The
+        rest is returned as given."""
+        names = self.sharded_names()
+        if not names:
+            return dict(tree)
+        g = self.mesh.groups[0]
+        return {k: g.all_gather(v.detach()[None])[0] if k in names else v
+                for k, v in tree.items()}
 
     def decayed(self) -> Dict[str, bool]:
         """{parameter name: whether AdamW decays it}: the JAX package's
@@ -460,19 +509,27 @@ def _as_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def from_jax_params(cfg: ModelConfig, params: Dict,
-                    device=None) -> Dict[str, torch.Tensor]:
+def from_jax_params(cfg: ModelConfig, params: Dict, device=None,
+                    shard: Optional[Tuple[int, int]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """The port's state dict (`Model.load_state_dict`) from the JAX
     package's `Model(cfg).init()` pytree given as numpy arrays (bf16 as
     ml_dtypes arrays): the layers' stacked leaves are split into one entry
     a layer — (L, ...) under "blocks", "mamba" and "slstm", (units, layers
     of a unit, ...) under "mlstm" — and zamba2's `shared_attn` kept whole.
-    Layouts are the same in both packages. `device` as for `Model`."""
+    Layouts are the same in both packages. `device` as for `Model`.
+    `shard` (rank, ep), a group mesh's `Model.shard`: the MoE tables keep
+    that rank's experts alone, the rows the seeded draw gives it."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for name, a in _leaves(params):
         top, _, rest = name.partition(".")
-        t = _as_tensor(a).to(dev)
+        t = _as_tensor(a)
+        if shard is not None and rest in ("moe.w_in", "moe.w_out"):
+            r, ep = shard
+            e = t.shape[1] // ep  # (L, E_pad, ...)
+            t = t[:, r * e:(r + 1) * e]
+        t = t.to(dev)
         if _STACKED.get(top) == 1:
             for i in range(t.shape[0]):
                 out[f"{top}.{i}.{rest}"] = t[i]

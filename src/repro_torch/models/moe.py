@@ -9,10 +9,13 @@ parallelism with capacity drops), "pull" (replicate all experts), "dense"
 SwiGLU runs the grouped GEMM kernel (B4; bf16 operands for the bf16
 models) and whose Phase 1 runs the histogram kernel (B1) on the card.
 
-On a model-level mesh (`launch.mesh.Mesh`, executing: each data group a
-`core.shardexec.StackedMesh` of the "model" axis's shards on the one
-device) the block runs the JAX package's two mesh branches, each data
-group on its own stacked mesh, in turn:
+On a model-level mesh (`launch.mesh.Mesh`, executing) the block runs the
+JAX package's two mesh branches. Each reaches the shards only through the
+"model" axis's mesh methods, so one body serves both forms of the axis: a
+`core.shardexec.StackedMesh` (all ep shards in one process, one stacked
+mesh a data group, the groups in turn) and a `GroupMesh` (one rank a
+shard; the batch rows given are this rank's data group's, so nothing is
+chunked).
 
 * sequence split (train and prefill, S divisible by the model axis ep):
   shard s of a group takes tokens [s·S/ep, (s+1)·S/ep) of each of the
@@ -20,32 +23,43 @@ group on its own stacked mesh, in turn:
   `P(batch_axes, "model", None)` gives, which decides which assignments
   the capacity drops (`bucket_routing` keeps by position). Each shard
   routes its own tokens; the dispatch engine runs on the mesh with each
-  shard's E_pad/ep experts.
+  shard's E_pad/ep experts; the shards' outputs come back in that order
+  (`gather_shards`: the rows themselves on the stacked mesh, an
+  all-gather on a group).
 * decode psum (decode, or S not divisible by ep): the tokens are
   replicated; each shard computes its own experts' assignments (the
   foreign ones sorted past the groups' sum, where the grouped GEMM gives
   0), weights each by its gate and the shards' outputs are summed by the
-  mesh's psum — one grouped compute over all shards' local experts, as the
-  push path's.
+  mesh's psum — one grouped compute over all local shards' experts, as the
+  push path's. The routing is the same on every shard, so it runs once a
+  process.
+
+The replicated values that meet shard-local work — the block's input x
+and the router — pass through `mesh.pvary` first, whose backward sums
+the shards' gradients (an expand on the stacked mesh, where autograd
+sums; an all-reduce on a group), and the outputs leave through the
+invariant collectives (`psum`, `gather_shards`, `mean_shards`) whose
+backwards pass the whole gradient through: the transpose rules of
+`shard_map`, so gradients need no code of their own on either mesh.
 
 aux is the mean of the shards' own switch losses (the JAX package's
 `lax.pmean` over "model"), not the loss over all tokens: the two differ.
-Over several data groups it is the mean over every group's shards. The
-JAX package returns aux with `out_specs=P()` and `check_vma=False`, so
-there each data group's devices hold their own group's mean (a host read
-gives the first device's) while its gradient is that of the mean over all
-shards; the port's aux is that mean, consistent with its gradient.
-Gradients need no code of their own: they flow through the stacked
-mesh's transposes and sums.
+Over several data groups it is the mean over every group's shards (on a
+group mesh the trainer takes the data axis's mean). The JAX package
+returns aux with `out_specs=P()` and `check_vma=False`, so there each
+data group's devices hold their own group's mean (a host read gives the
+first device's) while its gradient is that of the mean over all shards;
+the port's aux is that mean, consistent with its gradient.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from ..core.spmd import (MoEDispatchConfig, grouped_swiglu, moe_direct_pull,
-                         moe_direct_push, moe_push_pull, moe_reference)
+from ..core.spmd import (MoEDispatchConfig, add_rows, grouped_swiglu,
+                         moe_direct_pull, moe_direct_push, moe_push_pull,
+                         moe_reference)
 from ..core.torchexec import sort_by_group
 from .config import ModelConfig
 from .layers import compute_float, truncated_normal
@@ -56,24 +70,37 @@ class MoE(torch.nn.Module):
     keeps it) and the stacked expert weights w_in (E, d, 2f), gate half
     first, and w_out (E, f, d), over the padded expert count."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator,
+                 shard=None):
         super().__init__()
         m = cfg.moe
         d, f, E = cfg.d_model, m.d_ff_expert, m.padded
         P = torch.nn.Parameter
         self.router = P(truncated_normal((d, E), d ** -0.5, torch.float32,
                                          device, generator))
-        self.w_in = P(truncated_normal((E, d, 2 * f), d ** -0.5, dtype,
-                                       device, generator))
-        self.w_out = P(truncated_normal((E, f, d), f ** -0.5, dtype, device,
-                                        generator))
+        self.w_in = P(_rows(truncated_normal(
+            (E, d, 2 * f), d ** -0.5, dtype, device, generator), shard))
+        self.w_out = P(_rows(truncated_normal(
+            (E, f, d), f ** -0.5, dtype, device, generator), shard))
 
 
-def init_moe(cfg: ModelConfig, dtype, device, generator) -> MoE:
-    return MoE(cfg, dtype, device, generator)
+def _rows(table: torch.Tensor, shard) -> torch.Tensor:
+    """The whole table, or shard (r, ep)'s rows [r·E/ep, (r+1)·E/ep) of
+    it: the tables are drawn whole, so every rank's rows are the stacked
+    model's."""
+    if shard is None:
+        return table
+    r, ep = shard
+    e = table.shape[0] // ep
+    return table[r * e:(r + 1) * e].clone()
 
 
-def _route(params: MoE, cfg: ModelConfig, x2d: torch.Tensor):
+def init_moe(cfg: ModelConfig, dtype, device, generator, shard=None) -> MoE:
+    """`shard` (rank, ep): keep only that rank's experts (a group mesh)."""
+    return MoE(cfg, dtype, device, generator, shard)
+
+
+def _route(params, cfg: ModelConfig, x2d: torch.Tensor):
     """Top-k routing with softmax-over-selected gates and the switch aux
     loss. Logits and probabilities in float32 (float64 for a float64
     model); the padded experts never win. Ties go to the lower expert
@@ -97,6 +124,13 @@ def _route(params: MoE, cfg: ModelConfig, x2d: torch.Tensor):
         / top_i.numel()
     aux = m.num_experts * (f_e * probs.mean(0)).sum()
     return top_i.to(torch.int32), gates.to(x2d.dtype), aux
+
+
+class _Router(NamedTuple):
+    """A shard's view of the router (`mesh.pvary`'s), as `_route` takes
+    the layer's parameters."""
+
+    router: torch.Tensor
 
 
 def _dispatch_cfg(cfg: ModelConfig, mesh=None) -> MoEDispatchConfig:
@@ -154,8 +188,9 @@ def moe_block(params: MoE, cfg: ModelConfig, x: torch.Tensor, mesh=None,
 
 
 def _data_groups(mesh, B: int):
-    """The mesh's data groups (one stacked mesh of the "model" axis each),
-    which split the batch rows in order."""
+    """The mesh's data groups (the "model" axis of each: one stacked mesh a
+    data group, or this rank's group mesh, whose rows are its own), which
+    split the batch rows in order."""
     if not mesh.executes:
         raise ValueError("an abstract mesh does not execute: build the "
                          "model on launch.mesh.make_host_mesh")
@@ -166,49 +201,56 @@ def _data_groups(mesh, B: int):
 
 def _moe_sequence_split(params: MoE, cfg: ModelConfig, xb: torch.Tensor,
                         mesh):
-    """One data group's rows xb (B_l, S, d) on its stacked mesh of ep
-    shards: shard s routes and dispatches tokens [s·S/ep, (s+1)·S/ep) of
-    every row. Returns (y (B_l, S, d), the mean of the shards' aux)."""
+    """One data group's rows xb (B_l, S, d) on its mesh of ep shards: shard
+    s routes and dispatches tokens [s·S/ep, (s+1)·S/ep) of every row.
+    Returns (y (B_l, S, d), the mean of the shards' aux)."""
     Bl, S, d = xb.shape
-    ep = mesh.P
-    xs = xb.reshape(Bl, ep, S // ep, d).transpose(0, 1).reshape(ep, -1, d)
-    top_i, gates, aux = zip(*(_route(params, cfg, xs[s])
-                              for s in range(ep)))
-    # the shards' experts: (ep, E_pad/ep, ...) views of the tables
+    ep, Sd, n = mesh.P, mesh.S, S // mesh.P
+    sh = torch.as_tensor(mesh.shards, device=xb.device)
+    # each local shard's own tokens of its view of the rows
+    xs = mesh.pvary(xb).unflatten(2, (ep, n))[
+        torch.arange(Sd, device=xb.device), :, sh].reshape(Sd, Bl * n, d)
+    router = mesh.pvary(params.router)
+    top_i, gates, aux = zip(*(_route(_Router(router[s]), cfg, xs[s])
+                              for s in range(Sd)))
+    # the local shards' experts: (Sd, E_pad/ep, ...) views of the tables
     y = _dispatch_local(cfg, xs, torch.stack(top_i), torch.stack(gates),
-                        params.w_in.unflatten(0, (ep, -1)),
-                        params.w_out.unflatten(0, (ep, -1)), mesh=mesh)
-    y = y.reshape(ep, Bl, S // ep, d).transpose(0, 1).reshape(Bl, S, d)
-    return y, torch.stack(aux).mean()
+                        params.w_in.unflatten(0, (Sd, -1)),
+                        params.w_out.unflatten(0, (Sd, -1)), mesh=mesh)
+    y = mesh.gather_shards(y).reshape(ep, Bl, n, d).transpose(0, 1)
+    return y.reshape(Bl, S, d), mesh.mean_shards(torch.stack(aux))
 
 
 def _moe_decode_psum(params: MoE, cfg: ModelConfig, xb: torch.Tensor, mesh):
     """One data group's rows xb (B_l, S, d), replicated on its ep shards:
     each shard computes its own experts' assignments, weighted by their
     gates, and the mesh's psum adds the shards' outputs. The routing is the
-    same on every shard, so it runs once (the shards' aux, and their mean,
-    are that one's)."""
+    same on every shard, so it runs once a process (the shards' aux, and
+    their mean, are that one's)."""
     Bl, S, d = xb.shape
-    ep, dev = mesh.P, xb.device
-    x2d = xb.reshape(Bl * S, d)
-    top_i, gates, aux = _route(params, cfg, x2d)
-    T, k = top_i.shape
-    e_local = cfg.moe.padded // ep
+    Sd, dev = mesh.S, xb.device
+    T = Bl * S
+    x2d = mesh.pvary(xb.reshape(T, d))[0]
+    top_i, gates, aux = _route(_Router(mesh.pvary(params.router)[0]), cfg,
+                               x2d)
+    k = top_i.shape[1]
+    e_local = cfg.moe.padded // mesh.P
     flat_e = top_i.reshape(1, T * k).long()
-    me = mesh.axis_index().long()[:, None]  # (ep, 1)
+    me = mesh.axis_index().long()[:, None]  # (Sd, 1)
     local = flat_e - me * e_local
     mine = (local >= 0) & (local < e_local)
-    # shard s's experts are groups s·e_local ... of the stacked tables; the
-    # foreign assignments sort past the groups' sum
+    # local shard s's experts are groups s·e_local ... of the local tables;
+    # the foreign assignments sort past the groups' sum
+    at = torch.arange(Sd, device=dev)[:, None]
     order, sizes = sort_by_group(
-        torch.where(mine, flat_e, ep * e_local).reshape(-1), ep * e_local)
+        torch.where(mine, at * e_local + local, Sd * e_local).reshape(-1),
+        Sd * e_local)
     token_of = torch.arange(T, device=dev).repeat_interleave(k)
-    rows = (torch.arange(ep, device=dev)[:, None] * T + token_of).reshape(
-        -1)[order]
+    rows = (at * T + token_of).reshape(-1)[order]
     out = grouped_swiglu(x2d[rows % T], params.w_in, params.w_out, sizes,
                          impl=cfg.moe.gemm_impl)
     g = torch.where(mine, gates.reshape(1, T * k), 0.0).reshape(-1)[order]
-    y = torch.zeros((ep * T, d), dtype=xb.dtype, device=dev).index_add_(
-        0, rows, out * g[:, None])
-    return mesh.psum(y.view(ep, T, d))[0].reshape(Bl, S, d), aux
-
+    y = add_rows(torch.zeros((Sd * T, d), dtype=xb.dtype, device=dev), rows,
+                 out * g[:, None])
+    return (mesh.psum(y.view(Sd, T, d))[0].reshape(Bl, S, d),
+            mesh.mean_shards(aux.expand(Sd)))

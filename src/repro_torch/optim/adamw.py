@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Collection, Dict, Tuple
 
 import torch
 
@@ -68,14 +68,17 @@ def init_opt_state(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 @torch.no_grad()
 def adamw_update(params: Dict[str, torch.Tensor],
                  grads: Dict[str, torch.Tensor], state: Dict[str, Any],
-                 cfg: AdamWConfig, decay: Dict[str, bool]
+                 cfg: AdamWConfig, decay: Dict[str, bool], mesh=None,
+                 sharded: Collection[str] = ()
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
                             Dict[str, torch.Tensor]]:
     """One clipped AdamW step, in place: `params`, `state["m"]`,
     `state["v"]` and `state["step"]` are written. Returns (params, state,
     {"lr", "grad_norm"}), the JAX package's triple. `decay` says which
-    tensors take the weight decay."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    tensors take the weight decay. On a group mesh `sharded` names the
+    tensors split over `mesh` (the "model" axis), whose squares the
+    global norm sums over its ranks (`clip.global_norm`)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh, sharded)
     state["step"].add_(1)
     step = state["step"]
     lr = lr_schedule(step, cfg)

@@ -28,7 +28,7 @@ from ..data.synthetic import SyntheticLMStream
 from ..models.config import ModelConfig
 from ..models.model import Model, resolve_device
 from ..optim import AdamWConfig, adamw_update, init_opt_state
-from .compression import (compress_gradients, decompress,
+from .compression import (BLOCK, compress_gradients, decompress,
                           init_compression_state)
 from .failures import FailureInjector, StragglerDetector
 
@@ -53,6 +53,34 @@ def _microbatches(batch: Dict[str, torch.Tensor], n: int):
     return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
+@torch.no_grad()
+def _data_mean(mesh, loss, metrics, grads):
+    """The loss, metrics and gradients averaged over the mesh's data axis
+    (a group mesh's data column; each rank computed its own data group's
+    rows): the reduction GSPMD inserts for the JAX package, one
+    all-reduce a tensor. Each data group's loss is a mean over its rows,
+    so their mean is the whole batch's where the groups count as many
+    positions (no mask, or as many unmasked)."""
+    ax = mesh.data_axis
+
+    def mean(t):
+        return ax.psum(t[None], boundary="data mean")[0] / ax.P
+    return (mean(loss), {k: mean(v) for k, v in metrics.items()},
+            {k: mean(g) for k, g in grads.items()})
+
+
+def _check_blocks(model: Model, grads) -> None:
+    """int8 compression quantises each leaf in blocks of BLOCK values of
+    the flattened leaf; a rank's shard lines up with the whole leaf's
+    blocks only when its own size is a multiple of BLOCK."""
+    for k in model.sharded_names():
+        if grads[k].numel() % BLOCK:
+            raise ValueError(
+                f"int8 compression of {k}: a rank's shard "
+                f"{tuple(grads[k].shape)} is not whole blocks of {BLOCK}, so "
+                "its blocks would not be the whole leaf's")
+
+
 def train_step(model: Model, state: Dict[str, Any], batch,
                opt_cfg: AdamWConfig, grad_accum: int = 1,
                compress_grads: bool = False) -> Dict[str, Any]:
@@ -62,7 +90,12 @@ def train_step(model: Model, state: Dict[str, Any], batch,
     (`state["comp"]`), `adamw_update` in place on `state["params"]` and
     `state["opt"]`. Returns {"loss", "nll", "aux", "lr", "grad_norm"} as
     tensors. `Trainer.train_step` and `launch.steps.build_train_step`
-    both run it."""
+    both run it.
+
+    On a group mesh (`launch.mesh.make_group_mesh`) `batch` is this rank's
+    data group's rows: the loss, metrics and gradients are averaged over
+    the data axis when it is over 1, and the global norm sums the sharded
+    experts' squares over the model axis (`optim.clip`)."""
     params = state["params"]
     if grad_accum > 1:
         n = grad_accum
@@ -80,11 +113,18 @@ def train_step(model: Model, state: Dict[str, Any], batch,
         metrics = {k: v / n for k, v in metrics.items()}
     else:
         loss, metrics, grads = _grads(model, params, batch)
+    mesh = model.mesh
+    if mesh is not None and mesh.data_axis is not None \
+            and mesh.data_axis.P > 1:
+        loss, metrics, grads = _data_mean(mesh, loss, metrics, grads)
+    sharded = model.sharded_names()
     if compress_grads:
+        _check_blocks(model, grads)
         payload, _ = compress_gradients(grads, state["comp"])
         grads = decompress(payload, grads)
-    _, _, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg,
-                                     model.decayed())
+    _, _, opt_metrics = adamw_update(
+        params, grads, state["opt"], opt_cfg, model.decayed(),
+        mesh.groups[0] if sharded else None, sharded)
     return {"loss": loss, **metrics, **opt_metrics}
 
 

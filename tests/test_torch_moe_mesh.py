@@ -11,22 +11,21 @@ float32, the same weights (`from_jax_params`) and tokens:
   branch) and a prefill whose length the model axis does not divide (the
   psum branch at prefill).
 
-The JAX package runs on 4 host devices in a subprocess (XLA_FLAGS must be
-set before JAX starts). At (2, 2) the JAX package returns aux with
+The JAX package runs on 4 host devices in a subprocess, once a session
+(`_moe_mesh_jax.py`, shared with the group mesh's tests). At (2, 2) the JAX package returns aux with
 `out_specs=P()` and `check_vma=False`, so each data group's devices hold
 their own group's mean; the port's aux (and so its loss) is the mean over
 the groups, which is the mean of the JAX devices' values and the loss
-whose gradient both compute. Tolerances: float32, REL and ABS below.
+whose gradient both compute. Tolerances: float32, REL and ABS (in
+`_moe_mesh_jax.py`).
 """
 import dataclasses
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from _moe_mesh_jax import (ABS, ARCH, CAPACITY, MESHES, REL, S, S_ODD,
+                           run_jax_mesh, tree)
 
 from repro_torch.configs import get_reduced
 from repro_torch.core.shardexec import StackedMesh
@@ -35,104 +34,9 @@ from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.models import Model, from_jax_params
 from repro_torch.models import moe as tmoe
 
-ROOT = Path(__file__).resolve().parents[1]
-ARCH = "granite-moe-1b-a400m"
-MESHES = {"1x4": (1, 4), "2x2": (2, 2), "1x3": (1, 3)}
-B, S, S_ODD = 2, 96, 25  # S divisible by 2, 3 and 4; S_ODD by none
-CAPACITY = 0.5  # drops assignments on every mesh (asserted)
-# float32: rtol 2e-5, and 2e-6 of the largest |value| (a logit near 0
-# takes the error of its larger neighbours' sums); gradients rtol 1e-4,
-# 1e-5 of the tensor's largest |value|
-REL, ABS = 2e-5, 2e-6
-
-_JAX_SCRIPT = """
-import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-os.environ["JAX_PLATFORMS"] = "cpu"
-sys.path[:0] = [{src!r}]
-import dataclasses
-import numpy as np
-import jax
-from jax.sharding import Mesh
-from repro.configs import get_reduced
-from repro.models import Model
-
-cfg = get_reduced({arch!r})
-cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-    cfg.moe, capacity_factor={cf!r}))
-rng = np.random.default_rng(0)
-B, S, S2 = {B}, {S}, {S2}
-inp = dict(tokens=rng.integers(0, cfg.vocab_size, (B, S)),
-           targets=rng.integers(0, cfg.vocab_size, (B, S)),
-           tokens2=rng.integers(0, cfg.vocab_size, (B, S2)),
-           next=rng.integers(0, cfg.vocab_size, (B, 1)))
-inp = {{k: v.astype(np.int32) for k, v in inp.items()}}
-out = dict(inp)
-
-
-def leaves(tree, prefix):
-    for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        out[prefix + "/".join(str(p.key) for p in path)] = np.asarray(v)
-
-
-def devices_mean(a):  # the mean of the values the devices hold
-    return np.mean([np.asarray(s.data) for s in a.addressable_shards])
-
-
-for tag, (D, M) in {meshes!r}.items():
-    mesh = Mesh(np.array(jax.devices()[:D * M]).reshape(D, M),
-                ("data", "model"))
-    m = Model(cfg, mesh=mesh)
-    params = m.init(0)
-    batch = dict(tokens=inp["tokens"], targets=inp["targets"])
-    (loss, met), grads = jax.jit(jax.value_and_grad(
-        m.loss_fn, has_aux=True))(params, batch)
-    logits, caches = jax.jit(lambda p, t: m.prefill(
-        p, tokens=t, max_len=S + 1))(params, inp["tokens"])
-    step, _ = jax.jit(lambda p, c, t: m.decode_step(
-        p, c, tokens=t, cache_pos=S))(params, caches, inp["next"])
-    odd, _ = jax.jit(lambda p, t: m.prefill(p, tokens=t, max_len=S2))(
-        params, inp["tokens2"])
-    out[tag + ":loss"] = devices_mean(loss)
-    out[tag + ":nll"] = devices_mean(met["nll"])
-    out[tag + ":aux"] = devices_mean(met["aux"])
-    out[tag + ":aux_first_device"] = np.asarray(met["aux"])
-    out[tag + ":logits"] = np.asarray(logits)
-    out[tag + ":step"] = np.asarray(step)
-    out[tag + ":odd"] = np.asarray(odd)
-    leaves(params, tag + ":p:")
-    leaves(grads, tag + ":g:")
-np.savez({out_path!r}, **out)
-print("OK")
-"""
-
-
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
-    out_path = tmp_path_factory.mktemp("moe_mesh") / "jax.npz"
-    code = _JAX_SCRIPT.format(src=str(ROOT / "src"), arch=ARCH, cf=CAPACITY,
-                              B=B, S=S, S2=S_ODD, meshes=MESHES,
-                              out_path=str(out_path))
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0 and "OK" in res.stdout, \
-        res.stdout[-2000:] + res.stderr[-4000:]
-    return dict(np.load(out_path))
-
-
-def _tree(flat: dict, prefix: str) -> dict:
-    """The nested dict of the arrays under `prefix` (paths joined by /)."""
-    tree: dict = {}
-    for k, v in flat.items():
-        if not k.startswith(prefix):
-            continue
-        *path, leaf = k[len(prefix):].split("/")
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = v
-    return tree
+    return run_jax_mesh(tmp_path_factory)
 
 
 def _cfg():
@@ -144,7 +48,7 @@ def _cfg():
 def _port_model(runs, tag, mesh):
     model = Model(_cfg(), device="cpu", mesh=mesh)
     model.load_state_dict(from_jax_params(
-        model.cfg, _tree(runs, f"{tag}:p:"), "cpu"))
+        model.cfg, tree(runs, f"{tag}:p:"), "cpu"))
     return model
 
 
@@ -191,7 +95,7 @@ def test_loss_aux_and_grads_match_jax_shard_map(jax_runs, tag):
     names = [n for n, _ in model.named_parameters()]
     got = dict(zip(names, torch.autograd.grad(loss, list(
         model.parameters()))))
-    want = from_jax_params(model.cfg, _tree(jax_runs, f"{tag}:g:"), "cpu")
+    want = from_jax_params(model.cfg, tree(jax_runs, f"{tag}:g:"), "cpu")
     assert set(got) == set(want)
     for n, w in want.items():
         w = w.numpy()
